@@ -1,0 +1,126 @@
+"""Paged KV cache: the page ops and the host-side page allocator.
+
+The port of ``distributed_pipeline_tpu/serving/paged_kv.py`` (its fp subset).
+K/V of every layer live in a pool of fixed-size pages
+``[num_pages, page_size, H, Dh]`` indirected through a per-slot block table,
+so a slot holds pages for the tokens it has, not for ``max_len``.
+
+Device side, plain tensor functions:
+
+* :func:`write_prompt_kv` — scatter a prefill's [B, H, L, Dh] K/V rows into
+  the slots' pages (padded rows -> the trash page);
+* :func:`write_token_kv`  — scatter one decode step's [B, H, Dh] row at each
+  slot's own position;
+* :func:`gather_kv`       — a dense ``[B, H, Lmax, Dh]`` view of each slot's
+  pages (the plain decode attention reads it; the CUDA kernel does not).
+
+The JAX writers return a new pool; these write the pool IN PLACE (and
+return it), which keeps one copy of the largest tensor of the server. Page 0
+is the TRASH page: every write that must land nowhere goes there, and no
+read ever sees it.
+
+Host side: :class:`PageManager` owns the free list as plain Python; the
+scheduler reserves a request's worst-case pages at admission. The prefix
+cache and the int8 (``_q8``) writers are ROADMAP A.4 and A.2.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["TRASH_PAGE", "gather_kv", "write_prompt_kv", "write_token_kv",
+           "PageManager"]
+
+TRASH_PAGE = 0  # reserved: masked/invalid writes land here, reads never do
+
+
+def gather_kv(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """``pages`` [P, page_size, H, Dh], ``block_table`` [B, n_pages] ->
+    [B, H, n_pages * page_size, Dh]. Entries past a slot's live length are
+    whatever the pages hold; the caller masks them."""
+    g = pages[block_table]                        # [B, n, page_size, H, Dh]
+    b, n, ps, h, dh = g.shape
+    return g.reshape(b, n * ps, h, dh).transpose(1, 2)
+
+
+def write_prompt_kv(pages: torch.Tensor, block_table: torch.Tensor,
+                    kv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Scatter a prefill's K (or V) rows into the slots' pages, in place.
+
+    ``kv`` [B, H, L, Dh] holds positions 0..L-1 of each slot's prompt;
+    ``valid`` [B, L] (1 = real prompt token) routes padded positions to the
+    trash page. Returns ``pages``."""
+    b, h, l, dh = kv.shape
+    ps = pages.shape[1]
+    pos = torch.arange(l, device=kv.device)
+    page_idx = torch.clamp(pos // ps, max=block_table.shape[1] - 1)
+    phys = block_table[:, page_idx]               # [B, L]
+    phys = phys.masked_fill(valid <= 0, TRASH_PAGE)
+    rows = kv.transpose(1, 2).reshape(b * l, h, dh)
+    off = (pos % ps).expand(b, l).reshape(-1)
+    pages[phys.reshape(-1).long(), off] = rows.to(pages.dtype)
+    return pages
+
+
+def write_token_kv(pages: torch.Tensor, block_table: torch.Tensor,
+                   kv: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Scatter one decode step's K (or V) row at each slot's own position,
+    in place. ``kv`` [B, H, Dh]; ``positions`` [B] is the index being
+    written. Inactive slots (all-trash table rows) write to the trash page;
+    positions past the table width clamp into the row. Returns ``pages``."""
+    ps = pages.shape[1]
+    page_idx = torch.clamp(positions // ps, max=block_table.shape[1] - 1)
+    phys = torch.gather(block_table, 1, page_idx[:, None].long())[:, 0]
+    pages[phys.long(), (positions % ps).long()] = kv.to(pages.dtype)
+    return pages
+
+
+class PageManager:
+    """Host-side page allocator: a LIFO free list of page ids.
+
+    Page 0 (TRASH_PAGE) is never handed out. ``alloc`` is all-or-nothing
+    (None when the pool cannot cover the request), so the scheduler's
+    reserve-at-admission policy stays atomic."""
+
+    def __init__(self, num_pages: int, page_size: int) -> None:
+        if num_pages < 2:
+            raise ValueError(f"need >= 2 pages (1 is the reserved trash "
+                             f"page), got {num_pages}")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        # LIFO free list: recently-freed (still-warm) pages are reused first
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._allocated: set = set()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def capacity(self) -> int:
+        """Max pages a single allocation can ever get (pool minus trash)."""
+        return self.num_pages - 1
+
+    def pages_for(self, length: int) -> int:
+        """Pages needed to hold ``length`` tokens (>= 1)."""
+        return max(1, -(-int(length) // self.page_size))
+
+    def alloc(self, n: int) -> Optional[np.ndarray]:
+        """``n`` page ids as int32, or None if the pool can't cover them."""
+        if n > len(self._free):
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        self._allocated.update(ids)
+        return np.asarray(ids, np.int32)
+
+    def free(self, ids: np.ndarray) -> None:
+        for i in map(int, np.asarray(ids).ravel()):
+            if i not in self._allocated:
+                raise ValueError(f"double free / foreign page id {i}")
+            self._allocated.discard(i)
+            self._free.append(i)

@@ -1,0 +1,233 @@
+"""The port's serving stack on the CPU: the continuous-batching
+``DecodeServer`` against the JAX package's (XLA decode arm), the
+``run.serve`` entry from a port run directory, the settings' deferred
+options, sampling, and the import rule (no JAX, nothing of the JAX
+package)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+from flax.core import meta  # noqa: E402
+
+from distributed_pipeline_tpu.models import \
+    create_model_from_config as jax_create  # noqa: E402
+from distributed_pipeline_tpu.serving import \
+    DecodeServer as JaxDecodeServer  # noqa: E402
+from distributed_pipeline_tpu_torch.config.serve import (  # noqa: E402
+    DEFERRED, parse_settings)
+from distributed_pipeline_tpu_torch.convert import (  # noqa: E402
+    init_params, params_from_flax)
+from distributed_pipeline_tpu_torch.models import \
+    create_model_from_config  # noqa: E402
+from distributed_pipeline_tpu_torch.models.sampling import \
+    _truncate_logits  # noqa: E402
+from distributed_pipeline_tpu_torch.run import serve as serve_mod  # noqa: E402
+from distributed_pipeline_tpu_torch.serving.scheduler import \
+    DecodeServer  # noqa: E402
+from distributed_pipeline_tpu_torch.utils.checkpoint import \
+    save_run  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(model_family="gpt2", vocab_size=64, seq_len=32, hidden_size=32,
+           num_layers=2, num_heads=2, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def jax_and_port():
+    wl = jax_create(**CFG)
+    params = jax.tree_util.tree_map(
+        np.asarray, meta.unbox(wl.init_params(jax.random.PRNGKey(4))))
+    model = create_model_from_config(**CFG, device="cpu")
+    model.load_state_dict(params_from_flax(params))
+    return wl, params, model
+
+
+def _prompts():
+    rng = np.random.default_rng(5)
+    return [rng.integers(4, 64, (int(n),)).astype(np.int32)
+            for n in (3, 8, 1, 6, 2, 7)]
+
+
+@pytest.mark.parametrize("span", [1, 3])
+def test_greedy_tokens_identical_to_jax_server(jax_and_port, span):
+    """6 mixed-length prompts on 2 slots (admission repeats, budgets end
+    mid-span): the port's greedy server gives the JAX XLA-arm server's
+    tokens exactly, and leaks no slot or page."""
+    wl, params, model = jax_and_port
+    kw = dict(decode_slots=2, page_size=4, max_prompt_len=8, max_len=32,
+              decode_span=span, seed=0)
+    budgets = [5, 9, 4, 7, 12, 3]
+    jsrv = JaxDecodeServer(wl, params, decode_impl="xla", **kw)
+    psrv = DecodeServer(model, decode_impl="auto", device="cpu", **kw)
+    outs = []
+    for srv in (jsrv, psrv):
+        reqs = [srv.submit(p, max_new_tokens=n)
+                for p, n in zip(_prompts(), budgets)]
+        srv.drain()
+        outs.append([r.tokens for r in reqs])
+        assert srv.free_slots == 2
+        assert srv.mgr.free_pages == srv.mgr.capacity
+    assert outs[0] == outs[1]
+    assert [len(t) for t in outs[1]] == budgets
+    assert psrv.prefill_steps >= 3 and psrv.decode_steps > 0
+
+
+def test_budget_to_the_position_table_edge(jax_and_port):
+    """prompt + budget == max_len == seq_len with a span that does not
+    divide the budget: the last dispatch feeds positions past the position
+    table (prompts 14 and 13 reach 33 and 32 on a 32-row table), and the
+    server still gives the JAX server's tokens and frees everything."""
+    wl, params, model = jax_and_port
+    kw = dict(decode_slots=2, page_size=4, max_prompt_len=16, max_len=32,
+              decode_span=4, seed=0)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(4, 64, (int(n),)).astype(np.int32)
+               for n in (14, 13, 5, 9)]
+    jsrv = JaxDecodeServer(wl, params, decode_impl="xla", **kw)
+    psrv = DecodeServer(model, decode_impl="auto", device="cpu", **kw)
+    outs = []
+    for srv in (jsrv, psrv):
+        reqs = [srv.submit(p, max_new_tokens=40) for p in prompts]
+        srv.drain()
+        outs.append([r.tokens for r in reqs])
+        assert srv.free_slots == 2
+        assert srv.mgr.free_pages == srv.mgr.capacity
+    assert outs[0] == outs[1]
+    assert [len(t) for t in outs[1]] == [32 - len(p) for p in prompts]
+
+
+def test_eos_and_late_arrivals(jax_and_port):
+    """An eos id ends a request at its first occurrence; a request submitted
+    while others run does not change their tokens."""
+    _, _, model = jax_and_port
+    kw = dict(decode_slots=2, page_size=4, max_prompt_len=8, max_len=32,
+              device="cpu")
+    p = _prompts()
+    solo = DecodeServer(model, **kw)
+    ref = solo.submit(p[1], max_new_tokens=10)
+    solo.drain()
+    srv = DecodeServer(model, **kw)
+    first = srv.submit(p[1], max_new_tokens=10)
+    srv.step()
+    srv.submit(p[3], max_new_tokens=10)
+    srv.drain()
+    assert first.tokens == ref.tokens
+    eos = ref.tokens[3]
+    srv = DecodeServer(model, eos_id=eos, **kw)
+    req = srv.submit(p[1], max_new_tokens=10)
+    srv.drain()
+    assert req.tokens == ref.tokens[:ref.tokens.index(eos) + 1]
+    assert srv.free_slots == 2 and srv.mgr.free_pages == srv.mgr.capacity
+
+
+def test_sampling_is_seeded_per_slot_and_position(jax_and_port):
+    """temperature > 0: the same seed gives the same tokens, another seed
+    other tokens, and two slots with the same prompt draw different
+    streams (noise keyed per (slot, position))."""
+    _, _, model = jax_and_port
+    p = _prompts()[1]
+
+    def run(seed):
+        srv = DecodeServer(model, decode_slots=2, page_size=4,
+                           max_prompt_len=8, max_len=32, temperature=1.0,
+                           top_k=20, seed=seed, device="cpu")
+        reqs = [srv.submit(p, max_new_tokens=16) for _ in range(2)]
+        srv.drain()
+        return [r.tokens for r in reqs]
+
+    a, b, c = run(0), run(0), run(1)
+    assert a == b and a != c
+    assert a[0] != a[1]
+
+
+def test_truncate_logits_matches_jax():
+    from distributed_pipeline_tpu.models.sampling import \
+        _truncate_logits as jax_truncate
+    l = np.random.default_rng(0).standard_normal((4, 50)).astype(np.float32)
+    for top_k, top_p in ((0, 0.0), (5, 0.0), (0, 0.7), (7, 0.5), (80, 0.0)):
+        ref = np.asarray(jax_truncate(jax.numpy.asarray(l), top_k, top_p))
+        got = _truncate_logits(torch.from_numpy(l), top_k, top_p).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.fixture
+def run_dir(tmp_path):
+    cfg = dict(CFG, model_size="base")
+    sd = init_params(dict(vocab_size=64, seq_len=32, hidden_size=32,
+                          num_layers=2, num_heads=2), seed=0)
+    save_run(str(tmp_path / "run"), cfg, sd, step=7)
+    return str(tmp_path / "run")
+
+
+def test_run_serve_cpu_end_to_end(run_dir, tmp_path, capsys):
+    out = tmp_path / "out.jsonl"
+    result = serve_mod.main([
+        "--checkpoint_path", run_dir, "--device", "cpu",
+        "--decode_slots", "2", "--page_size", "4", "--max_prompt_len", "8",
+        "--synthetic_requests", "5", "--synthetic_prompt_len", "6",
+        "--max_new_tokens", "5", "--decode_span", "2", "--out", str(out)])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == result
+    assert result["step"] == 7 and result["requests"] == 5
+    assert result["decode_tokens"] == 25 and result["device"] == "cpu"
+    assert result["decode_kernel_launches"] == 0   # CPU: the plain version
+    assert result["ttft_p95_s"] >= result["ttft_p50_s"] > 0
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [len(r["tokens"]) for r in rows] == [5] * 5
+
+
+def test_run_serve_without_device_needs_cuda(run_dir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_mod.main(["--checkpoint_path", run_dir])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecodeServer(create_model_from_config(**CFG, device="cpu"))
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("kv_quant", "int8"), ("spec_tokens", "2"), ("prefix_cache", "true"),
+    ("serve_quant", "int8"), ("replicas", "2"), ("disagg", "1"),
+    ("traffic", "poisson"), ("ema", "0.99"), ("cost_ledger", "true"),
+    ("sanitize", "true"), ("trace", "true")])
+def test_deferred_options_fail_at_parse_time(flag, value, capsys):
+    with pytest.raises(SystemExit) as e:
+        parse_settings(["--checkpoint_path", "x", f"--{flag}", value])
+    assert e.value.code == 2
+    assert DEFERRED[flag][1] in capsys.readouterr().err
+
+
+def test_settings_defaults_and_decode_impl_choices():
+    s = parse_settings(["--checkpoint_path", "x"])
+    assert (s.decode_span, s.dispatch_lag, s.decode_impl, s.device) == \
+        (4, 2, "auto", "")
+    with pytest.raises(SystemExit):
+        parse_settings(["--checkpoint_path", "x", "--decode_impl", "xla"])
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every port module imports with jax blocked, and no
+    distributed_pipeline_tpu module gets loaded."""
+    code = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "pydantic"):
+    sys.modules[name] = None
+import distributed_pipeline_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = [m for m in sys.modules if m == "distributed_pipeline_tpu"
+          or m.startswith("distributed_pipeline_tpu.")]
+assert not leaked, leaked
+print(len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 18
