@@ -6,8 +6,10 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; CUDA must be available;
-2. build: the CUDA kernels from ``distributed_pipeline_tpu_torch/ops/csrc``;
-3. kernel: ``flash_decode`` against its plain version
+2. build: every CUDA kernel from ``distributed_pipeline_tpu_torch/ops/csrc``
+   (one nvcc per source, in parallel), with the compiler's register and
+   shared-memory report;
+3. decode kernel: ``flash_decode`` against its plain version
    ``torch_paged_decode`` at the serving shapes (H=12, Dh=64, page_size 16,
    32 slots, 64-page reservations; an empty slot, page edges, interior and
    full-reservation positions, a shared page), in f32 and bf16, with its
@@ -15,17 +17,37 @@ Phases (any failure raises, and the script exits non-zero):
    call over pre-gathered K/V (a yardstick the port never calls) and the
    bound: the kernel's own bytes, ``decode_hbm_bytes(step_table=False)``,
    over the card's memory rate;
-4. small-model check: greedy serving of a small f32 GPT-2 on the GPU
+4. flash kernels: ``flash_forward`` / ``flash_backward`` against
+   ``torch_flash_forward`` / ``torch_flash_backward`` at the training shape
+   (B=4, H=12, L=1024, Dh=64, causal, bf16, the all-ones pad mask the model
+   passes), a padded ragged bf16 case (L=1000, lengths 1000/733/1/0) and
+   small f32 cases (Dh 64 and 128); bf16 is held against the plain version
+   evaluated in f32 from the same bf16 inputs. Times beside the plain
+   version's, the bound, and ``scaled_dot_product_attention(is_causal)``
+   and its autograd backward as yardsticks;
+5. fused update: ``fused_adamw_ema`` against ``torch_fused_update`` over
+   GPT-2 base's parameter count with 3 EMA rates, bitwise over 3 steps,
+   timed beside its byte bound and ``torch.optim.AdamW(fused=True)`` (a
+   yardstick only: another op order and no EMA);
+6. small-model check: greedy serving of a small f32 GPT-2 on the GPU
    (through the kernel) gives the same tokens as on the CPU (plain
    version);
-5. serve: GPT-2 base at full width (hidden 768, 12 layers, 12 heads, vocab
+7. serve: GPT-2 base at full width (hidden 768, 12 layers, 12 heads, vocab
    50257, seq_len 1024) with seeded random weights, through ``run.serve``
    on 32 slots, 64 requests of 256 prompt tokens, 128 new tokens each,
    greedy; every request must get its tokens, the kernel must have run
    12 x decode_span x decode_steps times; then one decode step from a live
    state through the kernel and through the plain version, logits compared
    and next tokens equal, and the kernel timed at that state's depths
-   beside its bound there.
+   beside its bound there;
+8. train: GPT-2 base at full width and its 1024 context through
+   ``run.train`` (synthetic-lm, batch 8 in microbatches of 4, 20 steps, lr
+   3e-4, EMA 0.5/0.9/0.99, attention and update ``auto``): the flash
+   kernels must run 12 x 2 x 20 times each and the update once a step,
+   every loss must be finite and the last below the first, the run dir
+   must hold the final model/EMA/optimizer files and ``run.serve`` must
+   answer 4 requests from it; then one step from the saved state with the
+   kernels and with the plain versions, loss and grad norm compared.
 
 The line before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.
@@ -41,16 +63,6 @@ import sys
 import tempfile
 import time
 
-# Published rates of the cards this port targets (NVIDIA data sheets; dense,
-# no sparsity): HBM bytes/s and bf16 tensor-core flop/s, matched on the name
-# nvidia-smi reports.
-CARDS = {
-    "H100 80GB HBM3": (3.35e12, 989e12),  # H100 SXM
-    "H100 NVL": (3.9e12, 835e12),
-    "H100 PCIe": (2.0e12, 756e12),
-    "H200": (4.8e12, 989e12),
-}
-
 GPT2_BASE = dict(model_family="gpt2", model_size="base", vocab_size=50257,
                  seq_len=1024, hidden_size=768, num_layers=12, num_heads=12,
                  dtype="bfloat16")
@@ -59,13 +71,6 @@ GPT2_BASE = dict(model_family="gpt2", model_size="base", vocab_size=50257,
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_rates(name: str):
-    for key, rates in CARDS.items():
-        if key in name:
-            return rates
-    raise RuntimeError(f"chip_smoke: no published memory rate for {name!r}")
 
 
 def time_ms(fn, torch, flush, reps: int = 30) -> float:
@@ -298,20 +303,328 @@ def serve_phase(torch, fd, bw, bf16_peak):
     return launches, depth
 
 
+def close_enough(got, ref, rtol: float, atol: float) -> float:
+    """Max abs error; raises unless |got - ref| <= atol + rtol |ref|."""
+    err = (got.float() - ref.float()).abs()
+    bad = err > atol + rtol * ref.float().abs()
+    check(not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} "
+          f"entries off (max abs err {float(err.max())}, rtol {rtol}, "
+          f"atol {atol})")
+    return float(err.max())
+
+
+def bound(hbm_bytes: float, flops: float, bw: float, peak: float) -> dict:
+    bytes_ms, ops_ms = hbm_bytes / bw * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "hbm_bytes": hbm_bytes, "flops": flops}
+
+
+def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
+    """Kernel forward and backward vs the plain versions on one case; bf16
+    against the plain version in f32 from the same bf16 inputs. Returns
+    the max abs errors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    mask = (torch.arange(L, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    dq, dk, dv = fa.flash_backward(q, k, v, mask, causal, out, lse, dout)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = fa.torch_flash_forward(*f, mask, causal)
+    # the backward's reference takes the kernel's own (rounded) out and lse
+    refs = fa.torch_flash_backward(*f, mask, causal, out.float(), lse,
+                                   dout.float())
+    if dtype == torch.float32:
+        tol = dict(rtol=1e-4, atol=1e-5)   # another summation order
+        tol_b = dict(rtol=1e-4, atol=1e-4)
+    else:
+        # one bf16 rounding of an f32 result (2^-8 relative), plus f32
+        # cancellation in the sums: atol 1e-3 of the largest entry
+        tol = dict(rtol=8e-3, atol=1e-3 * float(ref_out.abs().max()))
+        tol_b = None
+    errs = {"out": close_enough(out, ref_out, **tol),
+            "lse": close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        t = tol_b or dict(rtol=8e-3, atol=1e-3 * float(ref.abs().max()))
+        errs[name] = close_enough(got, ref, **t)
+    dead = [b for b, n in enumerate(lens) if n == 0]
+    for b in dead:   # fully masked rows: zero output, zero gradients
+        check(bool(torch.all(out[b] == 0)) and bool(torch.all(dq[b] == 0))
+              and bool(torch.all(dk[b] == 0)), "masked rows not zero")
+    return errs
+
+
+def flash_phase(torch, bw, bf16_peak) -> list:
+    """The flash kernels vs their plain versions, and their times at the
+    training shape."""
+    from distributed_pipeline_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, Dh = 4, 12, 1024, 64
+    cases = {
+        "train_bf16": (B, H, L, Dh, torch.bfloat16, True, [L] * B),
+        "ragged_bf16": (B, H, 1000, Dh, torch.bfloat16, True,
+                        [1000, 733, 1, 0]),
+        "f32_dh64": (2, 3, 200, 64, torch.float32, True, [200, 77]),
+        "f32_dh128_noncausal": (2, 3, 130, 128, torch.float32, False,
+                                [130, 0]),
+    }
+    errs = {name: flash_check(torch, fa, *c, seed=i)
+            for i, (name, c) in enumerate(cases.items())}
+    print(f"# flash check: max abs err {json.dumps(errs)}", flush=True)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((B, L), dtype=torch.int32, device=dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    out, lse = fa.flash_forward(q, k, v, mask, True)
+    fwd_ms = time_ms(lambda: fa.flash_forward(q, k, v, mask, True), torch,
+                     flush)
+    fwd_plain = time_ms(lambda: fa.torch_flash_forward(q, k, v, mask, True),
+                        torch, flush, reps=20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_lib = time_ms(lambda: sdpa(q, k, v, is_causal=True), torch, flush)
+    bwd_ms = time_ms(lambda: fa.flash_backward(q, k, v, mask, True, out,
+                                               lse, dout), torch, flush)
+    bwd_plain = time_ms(lambda: fa.torch_flash_backward(
+        q, k, v, mask, True, out, lse, dout), torch, flush, reps=20)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(ql, kl, vl, is_causal=True)
+    bwd_lib = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True), torch, flush)
+    src = "distributed_pipeline_tpu_torch/ops/csrc/flash_attention.cu"
+    main = errs["train_bf16"]
+    return [
+        {"name": "flash_forward", "route": "cuda", "source": src,
+         "replaces": "distributed_pipeline_tpu/ops/flash_attention.py:185",
+         "launches": None,
+         "max_abs_err": max(main["out"], main["lse"]),
+         "ms": fwd_ms, "plain_ms": fwd_plain,
+         **bound(fa.flash_hbm_bytes(B, H, L, Dh, 2, True),
+                 fa.flash_flops(B, H, L, Dh, True), bw, bf16_peak),
+         "library_ms": fwd_lib,
+         "library_call": "scaled_dot_product_attention(is_causal=True)"},
+        {"name": "flash_backward", "route": "cuda", "source": src,
+         "replaces": "distributed_pipeline_tpu/ops/flash_attention.py:240",
+         "launches": None,
+         "max_abs_err": max(main["dq"], main["dk"], main["dv"]),
+         "ms": bwd_ms, "plain_ms": bwd_plain,
+         **bound(fa.flash_hbm_bytes(B, H, L, Dh, 2, True, backward=True),
+                 fa.flash_flops(B, H, L, Dh, True, backward=True), bw,
+                 bf16_peak),
+         "library_ms": bwd_lib,
+         "library_call": "autograd backward of scaled_dot_product_attention"
+                         "(is_causal=True)"},
+    ]
+
+
+def gpt2_base_param_shapes():
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    model = create_model_from_config(**GPT2_BASE, device="meta")
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def update_phase(torch, bw, f32_peak) -> dict:
+    """The fused update vs its plain version, bitwise over 3 steps, at GPT-2
+    base's parameter count with 3 EMA rates; its time beside its bound."""
+    from distributed_pipeline_tpu_torch.ops import fused_update as fu
+
+    dev = torch.device("cuda")
+    shapes = gpt2_base_param_shapes()
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    n, rates = sum(sizes), [0.5, 0.9, 0.99]
+    g = torch.Generator(device=dev).manual_seed(11)
+    base = [torch.randn(n, generator=g, device=dev) * 0.02 for _ in range(4)]
+    base[3] = base[3] * base[3]                      # nu >= 0
+    ema0 = torch.randn((3, n), generator=g, device=dev) * 0.02
+    arms = {name: [t.clone() for t in base] + [ema0.clone()]
+            for name in ("kernel", "plain")}
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def lr_fn(c):
+        return torch.tensor(3e-4, device=dev) * torch.clamp(
+            1.0 - c.float() / 20, min=0.0)
+
+    for _ in range(3):
+        scal = fu.update_scalars(count, lr_fn)
+        fu.fused_adamw_ema(*arms["kernel"], scal, rates, weight_decay=0.01)
+        fu.torch_fused_update(*arms["plain"], scal, rates, weight_decay=0.01)
+        count += 1
+    torch.cuda.synchronize()
+    for a, b in zip(arms["kernel"], arms["plain"]):
+        check(torch.equal(a, b), "fused update differs from its plain "
+              "version (must be bitwise)")
+    print(f"# update check: {n} elements x 3 steps, kernel == plain "
+          f"bitwise", flush=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    scal = fu.update_scalars(count, lr_fn)
+    st = arms["kernel"]
+    ms = time_ms(lambda: fu.fused_adamw_ema(*st, scal, rates,
+                                            weight_decay=0.01), torch, flush)
+    plain_ms = time_ms(lambda: fu.torch_fused_update(
+        *st, scal, rates, weight_decay=0.01), torch, flush, reps=20)
+    leaves = [torch.zeros(s, device=dev, requires_grad=True) for s in shapes]
+    for p in leaves:
+        p.grad = torch.randn(p.shape, generator=g, device=dev) * 0.02
+    opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01, fused=True)
+    library_ms = time_ms(opt.step, torch, flush)
+    del arms, base, ema0, leaves, opt
+    return {"name": "fused_adamw_ema", "route": "cuda",
+            "source": "distributed_pipeline_tpu_torch/ops/csrc/"
+                      "fused_update.cu",
+            "replaces": "distributed_pipeline_tpu/ops/fused_update.py:90",
+            "launches": None, "max_abs_err": 0.0, "elements": n,
+            "ms": ms, "plain_ms": plain_ms,
+            # 16 f32 operations per element for the Adam tail, 3 per EMA
+            **bound(fu.update_hbm_bytes([n], 3, per_leaf_scalars=False),
+                    25.0 * n, bw, f32_peak),
+            "library_ms": library_ms,
+            "library_call": "torch.optim.AdamW(fused=True).step() over the "
+                            "same leaves (yardstick only: another op order, "
+                            "no EMA)"}
+
+
+def train_phase(torch, fa, fu) -> dict:
+    """GPT-2 base, seq 1024, 20 steps through run.train; then the run dir
+    served, and one step from the saved state through the kernels and
+    through the plain versions."""
+    from distributed_pipeline_tpu_torch.run import serve as serve_mod
+    from distributed_pipeline_tpu_torch.run.train import main as train_main
+
+    steps, layers, n_micro = 20, GPT2_BASE["num_layers"], 2
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "gpt2_base_train")
+        argv = ["--checkpoint_path", run, "--model_family", "gpt2",
+                "--model_size", "base", "--vocab_size", "50257",
+                "--seq_len", "1024", "--hidden_size", "768",
+                "--num_layers", "12", "--num_heads", "12",
+                "--dtype", "bfloat16", "--dataset", "synthetic-lm",
+                "--batch_size", "8", "--microbatch", "4",
+                "--learning_steps", str(steps), "--lr", "3e-4",
+                "--ema_rate", "0.5,0.9,0.99", "--attention_impl", "auto",
+                "--fused_update", "auto", "--log_interval", "5",
+                "--save_interval", "0", "--seed", "0"]
+        fa.reset_launch_counts()
+        fu.reset_launch_count()
+        t0 = time.perf_counter()
+        loop = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_forward": fa.forward_launch_count(),
+                    "flash_backward": fa.backward_launch_count(),
+                    "fused_adamw_ema": fu.launch_count()}
+        want = layers * n_micro * steps
+        check(launches["flash_forward"] == want
+              and launches["flash_backward"] == want,
+              f"flash launches {launches}, expected {want} each")
+        check(launches["fused_adamw_ema"] == steps,
+              f"update launches {launches['fused_adamw_ema']}, expected "
+              f"{steps} (one a step)")
+        losses = [h["loss"] for h in loop.history]
+        check(len(losses) == steps and all(
+            x == x and abs(x) < float("inf") for x in losses),
+            f"losses not finite: {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        with open(os.path.join(run, "progress.csv")) as f:
+            rows = f.read().splitlines()
+        last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+        gauges = {k: float(last[k]) for k in
+                  ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
+        print(f"# train: {steps} steps in {wall:.1f} s, losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}, "
+              f"last window {gauges}", flush=True)
+        for name in ("model_000020.pt", "opt_000020.pt", "meta_000020.json",
+                     "ema_0.5_000020.pt", "ema_0.9_000020.pt",
+                     "ema_0.99_000020.pt"):
+            check(os.path.exists(os.path.join(run, name)), f"no {name}")
+        del loop
+        torch.cuda.empty_cache()
+
+        summary = serve_mod.main([
+            "--checkpoint_path", run, "--decode_slots", "4",
+            "--max_prompt_len", "128", "--synthetic_requests", "4",
+            "--max_new_tokens", "16"])
+        check(summary["requests"] == 4 and summary["decode_tokens"] == 64
+              and summary["step"] == steps,
+              f"serving the trained run dir: {summary}")
+        torch.cuda.empty_cache()
+        twice = one_step_twice(torch, fa, fu, run, argv)
+    return {"launches": launches, "losses": losses, "wall_s": wall,
+            **gauges, **twice}
+
+
+def one_step_twice(torch, fa, fu, run, argv) -> dict:
+    """One step from the run dir's saved state with the kernels, and one
+    with ``attention_impl torch`` and ``fused_update false``."""
+    from distributed_pipeline_tpu_torch.config.train import parse_settings
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.utils.logger import Logger
+    from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
+
+    args = parse_settings(argv)
+    batch = next(load_data_from_args(
+        "train", batch_size=8, dataset="synthetic-lm", seq_len=1024,
+        vocab_size=50257, seed=0, skip_batches=20))
+    out = {}
+    for arm, (attn, fused) in (("kernels", ("auto", "auto")),
+                               ("plain", ("torch", "false"))):
+        model = create_model_from_config(**{**GPT2_BASE,
+                                            "attention_impl": attn},
+                                         device="cuda")
+        loop = TrainLoop(
+            model=model, data=None, batch_size=8, microbatch=4, lr=args.lr,
+            ema_rate=args.ema_rate, learning_steps=args.learning_steps,
+            checkpoint_dir=run, fused_update=fused, logger=Logger(""))
+        check(loop.step == 20, f"resumed at step {loop.step}, not 20")
+        fa.reset_launch_counts()
+        fu.reset_launch_count()
+        m = loop.run_step(batch)
+        out[arm] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])}
+        n = (fa.forward_launch_count(), fa.backward_launch_count(),
+             fu.launch_count())
+        check(n == ((24, 24, 1) if arm == "kernels" else (0, 0, 0)),
+              f"{arm} arm launches {n}")
+        del loop, model
+        torch.cuda.empty_cache()
+    a, b = out["kernels"], out["plain"]
+    print(f"# train: one step from the saved state, kernels {a}, plain {b}",
+          flush=True)
+    # bf16 through 12 layers: the plain attention rounds p to bf16 before
+    # p.v and returns its gradients through f32 einsums, the kernels keep
+    # f32; allow 0.5% of the loss and 3% of the gradient norm
+    check(abs(a["loss"] - b["loss"]) <= 5e-3 * abs(b["loss"]),
+          f"one-step loss differs: {a} vs {b}")
+    check(abs(a["grad_norm"] - b["grad_norm"]) <= 3e-2 * b["grad_norm"],
+          f"one-step grad norm differs: {a} vs {b}")
+    return {"one_step": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from distributed_pipeline_tpu_torch.ops import _build
+    from distributed_pipeline_tpu_torch.ops import flash_attention as fa
     from distributed_pipeline_tpu_torch.ops import flash_decode as fd
+    from distributed_pipeline_tpu_torch.ops import fused_update as fu
+    from distributed_pipeline_tpu_torch.utils.perf import card_rates
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    bw, bf16_peak = card_rates(smi)
+    bw, bf16_peak, f32_peak = card_rates(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -319,12 +632,22 @@ def main() -> int:
     _build.load_library()
     print(f"# build: CUDA kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(_build.build_log_path()) as f:
+        for line in f:
+            if "Used" in line or "spill" in line or line.startswith("=="):
+                print(f"# build: {line.rstrip()}", flush=True)
 
-    kernel = kernel_phase(torch, fd, bw, bf16_peak)
+    decode = kernel_phase(torch, fd, bw, bf16_peak)
+    flash = flash_phase(torch, bw, bf16_peak)
+    update = update_phase(torch, bw, f32_peak)
     small_model_phase(torch)
     launches, depth = serve_phase(torch, fd, bw, bf16_peak)
-    kernel.update(depth, launches=launches)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    decode.update(depth, launches=launches)
+    train = train_phase(torch, fa, fu)
+    for row in (*flash, update):
+        row["launches"] = train["launches"][row["name"]]
+    print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"kernels": [decode, *flash, update]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,8 @@ port's ``state_dict``.
 The port names every parameter by its flax path (``word_emb.embedding``,
 ``backbone.block_0.attn.qkv``, ``backbone.ln_f.scale``, ...), so the bridge
 is a flatten/unflatten of nested dicts of numpy arrays; no array is
-reshaped or transposed. :func:`init_params` draws the JAX initializers'
+reshaped or transposed. Trees shaped like the parameters (the Adam moments,
+each EMA copy) convert with the same mapping. :func:`init_params` draws the JAX initializers'
 distributions with numpy, which gives full-width weights without JAX.
 """
 
@@ -15,7 +16,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "params_to_flax", "init_params"]
+__all__ = ["params_from_flax", "params_to_flax", "init_params",
+           "opt_state_from_optax"]
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -81,3 +83,11 @@ def init_params(cfg: Mapping[str, int], seed: int) -> Dict[str, torch.Tensor]:
         sd[f"{p}.mlp.wo"] = normal((4 * D) ** -0.5, 4 * D, D)
     sd.update(layer_norm("backbone.ln_f"))
     return sd
+
+
+def opt_state_from_optax(opt_state: Any) -> Dict[str, Any]:
+    """An ``optax.adamw`` state (``ScaleByAdamState`` first, as the JAX
+    trainer builds it) -> the port's ``{"mu", "nu", "count"}``."""
+    adam = opt_state[0]
+    return {"mu": params_from_flax(adam.mu), "nu": params_from_flax(adam.nu),
+            "count": int(np.asarray(adam.count))}

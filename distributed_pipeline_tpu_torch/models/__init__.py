@@ -2,8 +2,8 @@
 
 ``create_model_from_config(**training_args)`` builds the model a run
 directory's ``training_args.json`` describes, ignoring the training-only keys
-in it. This slice serves the ``gpt2`` family; ``diffuseq`` comes with the
-training slice (ROADMAP A.6).
+in it. The port has the ``gpt2`` family; ``diffuseq`` comes with DiffuSeq
+training (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -12,9 +12,10 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from .gpt2 import GPT2Model
+from .gpt2 import GPT2Model, gpt2_losses
 
-__all__ = ["PRESETS", "create_model_from_config", "GPT2Model", "torch_dtype"]
+__all__ = ["PRESETS", "create_model_from_config", "GPT2Model", "gpt2_losses",
+           "torch_dtype"]
 
 # (hidden, layers, heads) per family/size — the JAX package's table.
 PRESETS: Dict[str, Dict[str, Tuple[int, int, int]]] = {
@@ -44,7 +45,8 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                              vocab_size: int = 8192, seq_len: int = 128,
                              hidden_size: int = 0, num_layers: int = 0,
                              num_heads: int = 0, dtype: str = "bfloat16",
-                             device=None, **_unused: Any) -> GPT2Model:
+                             attention_impl: str = "auto", device=None,
+                             **_unused: Any) -> GPT2Model:
     """The model for (a superset of) the JAX package's ``TrainSettings``
     fields; preset dims are overridden by nonzero hidden/layers/heads. The
     parameters are zeros until a state dict is loaded."""
@@ -53,7 +55,7 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                          f"available: {sorted(PRESETS)}")
     if model_family == "diffuseq":
         raise NotImplementedError(
-            "the diffuseq family comes with the training slice (ROADMAP A.6)")
+            "the diffuseq family comes with DiffuSeq training (ROADMAP A.7)")
     preset = PRESETS[model_family].get(model_size)
     if preset is None:
         raise ValueError(f"no preset {model_size!r} for family "
@@ -63,4 +65,5 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                      hidden_size=hidden_size or preset[0],
                      num_layers=num_layers or preset[1],
                      num_heads=num_heads or preset[2],
-                     dtype=torch_dtype(dtype), device=device)
+                     dtype=torch_dtype(dtype), device=device,
+                     attention_impl=attention_impl)

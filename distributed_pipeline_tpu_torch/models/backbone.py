@@ -9,9 +9,12 @@ parameters, a final ``ln_f``.
 
 Attention runs one of three branches:
 
-* the full forward (``kv_cache is None``): dense attention;
+* the full forward (``kv_cache is None``): the attention seam
+  (``ops.attention.dot_product_attention``) with the model's
+  ``attention_impl``, which takes the flash kernels from L >= 1024 on CUDA;
 * paged prefill (``kv_cache`` given, L > 1, no ``cache_index``): write the
-  prompt's K/V into the pool, then dense causal attention on the local k/v;
+  prompt's K/V into the pool, then causal attention on the local k/v
+  through the same seam;
 * paged single-token decode (``cache_index`` [B] per-slot positions, L == 1):
   write the token's K/V, then the decode seam
   (``ops.flash_decode.paged_decode_attention``).
@@ -63,13 +66,14 @@ class SelfAttention(nn.Module):
     product."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None) -> None:
+                 device=None, attention_impl: str = "auto") -> None:
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by heads "
                              f"{num_heads}")
         dh = hidden // num_heads
         self.dtype = dtype
+        self.attention_impl = attention_impl
         self.qkv = _param((hidden, 3, num_heads, dh), device)
         self.out = _param((num_heads, dh, hidden), device)
 
@@ -89,12 +93,12 @@ class SelfAttention(nn.Module):
             if block_table is not None:
                 raise ValueError("block_table is only meaningful with a "
                                  "paged KV cache")
-            o = dot_product_attention(q, k, v, pad_mask, causal=True)
+            o = dot_product_attention(q, k, v, pad_mask, causal=True,
+                                      impl=self.attention_impl)
         return torch.einsum("bhlk,hkd->bld", o, self.out.to(self.dtype))
 
-    @staticmethod
-    def _paged_attention(q, k, v, pad_mask, cache_index, block_table, kv,
-                         decode_impl):
+    def _paged_attention(self, q, k, v, pad_mask, cache_index, block_table,
+                         kv, decode_impl):
         pages_k, pages_v = kv
         B, H, L, Dh = q.shape
         if L > 1 and cache_index is None:
@@ -105,7 +109,8 @@ class SelfAttention(nn.Module):
                 (B, L), dtype=torch.int32, device=q.device)
             write_prompt_kv(pages_k, block_table, k, valid)
             write_prompt_kv(pages_v, block_table, v, valid)
-            return dot_product_attention(q, k, v, pad_mask, causal=True)
+            return dot_product_attention(q, k, v, pad_mask, causal=True,
+                                         impl=self.attention_impl)
         if cache_index is None or cache_index.dim() != 1:
             raise ValueError("paged decode needs a per-slot cache_index "
                              "vector [B]")
@@ -142,11 +147,12 @@ class Block(nn.Module):
     """Pre-LN transformer block (LN in f32)."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None) -> None:
+                 device=None, attention_impl: str = "auto") -> None:
         super().__init__()
         self.dtype = dtype
         self.ln1 = LayerNorm(hidden, device)
-        self.attn = SelfAttention(hidden, num_heads, dtype, device)
+        self.attn = SelfAttention(hidden, num_heads, dtype, device,
+                                  attention_impl)
         self.ln2 = LayerNorm(hidden, device)
         self.mlp = Mlp(hidden, dtype, device=device)
 
@@ -164,13 +170,15 @@ class TransformerBackbone(nn.Module):
     Blocks are named ``block_0 .. block_{n-1}`` as in flax."""
 
     def __init__(self, num_layers: int, hidden: int, num_heads: int,
-                 dtype: torch.dtype, device=None) -> None:
+                 dtype: torch.dtype, device=None,
+                 attention_impl: str = "auto") -> None:
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"block_{i}",
-                            Block(hidden, num_heads, dtype, device))
+                            Block(hidden, num_heads, dtype, device,
+                                  attention_impl))
         self.ln_f = LayerNorm(hidden, device)
 
     def forward(self, x: torch.Tensor,

@@ -1,6 +1,6 @@
 """GPT-2-style causal language model: the port of
-``distributed_pipeline_tpu/models/gpt2.py`` (the forward; the training loss
-comes with GPT-2 training, ROADMAP A.7).
+``distributed_pipeline_tpu/models/gpt2.py``: the forward and the training
+loss ``gpt2_losses``.
 
 Parameter names follow the flax tree (``word_emb.embedding``, ``pos_emb``,
 ``backbone.block_i...``), so ``state_dict()`` keys are the flax paths.
@@ -8,14 +8,15 @@ Parameter names follow the flax tree (``word_emb.embedding``, ``pos_emb``,
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
+from ..ops.xent import token_cross_entropy
 from .backbone import LayerKV, TransformerBackbone
 
-__all__ = ["GPT2Model"]
+__all__ = ["GPT2Model", "gpt2_losses"]
 
 
 class _Embed(nn.Module):
@@ -39,7 +40,8 @@ class GPT2Model(nn.Module):
 
     def __init__(self, vocab_size: int, seq_len: int, hidden_size: int = 1024,
                  num_layers: int = 24, num_heads: int = 16,
-                 dtype: torch.dtype = torch.bfloat16, device=None) -> None:
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 attention_impl: str = "auto") -> None:
         super().__init__()
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -47,11 +49,13 @@ class GPT2Model(nn.Module):
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attention_impl = attention_impl
         self.word_emb = _Embed(vocab_size, hidden_size, device)
         self.pos_emb = nn.Parameter(torch.zeros(
             (seq_len, hidden_size), dtype=torch.float32, device=device))
         self.backbone = TransformerBackbone(num_layers, hidden_size,
-                                            num_heads, dtype, device)
+                                            num_heads, dtype, device,
+                                            attention_impl)
 
     def forward(self, ids: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
@@ -82,3 +86,24 @@ class GPT2Model(nn.Module):
         # tied LM head in the compute dtype
         return torch.einsum("bld,vd->blv", h,
                             self.word_emb.embedding.to(self.dtype))
+
+
+def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """Next-token cross-entropy over the loss span, as the JAX package's
+    ``gpt2_losses``: ``loss`` (= ``nll``), teacher-forced ``acc`` and
+    ``ppl``, each a 0-d f32 tensor. ``batch`` holds ``input_ids``,
+    ``input_mask`` and ``pad_mask`` [B, L]. Pipeline (1F1B) and MoE
+    training are ROADMAP A.9 and A.8."""
+    ids = batch["input_ids"]
+    pad_mask = batch["pad_mask"]
+    loss_mask = (batch["input_mask"] * pad_mask)[:, 1:].float()
+    logits = model(ids, pad_mask)[:, :-1]        # predict ids[:, 1:]
+    targets = ids[:, 1:]
+    nll = token_cross_entropy(logits, targets)
+    denom = torch.clamp(loss_mask.sum(), min=1.0)
+    loss = (nll * loss_mask).sum() / denom
+    hit = (torch.argmax(logits, dim=-1) == targets).float()
+    acc = (hit * loss_mask).sum() / denom
+    return {"loss": loss, "nll": loss, "acc": acc,
+            "ppl": torch.exp(torch.clamp(loss, max=20.0))}

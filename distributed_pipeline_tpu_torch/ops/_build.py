@@ -1,14 +1,12 @@
 """Builds and loads the port's CUDA kernels at first use.
 
-The sources under ``ops/csrc/`` have a plain C interface and include no
-PyTorch header, so a cold build takes seconds. They compile for ``sm_90a``
-into one shared library in ``ops/_build/`` that ``ctypes`` loads:
-
-* with ``ninja`` installed, through ``torch.utils.cpp_extension.load``
-  (``is_python_module=False``), which caches by content and rebuilds when a
-  source changes;
-* without it, through ``nvcc`` directly, into a library named by the hash
-  of its sources and flags.
+Every source under ``ops/csrc/`` has a plain C interface and includes no
+PyTorch header. ``nvcc`` compiles each one for ``sm_90a`` into an object
+file, all of them at once, and links the objects into one shared library in
+``ops/_build/``, named by the hash of the sources and flags; ``ctypes``
+loads it. A cold build takes seconds, a warm one nothing. The compiler's
+register and shared-memory report (``-Xptxas -v``) is kept beside the
+library as ``build_<hash>.log``.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines without ``nvcc``.
@@ -17,6 +15,7 @@ machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,15 +24,28 @@ import tempfile
 import threading
 from typing import Optional
 
-__all__ = ["load_library", "build_library"]
+__all__ = ["load_library", "build_library", "build_log_path", "check"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = [os.path.join(_DIR, "csrc", "flash_decode.cu")]
+_SOURCES = sorted(glob.glob(os.path.join(_DIR, "csrc", "*.cu")))
 _BUILD_DIR = os.path.join(_DIR, "_build")
 ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
+_FLAGS = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# every C function of the library: (argtypes, restype)
+_SIGNATURES = {
+    "dpt_flash_decode": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "dpt_flash_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "dpt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "dpt_fused_update": ([_P] * 6 + [ctypes.c_longlong, _P, _I, _P], _I),
+    "dpt_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def _nvcc() -> str:
@@ -49,42 +61,60 @@ def _nvcc() -> str:
     return found
 
 
-def _build_with_nvcc() -> str:
-    flags = [ARCH_FLAG, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-             "-fPIC"]
-    h = hashlib.sha256(" ".join(flags).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in _SOURCES:
+        h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    path = os.path.join(_BUILD_DIR, f"libdpt_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *_SOURCES],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: concurrent builds race benignly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path
+    return h.hexdigest()[:16]
+
+
+def build_log_path() -> str:
+    """Where the compiler's output for the current sources is kept."""
+    return os.path.join(_BUILD_DIR, f"build_{_digest()}.log")
 
 
 def build_library() -> str:
     """Compile the kernels if they are not built for the current sources,
-    and return the library's path."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)  # load() does not create it
-    from torch.utils import cpp_extension
-    if not cpp_extension.is_ninja_available():
-        return _build_with_nvcc()
-    return cpp_extension.load(
-        name="dpt_kernels", sources=_SOURCES, build_directory=_BUILD_DIR,
-        extra_cuda_cflags=["-O3", ARCH_FLAG], is_python_module=False,
-        verbose=False)
+    and return the library's path. One ``nvcc -c`` per source, all started
+    together, then one link."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    path = os.path.join(_BUILD_DIR, f"libdpt_kernels_{_digest()}.so")
+    if os.path.exists(path):
+        return path
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        procs = []
+        for src in _SOURCES:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n"
+                       f"{out}")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(src))
+        lib_tmp = os.path.join(tmp, "lib.so")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, ARCH_FLAG, "-shared", "-o", lib_tmp,
+                 *[obj for _src, obj, _p in procs]],
+                capture_output=True, text=True)
+            log.append(f"== link (rc {link.returncode})\n{link.stdout}"
+                       f"{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        with open(build_log_path(), "w") as f:
+            f.write("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n"
+                               + "\n".join(log))
+        os.replace(lib_tmp, path)  # atomic: concurrent builds race benignly
+    return path
 
 
 def load_library() -> ctypes.CDLL:
@@ -94,11 +124,17 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            lib.dpt_flash_decode.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p])
-            lib.dpt_flash_decode.restype = ctypes.c_int
-            lib.dpt_error_string.argtypes = [ctypes.c_int]
-            lib.dpt_error_string.restype = ctypes.c_char_p
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _lib = lib
         return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch was refused (its C function returned a
+    ``cudaError_t`` other than 0)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.dpt_error_string(err).decode()}")

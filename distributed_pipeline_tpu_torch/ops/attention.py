@@ -1,11 +1,19 @@
-"""Dense attention: the port of ``distributed_pipeline_tpu/ops/attention.py``.
+"""Attention: the port of ``distributed_pipeline_tpu/ops/attention.py``.
 
-One entry point, ``dot_product_attention``, with the semantics of the JAX
-package's dense arm ``_xla_attention``: logits in the activation dtype scaled
-by ``dh**-0.5``, the additive ``NEG_INF`` pad/causal bias, an f32 softmax
-cast back. ``impl="auto"`` means dense, because the flash forward kernel is
-not ported yet (ROADMAP A.6); ``"pallas"`` and ``"ring"`` name JAX arms that
-have no counterpart here yet and raise.
+One entry point, ``dot_product_attention``, over three arms:
+
+* ``impl="xla"``  - dense einsum attention with the semantics of the JAX
+  package's ``_xla_attention``: logits in the activation dtype scaled by
+  ``dh**-0.5``, the additive ``NEG_INF`` pad/causal bias, an f32 softmax
+  cast back. It keeps the JAX name so configs carry over;
+* ``impl="cuda"`` - the flash kernels (``ops/flash_attention.py``), forward
+  and backward; CUDA tensors only. ``"pallas"`` is accepted as the JAX name
+  of this arm;
+* ``impl="torch"`` - the flash kernels' plain version, with gradients.
+
+``impl="auto"`` is the JAX rule with the TPU read as the card: the flash
+kernel for CUDA tensors with ``L >= 1024``, dense otherwise. ``"ring"``
+(sequence parallelism) waits for ROADMAP A.8 and raises.
 """
 
 from __future__ import annotations
@@ -60,9 +68,18 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention on [B, H, L, Dh] tensors; ``pad_mask`` is [B, L]
     (1 = real token)."""
     if impl == "auto":
+        # flash from ~1k context up, where the JAX package measured it
+        # ahead of dense and its memory is O(L) in both directions
+        impl = ("cuda" if q.device.type == "cuda" and q.shape[-2] >= 1024
+                else "xla")
+    if impl == "xla":
         return _dense_attention(q, k, v, pad_mask, causal)
-    if impl in ("pallas", "ring"):
+    if impl in ("cuda", "pallas", "torch"):
+        from .flash_attention import flash_attention
+        return flash_attention(q, k, v, pad_mask, causal,
+                               impl="torch" if impl == "torch" else "cuda")
+    if impl == "ring":
         raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet: the flash forward "
-            f"kernel and ring attention are ROADMAP A.6 and A.8")
+            "attention impl 'ring' (sequence-parallel ring attention) is "
+            "not ported yet: ROADMAP A.8")
     raise ValueError(f"unknown attention impl: {impl!r}")

@@ -8,9 +8,8 @@ slot's block-table row. Two arms compute it:
 * :func:`flash_decode` wraps the hand-written CUDA kernel
   (``ops/csrc/flash_decode.cu``): one thread block per (head, slot) reads the
   slot's live pages through the block table and folds them into an online
-  softmax; no dense copy of the reservation is ever made. On a CUDA tensor it
-  launches the kernel (or raises); given CPU tensors it computes the plain
-  version instead, because the kernel cannot run there.
+  softmax; no dense copy of the reservation is ever made. It takes CUDA
+  tensors only and raises on any other: the seam below routes.
 * :func:`torch_paged_decode` is the plain version and copies the JAX
   package's ``xla_paged_decode``: gather a dense view of every slot's pages,
   mask positions ``> pos``, dense attention.
@@ -41,8 +40,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_SMEM = 48 * 1024  # the kernel's dynamic shared memory, without opt-in
 
-# Launches of the CUDA kernel since the last reset: one per call that reached
-# the kernel, none for calls that took the plain version.
+# Launches of the CUDA kernel since the last reset: one per call.
 _launches = 0
 
 
@@ -130,16 +128,15 @@ def flash_decode(q: torch.Tensor, pages_k: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """Paged single-query attention: ``q`` [B, H, Dh], pools
     ``[P, page_size, H, Dh]``, ``block_table`` [B, n_pages] int32,
-    ``positions`` [B] int32 -> [B, H, Dh] in q's dtype. CUDA tensors go to
-    the kernel; CPU tensors get the plain version."""
+    ``positions`` [B] int32 -> [B, H, Dh] in q's dtype, on CUDA tensors
+    only (the kernel has no CPU mode)."""
     global _launches
-    if q.device.type == "cpu":
-        return torch_paged_decode(q, pages_k, pages_v, block_table, positions)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on CUDA (kernel) or CPU "
-                         f"(plain version), got {q.device}")
+        raise ValueError(f"flash_decode is the CUDA kernel and takes CUDA "
+                         f"tensors, got {q.device}; the plain version is "
+                         f"torch_paged_decode")
     _check_kernel_args(q, pages_k, pages_v, block_table, positions)
-    from ._build import load_library
+    from ._build import check, load_library
     lib = load_library()
     B, H, Dh = q.shape
     out = torch.empty_like(q)
@@ -149,9 +146,7 @@ def flash_decode(q: torch.Tensor, pages_k: torch.Tensor,
             block_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
             B, H, Dh, pages_k.shape[1], block_table.shape[1],
             _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: "
-                           f"{lib.dpt_error_string(err).decode()}")
+    check(lib, err, "flash_decode")
     _launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """The port's paged decode attention against the JAX package's.
 
 On the CPU the port's arm is the plain version (``torch_paged_decode``,
-which ``flash_decode`` also takes for CPU tensors); it is held against the
+which the seam takes for CPU tensors); it is held against the
 JAX gather path ``xla_paged_decode`` and the JAX Pallas kernel
 ``flash_decode`` in interpret mode, on the page geometries of
 tests/test_kernels.py. The CUDA kernel against the plain version runs only
@@ -64,7 +64,7 @@ def test_plain_matches_jax_xla_and_pallas_across_geometries(
     got = port(case)
     np.testing.assert_allclose(got, jax_xla(case), rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(got, jax_pallas(case), rtol=2e-5, atol=2e-6)
-    # the wrapper takes the plain version for CPU tensors: same numbers
+    # the seam takes the plain version for CPU tensors: same numbers
     np.testing.assert_array_equal(port(case, impl="auto"), got)
 
 
@@ -154,6 +154,10 @@ def test_resolve_decode_impl_and_cuda_on_cpu_raises():
         port(case, impl="cuda")
     port(case, impl="auto")
     assert fd.launch_count() == before  # the plain version is no launch
+    # the kernel's wrapper itself takes CUDA tensors only
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode(*[torch.from_numpy(a) for a in case])
+    assert fd.launch_count() == before
 
 
 def test_paged_writers_and_gather_round_trip():

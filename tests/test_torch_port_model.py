@@ -148,7 +148,7 @@ def test_paged_prefill_and_decode_match_jax_xla_arm():
 
 
 def test_create_model_from_config_families():
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.7"):
         create_model_from_config(model_family="diffuseq", device="cpu")
     with pytest.raises(ValueError, match="unknown model family"):
         create_model_from_config(model_family="bert", device="cpu")
