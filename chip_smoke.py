@@ -7,8 +7,8 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; CUDA must be available;
 2. build: every CUDA kernel from ``distributed_pipeline_tpu_torch/ops/csrc``
-   (one nvcc per source, in parallel), with the compiler's register and
-   shared-memory report;
+   (one nvcc per source, in parallel), with each kernel's registers,
+   shared memory and spills from the compiler's report;
 3. decode kernel: ``flash_decode`` against its plain version
    ``torch_paged_decode`` at the serving shapes (H=12, Dh=64, page_size 16,
    32 slots, 64-page reservations; an empty slot, page edges, interior and
@@ -20,11 +20,17 @@ Phases (any failure raises, and the script exits non-zero):
 4. flash kernels: ``flash_forward`` / ``flash_backward`` against
    ``torch_flash_forward`` / ``torch_flash_backward`` at the training shape
    (B=4, H=12, L=1024, Dh=64, causal, bf16, the all-ones pad mask the model
-   passes), a padded ragged bf16 case (L=1000, lengths 1000/733/1/0) and
-   small f32 cases (Dh 64 and 128); bf16 is held against the plain version
-   evaluated in f32 from the same bf16 inputs. Times beside the plain
-   version's, the bound, and ``scaled_dot_product_attention(is_causal)``
-   and its autograd backward as yardsticks;
+   passes), a padded ragged bf16 case (L=1000, lengths 1000/733/1/0),
+   small f32 cases (Dh 64 and 128), and bf16 cases at Dh=128 (L=1024),
+   at L = 1, 65 and 129 (ragged against the 128-row tile) and non-causal
+   with a dead row; bf16 is held against the plain version evaluated in
+   f32 from the same bf16 inputs, and two bf16 backward calls on the same
+   inputs are compared (dq is summed by atomics). Times at the training
+   shape beside ``scaled_dot_product_attention(is_causal)`` and its
+   autograd backward (yardsticks), in turns in one call: device time from
+   ``torch.profiler`` (the CUDA-event time, which also counts the host's
+   enqueue, beside it), with the plain versions' times, achieved TFLOP/s,
+   share of the bound and the ratio to the library;
 5. fused update: ``fused_adamw_ema`` against ``torch_fused_update`` over
    GPT-2 base's parameter count with 3 EMA rates, bitwise over 3 steps,
    timed beside its byte bound and ``torch.optim.AdamW(fused=True)`` (a
@@ -90,6 +96,30 @@ def time_ms(fn, torch, flush, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, torch, flush, reps: int = 20) -> tuple:
+    """Device time of one ``fn()`` call and its split by kernel name: the
+    kernels (and memsets) it launches, summed from ``torch.profiler``'s CUDA
+    activity over ``reps`` calls, each after an L2 flush whose own fill
+    kernel is left out. Unlike ``time_ms`` it does not count the host's
+    enqueue time, which exceeds the device time of a call this short."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0 and "FillFunctor" not in e.key:
+            split[e.key[:80]] = us / reps / 1e3
+    return sum(split.values()), split
 
 
 def kernel_phase(torch, fd, bw, bf16_peak) -> dict:
@@ -323,7 +353,8 @@ def bound(hbm_bytes: float, flops: float, bw: float, peak: float) -> dict:
 def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
     """Kernel forward and backward vs the plain versions on one case; bf16
     against the plain version in f32 from the same bf16 inputs. Returns
-    the max abs errors."""
+    the max abs errors, and for bf16 the max difference between two
+    backward calls on the same inputs (dq is summed by atomics)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
@@ -342,85 +373,168 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
         tol = dict(rtol=1e-4, atol=1e-5)   # another summation order
         tol_b = dict(rtol=1e-4, atol=1e-4)
     else:
-        # one bf16 rounding of an f32 result (2^-8 relative), plus f32
+        # one bf16 rounding of an f32 result (2^-8 relative), p rounded to
+        # bf16 before p.v (as the JAX kernel's p.astype(v.dtype)), plus f32
         # cancellation in the sums: atol 1e-3 of the largest entry
         tol = dict(rtol=8e-3, atol=1e-3 * float(ref_out.abs().max()))
         tol_b = None
     errs = {"out": close_enough(out, ref_out, **tol),
             "lse": close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)}
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-        t = tol_b or dict(rtol=8e-3, atol=1e-3 * float(ref.abs().max()))
+        # bf16: p and ds enter their products as bf16 (2^-9 relative each)
+        # and dq is summed by f32 atomics in a varying order. A row with
+        # few live keys has ds = p (dp - delta), a difference of nearly
+        # equal terms, so those roundings are large against that row's own
+        # gradient: entrywise atol 1e-2 of the largest entry (at least
+        # 1e-4, for gradients that are zero in exact arithmetic), and the
+        # whole tensor within 1e-2 in relative Frobenius norm
+        if tol_b is None:
+            ref = ref.float()
+            rel = float((got.float() - ref).norm() / ref.norm().clamp_min(
+                1e-30))
+            check(rel <= 1e-2 or float(ref.norm()) < 1e-3,
+                  f"{name}: relative Frobenius error {rel}")
+            errs[name + "_rel_fro"] = rel
+        t = tol_b or dict(rtol=1e-2,
+                          atol=max(1e-2 * float(ref.abs().max()), 1e-4))
         errs[name] = close_enough(got, ref, **t)
     dead = [b for b, n in enumerate(lens) if n == 0]
     for b in dead:   # fully masked rows: zero output, zero gradients
         check(bool(torch.all(out[b] == 0)) and bool(torch.all(dq[b] == 0))
-              and bool(torch.all(dk[b] == 0)), "masked rows not zero")
+              and bool(torch.all(dk[b] == 0))
+              and bool(torch.all(dv[b] == 0)), "masked rows not zero")
+    if dtype == torch.bfloat16:
+        again = fa.flash_backward(q, k, v, mask, causal, out, lse, dout)
+        errs["rerun_max_diff"] = max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(again, (dq, dk, dv)))
     return errs
 
 
+def build_report(log_path: str) -> list:
+    """Registers, shared memory and spills of every kernel in the build
+    log's ``-Xptxas -v`` report."""
+    import re
+    rows, name = [], None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and name:
+                rows.append({"kernel": name, "spill_stores": int(m.group(1)),
+                             "spill_loads": int(m.group(2))})
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and rows and rows[-1]["kernel"] == name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                rows[-1].update(registers=int(m.group(1)),
+                                smem_bytes=int(smem.group(1)) if smem else 0)
+    return rows
+
+
 def flash_phase(torch, bw, bf16_peak) -> list:
-    """The flash kernels vs their plain versions, and their times at the
-    training shape."""
+    """The flash kernels vs their plain versions on every case, and their
+    times at the training shape beside the library calls, in turns."""
     from distributed_pipeline_tpu_torch.ops import flash_attention as fa
 
     B, H, L, Dh = 4, 12, 1024, 64
+    bf16 = torch.bfloat16
     cases = {
-        "train_bf16": (B, H, L, Dh, torch.bfloat16, True, [L] * B),
-        "ragged_bf16": (B, H, 1000, Dh, torch.bfloat16, True,
-                        [1000, 733, 1, 0]),
+        "train_bf16": (B, H, L, Dh, bf16, True, [L] * B),
+        "ragged_bf16": (B, H, 1000, Dh, bf16, True, [1000, 733, 1, 0]),
         "f32_dh64": (2, 3, 200, 64, torch.float32, True, [200, 77]),
         "f32_dh128_noncausal": (2, 3, 130, 128, torch.float32, False,
                                 [130, 0]),
+        "dh128_bf16": (2, 4, 1024, 128, bf16, True, [1024, 1024]),
+        "l1_bf16": (2, 4, 1, Dh, bf16, True, [1, 1]),
+        "l65_bf16": (2, 4, 65, Dh, bf16, True, [65, 30]),
+        "l129_bf16": (2, 4, 129, 128, bf16, True, [129, 129]),
+        "noncausal_dead_bf16": (2, 4, 200, Dh, bf16, False, [200, 0]),
     }
     errs = {name: flash_check(torch, fa, *c, seed=i)
             for i, (name, c) in enumerate(cases.items())}
     print(f"# flash check: max abs err {json.dumps(errs)}", flush=True)
+    rerun = max(e.get("rerun_max_diff", 0.0) for e in errs.values())
+    print(f"# flash determinism: max diff between two bf16 backward calls "
+          f"on the same inputs {rerun}", flush=True)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
-                     .to(torch.bfloat16) for _ in range(4))
+                     .to(bf16) for _ in range(4))
     mask = torch.ones((B, L), dtype=torch.int32, device=dev)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     out, lse = fa.flash_forward(q, k, v, mask, True)
-    fwd_ms = time_ms(lambda: fa.flash_forward(q, k, v, mask, True), torch,
-                     flush)
-    fwd_plain = time_ms(lambda: fa.torch_flash_forward(q, k, v, mask, True),
-                        torch, flush, reps=20)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd_lib = time_ms(lambda: sdpa(q, k, v, is_causal=True), torch, flush)
-    bwd_ms = time_ms(lambda: fa.flash_backward(q, k, v, mask, True, out,
-                                               lse, dout), torch, flush)
-    bwd_plain = time_ms(lambda: fa.torch_flash_backward(
-        q, k, v, mask, True, out, lse, dout), torch, flush, reps=20)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_out = sdpa(ql, kl, vl, is_causal=True)
-    bwd_lib = time_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), dout, retain_graph=True), torch, flush)
+    fns = {
+        "fwd": lambda: fa.flash_forward(q, k, v, mask, True),
+        "fwd_lib": lambda: sdpa(q, k, v, is_causal=True),
+        "bwd": lambda: fa.flash_backward(q, k, v, mask, True, out, lse,
+                                         dout),
+        "bwd_lib": lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dout, retain_graph=True),
+    }
+    runs = {name: [] for name in fns}      # device ms, one per turn
+    event = {name: [] for name in fns}     # CUDA-event ms, host included
+    split = {}
+    for order in (("fwd_lib", "fwd", "bwd_lib", "bwd"),
+                  ("fwd", "fwd_lib", "bwd", "bwd_lib")):
+        for name in order:
+            total, split[name] = device_ms(fns[name], torch, flush)
+            runs[name].append(total)
+            event[name].append(time_ms(fns[name], torch, flush))
+    ms = {name: statistics.median(t) for name, t in runs.items()}
+    fwd_plain = time_ms(lambda: fa.torch_flash_forward(q, k, v, mask, True),
+                        torch, flush, reps=20)
+    bwd_plain = time_ms(lambda: fa.torch_flash_backward(
+        q, k, v, mask, True, out, lse, dout), torch, flush, reps=20)
     src = "distributed_pipeline_tpu_torch/ops/csrc/flash_attention.cu"
     main = errs["train_bf16"]
-    return [
+    rows = [
         {"name": "flash_forward", "route": "cuda", "source": src,
          "replaces": "distributed_pipeline_tpu/ops/flash_attention.py:185",
          "launches": None,
          "max_abs_err": max(main["out"], main["lse"]),
-         "ms": fwd_ms, "plain_ms": fwd_plain,
+         "ms": ms["fwd"], "ms_runs": runs["fwd"], "event_ms": event["fwd"],
+         "kernels_ms": split["fwd"], "plain_ms": fwd_plain,
          **bound(fa.flash_hbm_bytes(B, H, L, Dh, 2, True),
                  fa.flash_flops(B, H, L, Dh, True), bw, bf16_peak),
-         "library_ms": fwd_lib,
+         "library_ms": ms["fwd_lib"], "library_ms_runs": runs["fwd_lib"],
+         "library_event_ms": event["fwd_lib"],
+         "library_kernels_ms": split["fwd_lib"],
          "library_call": "scaled_dot_product_attention(is_causal=True)"},
         {"name": "flash_backward", "route": "cuda", "source": src,
          "replaces": "distributed_pipeline_tpu/ops/flash_attention.py:240",
          "launches": None,
          "max_abs_err": max(main["dq"], main["dk"], main["dv"]),
-         "ms": bwd_ms, "plain_ms": bwd_plain,
+         "rerun_max_diff": main["rerun_max_diff"],
+         "ms": ms["bwd"], "ms_runs": runs["bwd"], "event_ms": event["bwd"],
+         "kernels_ms": split["bwd"], "plain_ms": bwd_plain,
          **bound(fa.flash_hbm_bytes(B, H, L, Dh, 2, True, backward=True),
                  fa.flash_flops(B, H, L, Dh, True, backward=True), bw,
                  bf16_peak),
-         "library_ms": bwd_lib,
+         "library_ms": ms["bwd_lib"], "library_ms_runs": runs["bwd_lib"],
+         "library_event_ms": event["bwd_lib"],
+         "library_kernels_ms": split["bwd_lib"],
          "library_call": "autograd backward of scaled_dot_product_attention"
                          "(is_causal=True)"},
     ]
+    for row in rows:
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["x_library"] = row["ms"] / row["library_ms"]
+        print(f"# flash timing: {row['name']} {row['ms']:.5f} ms "
+              f"({row['tflops']:.1f} TFLOP/s, {row['share_of_bound']:.3f} of "
+              f"the bound {row['bound_ms']:.6f} ms, {row['x_library']:.2f}x "
+              f"the library's {row['library_ms']:.5f} ms; device time; "
+              f"CUDA events, host enqueue included: {row['event_ms']} vs "
+              f"{row['library_event_ms']})", flush=True)
+    return rows
 
 
 def gpt2_base_param_shapes():
@@ -598,9 +712,10 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
     a, b = out["kernels"], out["plain"]
     print(f"# train: one step from the saved state, kernels {a}, plain {b}",
           flush=True)
-    # bf16 through 12 layers: the plain attention rounds p to bf16 before
-    # p.v and returns its gradients through f32 einsums, the kernels keep
-    # f32; allow 0.5% of the loss and 3% of the gradient norm
+    # bf16 through 12 layers: both arms round p to bf16 before p.v; the
+    # plain backward runs f32 einsums where the kernel feeds p and ds to
+    # its products as bf16 and sums dq by atomics; allow 0.5% of the loss
+    # and 3% of the gradient norm
     check(abs(a["loss"] - b["loss"]) <= 5e-3 * abs(b["loss"]),
           f"one-step loss differs: {a} vs {b}")
     check(abs(a["grad_norm"] - b["grad_norm"]) <= 3e-2 * b["grad_norm"],
@@ -632,10 +747,13 @@ def main() -> int:
     _build.load_library()
     print(f"# build: CUDA kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    with open(_build.build_log_path()) as f:
-        for line in f:
-            if "Used" in line or "spill" in line or line.startswith("=="):
-                print(f"# build: {line.rstrip()}", flush=True)
+    for row in build_report(_build.build_log_path()):
+        print(f"# build: {json.dumps(row)}", flush=True)
+    lib = _build.load_library()
+    print("# build: bf16 flash kernels' dynamic shared memory (bytes): " +
+          json.dumps({f"{'bwd' if b else 'fwd'}_dh{dh}":
+                      lib.dpt_flash_smem_bytes(b, dh)
+                      for b in (0, 1) for dh in (64, 128)}), flush=True)
 
     decode = kernel_phase(torch, fd, bw, bf16_peak)
     flash = flash_phase(torch, bw, bf16_peak)

@@ -42,7 +42,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dpt_flash_decode": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "dpt_flash_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "dpt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "dpt_flash_bwd": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "dpt_flash_smem_bytes": ([_I] * 2, _I),
     "dpt_fused_update": ([_P] * 6 + [ctypes.c_longlong, _P, _I, _P], _I),
     "dpt_error_string": ([_I], ctypes.c_char_p),
 }

@@ -6,7 +6,9 @@ scores never reach device memory. Two arms compute it:
 
 * the CUDA kernels (``ops/csrc/flash_attention.cu``), wrapped by
   :func:`flash_forward` (``(out, lse)``) and :func:`flash_backward`
-  (``(dq, dk, dv)``); each takes CUDA tensors only and counts its launches;
+  (``(dq, dk, dv)``); each takes CUDA tensors only and counts its launches.
+  bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles; a one-pass
+  backward whose dq is summed by f32 atomics), f32 the FMA kernels;
 * the plain versions :func:`torch_flash_forward` (the JAX package's
   ``_xla_forward`` line for line: f32 scores, the exact ``where`` mask,
   ``lse = m + log(max(l, 1e-20))``, zeros on fully masked rows) and
@@ -18,9 +20,9 @@ scores never reach device memory. Two arms compute it:
 
 :func:`flash_attention` is the ``torch.autograd.Function`` over either arm:
 its forward saves ``(q, k, v, pad_mask, out, lse)`` and its backward runs
-the backward of the same arm, as the JAX ``custom_vjp`` does. ``delta`` is
-computed in plain torch outside the kernel, as the JAX package computes it
-in XLA outside its Pallas kernel. ``flash_attention_lse`` and the ``g_lse``
+the backward of the same arm, as the JAX ``custom_vjp`` does. The kernel
+arm computes ``delta`` in a small kernel before the main backward (the JAX
+package computes it in XLA outside its Pallas kernel). ``flash_attention_lse`` and the ``g_lse``
 cotangent wait for ring attention (ROADMAP A.8).
 
 The kernels take bf16 and f32 at Dh 64 and 128 and raise on anything else;
@@ -177,21 +179,27 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    pad_mask: Optional[torch.Tensor], causal: bool,
                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels (dk/dv, then dq; one launch of the pair counts
-    once): ``(dq, dk, dv)`` in q's dtype. ``delta = rowsum(dO * O)`` is
-    computed here in f32, outside the kernel."""
+    """The backward kernels (one count per call): ``(dq, dk, dv)`` in q's
+    dtype. A first kernel computes ``delta = rowsum(dO * O)`` in f32. bf16
+    then runs the one-pass kernel, which sums dq in an f32 scratch buffer
+    by atomics (its last bits vary from run to run) and casts it; f32 runs
+    the dk/dv kernel and the dq kernel."""
     _check_kernel_args("flash_backward", (q, k, v, out, dout), pad_mask)
     _stats_ok("flash_backward", q, lse)
     from ._build import check, load_library
     lib = load_library()
     B, H, L, Dh = q.shape
-    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    dq_accum = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                if q.dtype == torch.bfloat16 else None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     with torch.cuda.device(q.device):
         err = lib.dpt_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_mask is None else pad_mask.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(),
+            None if dq_accum is None else dq_accum.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, L, Dh,
             int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)

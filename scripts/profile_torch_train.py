@@ -40,8 +40,10 @@ from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop  # noqa: E402
 
 CFG = dict(model_family="gpt2", vocab_size=50257, seq_len=1024,
            hidden_size=768, num_layers=12, num_heads=12, dtype="bfloat16")
-PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "fused_update_kernel")
+# the bf16 training path's kernels (the f32 arm's FMA kernels never run here)
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_preprocess_kernel",
+                "flash_bwd_sm90_kernel", "flash_bwd_dq_convert_kernel",
+                "fused_update_kernel")
 
 
 def _device_us(evt) -> float:

@@ -5,7 +5,9 @@ On the CPU the port's arm is the plain version (``torch_flash_forward`` /
 against the JAX Pallas kernel ``flash_attention`` in interpret mode (blocks
 16/16) and the dense ``_xla_attention``, on the cases of tests/test_ops.py.
 The CUDA kernels against the plain version run only where a GPU is present
-(marker ``cuda``); ``chip_smoke.py`` runs them at the training shapes.
+(marker ``cuda``): the f32 FMA kernels, and the bf16 Hopper kernels at Dh 64
+and 128, ragged lengths against their 128-row tile, causal and not, with
+dead rows; ``chip_smoke.py`` runs them at the training shapes.
 
 Tolerances: forward rtol/atol 2e-5 and gradients 1e-4, the bars the JAX
 package holds its own kernel to against its dense arm (f32, another
@@ -174,3 +176,54 @@ def test_cuda_kernels_match_plain_version(cuda_device, causal, lens):
     want = fa.torch_flash_backward(*t, mask, causal, ref_out, ref_lse, dout)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,L,causal,lens", [
+    (64, 1024, True, None),          # the training shape's tiles
+    (128, 1024, True, None),
+    (64, 1, True, None),             # ragged against the 128-row tile
+    (64, 65, True, [65, 30]),
+    (128, 129, True, [129, 129]),
+    (64, 1000, True, [1000, 1]),
+    (64, 129, False, [129, 0]),      # non-causal with a dead row
+    (128, 200, False, [200, 0]),
+])
+def test_cuda_bf16_kernels_match_plain_version(cuda_device, Dh, L, causal,
+                                               lens):
+    """The bf16 Hopper kernels (wgmma) vs the plain version in f32 from the
+    same bf16 inputs. Forward: rtol 8e-3 and atol 1e-3 of the largest
+    entry (one bf16 rounding of the output, and p rounded to bf16 before
+    p.v as the JAX kernel's p.astype(v.dtype)); lse 1e-4. Gradients: a
+    relative Frobenius error under 1e-2, and entrywise rtol 1e-2 and atol
+    1e-2 of the largest entry, at least 1e-4 (p and ds enter their products
+    as bf16 and dq is summed by f32 atomics in a varying order; in a row
+    with few live keys ds = p (dp - delta) is a difference of nearly equal
+    terms, so those roundings are large against that row's own gradient,
+    and with one live key a gradient that is zero in exact arithmetic is
+    f32 rounding)."""
+    B, H = 2, 4
+    rng = np.random.default_rng(L + Dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, L, Dh)).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16) for _ in range(4))
+    mask = (None if lens is None else
+            torch.from_numpy(lens_mask(B, L, lens)).to(cuda_device))
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = fa.torch_flash_forward(*f, mask, causal)
+    torch.testing.assert_close(out.float(), ref_out, rtol=8e-3,
+                               atol=1e-3 * float(ref_out.abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    got = fa.flash_backward(q, k, v, mask, causal, out, lse, do)
+    want = fa.torch_flash_backward(*f, mask, causal, out.float(), lse,
+                                   do.float())
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                   atol=max(1e-2 * scale, 1e-4))
+        assert float((a.float() - b).norm()) <= (
+            1e-2 * float(b.norm()) + 1e-4 * b.numel() ** 0.5)
+    if lens is not None and 0 in lens:
+        dead = lens.index(0)
+        assert torch.all(out[dead] == 0)
+        assert all(torch.all(t[dead] == 0) for t in got)
