@@ -18,7 +18,6 @@ __all__ = ["ServeSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value served now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "kv_quant": ("fp", "ROADMAP A.2 (int8 pages in the decode kernel)"),
     "spec_tokens": (0, "ROADMAP A.3 (speculative decoding, span verify)"),
     "prefix_cache": (False, "ROADMAP A.4 (prefix cache)"),
     "serve_quant": ("off", "ROADMAP A.4 (int8 serving weights)"),
@@ -98,9 +97,11 @@ class ServeSettings:
                                   "flash-decode kernel, 'torch' = the plain "
                                   "gather version, 'auto' = the kernel for "
                                   "CUDA tensors", ("auto", "cuda", "torch"))
+    kv_quant: str = _f("fp", "paged KV storage: 'fp' = the model's dtype, "
+                             "'int8' = int8 pages with per-page f32 scales "
+                             "(about half the pool bytes)", ("fp", "int8"))
 
     # options of the JAX server that later slices bring (DEFERRED)
-    kv_quant: str = _f("fp", "paged KV storage", ("fp", "int8"))
     spec_tokens: int = _f(0, "speculative decoding draft length")
     prefix_cache: bool = _f(False, "shared-prefix KV page reuse")
     serve_quant: str = _f("off", "quantize serving weights", ("off", "int8"))

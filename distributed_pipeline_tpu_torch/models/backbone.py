@@ -19,6 +19,13 @@ Attention runs one of three branches:
   write the token's K/V, then the decode seam
   (``ops.flash_decode.paged_decode_attention``).
 
+``kv_quant`` names the pool's storage, as the JAX module attribute of that
+name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
+``(pages_k, pages_v)``; ``"int8"`` pools hold int8 pages and the entry is
+``(pages_k, pages_v, scales_k, scales_v)`` with ``[P]`` f32 scales, written
+by the ``_q8`` writers and dequantized by both decode arms. The prefill's own
+attention runs on the local fp k/v either way.
+
 The dense-cache decode, the speculative span branch, MoE and stacked
 (``scan_layers``) weights are later work (ROADMAP A.3, A.7, A.8).
 """
@@ -33,12 +40,16 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..ops.flash_decode import paged_decode_attention
-from ..serving.paged_kv import write_prompt_kv, write_token_kv
+from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
+                                write_token_kv, write_token_kv_q8)
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
            "LayerNorm"]
 
-LayerKV = Tuple[torch.Tensor, torch.Tensor]  # one layer's (pages_k, pages_v)
+# one layer's (pages_k, pages_v), or (pages_k, pages_v, scales_k, scales_v)
+# for an int8 pool
+LayerKV = Tuple[torch.Tensor, ...]
+KV_QUANTS = ("fp", "int8")
 
 
 def _param(shape, device) -> nn.Parameter:
@@ -81,14 +92,15 @@ class SelfAttention(nn.Module):
                 cache_index: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None,
                 kv: Optional[LayerKV] = None,
-                decode_impl: str = "auto") -> torch.Tensor:
+                decode_impl: str = "auto",
+                kv_quant: str = "fp") -> torch.Tensor:
         qkv = torch.einsum("bld,dthk->tbhlk", x, self.qkv.to(self.dtype))
         q, k, v = qkv[0], qkv[1], qkv[2]
         if kv is not None:
             if block_table is None:
                 raise ValueError("paged attention needs a block_table")
             o = self._paged_attention(q, k, v, pad_mask, cache_index,
-                                      block_table, kv, decode_impl)
+                                      block_table, kv, decode_impl, kv_quant)
         else:
             if block_table is not None:
                 raise ValueError("block_table is only meaningful with a "
@@ -98,17 +110,30 @@ class SelfAttention(nn.Module):
         return torch.einsum("bhlk,hkd->bld", o, self.out.to(self.dtype))
 
     def _paged_attention(self, q, k, v, pad_mask, cache_index, block_table,
-                         kv, decode_impl):
-        pages_k, pages_v = kv
+                         kv, decode_impl, kv_quant):
+        if kv_quant not in KV_QUANTS:
+            raise ValueError(f"kv_quant must be fp|int8, got {kv_quant!r}")
+        quant = kv_quant == "int8"
+        if len(kv) != (4 if quant else 2):
+            raise ValueError(f"a kv_quant={kv_quant!r} layer's KV entry "
+                             f"holds {4 if quant else 2} tensors, got "
+                             f"{len(kv)}")
+        pages_k, pages_v = kv[:2]
+        sk, sv = kv[2:] if quant else (None, None)
         B, H, L, Dh = q.shape
         if L > 1 and cache_index is None:
             # prefill: write the prompt's K/V into its slots' pages; the
             # attention itself runs on the local (contiguous) k/v, exactly
-            # the dense prefill computation
+            # the dense prefill computation (int8 included: quantization
+            # touches only the pool's copy)
             valid = pad_mask if pad_mask is not None else torch.ones(
                 (B, L), dtype=torch.int32, device=q.device)
-            write_prompt_kv(pages_k, block_table, k, valid)
-            write_prompt_kv(pages_v, block_table, v, valid)
+            if quant:
+                write_prompt_kv_q8(pages_k, sk, block_table, k, valid)
+                write_prompt_kv_q8(pages_v, sv, block_table, v, valid)
+            else:
+                write_prompt_kv(pages_k, block_table, k, valid)
+                write_prompt_kv(pages_v, block_table, v, valid)
             return dot_product_attention(q, k, v, pad_mask, causal=True,
                                          impl=self.attention_impl)
         if cache_index is None or cache_index.dim() != 1:
@@ -118,12 +143,17 @@ class SelfAttention(nn.Module):
             raise NotImplementedError(
                 "the speculative-verify span branch is ROADMAP A.3")
         idx = cache_index.to(torch.int32)
-        write_token_kv(pages_k, block_table, k[:, :, 0], idx)
-        write_token_kv(pages_v, block_table, v[:, :, 0], idx)
+        if quant:
+            write_token_kv_q8(pages_k, sk, block_table, k[:, :, 0], idx)
+            write_token_kv_q8(pages_v, sv, block_table, v[:, :, 0], idx)
+        else:
+            write_token_kv(pages_k, block_table, k[:, :, 0], idx)
+            write_token_kv(pages_v, block_table, v[:, :, 0], idx)
         # positions beyond each slot's depth hold trash/stale rows and are
         # masked (causality IS this mask for one query row)
         o = paged_decode_attention(q[:, :, 0].contiguous(), pages_k, pages_v,
-                                   block_table, idx, impl=decode_impl)
+                                   block_table, idx, impl=decode_impl,
+                                   scales_k=sk, scales_v=sv)
         return o[:, :, None]
 
 
@@ -157,10 +187,10 @@ class Block(nn.Module):
         self.mlp = Mlp(hidden, dtype, device=device)
 
     def forward(self, x, pad_mask, cache_index=None, block_table=None,
-                kv=None, decode_impl="auto"):
+                kv=None, decode_impl="auto", kv_quant="fp"):
         h = self.ln1(x).to(self.dtype)
         x = x + self.attn(h, pad_mask, cache_index, block_table, kv,
-                          decode_impl)
+                          decode_impl, kv_quant)
         h = self.ln2(x).to(self.dtype)
         return x + self.mlp(h)
 
@@ -186,9 +216,11 @@ class TransformerBackbone(nn.Module):
                 cache_index: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None,
                 kv_cache: Optional[List[LayerKV]] = None,
-                decode_impl: str = "auto") -> torch.Tensor:
+                decode_impl: str = "auto",
+                kv_quant: str = "fp") -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"block_{i}")(
                 x, pad_mask, cache_index, block_table,
-                None if kv_cache is None else kv_cache[i], decode_impl)
+                None if kv_cache is None else kv_cache[i], decode_impl,
+                kv_quant)
         return self.ln_f(x).to(self.dtype)

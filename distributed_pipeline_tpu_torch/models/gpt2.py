@@ -32,11 +32,12 @@ class GPT2Model(nn.Module):
     """Decoder-only causal LM with a weight-tied output head.
 
     ``forward(ids)`` is the full causal forward. With ``kv_cache`` (one
-    ``(pages_k, pages_v)`` pair per layer) and ``block_table`` it is the
-    paged serving path: a prefill over the prompt batch when
-    ``cache_index`` is None, one decode step when ``ids`` is [B, 1] and
-    ``cache_index`` holds each slot's position. Parameters start at zero;
-    load weights with ``load_state_dict``."""
+    ``(pages_k, pages_v)`` pair per layer, or with ``kv_quant="int8"`` one
+    ``(pages_k, pages_v, scales_k, scales_v)`` entry over an int8 pool) and
+    ``block_table`` it is the paged serving path: a prefill over the prompt
+    batch when ``cache_index`` is None, one decode step when ``ids`` is
+    [B, 1] and ``cache_index`` holds each slot's position. Parameters start
+    at zero; load weights with ``load_state_dict``."""
 
     def __init__(self, vocab_size: int, seq_len: int, hidden_size: int = 1024,
                  num_layers: int = 24, num_heads: int = 16,
@@ -62,7 +63,8 @@ class GPT2Model(nn.Module):
                 cache_index: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None,
                 kv_cache: Optional[List[LayerKV]] = None,
-                decode_impl: str = "auto") -> torch.Tensor:
+                decode_impl: str = "auto",
+                kv_quant: str = "fp") -> torch.Tensor:
         B, L = ids.shape
         if cache_index is not None:
             if L != 1:
@@ -82,7 +84,7 @@ class GPT2Model(nn.Module):
         if pad_mask is None:
             pad_mask = torch.ones_like(ids)
         h = self.backbone(h, pad_mask, cache_index, block_table, kv_cache,
-                          decode_impl)
+                          decode_impl, kv_quant)
         # tied LM head in the compute dtype
         return torch.einsum("bld,vd->blv", h,
                             self.word_emb.embedding.to(self.dtype))

@@ -40,7 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # every C function of the library: (argtypes, restype)
 _SIGNATURES = {
-    "dpt_flash_decode": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "dpt_flash_decode": ([_P] * 11 + [_I] * 11 + [_P], _I),
     "dpt_flash_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "dpt_flash_bwd": ([_P] * 12 + [_I] * 6 + [_P], _I),
     "dpt_flash_smem_bytes": ([_I] * 2, _I),

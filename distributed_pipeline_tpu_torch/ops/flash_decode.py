@@ -3,16 +3,21 @@
 The port of ``distributed_pipeline_tpu/ops/flash_decode.py``. The serving
 decode step attends one new token per slot over that slot's live prefix,
 which lives in pages of the pool ``[P, page_size, H, Dh]`` listed by the
-slot's block-table row. Two arms compute it:
+slot's block-table row. The pool holds q's dtype, or int8 with one f32 scale
+per page for K and one for V (``[P]`` sidecars, the ``--kv_quant int8``
+pool), dequantized as ``page.float() * scale``. Two arms compute it:
 
 * :func:`flash_decode` wraps the hand-written CUDA kernel
-  (``ops/csrc/flash_decode.cu``): one thread block per (head, slot) reads the
-  slot's live pages through the block table and folds them into an online
-  softmax; no dense copy of the reservation is ever made. It takes CUDA
-  tensors only and raises on any other: the seam below routes.
+  (``ops/csrc/flash_decode.cu``): split-K over each slot's live pages in a
+  static grid, whole pages fetched by bulk copies into a multi-stage ring,
+  chunks merged in split order (deterministic). No dense copy of the
+  reservation is ever made, and the wrapper never reads the positions on
+  the host. It takes CUDA tensors only and raises on any other: the seam
+  below routes.
 * :func:`torch_paged_decode` is the plain version and copies the JAX
   package's ``xla_paged_decode``: gather a dense view of every slot's pages,
-  mask positions ``> pos``, dense attention.
+  dequantize int8 pages to q's dtype, mask positions ``> pos``, dense
+  attention.
 
 The page-layout contract is the JAX package's: page 0 is the trash page,
 block-table entries past a slot's live prefix may hold anything, and the
@@ -29,28 +34,46 @@ covers every GPT-2 preset.
 
 from __future__ import annotations
 
+from typing import Dict, NamedTuple, Optional, Tuple
+
 import numpy as np
 import torch
 
 __all__ = ["flash_decode", "torch_paged_decode", "paged_decode_attention",
-           "resolve_decode_impl", "decode_hbm_bytes", "launch_count",
+           "resolve_decode_impl", "decode_hbm_bytes", "decode_plan",
+           "device_limits", "DecodePlan", "launch_count",
            "reset_launch_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_SMEM = 48 * 1024  # the kernel's dynamic shared memory, without opt-in
+# the kernel's shape (ops/csrc/flash_decode.cu): one consumer warp a head, up
+# to 12 a CTA (two CTAs share an SM)
+_MAX_GROUP_HEADS = 12
+# A ring of two stages; three or four measured no faster at the serving
+# shapes (scripts/profile_torch_decode.py).
+_STAGES = 2
+_CTAS_PER_SM = 4  # the static grid aims at this many CTAs per SM
 
-# Launches of the CUDA kernel since the last reset: one per call.
-_launches = 0
+# Launches of the CUDA kernel since the last reset, one per call, by page
+# type ("fp" pools of q's dtype, "int8" pools).
+_launches = {"fp": 0, "int8": 0}
+# per CUDA device: (SM count, opt-in shared memory per block)
+_device_limits: Dict[int, Tuple[int, int]] = {}
+# per CUDA device: the zeroed int32 tickets of the multi-chunk combine (the
+# slot's last chunk resets its ticket, so they stay zero between calls on
+# one stream)
+_tickets: Dict[int, torch.Tensor] = {}
 
 
-def launch_count() -> int:
-    return _launches
+def launch_count(pages: Optional[str] = None) -> int:
+    """Kernel launches since the last reset: all of them, or those over
+    ``pages`` = "fp" or "int8" pools."""
+    return sum(_launches.values()) if pages is None else _launches[pages]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for key in _launches:
+        _launches[key] = 0
 
 
 def resolve_decode_impl(impl: str, device: torch.device) -> str:
@@ -69,16 +92,24 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
 
 def torch_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
                        pages_v: torch.Tensor, block_table: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
-    """The plain version ([B, H, Dh] in and out): gather, live mask
+                       positions: torch.Tensor,
+                       scales_k: Optional[torch.Tensor] = None,
+                       scales_v: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The plain version ([B, H, Dh] in and out): gather, dequantize int8
+    pools right after the gather (``scales_*`` given), live mask
     ``arange <= pos``, dense attention — ``xla_paged_decode`` line for
     line, plus one rule of the kernels: a slot with no live key
     (``pos < 0``) gives zeros, where the all-masked softmax would average
     whatever its pages hold."""
-    from ..serving.paged_kv import gather_kv
+    from ..serving.paged_kv import dequant_gathered, gather_kv
     from .attention import dot_product_attention
     ks = gather_kv(pages_k, block_table)        # [B, H, n*page_size, Dh]
     vs = gather_kv(pages_v, block_table)
+    if scales_k is not None:
+        ps = pages_k.shape[1]
+        ks = dequant_gathered(ks, scales_k, block_table, ps, q.dtype)
+        vs = dequant_gathered(vs, scales_v, block_table, ps, q.dtype)
     live = (torch.arange(ks.shape[2], device=ks.device)[None, :]
             <= positions[:, None]).to(torch.int32)
     o = dot_product_attention(q[:, :, None], ks, vs, live, causal=False)
@@ -86,7 +117,86 @@ def torch_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
                        torch.zeros((), dtype=o.dtype, device=o.device))
 
 
-def _check_kernel_args(q, pages_k, pages_v, block_table, positions) -> None:
+class DecodePlan(NamedTuple):
+    """The kernel's static launch shape for one set of tensor shapes."""
+    group_heads: int      # heads a CTA folds (H, or a group of them)
+    groups: int           # head groups: ceil(H / group_heads)
+    stages: int           # depth of the bulk-copy ring
+    pages_per_chunk: int  # split-K chunk of a slot's pages
+    max_splits: int       # chunks a full reservation splits into
+    smem_bytes: int       # dynamic shared memory of a CTA
+
+
+def _smem_bytes(stages: int, page_size: int, heads: int, head_dim: int,
+                kv_bytes: int) -> int:
+    # stages x (K and V tiles), two barriers and a scale pair a stage, a
+    # flag: `smem_bytes` in ops/csrc/flash_decode.cu
+    return stages * (2 * page_size * heads * head_dim * kv_bytes + 24) + 16
+
+
+def decode_plan(B: int, H: int, head_dim: int, page_size: int, n_pages: int,
+                kv_bytes: int, sms: int, smem_optin: int) -> DecodePlan:
+    """The kernel's grid and ring from shapes alone (never the positions,
+    which stay on the device). Every CTA takes all H heads unless a ring of
+    two stages of whole pages would not fit in ``smem_optin`` bytes (or H >
+    12); then it takes a group of heads, as few groups as fit. The chunk of
+    pages is sized so that a full reservation of all B slots spreads over
+    about ``_CTAS_PER_SM`` CTAs per SM (and so that the combine's chunk
+    weights fit in the tiles). The ring has two stages, one for a one-page
+    chunk. Raises where not even one head's two stages fit."""
+    groups = -(-H // _MAX_GROUP_HEADS)
+    while True:
+        hg = -(-H // groups)
+        if _smem_bytes(2, page_size, hg, head_dim, kv_bytes) <= smem_optin:
+            break
+        if hg == 1:
+            raise ValueError(
+                f"flash_decode: pages of page_size {page_size} x Dh "
+                f"{head_dim} x {kv_bytes} bytes need "
+                f"{_smem_bytes(2, page_size, 1, head_dim, kv_bytes)} bytes "
+                f"of shared memory for two stages of one head, above the "
+                f"card's {smem_optin}")
+        groups += 1
+    groups = -(-H // hg)
+    tile = page_size * hg * head_dim * kv_bytes
+    splits = min(n_pages, max(1, -(-_CTAS_PER_SM * sms // (B * groups))))
+    while True:
+        ppc = -(-n_pages // splits)
+        splits = -(-n_pages // ppc)
+        stages = min(_STAGES, ppc)
+        # the combine keeps [group_heads, max_splits] f32 weights in the
+        # tiles
+        if hg * splits * 4 <= stages * 2 * tile:
+            break
+        splits = -(-n_pages // (ppc + 1))
+    return DecodePlan(hg, groups, stages, ppc, splits,
+                      _smem_bytes(stages, page_size, hg, head_dim, kv_bytes))
+
+
+def device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SM count, opt-in shared memory per block) of a CUDA device, read
+    once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _device_limits:
+        props = torch.cuda.get_device_properties(index)
+        _device_limits[index] = (props.multi_processor_count,
+                                 props.shared_memory_per_block_optin)
+    return _device_limits[index]
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _tickets.get(index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _tickets[index] = buf
+    return buf
+
+
+def _check_kernel_args(q, pages_k, pages_v, block_table, positions,
+                       scales_k, scales_v) -> None:
     if q.dim() != 3 or pages_k.dim() != 4:
         raise ValueError(f"flash_decode takes q [B, H, Dh] and pools "
                          f"[P, page_size, H, Dh], got {tuple(q.shape)} and "
@@ -96,11 +206,27 @@ def _check_kernel_args(q, pages_k, pages_v, block_table, positions) -> None:
         raise ValueError(f"pool shapes {tuple(pages_k.shape)} / "
                          f"{tuple(pages_v.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if not (q.dtype == pages_k.dtype == pages_v.dtype) \
-            or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_decode takes float32 or bfloat16 q and "
-                         f"pools of one dtype, got {q.dtype}, "
-                         f"{pages_k.dtype}, {pages_v.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_decode takes float32 or bfloat16 q, got "
+                         f"{q.dtype}")
+    tensors = [q, pages_k, pages_v, block_table, positions]
+    if scales_k is None and scales_v is None:
+        if not q.dtype == pages_k.dtype == pages_v.dtype:
+            raise ValueError(f"fp pools must have q's dtype {q.dtype}, got "
+                             f"{pages_k.dtype}, {pages_v.dtype} (int8 "
+                             f"pools come with scales_k and scales_v)")
+    else:
+        if scales_k is None or scales_v is None:
+            raise ValueError("int8 pools need both scales_k and scales_v")
+        if not pages_k.dtype == pages_v.dtype == torch.int8:
+            raise ValueError(f"scales are given, so the pools must be int8, "
+                             f"got {pages_k.dtype}, {pages_v.dtype}")
+        for s in (scales_k, scales_v):
+            if s.dtype != torch.float32 \
+                    or tuple(s.shape) != (pages_k.shape[0],):
+                raise ValueError(f"scales must be float32 [{pages_k.shape[0]}]"
+                                 f", got {s.dtype} {tuple(s.shape)}")
+        tensors += [scales_k, scales_v]
     if Dh not in _HEAD_DIMS:
         raise ValueError(f"flash_decode supports head_dim {_HEAD_DIMS}, "
                          f"got {Dh}")
@@ -111,76 +237,102 @@ def _check_kernel_args(q, pages_k, pages_v, block_table, positions) -> None:
         raise ValueError(f"block_table {tuple(block_table.shape)} / "
                          f"positions {tuple(positions.shape)} do not match "
                          f"{B} slots")
-    tensors = (q, pages_k, pages_v, block_table, positions)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode inputs must be contiguous")
-    page_size = pages_k.shape[1]
-    smem = (page_size + (128 // Dh) * Dh) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"page_size {page_size} needs {smem} bytes of "
-                         f"shared memory per block, above {_MAX_SMEM}")
 
 
 def flash_decode(q: torch.Tensor, pages_k: torch.Tensor,
                  pages_v: torch.Tensor, block_table: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 scales_k: Optional[torch.Tensor] = None,
+                 scales_v: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Paged single-query attention: ``q`` [B, H, Dh], pools
-    ``[P, page_size, H, Dh]``, ``block_table`` [B, n_pages] int32,
-    ``positions`` [B] int32 -> [B, H, Dh] in q's dtype, on CUDA tensors
-    only (the kernel has no CPU mode)."""
-    global _launches
+    ``[P, page_size, H, Dh]`` of q's dtype, or int8 with ``scales_k`` /
+    ``scales_v`` [P] f32, ``block_table`` [B, n_pages] int32, ``positions``
+    [B] int32 -> [B, H, Dh] in q's dtype, on CUDA tensors only (the kernel
+    has no CPU mode)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode is the CUDA kernel and takes CUDA "
                          f"tensors, got {q.device}; the plain version is "
                          f"torch_paged_decode")
-    _check_kernel_args(q, pages_k, pages_v, block_table, positions)
+    _check_kernel_args(q, pages_k, pages_v, block_table, positions,
+                       scales_k, scales_v)
     from ._build import check, load_library
     lib = load_library()
     B, H, Dh = q.shape
+    int8 = scales_k is not None
     out = torch.empty_like(q)
+    if B == 0:
+        return out
+    plan = decode_plan(B, H, Dh, pages_k.shape[1], block_table.shape[1],
+                       pages_k.element_size(), *device_limits(q.device))
+    ws_acc = ws_ml = tickets = None
+    if plan.max_splits > 1:
+        ws_acc = torch.empty((B, plan.max_splits, H, Dh),
+                             dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((2, B, plan.max_splits, H), dtype=torch.float32,
+                            device=q.device)
+        tickets = _ticket_buffer(q.device, B * plan.groups)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(q.device):
         err = lib.dpt_flash_decode(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            block_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, H, Dh, pages_k.shape[1], block_table.shape[1],
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            ptr(scales_k), ptr(scales_v), block_table.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), ptr(ws_acc), ptr(ws_ml),
+            ptr(tickets), B, H, Dh, pages_k.shape[1], block_table.shape[1],
+            plan.group_heads, plan.stages, plan.pages_per_chunk,
+            plan.max_splits, _DTYPE_CODES[q.dtype], int(int8),
+            torch.cuda.current_stream().cuda_stream)
     check(lib, err, "flash_decode")
-    _launches += 1
+    _launches["int8" if int8 else "fp"] += 1
     return out
 
 
 def paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
                            pages_v: torch.Tensor, block_table: torch.Tensor,
-                           positions: torch.Tensor,
-                           impl: str = "auto") -> torch.Tensor:
+                           positions: torch.Tensor, impl: str = "auto",
+                           scales_k: Optional[torch.Tensor] = None,
+                           scales_v: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The decode-step seam: one generated token's attention, ``q``
     [B, H, Dh] -> [B, H, Dh]. The caller has already written the token's K/V
-    into the pool."""
+    into the pool; for int8 pools it passes the [P] scale sidecars and both
+    arms dequantize."""
     if resolve_decode_impl(impl, q.device) == "cuda":
-        return flash_decode(q, pages_k, pages_v, block_table, positions)
-    return torch_paged_decode(q, pages_k, pages_v, block_table, positions)
+        return flash_decode(q, pages_k, pages_v, block_table, positions,
+                            scales_k, scales_v)
+    return torch_paged_decode(q, pages_k, pages_v, block_table, positions,
+                              scales_k, scales_v)
 
 
 def decode_hbm_bytes(block_table: np.ndarray, positions: np.ndarray,
                      page_size: int, n_heads: int, head_dim: int,
-                     dtype_bytes: int = 4, step_table: bool = True) -> int:
+                     dtype_bytes: int = 4, quantized: bool = False,
+                     step_table: bool = True) -> int:
     """Device-memory bytes one decode-attention call must move: each
     DISTINCT live page's K and V blocks once (a page shared by several
     slots counts once), one q read and one output write per slot, and the
-    index bytes of the schedule.
+    index bytes of the schedule. ``quantized`` prices int8 pools at 1
+    byte an element (q and out keep ``dtype_bytes``).
 
-    ``step_table=True`` is the JAX package's census (fp pages), copied so
-    that both packages price the same work: the TPU schedule reads a step
-    table of 7 int32 columns per block-table entry. ``step_table=False``
-    prices the CUDA kernel, which has no step table: it reads each live
-    block-table entry and each slot's position once. The kernel's bound is
-    that number over the card's memory rate."""
+    ``step_table=True`` is the JAX package's census, copied so that both
+    packages price the same work: the TPU schedule reads a step table of 7
+    int32 columns per block-table entry, 9 when ``quantized`` (the page's
+    two scales ride it). ``step_table=False`` prices the CUDA kernel, which
+    has no step table: it reads each live block-table entry and each slot's
+    position once, and for int8 pools the 8 bytes of K and V scales of each
+    live entry. The kernel's bound is that number over the card's memory
+    rate."""
     bt = np.asarray(block_table)
     pos = np.asarray(positions)
     B, n = bt.shape
-    page_bytes = page_size * n_heads * head_dim * dtype_bytes
+    page_bytes = page_size * n_heads * head_dim * (1 if quantized
+                                                   else dtype_bytes)
     qo_bytes = n_heads * head_dim * dtype_bytes
     n_live = np.clip(pos // page_size + 1, 0, n)
     total = 0
@@ -193,7 +345,10 @@ def decode_hbm_bytes(block_table: np.ndarray, positions: np.ndarray,
                 seen.add(page)
         total += 2 * qo_bytes                      # q read + out write
     if step_table:
-        total += (B * n) * 7 * 4                   # TPU step table
+        total += (B * n) * (9 if quantized else 7) * 4   # TPU step table
     else:
-        total += (int(n_live.sum()) + B) * 4       # live entries + positions
+        live = int(n_live.sum())
+        total += (live + B) * 4                    # live entries + positions
+        if quantized:
+            total += live * 8                      # K and V scales
     return int(total)

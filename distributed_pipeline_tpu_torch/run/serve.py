@@ -10,7 +10,9 @@ decode-step attention through the flash-decode CUDA kernel on the GPU.
         --decode_slots 32 --page_size 16 --max_new_tokens 128
 
 stdout carries one JSON summary line (throughput, TTFT mean/p50/p95, step
-counts, wall time, device, decode-kernel launches).
+counts, wall time, device, decode-kernel launches, the KV pool's storage
+``kv_quant`` and its bytes ``kv_pool_bytes``). ``--kv_quant int8`` serves
+from an int8 page pool with per-page scales.
 """
 
 from __future__ import annotations
@@ -80,12 +82,14 @@ def serve(settings: ServeSettings) -> Tuple[dict, DecodeServer, list]:
         temperature=settings.temperature, top_k=settings.top_k,
         top_p=settings.top_p, seed=settings.seed,
         eos_id=settings.eos_id if settings.eos_id >= 0 else None,
-        decode_impl=settings.decode_impl, device=device)
+        decode_impl=settings.decode_impl, kv_quant=settings.kv_quant,
+        device=device)
 
     pending = _load_requests(settings, max_prompt_len, model.vocab_size)
     print(f"# serve: {len(pending)} requests on {settings.decode_slots} "
           f"slots (page_size={settings.page_size}, "
-          f"pool={server.mgr.num_pages} pages, device={device})",
+          f"pool={server.mgr.num_pages} pages, kv_quant="
+          f"{settings.kv_quant}, device={device})",
           file=sys.stderr, flush=True)
 
     launches0 = fd.launch_count()
@@ -141,6 +145,8 @@ def serve(settings: ServeSettings) -> Tuple[dict, DecodeServer, list]:
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else str(device)),
         "decode_kernel_launches": fd.launch_count() - launches0,
+        "kv_quant": settings.kv_quant,
+        "kv_pool_bytes": server.engine.kv_pool_bytes(),
     }
     print(json.dumps(result), flush=True)
     return result, server, submitted

@@ -12,8 +12,10 @@ The JAX engine compiles each phase once; PyTorch runs eagerly, so each phase
 is a plain method (``decode_span`` steps are a Python loop per dispatch) and
 the kernel launches are asynchronous on the current stream. State (the
 paged KV pool, the token/position vectors, block tables, the active mask)
-stays on the device; the pool is updated in place. CUDA graphs, the
-analogue of the compile-once executables, are later work (ROADMAP A.4).
+stays on the device; the pool is updated in place. ``kv_quant="int8"``
+keeps int8 pages with a ``[P]`` f32 scale sidecar for K and for V per layer
+(about half the bytes of a bf16 pool). CUDA graphs, the analogue of the
+compile-once executables, are later work (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..models.backbone import KV_QUANTS
 from ..models.gpt2 import GPT2Model
 from ..models.sampling import _truncate_logits
 
@@ -90,6 +93,8 @@ class DecodeEngine:
         trash page, the position embedding clamps to the table's last row,
         and outputs past budget are discarded at fetch.
     decode_impl : decode-step attention arm (``ops/flash_decode.py``).
+    kv_quant : paged KV storage, "fp" (the model's dtype) or "int8" (int8
+        pages with per-page f32 scales; ``serving/paged_kv.py``).
     """
 
     def __init__(self, model: GPT2Model, *, decode_slots: int,
@@ -97,7 +102,7 @@ class DecodeEngine:
                  max_len: int = 0, prefill_batch: int = 0,
                  decode_span: int = 1, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
-                 decode_impl: str = "auto") -> None:
+                 decode_impl: str = "auto", kv_quant: str = "fp") -> None:
         max_len = max_len or model.seq_len
         if not 1 <= max_len <= model.seq_len:
             raise ValueError(f"max_len {max_len} must be in [1, seq_len="
@@ -111,6 +116,8 @@ class DecodeEngine:
         if max_pages < 2:
             raise ValueError(f"max_pages must be >= 2 (page 0 is the trash "
                              f"page), got {max_pages}")
+        if kv_quant not in KV_QUANTS:
+            raise ValueError(f"kv_quant must be fp|int8, got {kv_quant!r}")
         self.model = model
         self.device = model.pos_emb.device
         self.decode_slots = decode_slots
@@ -122,6 +129,7 @@ class DecodeEngine:
         self.prefill_batch = prefill_batch or min(decode_slots, 8)
         self.decode_span = decode_span
         self.decode_impl = decode_impl
+        self.kv_quant = kv_quant
         self._pick = _SlotPicker(temperature, top_k, top_p, seed,
                                  self.device)
 
@@ -129,10 +137,17 @@ class DecodeEngine:
         H = model.num_heads
         dh = model.hidden_size // H
         shape = (max_pages, page_size, H, dh)
-        self.kv_cache: List[tuple] = [
-            (torch.zeros(shape, dtype=model.dtype, device=dev),
-             torch.zeros(shape, dtype=model.dtype, device=dev))
-            for _ in range(model.num_layers)]
+        pool_dtype = torch.int8 if kv_quant == "int8" else model.dtype
+        # per layer (pages_k, pages_v), and (scales_k, scales_v) for an int8
+        # pool
+        self.kv_cache: List[tuple] = []
+        for _ in range(model.num_layers):
+            entry = [torch.zeros(shape, dtype=pool_dtype, device=dev)
+                     for _ in range(2)]
+            if kv_quant == "int8":
+                entry += [torch.zeros((max_pages,), dtype=torch.float32,
+                                      device=dev) for _ in range(2)]
+            self.kv_cache.append(tuple(entry))
         self.tokens = torch.zeros((s,), dtype=torch.int32, device=dev)
         self.positions = torch.zeros((s,), dtype=torch.int32, device=dev)
         self.block_table = torch.zeros((s, self.pages_per_slot),
@@ -146,6 +161,13 @@ class DecodeEngine:
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
             self.device)
+
+    def kv_pool_bytes(self) -> int:
+        """Device bytes the paged KV pool holds: pages and scale sidecars,
+        every layer. An int8 pool is at most 0.55x an fp pool of the same
+        geometry (the JAX package's bar)."""
+        return int(sum(t.numel() * t.element_size()
+                       for entry in self.kv_cache for t in entry))
 
     def set_block_tables(self, table: np.ndarray) -> None:
         """Refresh the device block table (admission/free changed the host
@@ -173,7 +195,8 @@ class DecodeEngine:
                < lens[:, None]).to(torch.int32)
         logits = self.model(ids_t, pad, block_table=self._put(slot_tables),
                             kv_cache=self.kv_cache,
-                            decode_impl=self.decode_impl)
+                            decode_impl=self.decode_impl,
+                            kv_quant=self.kv_quant)
         last_idx = torch.clamp(lens - 1, min=0).long()
         rows = torch.arange(ids_t.shape[0], device=self.device)
         last = logits[rows, last_idx]                            # [Bp, V]
@@ -206,7 +229,8 @@ class DecodeEngine:
                                 cache_index=self.positions,
                                 block_table=self.block_table,
                                 kv_cache=self.kv_cache,
-                                decode_impl=self.decode_impl)
+                                decode_impl=self.decode_impl,
+                                kv_quant=self.kv_quant)
             nxt = self._pick(logits[:, 0], self._positions_host + 1, slots)
             live = self.active > 0
             self.tokens = torch.where(live, nxt, self.tokens)

@@ -14,27 +14,41 @@ Device side, plain tensor functions:
 * :func:`gather_kv`       — a dense ``[B, H, Lmax, Dh]`` view of each slot's
   pages (the plain decode attention reads it; the CUDA kernel does not).
 
-The JAX writers return a new pool; these write the pool IN PLACE (and
-return it), which keeps one copy of the largest tensor of the server. Page 0
-is the TRASH page: every write that must land nowhere goes there, and no
-read ever sees it.
+int8 pools (``--kv_quant int8``) hold symmetric int8 pages with one f32
+scale per page in a ``[P]`` sidecar (value = q * scale, q in [-127, 127]):
+
+* :func:`write_prompt_kv_q8` — quantize a prefill's rows and SET each touched
+  page's scale (the trash page's scale is left alone);
+* :func:`write_token_kv_q8`  — one decode step's row, growing the page's
+  scale when the row needs it and re-expressing the page's int8 content
+  under the new scale;
+* :func:`dequant_gathered`   — dequantize a :func:`gather_kv` view.
+
+The JAX writers return a new pool; these write the pool (and the scales)
+IN PLACE and return them, which keeps one copy of the largest tensor of the
+server. Page 0 is the TRASH page: every write that must land nowhere goes
+there, and no read ever sees it.
 
 Host side: :class:`PageManager` owns the free list as plain Python; the
 scheduler reserves a request's worst-case pages at admission. The prefix
-cache and the int8 (``_q8``) writers are ROADMAP A.4 and A.2.
+cache is ROADMAP A.4; the span writers come with speculative decoding
+(A.3).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["TRASH_PAGE", "gather_kv", "write_prompt_kv", "write_token_kv",
-           "PageManager"]
+__all__ = ["TRASH_PAGE", "Q8_MAX", "gather_kv", "write_prompt_kv",
+           "write_token_kv", "write_prompt_kv_q8", "write_token_kv_q8",
+           "dequant_gathered", "PageManager"]
 
 TRASH_PAGE = 0  # reserved: masked/invalid writes land here, reads never do
+
+Q8_MAX = 127.0  # symmetric int8: value = q * scale, q in [-127, 127]
 
 
 def gather_kv(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -76,6 +90,86 @@ def write_token_kv(pages: torch.Tensor, block_table: torch.Tensor,
     phys = torch.gather(block_table, 1, page_idx[:, None].long())[:, 0]
     pages[phys.long(), (positions % ps).long()] = kv.to(pages.dtype)
     return pages
+
+
+def _q8(rows: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize fp rows to int8 under a per-row ``scale`` (broadcastable).
+    ``scale == 0`` (all-zero content) maps everything to 0. ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    s = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(rows.float() / s)
+    return torch.clamp(q, -Q8_MAX, Q8_MAX).to(torch.int8)
+
+
+def write_prompt_kv_q8(pages: torch.Tensor, scales: torch.Tensor,
+                       block_table: torch.Tensor, kv: torch.Tensor,
+                       valid: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`write_prompt_kv`, in place: quantize a prefill's
+    K (or V) rows at page granularity and SET each touched page's scale to
+    ``absmax(its prompt rows) / 127``. SET, not max-accumulated against the
+    leftover scale of the page's previous request, so quantization is a
+    pure function of the prompt. The trash page, which padded rows
+    scribble on, keeps its scale (no read ever maps it). ``pages`` is the
+    int8 pool, ``scales`` its [P] f32 sidecar. Returns both."""
+    b, h, l, dh = kv.shape
+    ps = pages.shape[1]
+    pos = torch.arange(l, device=kv.device)
+    page_idx = torch.clamp(pos // ps, max=block_table.shape[1] - 1)
+    phys = block_table[:, page_idx]               # [B, L]
+    phys = phys.masked_fill(valid <= 0, TRASH_PAGE).reshape(-1).long()
+    rows = kv.transpose(1, 2).reshape(b * l, h, dh)
+    row_amax = rows.float().abs().amax(dim=(1, 2))
+    fresh = torch.zeros_like(scales).scatter_reduce(
+        0, phys, row_amax / Q8_MAX, reduce="amax")
+    touched = torch.zeros_like(scales, dtype=torch.bool)
+    touched[phys] = True
+    touched[TRASH_PAGE] = False
+    scales.copy_(torch.where(touched, fresh, scales))
+    off = (pos % ps).expand(b, l).reshape(-1)
+    pages[phys, off] = _q8(rows, scales[phys][:, None, None])
+    return pages, scales
+
+
+def write_token_kv_q8(pages: torch.Tensor, scales: torch.Tensor,
+                      block_table: torch.Tensor, kv: torch.Tensor,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`write_token_kv` with rescale-on-grow, in place.
+    A row beyond its page's current scale grows the scale to
+    ``max(old, absmax(row) / 127)`` and the page's existing int8 content is
+    re-expressed under it (``round(q * old / new)``), instead of clipping
+    the row. Several inactive slots may write the trash page at once; which
+    of them lands there does not matter, nothing reads it. Returns
+    ``(pages, scales)``."""
+    ps = pages.shape[1]
+    page_idx = torch.clamp(positions // ps, max=block_table.shape[1] - 1)
+    phys = torch.gather(block_table, 1, page_idx[:, None].long())[:, 0].long()
+    row_amax = kv.float().abs().amax(dim=(1, 2))  # [B]
+    old = scales[phys]
+    new = torch.maximum(old, row_amax / Q8_MAX)
+    grown = new > 0
+    ratio = torch.where(grown, old / torch.where(grown, new,
+                                                 torch.ones_like(new)),
+                        torch.zeros_like(new))
+    page = torch.clamp(torch.round(pages[phys].float()
+                                   * ratio[:, None, None, None]),
+                       -Q8_MAX, Q8_MAX).to(torch.int8)  # [B, ps, H, Dh]
+    page[torch.arange(phys.shape[0], device=phys.device),
+         (positions % ps).long()] = _q8(kv, new[:, None, None])
+    pages[phys] = page
+    scales[phys] = new
+    return pages, scales
+
+
+def dequant_gathered(dense: torch.Tensor, scales: torch.Tensor,
+                     block_table: torch.Tensor, page_size: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize a :func:`gather_kv` result: ``dense`` [B, H, n*ps, Dh]
+    int8 -> ``dtype``, each position scaled by its source page's scale."""
+    per_page = scales[block_table.long()]         # [B, n]
+    per_pos = torch.repeat_interleave(per_page, page_size, dim=1)
+    return (dense.float() * per_pos[:, None, :, None]).to(dtype)
 
 
 class PageManager:

@@ -103,7 +103,8 @@ class DecodeServer:
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None, dispatch_lag: int = 1,
-                 decode_impl: str = "auto", device=None) -> None:
+                 decode_impl: str = "auto", kv_quant: str = "fp",
+                 device=None) -> None:
         from ..utils.device import resolve_device
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
@@ -118,7 +119,8 @@ class DecodeServer:
             max_pages=max_pages, max_prompt_len=max_prompt_len,
             max_len=max_len, prefill_batch=prefill_batch,
             decode_span=decode_span, temperature=temperature, top_k=top_k,
-            top_p=top_p, seed=seed, decode_impl=decode_impl)
+            top_p=top_p, seed=seed, decode_impl=decode_impl,
+            kv_quant=kv_quant)
         self.mgr = PageManager(max_pages, page_size)
         s = decode_slots
         self.block_tables = np.zeros((s, self.engine.pages_per_slot),

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's serving path goes, on one GPU.
 
-    python3 scripts/profile_torch_serve.py [--trace serve_trace.json]
+    python3 scripts/profile_torch_serve.py [--kv_quant fp|int8]
+        [--trace serve_trace.json]
 
 Serves the ``chip_smoke.py`` workload (GPT-2 base at full width, seeded
 random weights, 32 slots, 64 requests of 256 prompt tokens, 128 new tokens,
-greedy, decode_span 4) three times: a warm-up, a window timed by the host
+greedy, decode_span 4) over a bf16 (``fp``) or ``int8`` KV pool three
+times: a warm-up, a window timed by the host
 clock, and the same window under ``torch.profiler`` (device activity only).
 Prints the timed window's wall time, tokens/s and host time in the
 engine's prefill and decode calls; the device busy time (sum of the
@@ -48,6 +50,8 @@ def main() -> int:
     ap.add_argument("--trace", default="",
                     help="also write a Chrome/Perfetto trace here")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--kv_quant", default="fp", choices=("fp", "int8"),
+                    help="paged KV storage of the served pool")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: CUDA is not available", file=sys.stderr)
@@ -60,7 +64,7 @@ def main() -> int:
     model.load_state_dict(init_params(CFG, seed=0))
     server = DecodeServer(model, decode_slots=32, page_size=16,
                           max_prompt_len=512, decode_span=4, dispatch_lag=2,
-                          device="cuda")
+                          kv_quant=args.kv_quant, device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(4, CFG["vocab_size"], (256,)).astype(np.int32)
                for _ in range(64)]
@@ -124,7 +128,9 @@ def main() -> int:
     for r in rows[:args.top]:
         print(f"{r['device_ms']:10.3f} ms {r['share_of_busy']:7.4f} "
               f"{r['calls']:7d}  {r['kernel']}")
-    print(json.dumps({"card": card, **timed_run, "device_busy_s": busy_s,
+    print(json.dumps({"card": card, "kv_quant": args.kv_quant,
+                      "kv_pool_bytes": server.engine.kv_pool_bytes(),
+                      **timed_run, "device_busy_s": busy_s,
                       "idle_share": 1 - busy_s / wall,
                       "tokens_per_s": timed_run["tokens"] / wall,
                       "top_kernels": rows[:args.top]}))

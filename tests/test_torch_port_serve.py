@@ -1,8 +1,8 @@
 """The port's serving stack on the CPU: the continuous-batching
-``DecodeServer`` against the JAX package's (XLA decode arm), the
-``run.serve`` entry from a port run directory, the settings' deferred
-options, sampling, and the import rule (no JAX, nothing of the JAX
-package)."""
+``DecodeServer`` against the JAX package's (XLA decode arm), over fp and
+int8 (``kv_quant="int8"``) KV pools, the ``run.serve`` entry from a port run
+directory, the settings' deferred options, sampling, and the import rule
+(no JAX, nothing of the JAX package)."""
 
 import json
 import os
@@ -55,14 +55,18 @@ def _prompts():
             for n in (3, 8, 1, 6, 2, 7)]
 
 
-@pytest.mark.parametrize("span", [1, 3])
-def test_greedy_tokens_identical_to_jax_server(jax_and_port, span):
+@pytest.mark.parametrize("span,kv_quant", [(1, "fp"), (3, "fp"),
+                                           (1, "int8"), (3, "int8")],
+                         ids=["1", "3", "1-int8", "3-int8"])
+def test_greedy_tokens_identical_to_jax_server(jax_and_port, span,
+                                               kv_quant):
     """6 mixed-length prompts on 2 slots (admission repeats, budgets end
     mid-span): the port's greedy server gives the JAX XLA-arm server's
-    tokens exactly, and leaks no slot or page."""
+    tokens exactly, over fp and int8 KV pools, and leaks no slot or
+    page."""
     wl, params, model = jax_and_port
     kw = dict(decode_slots=2, page_size=4, max_prompt_len=8, max_len=32,
-              decode_span=span, seed=0)
+              decode_span=span, seed=0, kv_quant=kv_quant)
     budgets = [5, 9, 4, 7, 12, 3]
     jsrv = JaxDecodeServer(wl, params, decode_impl="xla", **kw)
     psrv = DecodeServer(model, decode_impl="auto", device="cpu", **kw)
@@ -77,6 +81,27 @@ def test_greedy_tokens_identical_to_jax_server(jax_and_port, span):
     assert outs[0] == outs[1]
     assert [len(t) for t in outs[1]] == budgets
     assert psrv.prefill_steps >= 3 and psrv.decode_steps > 0
+
+
+def test_int8_pool_holds_at_most_055_of_the_fp_pool(jax_and_port):
+    """The JAX package's bar for the int8 pool: pages plus scale sidecars
+    at most 0.55x the fp pool's bytes at the same geometry; the pool is
+    int8 with [P] f32 scales for K and V in every layer."""
+    _, _, model = jax_and_port
+    kw = dict(decode_slots=2, page_size=4, max_prompt_len=8, max_len=32,
+              device="cpu")
+    fp = DecodeServer(model, **kw).engine
+    q8 = DecodeServer(model, kv_quant="int8", **kw).engine
+    assert q8.kv_pool_bytes() <= 0.55 * fp.kv_pool_bytes()
+    P = q8.max_pages
+    for pk, pv, sk, sv in q8.kv_cache:
+        assert pk.dtype == pv.dtype == torch.int8
+        assert sk.dtype == sv.dtype == torch.float32
+        assert sk.shape == sv.shape == (P,)
+    assert fp.kv_pool_bytes() == sum(t.numel() * 4 for e in fp.kv_cache
+                                     for t in e)
+    with pytest.raises(ValueError, match="kv_quant"):
+        DecodeServer(model, kv_quant="fp8", **kw)
 
 
 def test_budget_to_the_position_table_edge(jax_and_port):
@@ -179,8 +204,25 @@ def test_run_serve_cpu_end_to_end(run_dir, tmp_path, capsys):
     assert result["decode_tokens"] == 25 and result["device"] == "cpu"
     assert result["decode_kernel_launches"] == 0   # CPU: the plain version
     assert result["ttft_p95_s"] >= result["ttft_p50_s"] > 0
+    assert result["kv_quant"] == "fp" and result["kv_pool_bytes"] > 0
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [len(r["tokens"]) for r in rows] == [5] * 5
+
+
+def test_run_serve_int8_pool_end_to_end(run_dir, capsys):
+    """``--kv_quant int8`` through the entry: every request gets its
+    tokens, and the summary names the pool and its bytes (about a quarter
+    of the f32 pool's)."""
+    argv = ["--checkpoint_path", run_dir, "--device", "cpu",
+            "--decode_slots", "2", "--page_size", "4",
+            "--max_prompt_len", "8", "--synthetic_requests", "3",
+            "--synthetic_prompt_len", "6", "--max_new_tokens", "4"]
+    fp = serve_mod.main(argv)
+    q8 = serve_mod.main(argv + ["--kv_quant", "int8"])
+    assert q8["decode_tokens"] == 12 and q8["requests"] == 3
+    assert q8["kv_quant"] == "int8" and fp["kv_quant"] == "fp"
+    assert q8["kv_pool_bytes"] <= 0.55 * fp["kv_pool_bytes"]
+    assert q8["decode_kernel_launches"] == 0
 
 
 def test_run_serve_without_device_needs_cuda(run_dir, monkeypatch):
@@ -192,7 +234,7 @@ def test_run_serve_without_device_needs_cuda(run_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("kv_quant", "int8"), ("spec_tokens", "2"), ("prefix_cache", "true"),
+    ("spec_tokens", "2"), ("prefix_cache", "true"),
     ("serve_quant", "int8"), ("replicas", "2"), ("disagg", "1"),
     ("traffic", "poisson"), ("ema", "0.99"), ("cost_ledger", "true"),
     ("sanitize", "true"), ("trace", "true")])
@@ -209,6 +251,17 @@ def test_settings_defaults_and_decode_impl_choices():
         (4, 2, "auto", "")
     with pytest.raises(SystemExit):
         parse_settings(["--checkpoint_path", "x", "--decode_impl", "xla"])
+
+
+def test_kv_quant_is_served_and_checked_at_parse_time():
+    """``--kv_quant int8`` is no longer deferred; values outside fp|int8
+    still fail at parse time."""
+    assert "kv_quant" not in DEFERRED
+    s = parse_settings(["--checkpoint_path", "x", "--kv_quant", "int8"])
+    assert s.kv_quant == "int8"
+    assert parse_settings(["--checkpoint_path", "x"]).kv_quant == "fp"
+    with pytest.raises(SystemExit):
+        parse_settings(["--checkpoint_path", "x", "--kv_quant", "fp8"])
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
