@@ -62,7 +62,23 @@ Phases (any failure raises, and the script exits non-zero):
    every loss must be finite and the last below the first, the run dir
    must hold the final model/EMA/optimizer files and ``run.serve`` must
    answer 4 requests from it; then one step from the saved state with the
-   kernels and with the plain versions, loss and grad norm compared.
+   kernels and with the plain versions, loss and grad norm compared;
+9. diffuseq: DiffuSeq-base at full width (hidden 768, 12 layers, 12 heads,
+   emb_dim 128, vocab 8192, seq_len 128, 2000 ``sqrt`` diffusion steps;
+   91,039,872 parameters) through ``run.train`` with the JAX package's
+   defaults (no family flag; batch 256 in microbatches of 64, 20 steps,
+   EMA 0.5/0.9/0.99, attention and update ``auto``): the update must run
+   once a step and the flash kernels never (the dense arm at 128, the JAX
+   rule), every loss finite and the last below the first, the run dir's
+   final files present; one step from the saved state with the fused
+   update and with its plain version; then DiffuSeq-base at seq_len 1024
+   (batch 8 in microbatches of 4, padded rows), one step through ``auto``
+   (the flash kernels' bidirectional, pad-masked arm: 24 + 24 launches, 1
+   update) and one through the plain versions (none), loss within 0.5% and
+   grad norm within 3%; then ``run.sample`` on the trained run dir (2
+   batches of 32, 20 reverse-diffusion steps): ``decode_acc`` in [0, 1],
+   ``eval_loss`` finite. The fused update is also held against its plain
+   version and timed at DiffuSeq-base's parameter count (phase 5's checks).
 
 The line before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +87,7 @@ The line before the last is ``{"kernels": [...]}`` and the last is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -81,6 +98,10 @@ import time
 GPT2_BASE = dict(model_family="gpt2", model_size="base", vocab_size=50257,
                  seq_len=1024, hidden_size=768, num_layers=12, num_heads=12,
                  dtype="bfloat16")
+DIFFUSEQ_BASE = dict(model_family="diffuseq", model_size="base",
+                     vocab_size=8192, seq_len=128, hidden_size=768,
+                     num_layers=12, num_heads=12, diffusion_steps=2000,
+                     noise_schedule="sqrt", dtype="bfloat16")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -569,11 +590,14 @@ def bound(hbm_bytes: float, flops: float, bw: float, peak: float) -> dict:
             "hbm_bytes": hbm_bytes, "flops": flops}
 
 
-def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
+def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed,
+                long_rows: bool = False):
     """Kernel forward and backward vs the plain versions on one case; bf16
     against the plain version in f32 from the same bf16 inputs. Returns
     the max abs errors, and for bf16 the max difference between two
-    backward calls on the same inputs (dq is summed by atomics)."""
+    backward calls on the same inputs (dq is summed by atomics).
+    ``long_rows`` (bf16, every row hundreds of live keys) holds ``out`` to
+    its rounding bound instead (``long_rows_out``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
@@ -597,8 +621,12 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
         # cancellation in the sums: atol 1e-3 of the largest entry
         tol = dict(rtol=8e-3, atol=1e-3 * float(ref_out.abs().max()))
         tol_b = None
-    errs = {"out": close_enough(out, ref_out, **tol),
-            "lse": close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)}
+    if long_rows:
+        errs = long_rows_out(torch, fa, q, k, v, mask, causal, out, ref_out,
+                             ref_lse)
+    else:
+        errs = {"out": close_enough(out, ref_out, **tol)}
+    errs["lse"] = close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         # bf16: p and ds enter their products as bf16 (2^-9 relative each)
         # and dq is summed by f32 atomics in a varying order. A row with
@@ -627,6 +655,57 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed):
         errs["rerun_max_diff"] = max(float((a.float() - b.float()).abs().max())
                                      for a, b in zip(again, (dq, dk, dv)))
     return errs
+
+
+def long_rows_out(torch, fa, q, k, v, mask, causal, out, ref_out,
+                  ref_lse) -> dict:
+    """The bf16 forward's ``out`` where every row attends to hundreds of
+    keys. Each p is rounded to bf16 (2^-9 relative) before p.v and ``out``
+    once more, so |out - ref| <= 2^-9 (p.|v|) + 2^-9 |ref| in exact
+    arithmetic: held entrywise at twice that, and in relative Frobenius
+    norm within 1e-2. A bar of 1e-3 of the largest entry (the short and
+    causal cases') is not met here by the plain version itself in bf16:
+    the p-rounding error of an entry scales with p.|v|, which stays near
+    E|v| while the entry itself averages towards 0 over long rows; both
+    are printed. The plain version with the pad mask dropped must fall
+    outside the bars."""
+    f = [t.float() for t in (q, k, v)]
+    live = mask.bool()[:, None, None, :]
+    if causal:
+        L = q.shape[-2]
+        live = live & torch.ones((L, L), dtype=torch.bool,
+                                 device=q.device).tril()
+    s = torch.einsum("bhld,bhmd->bhlm", f[0], f[1]) * q.shape[-1] ** -0.5
+    p = torch.where(live, torch.exp(s - ref_lse[..., None]), 0.0)
+    del s
+    bound = 2.0 ** -8 * (p @ f[2].abs() + ref_out.abs())
+    del p
+    ref = ref_out.float()
+
+    def judge(got) -> dict:
+        err = (got.float() - ref).abs()
+        return {"max_abs_err": float(err.max()),
+                "max_err_over_bound": float((err / bound).max()),
+                "rel_fro": float((got.float() - ref).norm() / ref.norm()),
+                "outside_global_max_bar": int((err > 1e-3 * float(
+                    ref.abs().max()) + 8e-3 * ref.abs()).sum())}
+
+    kernel = judge(out)
+    plain = judge(fa.torch_flash_forward(q, k, v, mask, causal)[0])
+    wrong = judge(fa.torch_flash_forward(*f, None, causal)[0])
+    print(f"# flash check, long rows: kernel {kernel}; the plain version "
+          f"in bf16 {plain}; the plain version without the pad mask "
+          f"{wrong}", flush=True)
+    check(kernel["max_err_over_bound"] <= 1.0 and kernel["rel_fro"] <= 1e-2,
+          f"long rows: out outside its rounding bound: {kernel}")
+    check(wrong["max_err_over_bound"] > 1.0 and wrong["rel_fro"] > 1e-2,
+          f"long rows: the bars cannot tell a dropped pad mask: {wrong}")
+    return {"out": kernel["max_abs_err"], "out_rel_fro": kernel["rel_fro"],
+            "out_err_over_bound": kernel["max_err_over_bound"],
+            "plain_bf16_out_err_over_bound": plain["max_err_over_bound"],
+            "out_outside_global_max_bar": kernel["outside_global_max_bar"],
+            "plain_bf16_outside_global_max_bar":
+                plain["outside_global_max_bar"]}
 
 
 def build_report(log_path: str) -> list:
@@ -673,7 +752,14 @@ def flash_phase(torch, bw, bf16_peak) -> list:
         "l129_bf16": (2, 4, 129, 128, bf16, True, [129, 129]),
         "noncausal_dead_bf16": (2, 4, 200, Dh, bf16, False, [200, 0]),
     }
-    errs = {name: flash_check(torch, fa, *c, seed=i)
+    # the DiffuSeq seq-1024 step's two microbatches: bidirectional, with the
+    # pad mask live inside every row (diffuseq_long_step drives this path)
+    lens = long_batch()["pad_mask"].sum(1).tolist()
+    for mb in range(2):
+        cases[f"diffuseq_seq1024_mb{mb}_bf16"] = (
+            B, H, L, Dh, bf16, False, lens[4 * mb:4 * mb + 4])
+    errs = {name: flash_check(torch, fa, *c, seed=i,
+                              long_rows=name.startswith("diffuseq"))
             for i, (name, c) in enumerate(cases.items())}
     print(f"# flash check: max abs err {json.dumps(errs)}", flush=True)
     rerun = max(e.get("rerun_max_diff", 0.0) for e in errs.values())
@@ -756,20 +842,22 @@ def flash_phase(torch, bw, bf16_peak) -> list:
     return rows
 
 
-def gpt2_base_param_shapes():
+def param_shapes(cfg: dict) -> list:
     from distributed_pipeline_tpu_torch.models import \
         create_model_from_config
-    model = create_model_from_config(**GPT2_BASE, device="meta")
+    model = create_model_from_config(**cfg, device="meta")
     return [tuple(p.shape) for p in model.parameters()]
 
 
-def update_phase(torch, bw, f32_peak) -> dict:
-    """The fused update vs its plain version, bitwise over 3 steps, at GPT-2
-    base's parameter count with 3 EMA rates; its time beside its bound."""
+def update_phase(torch, bw, f32_peak, cfg: dict,
+                 name: str = "fused_adamw_ema") -> dict:
+    """The fused update vs its plain version, bitwise over 3 steps, at the
+    parameter count of the model ``cfg`` with 3 EMA rates; its time beside
+    its bound."""
     from distributed_pipeline_tpu_torch.ops import fused_update as fu
 
     dev = torch.device("cuda")
-    shapes = gpt2_base_param_shapes()
+    shapes = param_shapes(cfg)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     n, rates = sum(sizes), [0.5, 0.9, 0.99]
     g = torch.Generator(device=dev).manual_seed(11)
@@ -793,8 +881,8 @@ def update_phase(torch, bw, f32_peak) -> dict:
     for a, b in zip(arms["kernel"], arms["plain"]):
         check(torch.equal(a, b), "fused update differs from its plain "
               "version (must be bitwise)")
-    print(f"# update check: {n} elements x 3 steps, kernel == plain "
-          f"bitwise", flush=True)
+    print(f"# update check ({cfg['model_family']}): {n} elements x 3 steps, "
+          f"kernel == plain bitwise", flush=True)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     scal = fu.update_scalars(count, lr_fn)
     st = arms["kernel"]
@@ -808,7 +896,7 @@ def update_phase(torch, bw, f32_peak) -> dict:
     opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01, fused=True)
     library_ms = time_ms(opt.step, torch, flush)
     del arms, base, ema0, leaves, opt
-    return {"name": "fused_adamw_ema", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "distributed_pipeline_tpu_torch/ops/csrc/"
                       "fused_update.cu",
             "replaces": "distributed_pipeline_tpu/ops/fused_update.py:90",
@@ -942,6 +1030,275 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
     return {"one_step": out}
 
 
+def diffuseq_phase(torch, fa, fu) -> dict:
+    """DiffuSeq-base through run.train with the JAX package's defaults, one
+    step from its saved state with the fused update and with the plain
+    one, one step at seq_len 1024 through the flash kernels and through
+    their plain versions, and run.sample on the trained run dir."""
+    from distributed_pipeline_tpu_torch.run import sample as sample_mod
+    from distributed_pipeline_tpu_torch.run.train import main as train_main
+
+    steps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "diffuseq_base_train")
+        argv = ["--checkpoint_path", run, "--batch_size", "256",
+                "--microbatch", "64", "--learning_steps", str(steps),
+                "--ema_rate", "0.5,0.9,0.99", "--attention_impl", "auto",
+                "--fused_update", "auto", "--log_interval", "5",
+                "--save_interval", "0", "--seed", "0"]
+        fa.reset_launch_counts()
+        fu.reset_launch_count()
+        t0 = time.perf_counter()
+        loop = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_forward": fa.forward_launch_count(),
+                    "flash_backward": fa.backward_launch_count(),
+                    "fused_adamw_ema": fu.launch_count()}
+        check(loop.model.family == "diffuseq"
+              and loop.n_params == 91_039_872,
+              f"trained {loop.model.family} with {loop.n_params} parameters")
+        check(launches == {"flash_forward": 0, "flash_backward": 0,
+                           "fused_adamw_ema": steps},
+              f"launches {launches}: expected the update once a step and "
+              f"no flash kernel (dense arm at seq_len 128)")
+        losses = [h["loss"] for h in loop.history]
+        check(len(losses) == steps and all(
+            x == x and abs(x) < float("inf") for x in losses),
+            f"losses not finite: {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        with open(os.path.join(run, "progress.csv")) as f:
+            rows = f.read().splitlines()
+        last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+        gauges = {k: float(last[k]) for k in
+                  ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
+        print(f"# diffuseq train: {steps} steps in {wall:.1f} s, losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}, "
+              f"last window {gauges}", flush=True)
+        for name in (f"model_{steps:06d}.pt", f"opt_{steps:06d}.pt",
+                     f"meta_{steps:06d}.json", f"ema_0.5_{steps:06d}.pt",
+                     f"ema_0.9_{steps:06d}.pt", f"ema_0.99_{steps:06d}.pt"):
+            check(os.path.exists(os.path.join(run, name)), f"no {name}")
+        del loop
+        torch.cuda.empty_cache()
+        update_step = diffuseq_update_step(torch, fu, run, steps)
+
+        t0 = time.perf_counter()
+        pred_path = os.path.join(tmp, "pred.jsonl")
+        sampled = sample_mod.main(["--checkpoint_path", run,
+                                   "--batch_size", "32", "--num_batches",
+                                   "2", "--sample_steps", "20", "--mbr", "1",
+                                   "--out", pred_path])
+        sample_wall = time.perf_counter() - t0
+        check(sampled["step"] == steps
+              and 0.0 <= sampled["decode_acc"] <= 1.0
+              and math.isfinite(sampled["eval_loss"]),
+              f"run.sample on the trained run dir: {sampled}")
+        check_predictions(pred_path, run, sampled["decode_acc"])
+        print(f"# diffuseq sample: decode_acc {sampled['decode_acc']}, "
+              f"eval_loss {sampled['eval_loss']}, {sample_wall:.2f} s",
+              flush=True)
+    long_ctx = diffuseq_long_step(torch, fa, fu)
+    return {"launches": launches, "losses": losses, "wall_s": wall,
+            **gauges, "update_step": update_step, "seq1024": long_ctx,
+            "sample": {**sampled, "wall_s": sample_wall}}
+
+
+def check_predictions(path: str, run: str, decode_acc: float) -> None:
+    """run.sample's ``--out`` rows against the valid batches it decoded:
+    the gold ids are those batches, the prediction keeps every id off the
+    target span (the anchored source, the padding), its ids are in the
+    vocabulary, and the target-span accuracy recomputed from the rows is
+    the ``decode_acc`` it printed."""
+    import numpy as np
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+
+    with open(os.path.join(run, "training_args.json")) as f:
+        targs = json.load(f)
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    data = load_data_from_args("valid", **{
+        **targs, "batch_size": 32, "deterministic": True,
+        "num_loader_proc": 0, "data_loader_workers": 0})
+    check(len(rows) == 64, f"run.sample wrote {len(rows)} rows, not 64")
+    accs = []
+    for b in range(2):
+        batch = next(data)
+        gold = np.array([r["gold"] for r in rows[32 * b:32 * b + 32]])
+        pred = np.array([r["pred"] for r in rows[32 * b:32 * b + 32]])
+        tgt = batch["input_mask"] * batch["pad_mask"]
+        check(np.array_equal(gold, batch["input_ids"]),
+              f"batch {b}: the written gold ids are not the valid batch")
+        check(pred.shape == gold.shape and np.array_equal(
+            pred[batch["input_mask"] == 0], gold[batch["input_mask"] == 0]),
+            f"batch {b}: the prediction changed ids off the target span")
+        check(int(pred.min()) >= 0 and int(pred.max()) < targs["vocab_size"],
+              f"batch {b}: predicted ids outside the vocabulary")
+        accs.append(float(((pred == gold) * tgt).sum() / max(tgt.sum(), 1)))
+    check(abs(sum(accs) / 2 - decode_acc) <= 1e-6,
+          f"decode_acc {decode_acc} is not the rows' {sum(accs) / 2}")
+
+
+def diffuseq_update_step(torch, fu, run, steps: int) -> dict:
+    """One step from the run dir's saved state with the fused update and
+    one with its plain version (attention on the dense arm in both). The
+    forward is the same computation, so the losses must agree to 1e-6; the
+    embedding gradient is summed by atomics, so the grad norms are held to
+    1e-4; the updated state must be bitwise equal where the gradients are
+    (the update is bitwise its plain version)."""
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.utils.logger import Logger
+    from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
+
+    batch = next(load_data_from_args("train", batch_size=256, seq_len=128,
+                                     vocab_size=8192, seed=0,
+                                     skip_batches=steps))
+    out, state = {}, {}
+    for arm, fused in (("kernel", "auto"), ("plain", "false")):
+        loop = TrainLoop(
+            model=create_model_from_config(**DIFFUSEQ_BASE, device="cuda"),
+            data=None, batch_size=256, microbatch=64,
+            ema_rate="0.5,0.9,0.99", learning_steps=steps + 1, seed=0,
+            checkpoint_dir=run, fused_update=fused, logger=Logger(""))
+        check(loop.step == steps, f"resumed at step {loop.step}")
+        fu.reset_launch_count()
+        m = loop.run_step(batch)
+        out[arm] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])}
+        check(fu.launch_count() == (1 if arm == "kernel" else 0),
+              f"{arm} arm: {fu.launch_count()} update launches")
+        state[arm] = [t.clone() for t in (loop.grads, loop.params, loop.mu,
+                                          loop.nu, loop.ema)]
+        del loop
+    a, b = out["kernel"], out["plain"]
+    same_grads = torch.equal(state["kernel"][0], state["plain"][0])
+    same_state = all(torch.equal(x, y) for x, y in zip(state["kernel"][1:],
+                                                       state["plain"][1:]))
+    del state
+    torch.cuda.empty_cache()
+    print(f"# diffuseq: one step from the saved state, fused update {a}, "
+          f"plain {b}; gradients bitwise equal {same_grads}, updated state "
+          f"bitwise equal {same_state}", flush=True)
+    check(abs(a["loss"] - b["loss"]) <= 1e-6 * abs(b["loss"]),
+          f"one-step loss differs: {a} vs {b}")
+    check(abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * b["grad_norm"],
+          f"one-step grad norm differs: {a} vs {b}")
+    check(same_state or not same_grads,
+          "equal gradients gave a different updated state")
+    return {**out, "grads_bitwise_equal": same_grads,
+            "state_bitwise_equal": same_state}
+
+
+def long_batch() -> dict:
+    """The DiffuSeq seq-1024 step's batch: 8 padded synthetic seq2seq rows,
+    as numpy arrays."""
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+    return next(load_data_from_args("train", batch_size=8, seq_len=1024,
+                                    vocab_size=8192, seed=0))
+
+
+def attention_grads(loop) -> dict:
+    """Each block's attention weight gradients (qkv, out) after a step."""
+    return {name: g.detach().float().clone()
+            for name, g in loop.state_dict_of(loop.grads).items()
+            if ".attn." in name}
+
+
+def worst_leaf(grads: dict, ref: dict) -> tuple:
+    """(leaf, relative Frobenius error) of the leaf furthest from ``ref``."""
+    errs = {n: float((grads[n] - ref[n]).norm() / ref[n].norm()) for n in ref}
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def diffuseq_long_step(torch, fa, fu) -> dict:
+    """DiffuSeq-base at seq_len 1024 (seeded random weights, padded rows):
+    one step through ``auto`` (the flash kernels, bidirectional and
+    pad-masked, and the fused update) and one through the plain versions,
+    held to each other by the loss, the grad norm and every block's
+    attention weight gradients. Two more plain steps, with the pad mask
+    dropped from attention and with attention made causal, show what a
+    kernel that got the mask wrong would give: the same bars must reject
+    both."""
+    from distributed_pipeline_tpu_torch.convert import init_params
+    from distributed_pipeline_tpu_torch.models import \
+        backbone, create_model_from_config
+    from distributed_pipeline_tpu_torch.utils.logger import Logger
+    from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
+
+    cfg = {**DIFFUSEQ_BASE, "seq_len": 1024}
+    batch = long_batch()
+    lens = batch["pad_mask"].sum(1).tolist()
+    check(min(lens) < 1024, f"no padded row at seq_len 1024: {lens}")
+    sd = init_params(cfg, seed=0)
+    attend = backbone.dot_product_attention
+    wrong = {
+        "no_pad_mask": lambda q, k, v, pad_mask, causal, impl:
+            attend(q, k, v, None, causal=causal, impl=impl),
+        "causal": lambda q, k, v, pad_mask, causal, impl:
+            attend(q, k, v, pad_mask, causal=True, impl=impl),
+    }
+    out, grads = {}, {}
+    for arm, (attn, fused) in (("kernels", ("auto", "auto")),
+                               ("plain", ("torch", "false")),
+                               ("no_pad_mask", ("torch", "false")),
+                               ("causal", ("torch", "false"))):
+        loop = TrainLoop(
+            model=create_model_from_config(**{**cfg, "attention_impl": attn},
+                                           device="cuda"),
+            data=None, batch_size=8, microbatch=4, lr=1e-4,
+            ema_rate="0.5,0.9,0.99", learning_steps=20, seed=0,
+            init_params=sd, checkpoint_dir="", fused_update=fused,
+            logger=Logger(""))
+        fa.reset_launch_counts()
+        fu.reset_launch_count()
+        backbone.dot_product_attention = wrong.get(arm, attend)
+        try:
+            m = loop.run_step(batch)
+        finally:
+            backbone.dot_product_attention = attend
+        out[arm] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])}
+        grads[arm] = attention_grads(loop)
+        n = (fa.forward_launch_count(), fa.backward_launch_count(),
+             fu.launch_count())
+        out[arm]["launches"] = n
+        check(n == ((24, 24, 1) if arm == "kernels" else (0, 0, 0)),
+              f"seq_len 1024 {arm} arm launches {n}")
+        del loop
+        torch.cuda.empty_cache()
+    b = out["plain"]
+    # the bars of the GPT-2 step (train phase): bf16 through 12 layers.
+    # Per attention leaf, 3% in relative Frobenius norm: the kernel's dq,
+    # dk and dv are held to 1e-2 each (flash_check), and a weight gradient
+    # sums them over 8,192 tokens and carries them through 12 layers
+    failed = {}
+    for arm in ("kernels", "no_pad_mask", "causal"):
+        a = out[arm]
+        leaf, err = worst_leaf(grads[arm], grads["plain"])
+        a.update(worst_attention_leaf=leaf, worst_attention_rel_fro=err)
+        failed[arm] = [what for what, bad in (
+            ("loss", abs(a["loss"] - b["loss"]) > 5e-3 * abs(b["loss"])),
+            ("grad_norm",
+             abs(a["grad_norm"] - b["grad_norm"]) > 3e-2 * b["grad_norm"]),
+            ("attention_grads", err > 3e-2)) if bad]
+        a["bars_failed"] = failed[arm]
+    del grads
+    print(f"# diffuseq seq_len 1024 (row lengths {lens}): one step, kernels "
+          f"{out['kernels']}, plain {b}; a wrong mask: pad mask dropped "
+          f"{out['no_pad_mask']}, causal {out['causal']}", flush=True)
+    check(not failed["kernels"],
+          f"seq_len 1024 kernels against plain: {failed['kernels']} outside "
+          f"the bars: {out}")
+    for arm in ("no_pad_mask", "causal"):
+        check(bool(failed[arm]),
+              f"seq_len 1024: the bars cannot tell a {arm} attention from "
+              f"the right one: {out[arm]} vs {b}")
+    return {**out, "row_lengths": lens}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -976,7 +1333,9 @@ def main() -> int:
 
     decode = kernel_phase(torch, fd, bw, bf16_peak)
     flash = flash_phase(torch, bw, bf16_peak)
-    update = update_phase(torch, bw, f32_peak)
+    update = update_phase(torch, bw, f32_peak, GPT2_BASE)
+    update_dq = update_phase(torch, bw, f32_peak, DIFFUSEQ_BASE,
+                             name="fused_adamw_ema_diffuseq")
     small_model_phase(torch)
     serve = serve_phase(torch, fd, bw, bf16_peak)
     for row, kv_quant in zip(decode, ("fp", "int8")):
@@ -986,9 +1345,15 @@ def main() -> int:
     train = train_phase(torch, fa, fu)
     for row in (*flash, update):
         row["launches"] = train["launches"][row["name"]]
+    diffuseq = diffuseq_phase(torch, fa, fu)
+    update_dq["launches"] = diffuseq["launches"]["fused_adamw_ema"]
+    for row, n in zip(flash, diffuseq["seq1024"]["kernels"]["launches"]):
+        row["launches_diffuseq_seq1024"] = n
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": train}), flush=True)
-    print(json.dumps({"kernels": [*decode, *flash, update]}), flush=True)
+    print(json.dumps({"diffuseq": diffuseq}), flush=True)
+    print(json.dumps({"kernels": [*decode, *flash, update, update_dq]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,12 +3,13 @@
 dataclass with an argparse bridge and a mutually exclusive
 ``--config_json``.
 
-Every field is a ``--flag`` with the JAX package's name and default (except
-``model_family``, whose only value here is ``gpt2``, and ``dataset``,
-``synthetic-lm``). Flags of options this port does not train yet are
-accepted so that a JAX command line reads the same, but any value other than
-the default fails at parse time with the ROADMAP item that brings it.
-``--device`` is the port's own: empty means CUDA.
+Every field is a ``--flag`` with the JAX package's name, default and
+choices, so the port trains what the JAX package trains with no flags:
+DiffuSeq on the synthetic seq2seq stream. Flags of options this port does
+not train yet are accepted so that a JAX command line reads the same, but
+any value other than the default fails at parse time with the ROADMAP item
+that brings it; so does ``--eval_decode true`` for GPT-2, whose decoder is
+ROADMAP A.7b. ``--device`` is the port's own: empty means CUDA.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import dataclasses
 import json
 from typing import Dict, Optional, Sequence, Tuple
 
-from ..data import DATASETS
+from ..models.diffusion import NOISE_SCHEDULES
 
-__all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
+__all__ = ["TrainSettings", "DEFERRED", "GPT2_DECODE", "create_parser",
+           "parse_settings"]
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
@@ -43,11 +45,9 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "sanitize": (False, "ROADMAP A.10 (sanitizer)"),
     "chaos_plan": ("", "ROADMAP A.10 (chaos harness)"),
     "profile_dir": ("", "ROADMAP A.10 (profiler window)"),
-    "eval_decode": (False, "ROADMAP A.7 (decoders)"),
     "mpmd": (False, "ROADMAP A.9 (MPMD pipeline)"),
-    "data_dir": ("", "ROADMAP A.7 (jsonl corpora)"),
 }
-_FAMILIES = {"diffuseq": "ROADMAP A.7 (DiffuSeq training)"}
+GPT2_DECODE = "ROADMAP A.7b (gpt2_decode, one_shot_decode)"
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
 _FALSE = {"false", "f", "0", "no", "n", "off"}
@@ -91,12 +91,18 @@ class TrainSettings:
     warmup_steps: int = _f(0, "linear LR warmup steps before the anneal")
     dispatch_lag: int = _f(1, "fetch/log step N-k's device scalars while "
                               "step N runs; 0 = eager")
+    eval_decode: bool = _f(False, "decode a validation batch at every eval "
+                                  "interval and log decode_acc (diffuseq)")
+    eval_decode_sample_steps: int = _f(32, "reverse-diffusion steps for eval "
+                                           "decoding (diffuseq only)")
     # data
-    dataset: str = _f("synthetic-lm", "dataset name", DATASETS)
+    dataset: str = _f("synthetic-seq2seq", "dataset name: synthetic-lm|lm|"
+                                           "gpt2 = the causal-LM stream, any "
+                                           "other = the seq2seq stream")
     data_dir: str = _f("", "dataset directory (empty = synthetic data)")
     data_loader_workers: int = _f(2, "host-side loader threads")
     # model
-    model_family: str = _f("gpt2", "model family", ("gpt2", "diffuseq"))
+    model_family: str = _f("diffuseq", "model family", ("diffuseq", "gpt2"))
     model_size: str = _f("base", "preset size",
                          ("base", "large", "xl", "medium"))
     vocab_size: int = _f(8192, "vocabulary size")
@@ -104,6 +110,9 @@ class TrainSettings:
     hidden_size: int = _f(0, "override hidden size; 0 = preset")
     num_layers: int = _f(0, "override layer count; 0 = preset")
     num_heads: int = _f(0, "override head count; 0 = preset")
+    diffusion_steps: int = _f(2000, "diffusion timesteps (diffuseq only)")
+    noise_schedule: str = _f("sqrt", "diffusion noise schedule (diffuseq "
+                                     "only)", NOISE_SCHEDULES)
     dtype: str = _f("bfloat16", "activation/compute dtype",
                     ("bfloat16", "float32"))
     attention_impl: str = _f(
@@ -140,14 +149,13 @@ class TrainSettings:
     sanitize: bool = _f(False, "runtime sanitizer")
     chaos_plan: str = _f("", "fault-injection schedule")
     profile_dir: str = _f("", "profiler trace directory")
-    eval_decode: bool = _f(False, "decode a validation batch at each eval")
     mpmd: bool = _f(False, "MPMD pipeline training")
 
     def __post_init__(self) -> None:
-        if self.model_family in _FAMILIES:
-            raise ValueError(f"--model_family {self.model_family} is not "
-                             f"trained by this port yet; it comes with "
-                             f"{_FAMILIES[self.model_family]}")
+        if self.eval_decode and self.model_family == "gpt2":
+            raise ValueError(f"--eval_decode true with --model_family gpt2 "
+                             f"is not ported yet; it comes with "
+                             f"{GPT2_DECODE}")
         for name, (served, item) in DEFERRED.items():
             if getattr(self, name) != served:
                 raise ValueError(

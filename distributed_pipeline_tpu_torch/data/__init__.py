@@ -1,6 +1,7 @@
 """The data pipeline for one process: copies of ``_host_index_stream``,
-``batch_iterator``, ``_prefetched``, ``skip_batches_for_samples`` and
-``load_data_from_args`` from ``distributed_pipeline_tpu/data/__init__.py``.
+``batch_iterator``, ``_prefetched``, ``skip_batches_for_samples``,
+``_build_dataset`` and ``load_data_from_args`` from
+``distributed_pipeline_tpu/data/__init__.py``.
 
 The same seed gives the JAX loader's batches in the same order: an infinite
 stream of fixed-shape ``[batch_size, seq_len]`` numpy batches, reshuffled
@@ -19,12 +20,16 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 
-from .dataset import SyntheticLMDataset
+from .dataset import (JsonlSeq2SeqDataset, SyntheticLMDataset,
+                      SyntheticSeq2SeqDataset)
 
 __all__ = ["load_data_from_args", "batch_iterator",
-           "skip_batches_for_samples", "SyntheticLMDataset", "DATASETS"]
+           "skip_batches_for_samples", "SyntheticLMDataset",
+           "SyntheticSeq2SeqDataset", "JsonlSeq2SeqDataset", "LM_DATASETS"]
 
-DATASETS = ("synthetic-lm", "lm", "gpt2")
+# dataset names that select the synthetic causal-LM stream; any other name
+# selects the synthetic seq2seq stream (the JAX package's rule)
+LM_DATASETS = ("synthetic-lm", "lm", "gpt2")
 
 
 def skip_batches_for_samples(consumed_samples: int, batch_size: int) -> int:
@@ -148,26 +153,36 @@ def _prefetched(gen_factory, *, num_workers: int, depth: int,
         stop.set()
 
 
+def _build_dataset(dataset: str, data_dir: str, split: str, *, seq_len: int,
+                   vocab_size: int, seed: int) -> Any:
+    """The jsonl corpus when ``data_dir`` is given, else a synthetic
+    stream: causal-LM for the LM names, seq2seq for any other. The
+    validation stream draws from a disjoint fold of the seed."""
+    if data_dir:
+        return JsonlSeq2SeqDataset(data_dir, split, seq_len=seq_len,
+                                   vocab_size=vocab_size)
+    fold = seed if split == "train" else seed + 7919
+    if dataset in LM_DATASETS:
+        return SyntheticLMDataset(seq_len=seq_len, vocab_size=vocab_size,
+                                  seed=fold)
+    return SyntheticSeq2SeqDataset(seq_len=seq_len, vocab_size=vocab_size,
+                                   seed=fold)
+
+
 def load_data_from_args(split: str = "train", data_dir: str = "",
                         batch_size: int = 1, deterministic: bool = False,
                         loop: bool = True, num_loader_proc: int = 0, *,
-                        dataset: str = "synthetic-lm", seq_len: int = 128,
-                        vocab_size: int = 8192, seed: int = 0,
-                        data_loader_workers: int = 0, skip_batches: int = 0,
+                        dataset: str = "synthetic-seq2seq",
+                        seq_len: int = 128, vocab_size: int = 8192,
+                        seed: int = 0, data_loader_workers: int = 0,
+                        skip_batches: int = 0,
                         **_unused: Any) -> Iterator[Dict[str, np.ndarray]]:
-    """The JAX package's loader entry point for one process: the synthetic
-    LM stream of ``split`` (validation draws from a disjoint seed fold),
-    shuffled unless ``deterministic``, fast-forwarded by ``skip_batches``.
-    File corpora (``data_dir``) wait for DiffuSeq training (ROADMAP A.7)."""
-    if data_dir:
-        raise NotImplementedError("jsonl corpora (data_dir) are not ported "
-                                  "yet: ROADMAP A.7")
-    if dataset not in DATASETS:
-        raise ValueError(f"dataset must be one of {DATASETS}, got "
-                         f"{dataset!r} (the seq2seq sets are ROADMAP A.7)")
-    fold = seed if split == "train" else seed + 7919
-    ds = SyntheticLMDataset(seq_len=seq_len, vocab_size=vocab_size,
-                            seed=fold)
+    """The JAX package's loader entry point for one process: the batches of
+    ``split`` (``_build_dataset``), shuffled unless ``deterministic``,
+    looped unless ``loop`` is false, assembled by ``num_loader_proc`` (or
+    ``data_loader_workers``) threads, fast-forwarded by ``skip_batches``."""
+    ds = _build_dataset(dataset, data_dir, split, seq_len=seq_len,
+                        vocab_size=vocab_size, seed=seed)
     return batch_iterator(
         ds, batch_size, shuffle=not deterministic, seed=seed, loop=loop,
         num_workers=max(num_loader_proc, data_loader_workers),

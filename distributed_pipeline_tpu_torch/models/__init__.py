@@ -2,20 +2,28 @@
 
 ``create_model_from_config(**training_args)`` builds the model a run
 directory's ``training_args.json`` describes, ignoring the training-only keys
-in it. The port has the ``gpt2`` family; ``diffuseq`` comes with DiffuSeq
-training (ROADMAP A.7).
+in it: a :class:`DiffuSeqModel` (holding its diffusion schedule) or a
+:class:`GPT2Model`. ``compute_losses(model, batch, draws)`` is the one loss
+seam the trainer calls for either family, in place of the JAX ``Workload``'s
+``compute_losses``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from .diffuseq import (DIFFUSEQ_EMB_DIM, DiffuSeqModel, Draws,
+                       diffuseq_losses)
+from .diffusion import make_schedule
 from .gpt2 import GPT2Model, gpt2_losses
 
-__all__ = ["PRESETS", "create_model_from_config", "GPT2Model", "gpt2_losses",
-           "torch_dtype"]
+__all__ = ["PRESETS", "create_model_from_config", "compute_losses",
+           "GPT2Model", "DiffuSeqModel", "gpt2_losses", "diffuseq_losses",
+           "torch_dtype", "Model"]
+
+Model = Union[DiffuSeqModel, GPT2Model]
 
 # (hidden, layers, heads) per family/size — the JAX package's table.
 PRESETS: Dict[str, Dict[str, Tuple[int, int, int]]] = {
@@ -44,26 +52,45 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                              model_size: str = "base",
                              vocab_size: int = 8192, seq_len: int = 128,
                              hidden_size: int = 0, num_layers: int = 0,
-                             num_heads: int = 0, dtype: str = "bfloat16",
+                             num_heads: int = 0,
+                             diffusion_steps: int = 2000,
+                             noise_schedule: str = "sqrt",
+                             dtype: str = "bfloat16",
                              attention_impl: str = "auto", device=None,
-                             **_unused: Any) -> GPT2Model:
+                             **_unused: Any) -> Model:
     """The model for (a superset of) the JAX package's ``TrainSettings``
     fields; preset dims are overridden by nonzero hidden/layers/heads. The
     parameters are zeros until a state dict is loaded."""
     if model_family not in PRESETS:
         raise ValueError(f"unknown model family: {model_family!r}; "
                          f"available: {sorted(PRESETS)}")
-    if model_family == "diffuseq":
-        raise NotImplementedError(
-            "the diffuseq family comes with DiffuSeq training (ROADMAP A.7)")
     preset = PRESETS[model_family].get(model_size)
     if preset is None:
         raise ValueError(f"no preset {model_size!r} for family "
                          f"{model_family!r}; available: "
                          f"{sorted(PRESETS[model_family])}")
-    return GPT2Model(vocab_size=vocab_size, seq_len=seq_len,
-                     hidden_size=hidden_size or preset[0],
-                     num_layers=num_layers or preset[1],
-                     num_heads=num_heads or preset[2],
-                     dtype=torch_dtype(dtype), device=device,
-                     attention_impl=attention_impl)
+    dims = dict(vocab_size=vocab_size, seq_len=seq_len,
+                hidden_size=hidden_size or preset[0],
+                num_layers=num_layers or preset[1],
+                num_heads=num_heads or preset[2],
+                dtype=torch_dtype(dtype), device=device,
+                attention_impl=attention_impl)
+    if model_family == "diffuseq":
+        return DiffuSeqModel(**dims, emb_dim=DIFFUSEQ_EMB_DIM,
+                             schedule=make_schedule(noise_schedule,
+                                                    diffusion_steps))
+    return GPT2Model(**dims)
+
+
+def compute_losses(model: Model, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+    """The training loss of the model's family on one (micro)batch: a dict
+    whose ``"loss"`` is optimized and whose other entries are logged.
+    ``draws`` (a generator, or ``{"t", "noise"}``) feeds DiffuSeq's random
+    draws; GPT-2's loss takes none."""
+    if model.family == "diffuseq":
+        if draws is None:
+            raise ValueError("the diffuseq loss needs draws: a "
+                             "torch.Generator or {'t', 'noise'} tensors")
+        return diffuseq_losses(model, batch, draws)
+    return gpt2_losses(model, batch)

@@ -11,7 +11,9 @@ Attention runs one of three branches:
 
 * the full forward (``kv_cache is None``): the attention seam
   (``ops.attention.dot_product_attention``) with the model's
-  ``attention_impl``, which takes the flash kernels from L >= 1024 on CUDA;
+  ``attention_impl``, which takes the flash kernels from L >= 1024 on CUDA,
+  causal or bidirectional by the module's ``causal`` field (the JAX field
+  of that name: GPT-2 sets it, the DiffuSeq denoiser does not);
 * paged prefill (``kv_cache`` given, L > 1, no ``cache_index``): write the
   prompt's K/V into the pool, then causal attention on the local k/v
   through the same seam;
@@ -27,7 +29,7 @@ by the ``_q8`` writers and dequantized by both decode arms. The prefill's own
 attention runs on the local fp k/v either way.
 
 The dense-cache decode, the speculative span branch, MoE and stacked
-(``scan_layers``) weights are later work (ROADMAP A.3, A.7, A.8).
+(``scan_layers``) weights are later work (ROADMAP A.3, A.7b, A.8).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
                                 write_token_kv, write_token_kv_q8)
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
-           "LayerNorm"]
+           "LayerNorm", "Embed"]
 
 # one layer's (pages_k, pages_v), or (pages_k, pages_v, scales_k, scales_v)
 # for an int8 pool
@@ -56,6 +58,14 @@ def _param(shape, device) -> nn.Parameter:
     # zeros, not random: weights come from a checkpoint (convert.py)
     return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
                                     device=device))
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: one f32 ``embedding`` table [vocab, dim]."""
+
+    def __init__(self, vocab_size: int, dim: int, device=None) -> None:
+        super().__init__()
+        self.embedding = _param((vocab_size, dim), device)
 
 
 class LayerNorm(nn.Module):
@@ -77,7 +87,8 @@ class SelfAttention(nn.Module):
     product."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None, attention_impl: str = "auto") -> None:
+                 device=None, attention_impl: str = "auto",
+                 causal: bool = False) -> None:
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by heads "
@@ -85,6 +96,7 @@ class SelfAttention(nn.Module):
         dh = hidden // num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.causal = causal
         self.qkv = _param((hidden, 3, num_heads, dh), device)
         self.out = _param((num_heads, dh, hidden), device)
 
@@ -105,7 +117,7 @@ class SelfAttention(nn.Module):
             if block_table is not None:
                 raise ValueError("block_table is only meaningful with a "
                                  "paged KV cache")
-            o = dot_product_attention(q, k, v, pad_mask, causal=True,
+            o = dot_product_attention(q, k, v, pad_mask, causal=self.causal,
                                       impl=self.attention_impl)
         return torch.einsum("bhlk,hkd->bld", o, self.out.to(self.dtype))
 
@@ -177,12 +189,13 @@ class Block(nn.Module):
     """Pre-LN transformer block (LN in f32)."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 device=None, attention_impl: str = "auto") -> None:
+                 device=None, attention_impl: str = "auto",
+                 causal: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.ln1 = LayerNorm(hidden, device)
         self.attn = SelfAttention(hidden, num_heads, dtype, device,
-                                  attention_impl)
+                                  attention_impl, causal)
         self.ln2 = LayerNorm(hidden, device)
         self.mlp = Mlp(hidden, dtype, device=device)
 
@@ -201,14 +214,14 @@ class TransformerBackbone(nn.Module):
 
     def __init__(self, num_layers: int, hidden: int, num_heads: int,
                  dtype: torch.dtype, device=None,
-                 attention_impl: str = "auto") -> None:
+                 attention_impl: str = "auto", causal: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"block_{i}",
                             Block(hidden, num_heads, dtype, device,
-                                  attention_impl))
+                                  attention_impl, causal))
         self.ln_f = LayerNorm(hidden, device)
 
     def forward(self, x: torch.Tensor,

@@ -14,18 +14,9 @@ import torch
 from torch import nn
 
 from ..ops.xent import token_cross_entropy
-from .backbone import LayerKV, TransformerBackbone
+from .backbone import Embed, LayerKV, TransformerBackbone
 
 __all__ = ["GPT2Model", "gpt2_losses"]
-
-
-class _Embed(nn.Module):
-    """flax ``nn.Embed``: one ``embedding`` table [vocab, hidden]."""
-
-    def __init__(self, vocab_size: int, hidden: int, device=None) -> None:
-        super().__init__()
-        self.embedding = nn.Parameter(torch.zeros(
-            (vocab_size, hidden), dtype=torch.float32, device=device))
 
 
 class GPT2Model(nn.Module):
@@ -39,6 +30,8 @@ class GPT2Model(nn.Module):
     [B, 1] and ``cache_index`` holds each slot's position. Parameters start
     at zero; load weights with ``load_state_dict``."""
 
+    family = "gpt2"
+
     def __init__(self, vocab_size: int, seq_len: int, hidden_size: int = 1024,
                  num_layers: int = 24, num_heads: int = 16,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -51,12 +44,12 @@ class GPT2Model(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.word_emb = _Embed(vocab_size, hidden_size, device)
+        self.word_emb = Embed(vocab_size, hidden_size, device)
         self.pos_emb = nn.Parameter(torch.zeros(
             (seq_len, hidden_size), dtype=torch.float32, device=device))
         self.backbone = TransformerBackbone(num_layers, hidden_size,
                                             num_heads, dtype, device,
-                                            attention_impl)
+                                            attention_impl, causal=True)
 
     def forward(self, ids: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,

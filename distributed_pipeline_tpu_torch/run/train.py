@@ -2,14 +2,17 @@
 ``distributed_pipeline_tpu/run/train.py``.
 
     python -m distributed_pipeline_tpu_torch.run.train --config_json cfg.json
+    python -m distributed_pipeline_tpu_torch.run.train --batch_size 256 \\
+        --microbatch 64 ... [--device cpu]          # DiffuSeq (the default)
     python -m distributed_pipeline_tpu_torch.run.train --model_family gpt2 \\
-        --seq_len 1024 --batch_size 8 --microbatch 4 ... [--device cpu]
+        --dataset synthetic-lm --seq_len 1024 --batch_size 8 ...
 
 Settings -> run dir -> logger -> ``training_args.json`` -> model ->
 ``TrainLoop`` (which resumes from the run dir's newest complete checkpoint)
 -> data streams fast-forwarded past the samples the checkpoint consumed ->
-``run_loop``. Runs on CUDA unless ``--device cpu`` is given, and raises when
-CUDA is missing.
+``run_loop``. ``--eval_decode true`` (DiffuSeq) adds the decode callback
+over one held-out batch of at most 32, as the JAX entry point does. Runs on
+CUDA unless ``--device cpu`` is given, and raises when CUDA is missing.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional, Sequence
 from ..config.train import TrainSettings, parse_settings
 from ..data import load_data_from_args, skip_batches_for_samples
 from ..models import create_model_from_config
+from ..models.sampling import make_decode_callback
 from ..utils.device import resolve_device
 from ..utils.logger import Logger
 from ..utils.trainer import TrainLoop
@@ -50,6 +54,14 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     with open(os.path.join(run_dir, "training_args.json"), "w") as f:
         json.dump(settings, f, indent=2)
     model = create_model_from_config(**settings, device=device)
+    eval_callbacks = []
+    if args.eval_decode:
+        decode_data = load_data_from_args(
+            "valid", **{**settings, "deterministic": True,
+                        "batch_size": min(args.batch_size, 32),
+                        "num_loader_proc": 0, "data_loader_workers": 0})
+        eval_callbacks.append(make_decode_callback(
+            decode_data, sample_steps=args.eval_decode_sample_steps))
     loop = TrainLoop(
         model=model, data=None, batch_size=args.batch_size,
         microbatch=args.microbatch, lr=args.lr, ema_rate=args.ema_rate,
@@ -60,7 +72,8 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         weight_decay=args.weight_decay, learning_steps=args.learning_steps,
         warmup_steps=args.warmup_steps, checkpoint_dir=run_dir,
         seed=args.seed, dispatch_lag=args.dispatch_lag,
-        fused_update=args.fused_update, logger=logger)
+        fused_update=args.fused_update, eval_callbacks=eval_callbacks,
+        logger=logger)
     # exact-order resume: skip the samples the restored step consumed
     meta = loop.resume_meta or {}
     consumed = int(meta.get("samples", loop.step * args.batch_size))

@@ -103,6 +103,9 @@ class DecodeEngine:
                  decode_span: int = 1, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  decode_impl: str = "auto", kv_quant: str = "fp") -> None:
+        if model.family != "gpt2":
+            raise ValueError(f"the decode engine serves the gpt2 family, "
+                             f"got {model.family!r}")
         max_len = max_len or model.seq_len
         if not 1 <= max_len <= model.seq_len:
             raise ValueError(f"max_len {max_len} must be in [1, seq_len="

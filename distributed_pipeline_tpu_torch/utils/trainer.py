@@ -3,9 +3,14 @@ one GPU (or the CPU, when asked).
 
 The step is the JAX trainer's, written out eagerly:
 
-* the microbatch loop: ``gpt2_losses`` forward and backward per microbatch,
-  gradients summed and then **averaged** over the microbatches, metrics
-  likewise (``micro_scan``);
+* the microbatch loop: the family's ``compute_losses`` (``diffuseq_losses``
+  or ``gpt2_losses``) forward and backward per microbatch, gradients summed
+  and then **averaged** over the microbatches, metrics likewise
+  (``micro_scan``). DiffuSeq's random draws come from a generator seeded
+  from ``(seed, step, microbatch index)``, so a resumed run draws what an
+  uninterrupted one would; eval passes draw from an offset stream
+  (``0x7FFF0000 + step``), as the JAX trainer's do. The ``draws`` hook
+  replaces that generator (the tests feed the JAX draws through it);
 * ``grad_norm`` = the global L2 norm, then the clip
   ``min(1, clip / (gnorm + 1e-6))`` when ``gradient_clipping > 0``;
 * the AdamW + EMA update of ``ops/fused_update.py`` in optax's op order,
@@ -24,8 +29,9 @@ exit.
 
 ``run_loop`` logs every ``log_interval`` steps (the step's metrics plus
 ``steps_per_sec``, ``tokens_per_sec``, ``tokens_per_sec_per_chip``,
-``step_time_s`` and, on a GPU, ``mfu``), evaluates every ``eval_interval``,
-saves every ``save_interval`` and once more at the end. Chaos, goodput,
+``step_time_s`` and, on a GPU, ``mfu``), evaluates every ``eval_interval``
+(then runs each of ``eval_callbacks`` with the loop, as the JAX trainer
+does), saves every ``save_interval`` and once more at the end. Chaos, goodput,
 the sanitizer, the cost ledger, profiling and meshes are later work
 (ROADMAP A.8-A.10).
 """
@@ -34,13 +40,15 @@ from __future__ import annotations
 
 import collections
 import os
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence)
 
 import numpy as np
 import torch
 
 from ..convert import init_params as random_params
-from ..models.gpt2 import GPT2Model, gpt2_losses
+from ..models import Model, compute_losses
+from ..models.diffuseq import Draws, seeded_generator
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
 from . import checkpoint as ckpt
@@ -54,12 +62,14 @@ StateDict = Dict[str, torch.Tensor]
 
 class TrainLoop:
     """``TrainLoop(model=..., data=..., ...)`` then ``run_loop()`` (or
-    ``run_step(batch)`` step by step). ``model`` is a :class:`GPT2Model` on
-    the device to train on; its weights come from ``init_params`` (a state
-    dict), else from ``convert.init_params`` at ``seed``, unless a
-    checkpoint is resumed."""
+    ``run_step(batch)`` step by step). ``model`` is a :class:`DiffuSeqModel`
+    or :class:`GPT2Model` on the device to train on; its weights come from
+    ``init_params`` (a state dict), else from ``convert.init_params`` at
+    ``seed``, unless a checkpoint is resumed. ``draws(step, i)``, when
+    given, returns microbatch i's DiffuSeq draws at ``step`` (a generator
+    or ``{"t", "noise"}``) in place of the seeded generator."""
 
-    def __init__(self, *, model: GPT2Model,
+    def __init__(self, *, model: Model,
                  data: Optional[Iterator[Dict[str, np.ndarray]]],
                  batch_size: int, microbatch: int = -1, lr: float = 1e-4,
                  ema_rate: str = "0.9999", log_interval: int = 50,
@@ -68,13 +78,19 @@ class TrainLoop:
                  weight_decay: float = 0.0, learning_steps: int = 0,
                  warmup_steps: int = 0,
                  eval_data: Optional[Iterator[Dict[str, np.ndarray]]] = None,
+                 eval_callbacks: Sequence[Callable[["TrainLoop"], None]]
+                 = (),
                  checkpoint_dir: str = "", seed: int = 102,
                  dispatch_lag: int = 0, fused_update: Any = "auto",
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 draws: Optional[Callable[[int, int], Draws]] = None,
                  logger: Optional[Logger] = None) -> None:
         self.model = model
         self.data = data
         self.eval_data = eval_data
+        self.eval_callbacks = tuple(eval_callbacks)
+        self.seed = seed
+        self._draws = draws or self._seeded_draws
         self.batch_size = batch_size
         self.microbatch = microbatch if microbatch > 0 else batch_size
         if batch_size % self.microbatch:
@@ -133,9 +149,9 @@ class TrainLoop:
         if init_params is None:
             m = self.model
             init_params = random_params(dict(
-                vocab_size=m.vocab_size, seq_len=m.seq_len,
-                hidden_size=m.hidden_size, num_layers=m.num_layers,
-                num_heads=m.num_heads), seed)
+                model_family=m.family, vocab_size=m.vocab_size,
+                seq_len=m.seq_len, hidden_size=m.hidden_size,
+                num_layers=m.num_layers, num_heads=m.num_heads), seed)
         self._load_flat(self.params, init_params)
         for name, p in named:
             p.data = self._view(self.params, name)
@@ -243,14 +259,17 @@ class TrainLoop:
                 out[i][key] = part
         return out
 
+    def _seeded_draws(self, step: int, i: int) -> torch.Generator:
+        return seeded_generator(self.device, self.seed, step, i)
+
     def forward_backward(self, batch: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
         """Gradients of the batch's loss into ``self.grads``, summed over the
         microbatches and then averaged; returns the averaged metrics."""
         self.grads.zero_()
         sums: Dict[str, torch.Tensor] = {}
-        for mb in self._micro(batch):
-            d = gpt2_losses(self.model, mb)
+        for i, mb in enumerate(self._micro(batch)):
+            d = compute_losses(self.model, mb, self._draws(self.step, i))
             d["loss"].backward()
             for k, v in d.items():
                 v = v.detach()
@@ -305,8 +324,10 @@ class TrainLoop:
                      ) -> Dict[str, float]:
         """Eval pass without gradients; metrics logged as ``eval_*``."""
         sums: Dict[str, torch.Tensor] = {}
-        for mb in self._micro(batch):
-            for k, v in gpt2_losses(self.model, mb).items():
+        step = 0x7FFF0000 + self.step
+        for i, mb in enumerate(self._micro(batch)):
+            for k, v in compute_losses(self.model, mb,
+                                       self._draws(step, i)).items():
                 sums[k] = v if k not in sums else sums[k] + v
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}
         self.logger.logkvs_mean(out)
@@ -342,6 +363,8 @@ class TrainLoop:
                     self.flush_metrics()
                     self.forward_only(next(self.eval_data))
                     self.eval_batches_consumed += 1
+                    for cb in self.eval_callbacks:
+                        cb(self)
                 if (self.save_interval > 0
                         and self.step % self.save_interval == 0):
                     self.save()

@@ -148,8 +148,10 @@ def test_paged_prefill_and_decode_match_jax_xla_arm():
 
 
 def test_create_model_from_config_families():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        create_model_from_config(model_family="diffuseq", device="cpu")
+    d = create_model_from_config(model_family="diffuseq", vocab_size=16,
+                                 seq_len=8, num_layers=1, device="meta")
+    assert (d.family, d.hidden_size, d.num_layers, d.num_heads, d.emb_dim,
+            d.schedule.num_steps) == ("diffuseq", 768, 1, 12, 128, 2000)
     with pytest.raises(ValueError, match="unknown model family"):
         create_model_from_config(model_family="bert", device="cpu")
     m = create_model_from_config(model_family="gpt2", model_size="medium",

@@ -50,6 +50,7 @@ from distributed_pipeline_tpu_torch.convert import (  # noqa: E402
 from distributed_pipeline_tpu_torch.data import load_data_from_args  # noqa: E402
 from distributed_pipeline_tpu_torch.models import \
     create_model_from_config  # noqa: E402
+from distributed_pipeline_tpu_torch.run import sample as sample_mod  # noqa: E402
 from distributed_pipeline_tpu_torch.run import serve as serve_mod  # noqa: E402
 from distributed_pipeline_tpu_torch.run import train as train_mod  # noqa: E402
 from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop  # noqa: E402
@@ -149,7 +150,8 @@ def test_trainer_matches_jax_trainloop(tmp_path, jax_arms, port_arms):
                                        rtol=1e-4, atol=atol, err_msg=key)
 
 
-ARGV = ["--device", "cpu", "--seq_len", "32", "--vocab_size", "64",
+ARGV = ["--device", "cpu", "--model_family", "gpt2", "--dataset",
+        "synthetic-lm", "--seq_len", "32", "--vocab_size", "64",
         "--hidden_size", "32", "--num_layers", "2", "--num_heads", "2",
         "--dtype", "float32", "--batch_size", "8", "--microbatch", "4",
         "--ema_rate", "0.9,0.99", "--lr", "1e-3", "--log_interval", "2",
@@ -216,22 +218,46 @@ def test_run_train_without_device_needs_cuda(tmp_path, monkeypatch):
                                "--learning_steps", "1"])
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("model_family", "diffuseq", "A.7"), ("remat", "true", "A.8"),
-    ("moe_experts", "4", "A.8"), ("scan_layers", "true", "A.9"),
-    ("pp_chunks", "8", "A.9"), ("fsdp", "2", "A.8"), ("dp", "2", "A.8"),
-    ("shard_optimizer", "true", "A.8"), ("partition_rules", "x", "A.8"),
-    ("auto_tune", "true", "A.10"), ("trace", "true", "A.10"),
-    ("cost_ledger", "true", "A.10"), ("sanitize", "true", "A.10"),
-    ("chaos_plan", "x", "A.10"), ("profile_dir", "x", "A.10"),
-    ("eval_decode", "true", "A.7"), ("mpmd", "true", "A.9"),
-    ("data_dir", "x", "A.7"), ("attention_impl", "ring", "A.8")])
-def test_options_not_ported_fail_at_parse_time(flag, value, item, capsys):
+@pytest.mark.parametrize("entry,argv,expect", [
+    ("train", ["--remat", "true"], "ROADMAP A.8"),
+    ("train", ["--moe_experts", "4"], "ROADMAP A.8"),
+    ("train", ["--scan_layers", "true"], "ROADMAP A.9"),
+    ("train", ["--pp_chunks", "8"], "ROADMAP A.9"),
+    ("train", ["--fsdp", "2"], "ROADMAP A.8"),
+    ("train", ["--dp", "2"], "ROADMAP A.8"),
+    ("train", ["--shard_optimizer", "true"], "ROADMAP A.8"),
+    ("train", ["--partition_rules", "x"], "ROADMAP A.8"),
+    ("train", ["--auto_tune", "true"], "ROADMAP A.10"),
+    ("train", ["--trace", "true"], "ROADMAP A.10"),
+    ("train", ["--cost_ledger", "true"], "ROADMAP A.10"),
+    ("train", ["--sanitize", "true"], "ROADMAP A.10"),
+    ("train", ["--chaos_plan", "x"], "ROADMAP A.10"),
+    ("train", ["--profile_dir", "x"], "ROADMAP A.10"),
+    ("train", ["--mpmd", "true"], "ROADMAP A.9"),
+    ("train", ["--attention_impl", "ring"], "ROADMAP A.8"),
+    ("train", ["--model_family", "gpt2", "--eval_decode", "true"],
+     "ROADMAP A.7b"),
+    ("train", ["--noise_schedule", "quadratic"], "invalid choice"),
+    ("sample", [], "ROADMAP A.7b"),
+    ("sample", ["--temperature", "0.8"], "unrecognized arguments")])
+def test_options_not_ported_fail_at_parse_time(entry, argv, expect, tmp_path,
+                                               capsys):
+    """Options not trained yet fail at parse time, naming the ROADMAP item
+    that brings them; so do an unknown noise schedule, run.sample on a
+    GPT-2 run directory (its decoder is A.7b) and GPT-2 decoding flags
+    given to run.sample."""
     with pytest.raises(SystemExit) as e:
-        parse_settings([f"--{flag}", value])
+        if entry == "train":
+            parse_settings(argv)
+        else:
+            (tmp_path / "training_args.json").write_text(
+                json.dumps({"model_family": "gpt2"}))
+            sample_mod.main(["--checkpoint_path", str(tmp_path),
+                             "--device", "cpu", *argv])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err
+    assert expect in err
+    flag = argv[0][2:] if argv else ""
     if flag in DEFERRED:
         assert DEFERRED[flag][1] in err
 
@@ -241,6 +267,6 @@ def test_config_json_is_exclusive_and_takes_device(tmp_path):
     cfg.write_text(json.dumps({"lr": 3e-4, "seq_len": 64}))
     s = parse_settings(["--config_json", str(cfg), "--device", "cpu"])
     assert (s.lr, s.seq_len, s.device, s.model_family) == \
-        (3e-4, 64, "cpu", "gpt2")
+        (3e-4, 64, "cpu", "diffuseq")
     with pytest.raises(SystemExit):
         parse_settings(["--config_json", str(cfg), "--lr", "1e-4"])
