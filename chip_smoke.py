@@ -30,7 +30,9 @@ Phases (any failure raises, and the script exits non-zero):
    at L = 1, 65 and 129 (ragged against the 128-row tile) and non-causal
    with a dead row; bf16 is held against the plain version evaluated in
    f32 from the same bf16 inputs, and two bf16 backward calls on the same
-   inputs are compared (dq is summed by atomics). Times at the training
+   inputs must give bitwise-equal dq, dk and dv (dq's parts are summed in a
+   fixed order), as must a call whose key tiles are split over several
+   launches (the dq scratch cap made small). Times at the training
    shape beside ``scaled_dot_product_attention(is_causal)`` and its
    autograd backward (yardsticks), in turns in one call: device time from
    ``torch.profiler`` (the CUDA-event time, which also counts the host's
@@ -55,6 +57,21 @@ Phases (any failure raises, and the script exits non-zero):
    bf16 comparison is printed), and the kernel timed at that state's
    depths beside its bound there. The int8 pool must hold at most 0.55x
    the fp pool's bytes;
+7b. speculative decoding: the span seam's kernel arm (``flash_decode`` over
+   32 x (K + 1) pseudo-slots, K = 4) against ``torch_paged_span_decode`` at
+   the serve shapes over bf16 and int8 pools (the decode phase's bars; two
+   calls bitwise equal), timed beside its bound and one
+   ``scaled_dot_product_attention`` call over pre-gathered K/V with a
+   [K + 1, Lmax] mask; then ``run.serve --spec_tokens 4`` at GPT-2 base
+   width: the ngram draft over a bf16 pool (the serve phase's 64
+   requests) and the model draft (``--draft_layers 2``) over an int8 pool
+   (16 requests): every request's tokens, the span launches (12 a verify
+   round), tokens/s and ``accept_rate`` beside the non-spec run's; in
+   bf16 the share of streams identical to the non-spec run's and the
+   top-2 logit gap at every first divergence (each at most 2% of that
+   position's largest |logit|); and at f32 compute, 32 requests of 64
+   tokens on each pool, the spec streams equal the non-spec ones token for
+   token;
 8. train: GPT-2 base at full width and its 1024 context through
    ``run.train`` (synthetic-lm, batch 8 in microbatches of 4, 20 steps, lr
    3e-4, EMA 0.5/0.9/0.99, attention and update ``auto``): the flash
@@ -62,7 +79,9 @@ Phases (any failure raises, and the script exits non-zero):
    every loss must be finite and the last below the first, the run dir
    must hold the final model/EMA/optimizer files and ``run.serve`` must
    answer 4 requests from it; then one step from the saved state with the
-   kernels and with the plain versions, loss and grad norm compared;
+   kernels and with the plain versions, loss and grad norm compared, and a
+   second kernel step from the same state bitwise equal to the first
+   (loss, grad norm, every gradient);
 9. diffuseq: DiffuSeq-base at full width (hidden 768, 12 layers, 12 heads,
    emb_dim 128, vocab 8192, seq_len 128, 2000 ``sqrt`` diffusion steps;
    91,039,872 parameters) through ``run.train`` with the JAX package's
@@ -80,7 +99,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``eval_loss`` finite. The fused update is also held against its plain
    version and timed at DiffuSeq-base's parameter count (phase 5's checks).
 
-The line before the last is ``{"kernels": [...]}`` and the last is
+Before and after every timed phase a ``# clocks`` line gives the card's SM
+and memory clocks, power draw and temperature (``nvidia-smi``). The line
+before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -107,6 +128,27 @@ DIFFUSEQ_BASE = dict(model_family="diffuseq", model_size="base",
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def clocks(tag: str) -> None:
+    """The card's SM and memory clocks, power draw and temperature, on a
+    line of their own beside a timed phase."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"# clocks {tag}: {out}", flush=True)
+
+
+def clocked(tag: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` between two ``# clocks`` lines; the second
+    also gives the phase's wall time."""
+    clocks(f"before {tag}")
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        clocks(f"after {tag} ({time.perf_counter() - t0:.1f} s)")
 
 
 def time_ms(fn, torch, flush, reps: int = 30) -> float:
@@ -371,6 +413,281 @@ def kernel_bound(fd, table, positions, ps, H, Dh, bw, bf16_peak,
             "hbm_bytes": hbm_bytes}
 
 
+def span_phase(torch, fd, bw, bf16_peak) -> list:
+    """The span seam's kernel arm (``paged_span_attention``: flash_decode
+    over B*(K+1) pseudo-slots) against its plain twin
+    ``torch_paged_span_decode`` at the serve shapes (32 slots, H=12,
+    Dh=64, page 16, 64-page reservations, K=4), over bf16 and int8 pools
+    with bf16 q (and f32 q for the strict bar), with the decode check's
+    bars; two calls bitwise equal; both timed (clean cold L2) beside their
+    bound (``decode_hbm_bytes`` over the repeated table) and one
+    ``scaled_dot_product_attention`` over pre-gathered K/V with a
+    [K+1, Lmax] mask."""
+    from distributed_pipeline_tpu_torch.serving.paged_kv import (
+        dequant_gathered, gather_kv)
+
+    dev = torch.device("cuda")
+    B, n, K, H, Dh, ps = 32, 64, 4, 12, 64, 16
+    L = K + 1
+    # the serve phase's depths, a slot at position 0, one straddling a
+    # page edge, and two at the end of the reservation (clamped links)
+    idx = [0, 12, 1019, 1022] + [256 + 5 * i for i in range(B - 4)]
+    c = decode_case(torch, B, n, idx, seed=4)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((B, H, L, Dh), generator=g, device=dev)
+    pos = torch.clamp(c["positions"][:, None] + torch.arange(
+        L, dtype=torch.int32, device=dev)[None, :], max=n * ps - 1)
+    table = c["table"]
+    pools = {"fp": lambda dt: (c["pk"].to(dt), c["pv"].to(dt)),
+             "int8": lambda dt: (c["k8"], c["v8"], c["sk"], c["sv"])}
+
+    def span(kind, dt, impl="cuda", upcast=False):
+        # upcast: the same ``dt`` inputs, evaluated in f32
+        pk, pv, *sc = pools[kind](dt)
+        qd = q.to(dt)
+        if upcast:
+            qd = qd.float()
+            pk, pv = (t.float() if t.is_floating_point() else t
+                      for t in (pk, pv))
+        return fd.paged_span_attention(qd, pk, pv, table, pos,
+                                       impl=impl, scales_k=(sc or [None])[0],
+                                       scales_v=(sc or [None, None])[1])
+
+    errs = {}
+    for kind in ("fp", "int8"):
+        for dt in (torch.float32, torch.bfloat16):
+            got = span(kind, dt)
+            torch.cuda.synchronize()
+            ref = span(kind, dt, impl="torch", upcast=True)
+            tol = (1e-4, 1e-5) if dt == torch.float32 else (8e-3, 8e-3)
+            err = (got.float() - ref).abs()
+            check(bool(torch.all(err <= tol[1] + tol[0] * ref.abs())),
+                  f"span kernel {kind} {dt} disagrees with the plain twin: "
+                  f"max abs err {float(err.max())}")
+            errs[f"{kind}_{str(dt)[6:]}"] = float(err.max())
+        a, b = span(kind, torch.bfloat16), span(kind, torch.bfloat16)
+        check(torch.equal(a, b), f"two {kind} span calls differ")
+    print(f"# span check: max abs err {json.dumps(errs)}; two calls "
+          f"bitwise equal (fp and int8 pools)", flush=True)
+
+    bf16 = torch.bfloat16
+    live = (torch.arange(n * ps, device=dev)[None, None, :]
+            <= pos[:, :, None])[:, None]                 # [B, 1, L, Lmax]
+    ks, vs = gather_kv(c["pk"].to(bf16), table), gather_kv(c["pv"].to(bf16),
+                                                           table)
+    ks8 = dequant_gathered(gather_kv(c["k8"], table), c["sk"], table, ps,
+                           bf16)
+    vs8 = dequant_gathered(gather_kv(c["v8"], table), c["sv"], table, ps,
+                           bf16)
+    qb = q.to(bf16)
+    args = {"fp": (qb, *pools["fp"](bf16), table, pos),
+            "int8": (qb, c["k8"], c["v8"], table, pos)}
+    scales = {"fp": {}, "int8": {"scales_k": c["sk"], "scales_v": c["sv"]}}
+
+    def seam(kind, impl="cuda"):
+        return fd.paged_span_attention(*args[kind], impl=impl,
+                                       **scales[kind])
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = {"fp": lambda: seam("fp"),
+           "fp_lib": lambda: sdpa(qb, ks, vs, attn_mask=live),
+           "int8": lambda: seam("int8"),
+           "int8_lib": lambda: sdpa(qb, ks8, vs8, attn_mask=live)}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    runs = {name: [] for name in fns}
+    split = {}
+    for order in (("fp", "fp_lib", "int8", "int8_lib"),
+                  ("fp_lib", "fp", "int8_lib", "int8")):
+        for name in order:
+            total, split[name] = device_ms(fns[name], torch, flush,
+                                           clean_l2=True)
+            runs[name].append(total)
+    ms = {name: statistics.median(t) for name, t in runs.items()}
+    rep_table = table.repeat_interleave(L, dim=0)
+    rows = []
+    for kind in ("fp", "int8"):
+        plain = time_ms(lambda: seam(kind, impl="torch"), torch, flush,
+                        reps=10)
+        kernel = [v for k, v in split[kind].items() if "flash_decode" in k]
+        row = {"name": "flash_decode_span" + ("_int8" if kind == "int8"
+                                              else ""),
+               "route": "cuda",
+               "source": "distributed_pipeline_tpu_torch/ops/csrc/"
+                         "flash_decode.cu",
+               "replaces": "distributed_pipeline_tpu/ops/flash_decode.py:328",
+               "call_site": "ops/flash_decode.py paged_span_attention, "
+                            f"{B} slots x {L} links",
+               "launches": None, "max_abs_err": errs[f"{kind}_bfloat16"],
+               "max_abs_err_f32": errs[f"{kind}_float32"],
+               "ms": ms[kind], "ms_runs": runs[kind],
+               "kernels_ms": split[kind],
+               "decode_kernel_ms": sum(kernel), "plain_ms": plain,
+               **kernel_bound(fd, rep_table, pos.reshape(-1), ps, H, Dh, bw,
+                              bf16_peak, quantized=kind == "int8"),
+               "library_ms": ms[kind + "_lib"],
+               "library_ms_runs": runs[kind + "_lib"],
+               "library_call": "scaled_dot_product_attention over "
+                               "pre-gathered " + ("and dequantized " if
+                                                  kind == "int8" else "")
+                               + "K/V with a [K+1, Lmax] mask"}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["x_library"] = row["ms"] / row["library_ms"]
+        print(f"# span timing: {row['name']} {row['ms']:.6f} ms, of it "
+              f"the decode kernel {row['decode_kernel_ms']:.6f} ms "
+              f"({row['share_of_bound']:.3f} of the bound "
+              f"{row['bound_ms']:.6f} ms, {row['x_library']:.3f}x the "
+              f"library's {row['library_ms']:.6f} ms; device time, clean "
+              f"cold L2; plain {plain:.5f} ms)", flush=True)
+        rows.append(row)
+    return rows
+
+
+def spec_run(torch, fd, run, draft: str, kv_quant: str, requests: int,
+             base: dict) -> dict:
+    """``run.serve --spec_tokens 4`` at GPT-2 base width: every request's
+    tokens, the span launches (12 a verify round, over the run's page
+    type only), and, against the non-spec run of the same pool (``base``:
+    its summary and streams), tokens/s, the share of identical streams
+    and the top-2 logit gap at each first divergence (bf16: the two paths
+    run different GEMM shapes and split-K plans)."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run.serve import serve
+
+    K, new_tokens, layers = 4, 128, GPT2_BASE["num_layers"]
+    settings = parse_settings([
+        "--checkpoint_path", run, "--decode_slots", "32",
+        "--page_size", "16", "--max_prompt_len", "512",
+        "--synthetic_requests", str(requests), "--synthetic_prompt_len",
+        "256", "--max_new_tokens", str(new_tokens), "--temperature", "0",
+        "--decode_impl", "auto", "--kv_quant", kv_quant,
+        "--spec_tokens", str(K), "--spec_draft", draft,
+        "--draft_layers", "2"])
+    fd.reset_launch_count()
+    summary, server, reqs = serve(settings)
+    check(len(reqs) == requests, f"{len(reqs)} requests served")
+    for r in reqs:
+        check(len(r.tokens) == new_tokens
+              and all(0 <= t < GPT2_BASE["vocab_size"] for t in r.tokens),
+              f"spec request {r.id} returned {len(r.tokens)} tokens")
+    rounds = server.spec_rounds
+    span = fd.span_launch_count()
+    draft_launches = 2 * K * rounds if draft == "model" else 0
+    other = "fp" if kv_quant == "int8" else "int8"
+    check(span == summary["span_kernel_launches"] == layers * rounds
+          and fd.launch_count(kv_quant) == span + draft_launches
+          and fd.launch_count(other) == 0,
+          f"spec {draft}/{kv_quant}: span launches {span} over {rounds} "
+          f"rounds, {fd.launch_count(kv_quant)} {kv_quant} launches in all")
+    # against the non-spec run's streams of the same requests
+    same, gaps = divergence_gaps(torch, server.engine.model, reqs,
+                                 base["streams"][:requests])
+    out = {"draft": draft, "kv_quant": kv_quant, "requests": requests,
+           "spec_rounds": rounds, "span_launches": span,
+           "draft_decode_launches": draft_launches,
+           "accept_rate": summary["accept_rate"],
+           "decode_tokens_per_s_per_chip":
+               summary["decode_tokens_per_s_per_chip"],
+           "nonspec_tokens_per_s_per_chip":
+               base["decode_tokens_per_s_per_chip"],
+           "nonspec_requests": len(base["streams"]),
+           "identical_streams": same / requests,
+           "first_divergence_gaps": gaps, "wall_s": summary["wall_s"]}
+    print(f"# spec serve: {json.dumps(out)}", flush=True)
+    check_near_ties(gaps, f"spec {draft}/{kv_quant}")
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def divergence_gaps(torch, model, reqs, refs) -> tuple:
+    """(identical streams, one record a diverging stream): the position of
+    its first divergence from ``refs`` and the top-2 gap of ``model``'s
+    next-token logits there, from a dense forward over the prompt and the
+    common prefix."""
+    same, gaps = 0, []
+    for r, ref in zip(reqs, refs):
+        if r.tokens == ref:
+            same += 1
+            continue
+        i = next(i for i, (a, b) in enumerate(zip(r.tokens, ref)) if a != b)
+        ids = torch.tensor(list(r.prompt) + ref[:i], device="cuda")
+        with torch.inference_mode():
+            logits = model(ids[None])[0, -1].float()
+        top = logits.topk(2).values
+        gaps.append({"request": r.id, "position": i,
+                     "gap": float(top[0] - top[1]),
+                     "max_abs_logit": float(logits.abs().max())})
+    return same, gaps
+
+
+def check_near_ties(gaps, what: str) -> None:
+    """Streams may part only at a near-tie: the top-2 gap at a first
+    divergence is at most 2% of that position's largest |logit| (the bar
+    stated before the first run)."""
+    bad = [d for d in gaps if d["gap"] > 0.02 * d["max_abs_logit"]]
+    check(not bad, f"{what}: streams diverge from the non-spec run where "
+          f"the top-2 gap is not a near-tie: {bad}")
+
+
+def spec_identity_f32(torch, fd, run) -> dict:
+    """At f32 compute, 32 requests of 256 prompt tokens and 64 new ones:
+    over an fp (f32) pool with the ngram draft the greedy spec streams
+    equal the non-spec streams token for token. Over an int8 pool (the
+    model draft) they need not: a verify writes all K+1 links' rows
+    before it attends, and rescale-on-grow then quantizes a page under
+    the largest row of the whole span (rejected links included), where
+    the non-spec path saw the rows one at a time; so the pool's int8
+    values differ between the paths (the JAX writers behave the same).
+    There the share of identical streams is printed and every first
+    divergence must be a near-tie (``check_near_ties``)."""
+    import numpy as np
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.run.sample import load_run
+    from distributed_pipeline_tpu_torch.serving.scheduler import \
+        DecodeServer
+
+    bf, _, _ = load_run(run, device=torch.device("cuda"))
+    m32 = create_model_from_config(**{**GPT2_BASE, "dtype": "float32"},
+                                   device="cuda")
+    m32.load_state_dict(bf.state_dict())
+    del bf
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(4, GPT2_BASE["vocab_size"], (256,))
+               .astype(np.int32) for _ in range(32)]
+    out = {}
+    for kv_quant, draft in (("fp", "ngram"), ("int8", "model")):
+        streams = {}
+        for spec in (0, 4):
+            srv = DecodeServer(m32, decode_slots=32, page_size=16,
+                               max_prompt_len=512, kv_quant=kv_quant,
+                               spec_tokens=spec, spec_draft=draft,
+                               draft_layers=2, device="cuda")
+            fd.reset_launch_count()
+            reqs = [srv.submit(p, max_new_tokens=64) for p in prompts]
+            srv.drain()
+            streams[spec] = reqs
+            if spec:
+                check(fd.span_launch_count() == 12 * srv.spec_rounds > 0,
+                      f"f32 spec run: {fd.span_launch_count()} span "
+                      f"launches over {srv.spec_rounds} rounds")
+                out[f"{kv_quant}_{draft}_accept_rate"] = srv.accept_rate
+            del srv
+        same, gaps = divergence_gaps(torch, m32, streams[4],
+                                     [r.tokens for r in streams[0]])
+        out[f"{kv_quant}_{draft}_identical"] = same / len(prompts)
+        out[f"{kv_quant}_{draft}_first_divergence_gaps"] = gaps
+        if kv_quant == "fp":
+            check(same == len(prompts), f"f32 fp pool, {draft} draft: "
+                  f"{len(prompts) - same} spec streams differ from "
+                  f"non-spec: {gaps}")
+        check_near_ties(gaps, f"f32 {kv_quant} pool, {draft} draft")
+    print(f"# spec identity at f32 compute: {json.dumps(out)}", flush=True)
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
 def small_model_phase(torch) -> None:
     """Greedy tokens of a small f32 GPT-2 on the GPU (kernel) equal those
     on the CPU (plain version)."""
@@ -407,10 +724,12 @@ def small_model_phase(torch) -> None:
           flush=True)
 
 
-def serve_phase(torch, fd, bw, bf16_peak) -> dict:
+def serve_phase(torch, fd, bw, bf16_peak) -> tuple:
     """GPT-2 base at full width through run.serve, once over an fp (bf16)
     KV pool and once with ``--kv_quant int8``; the int8 pool must hold at
-    most 0.55x the fp pool's bytes."""
+    most 0.55x the fp pool's bytes. Then the speculative runs on the same
+    weights (``spec_run``, ``spec_identity_f32``). Returns the non-spec
+    and the spec results."""
     from distributed_pipeline_tpu_torch.convert import init_params
     from distributed_pipeline_tpu_torch.utils.checkpoint import save_run
 
@@ -420,15 +739,23 @@ def serve_phase(torch, fd, bw, bf16_peak) -> dict:
         save_run(run, GPT2_BASE, init_params(GPT2_BASE, seed=0), step=1)
         print(f"# serve: wrote seeded GPT-2 base weights in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        runs = {kv: serve_run(torch, fd, run, kv, bw, bf16_peak)
-                for kv in ("fp", "int8")}
+        runs = {kv: clocked(f"serve {kv}", serve_run, torch, fd, run, kv,
+                            bw, bf16_peak) for kv in ("fp", "int8")}
+        spec = {"ngram_fp": clocked("spec serve ngram fp", spec_run, torch,
+                                    fd, run, "ngram", "fp", 64, runs["fp"]),
+                "model_int8": clocked("spec serve model int8", spec_run,
+                                      torch, fd, run, "model", "int8", 16,
+                                      runs["int8"]),
+                "identity_f32": spec_identity_f32(torch, fd, run)}
+    for r in runs.values():
+        del r["streams"]
     ratio = runs["int8"]["kv_pool_bytes"] / runs["fp"]["kv_pool_bytes"]
     print(f"# serve: int8 KV pool {runs['int8']['kv_pool_bytes']} bytes, "
           f"{ratio:.4f} of the fp pool's {runs['fp']['kv_pool_bytes']}",
           flush=True)
     check(ratio <= 0.55, f"the int8 KV pool is {ratio:.4f} of the fp pool "
           f"(at most 0.55)")
-    return runs
+    return runs, spec
 
 
 def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
@@ -453,6 +780,7 @@ def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
     launches = fd.launch_count(kv_quant)
 
     eng = server.engine
+    streams = [list(r.tokens) for r in reqs]
     check(len(reqs) == 64, f"{len(reqs)} requests served")
     for r in reqs:
         check(len(r.tokens) == new_tokens
@@ -525,6 +853,7 @@ def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
     del server, eng, saved, pool
     torch.cuda.empty_cache()
     return {"launches": launches, "kv_pool_bytes": pool_bytes,
+            "streams": streams,
             "decode_tokens_per_s_per_chip":
                 summary["decode_tokens_per_s_per_chip"],
             "ttft_p50_s": summary["ttft_p50_s"],
@@ -595,7 +924,8 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed,
     """Kernel forward and backward vs the plain versions on one case; bf16
     against the plain version in f32 from the same bf16 inputs. Returns
     the max abs errors, and for bf16 the max difference between two
-    backward calls on the same inputs (dq is summed by atomics).
+    backward calls on the same inputs, which must be bitwise equal (dq's
+    parts are summed in a fixed order).
     ``long_rows`` (bf16, every row hundreds of live keys) holds ``out`` to
     its rounding bound instead (``long_rows_out``)."""
     dev = torch.device("cuda")
@@ -629,7 +959,7 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed,
     errs["lse"] = close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         # bf16: p and ds enter their products as bf16 (2^-9 relative each)
-        # and dq is summed by f32 atomics in a varying order. A row with
+        # and dq's parts are summed in f32 in another order. A row with
         # few live keys has ds = p (dp - delta), a difference of nearly
         # equal terms, so those roundings are large against that row's own
         # gradient: entrywise atol 1e-2 of the largest entry (at least
@@ -654,6 +984,21 @@ def flash_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed,
         again = fa.flash_backward(q, k, v, mask, causal, out, lse, dout)
         errs["rerun_max_diff"] = max(float((a.float() - b.float()).abs().max())
                                      for a, b in zip(again, (dq, dk, dv)))
+        check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
+              f"two bf16 backward calls on the same inputs differ by "
+              f"{errs['rerun_max_diff']}")
+        # the key tiles split over several launches (a small dq scratch
+        # cap): the same sums in the same order, so the same bits
+        cap = fa.DQ_SCRATCH_CAP
+        fa.DQ_SCRATCH_CAP = max(1, B * H * L * Dh * 4 * 2)
+        try:
+            errs["dq_launches_split"] = fa.dq_launch_plan(B, H, L, Dh)[2]
+            split = fa.flash_backward(q, k, v, mask, causal, out, lse, dout)
+        finally:
+            fa.DQ_SCRATCH_CAP = cap
+        check(all(torch.equal(a, b) for a, b in zip(split, (dq, dk, dv))),
+              f"the backward split over {errs['dq_launches_split']} "
+              f"launches differs from one launch")
     return errs
 
 
@@ -762,9 +1107,11 @@ def flash_phase(torch, bw, bf16_peak) -> list:
                               long_rows=name.startswith("diffuseq"))
             for i, (name, c) in enumerate(cases.items())}
     print(f"# flash check: max abs err {json.dumps(errs)}", flush=True)
-    rerun = max(e.get("rerun_max_diff", 0.0) for e in errs.values())
-    print(f"# flash determinism: max diff between two bf16 backward calls "
-          f"on the same inputs {rerun}", flush=True)
+    split = {n: e["dq_launches_split"] for n, e in errs.items()
+             if "dq_launches_split" in e}
+    print(f"# flash determinism: two bf16 backward calls on the same inputs "
+          f"bitwise equal in all {len(split)} bf16 cases, and equal to the "
+          f"backward split over several launches {split}", flush=True)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
@@ -994,8 +1341,13 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
     batch = next(load_data_from_args(
         "train", batch_size=8, dataset="synthetic-lm", seq_len=1024,
         vocab_size=50257, seed=0, skip_batches=20))
-    out = {}
+    out, grads = {}, {}
+    # the saved parameters as the loops' initial ones (the resume loads
+    # them again with the rest of the state): no random init per arm
+    saved = torch.load(os.path.join(run, "model_000020.pt"),
+                       map_location="cuda", weights_only=True)
     for arm, (attn, fused) in (("kernels", ("auto", "auto")),
+                               ("kernels_again", ("auto", "auto")),
                                ("plain", ("torch", "false"))):
         model = create_model_from_config(**{**GPT2_BASE,
                                             "attention_impl": attn},
@@ -1003,26 +1355,34 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
         loop = TrainLoop(
             model=model, data=None, batch_size=8, microbatch=4, lr=args.lr,
             ema_rate=args.ema_rate, learning_steps=args.learning_steps,
-            checkpoint_dir=run, fused_update=fused, logger=Logger(""))
+            checkpoint_dir=run, fused_update=fused, init_params=saved,
+            logger=Logger(""))
         check(loop.step == 20, f"resumed at step {loop.step}, not 20")
         fa.reset_launch_counts()
         fu.reset_launch_count()
         m = loop.run_step(batch)
         out[arm] = {"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"])}
+        grads[arm] = loop.grads.clone()
         n = (fa.forward_launch_count(), fa.backward_launch_count(),
              fu.launch_count())
-        check(n == ((24, 24, 1) if arm == "kernels" else (0, 0, 0)),
+        check(n == ((0, 0, 0) if arm == "plain" else (24, 24, 1)),
               f"{arm} arm launches {n}")
         del loop, model
         torch.cuda.empty_cache()
     a, b = out["kernels"], out["plain"]
-    print(f"# train: one step from the saved state, kernels {a}, plain {b}",
-          flush=True)
+    same = torch.equal(grads["kernels"], grads["kernels_again"])
+    print(f"# train: one step from the saved state, kernels {a}, again "
+          f"{out['kernels_again']} (every gradient bitwise equal: {same}), "
+          f"plain {b}", flush=True)
+    check(out["kernels_again"] == a and same,
+          f"two kernel steps from one saved state differ: {a} vs "
+          f"{out['kernels_again']}, gradients equal {same}")
+    del grads
     # bf16 through 12 layers: both arms round p to bf16 before p.v; the
     # plain backward runs f32 einsums where the kernel feeds p and ds to
-    # its products as bf16 and sums dq by atomics; allow 0.5% of the loss
-    # and 3% of the gradient norm
+    # its products as bf16; allow 0.5% of the loss and 3% of the gradient
+    # norm
     check(abs(a["loss"] - b["loss"]) <= 5e-3 * abs(b["loss"]),
           f"one-step loss differs: {a} vs {b}")
     check(abs(a["grad_norm"] - b["grad_norm"]) <= 3e-2 * b["grad_norm"],
@@ -1156,12 +1516,15 @@ def diffuseq_update_step(torch, fu, run, steps: int) -> dict:
                                      vocab_size=8192, seed=0,
                                      skip_batches=steps))
     out, state = {}, {}
+    saved = torch.load(os.path.join(run, f"model_{steps:06d}.pt"),
+                       map_location="cuda", weights_only=True)
     for arm, fused in (("kernel", "auto"), ("plain", "false")):
         loop = TrainLoop(
             model=create_model_from_config(**DIFFUSEQ_BASE, device="cuda"),
             data=None, batch_size=256, microbatch=64,
             ema_rate="0.5,0.9,0.99", learning_steps=steps + 1, seed=0,
-            checkpoint_dir=run, fused_update=fused, logger=Logger(""))
+            checkpoint_dir=run, fused_update=fused, init_params=saved,
+            logger=Logger(""))
         check(loop.step == steps, f"resumed at step {loop.step}")
         fu.reset_launch_count()
         m = loop.run_step(batch)
@@ -1319,7 +1682,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _build.load_library()
     print(f"# build: CUDA kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1331,29 +1694,41 @@ def main() -> int:
                       lib.dpt_flash_smem_bytes(b, dh)
                       for b in (0, 1) for dh in (64, 128)}), flush=True)
 
-    decode = kernel_phase(torch, fd, bw, bf16_peak)
-    flash = flash_phase(torch, bw, bf16_peak)
-    update = update_phase(torch, bw, f32_peak, GPT2_BASE)
-    update_dq = update_phase(torch, bw, f32_peak, DIFFUSEQ_BASE,
-                             name="fused_adamw_ema_diffuseq")
+    decode = clocked("decode kernels", kernel_phase, torch, fd, bw,
+                     bf16_peak)
+    span = clocked("span kernels", span_phase, torch, fd, bw, bf16_peak)
+    flash = clocked("flash kernels", flash_phase, torch, bw, bf16_peak)
+    update = clocked("fused update", update_phase, torch, bw, f32_peak,
+                     GPT2_BASE)
+    update_dq = clocked("fused update diffuseq", update_phase, torch, bw,
+                        f32_peak, DIFFUSEQ_BASE,
+                        name="fused_adamw_ema_diffuseq")
     small_model_phase(torch)
-    serve = serve_phase(torch, fd, bw, bf16_peak)
+    t0 = time.perf_counter()
+    serve, spec = serve_phase(torch, fd, bw, bf16_peak)
+    print(f"# serve phase, spec runs included: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for row, kv_quant in zip(decode, ("fp", "int8")):
         run = dict(serve[kv_quant])
         row["launches"] = run.pop("launches")
         row.update({k: v for k, v in run.items() if k.startswith("serve_")})
-    train = train_phase(torch, fa, fu)
+    for row, key in zip(span, ("ngram_fp", "model_int8")):
+        row["launches"] = spec[key]["span_launches"]
+    train = clocked("train", train_phase, torch, fa, fu)
     for row in (*flash, update):
         row["launches"] = train["launches"][row["name"]]
-    diffuseq = diffuseq_phase(torch, fa, fu)
+    diffuseq = clocked("diffuseq", diffuseq_phase, torch, fa, fu)
     update_dq["launches"] = diffuseq["launches"]["fused_adamw_ema"]
     for row, n in zip(flash, diffuseq["seq1024"]["kernels"]["launches"]):
         row["launches_diffuseq_seq1024"] = n
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"diffuseq": diffuseq}), flush=True)
-    print(json.dumps({"kernels": [*decode, *flash, update, update_dq]}),
+    print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
+    print(json.dumps({"kernels": [*decode, *span, *flash, update,
+                                  update_dq]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,6 @@ __all__ = ["ServeSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value served now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "spec_tokens": (0, "ROADMAP A.3 (speculative decoding, span verify)"),
     "prefix_cache": (False, "ROADMAP A.4 (prefix cache)"),
     "serve_quant": ("off", "ROADMAP A.4 (int8 serving weights)"),
     "cost_ledger": (False, "ROADMAP A.4 (cost ledger)"),
@@ -100,9 +99,19 @@ class ServeSettings:
     kv_quant: str = _f("fp", "paged KV storage: 'fp' = the model's dtype, "
                              "'int8' = int8 pages with per-page f32 scales "
                              "(about half the pool bytes)", ("fp", "int8"))
+    spec_tokens: int = _f(0, "speculative decoding: draft K tokens a round "
+                             "and verify them in ONE target forward; "
+                             "greedy output is token-identical to the "
+                             "non-speculative path. 0 = off")
+    spec_draft: str = _f("ngram", "draft source: 'ngram' = prompt lookup "
+                                  "on the host (no model work); 'model' = "
+                                  "an early-exit engine over the target's "
+                                  "first draft_layers blocks (weights "
+                                  "shared)", ("ngram", "model"))
+    draft_layers: int = _f(2, "spec_draft='model': how many leading target "
+                              "blocks the draft model keeps")
 
     # options of the JAX server that later slices bring (DEFERRED)
-    spec_tokens: int = _f(0, "speculative decoding draft length")
     prefix_cache: bool = _f(False, "shared-prefix KV page reuse")
     serve_quant: str = _f("off", "quantize serving weights", ("off", "int8"))
     cost_ledger: bool = _f(False, "per-phase cost ledger")
@@ -115,6 +124,9 @@ class ServeSettings:
     ema: str = _f("", "EMA rate to serve; empty = raw params")
 
     def __post_init__(self) -> None:
+        if self.spec_tokens < 0:
+            raise ValueError(f"--spec_tokens must be >= 0, got "
+                             f"{self.spec_tokens}")
         for name, (served, item) in DEFERRED.items():
             if getattr(self, name) != served:
                 raise ValueError(

@@ -46,7 +46,21 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "chaos_plan": ("", "ROADMAP A.10 (chaos harness)"),
     "profile_dir": ("", "ROADMAP A.10 (profiler window)"),
     "mpmd": (False, "ROADMAP A.9 (MPMD pipeline)"),
+    "profile_steps": ("", "ROADMAP A.10 (profiler window)"),
+    "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
+    "scan_unroll": (0, "ROADMAP A.9 (stacked layers, pipeline)"),
+    "moe_top_k": (2, "ROADMAP A.8 (mixture of experts)"),
+    "moe_every": (2, "ROADMAP A.8 (mixture of experts)"),
+    "moe_capacity_factor": (1.25, "ROADMAP A.8 (mixture of experts)"),
+    "mpmd_stages": (2, "ROADMAP A.9 (MPMD pipeline)"),
+    "mpmd_link_capacity": (8, "ROADMAP A.9 (MPMD pipeline)"),
+    "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9 (MPMD pipeline)"),
+    "mpmd_max_restarts": (3, "ROADMAP A.9 (MPMD pipeline)"),
 }
+# compilation_cache_dir names an XLA cache; PyTorch runs eagerly and
+# compiles nothing across runs, so only the JAX default and "off" (both
+# meaning "nothing to cache" here) are accepted
+COMPILATION_CACHE_DIRS = ("auto", "off")
 GPT2_DECODE = "ROADMAP A.7b (gpt2_decode, one_shot_decode)"
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
@@ -91,6 +105,24 @@ class TrainSettings:
     warmup_steps: int = _f(0, "linear LR warmup steps before the anneal")
     dispatch_lag: int = _f(1, "fetch/log step N-k's device scalars while "
                               "step N runs; 0 = eager")
+    keep_checkpoints: int = _f(0, "retain only the newest N checkpoint "
+                                  "steps (model, EMA and opt files pruned "
+                                  "together); 0 = keep all")
+    debug_nans: bool = _f(False, "check every step's metrics, gradients "
+                                 "and parameters and raise "
+                                 "FloatingPointError at the first "
+                                 "non-finite one (one host sync a step; "
+                                 "debug runs only)")
+    prefetch_depth: int = _f(2, "input prefetch depth: keep N batches in "
+                                "pinned host memory, copied to the device "
+                                "on a side stream while the current step "
+                                "runs; 0 disables (the data order is "
+                                "identical either way)")
+    compilation_cache_dir: str = _f("auto", "the JAX package's XLA "
+                                            "compilation cache; nothing is "
+                                            "compiled across runs here, so "
+                                            "only 'auto' and 'off' are "
+                                            "accepted")
     eval_decode: bool = _f(False, "decode a validation batch at every eval "
                                   "interval and log decode_acc (diffuseq)")
     eval_decode_sample_steps: int = _f(32, "reverse-diffusion steps for eval "
@@ -150,6 +182,16 @@ class TrainSettings:
     chaos_plan: str = _f("", "fault-injection schedule")
     profile_dir: str = _f("", "profiler trace directory")
     mpmd: bool = _f(False, "MPMD pipeline training")
+    profile_steps: str = _f("", "profiler capture window 'A:B'")
+    auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
+    scan_unroll: int = _f(0, "scan_layers unroll factor")
+    moe_top_k: int = _f(2, "MoE router top-k")
+    moe_every: int = _f(2, "MoE replaces the MLP in every k-th block")
+    moe_capacity_factor: float = _f(1.25, "MoE expert capacity factor")
+    mpmd_stages: int = _f(2, "MPMD stage count")
+    mpmd_link_capacity: int = _f(8, "MPMD StageLink in-flight frame cap")
+    mpmd_hang_timeout_s: float = _f(0.0, "MPMD per-stage hang watchdog")
+    mpmd_max_restarts: int = _f(3, "MPMD per-stage restart budget")
 
     def __post_init__(self) -> None:
         if self.eval_decode and self.model_family == "gpt2":
@@ -161,6 +203,17 @@ class TrainSettings:
                 raise ValueError(
                     f"--{name} {getattr(self, name)} is not trained by this "
                     f"port yet (only {served!r}); it comes with {item}")
+        if self.compilation_cache_dir not in COMPILATION_CACHE_DIRS:
+            raise ValueError(
+                f"--compilation_cache_dir {self.compilation_cache_dir!r}: "
+                f"the port runs PyTorch eagerly and has no XLA compilation "
+                f"cache to keep; only {COMPILATION_CACHE_DIRS} are accepted")
+        if self.keep_checkpoints < 0:
+            raise ValueError(f"--keep_checkpoints must be >= 0, got "
+                             f"{self.keep_checkpoints}")
+        if self.prefetch_depth < 0:
+            raise ValueError(f"--prefetch_depth must be >= 0, got "
+                             f"{self.prefetch_depth}")
         if self.dp not in (-1, 1):
             raise ValueError(f"--dp {self.dp}: this port trains on one GPU "
                              f"(dp -1 or 1); multi-GPU is ROADMAP A.8")

@@ -19,7 +19,12 @@ Attention runs one of three branches:
   through the same seam;
 * paged single-token decode (``cache_index`` [B] per-slot positions, L == 1):
   write the token's K/V, then the decode seam
-  (``ops.flash_decode.paged_decode_attention``).
+  (``ops.flash_decode.paged_decode_attention``);
+* paged speculative-verify span (``cache_index`` [B], L > 1): each slot's L
+  chain links sit at positions ``idx .. idx + L - 1``; every link's K/V is
+  written first, then one span dispatch
+  (``ops.flash_decode.paged_span_attention``) attends link j at ``idx + j``
+  over the live prefix plus the earlier links.
 
 ``kv_quant`` names the pool's storage, as the JAX module attribute of that
 name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
@@ -28,8 +33,8 @@ name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
 by the ``_q8`` writers and dequantized by both decode arms. The prefill's own
 attention runs on the local fp k/v either way.
 
-The dense-cache decode, the speculative span branch, MoE and stacked
-(``scan_layers``) weights are later work (ROADMAP A.3, A.7b, A.8).
+The dense-cache decode, MoE and stacked (``scan_layers``) weights are later
+work (ROADMAP A.7b, A.8).
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from ..ops.flash_decode import paged_decode_attention
+from ..ops.flash_decode import paged_decode_attention, paged_span_attention
 from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
+                                write_span_kv, write_span_kv_q8,
                                 write_token_kv, write_token_kv_q8)
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
@@ -151,10 +157,25 @@ class SelfAttention(nn.Module):
         if cache_index is None or cache_index.dim() != 1:
             raise ValueError("paged decode needs a per-slot cache_index "
                              "vector [B]")
-        if L > 1:
-            raise NotImplementedError(
-                "the speculative-verify span branch is ROADMAP A.3")
         idx = cache_index.to(torch.int32)
+        if L > 1:
+            # speculative-verify span: write every link's K/V (overshoot
+            # past the table's reach clamps to its last cell), then one
+            # span dispatch; link j reads the live prefix plus links < j,
+            # the rows a sequential L-step replay would read
+            if quant:
+                write_span_kv_q8(pages_k, sk, block_table, k, idx)
+                write_span_kv_q8(pages_v, sv, block_table, v, idx)
+            else:
+                write_span_kv(pages_k, block_table, k, idx)
+                write_span_kv(pages_v, block_table, v, idx)
+            addr = block_table.shape[1] * pages_k.shape[1]
+            pos = torch.clamp(idx[:, None] + torch.arange(
+                L, dtype=torch.int32, device=idx.device)[None, :],
+                max=addr - 1)
+            return paged_span_attention(q, pages_k, pages_v, block_table,
+                                        pos, impl=decode_impl, scales_k=sk,
+                                        scales_v=sv)
         if quant:
             write_token_kv_q8(pages_k, sk, block_table, k[:, :, 0], idx)
             write_token_kv_q8(pages_v, sv, block_table, v[:, :, 0], idx)

@@ -27,7 +27,8 @@ class GPT2Model(nn.Module):
     ``(pages_k, pages_v, scales_k, scales_v)`` entry over an int8 pool) and
     ``block_table`` it is the paged serving path: a prefill over the prompt
     batch when ``cache_index`` is None, one decode step when ``ids`` is
-    [B, 1] and ``cache_index`` holds each slot's position. Parameters start
+    [B, 1] and ``cache_index`` holds each slot's position, and a
+    speculative-verify span when ``ids`` is [B, L] with ``cache_index``. Parameters start
     at zero; load weights with ``load_state_dict``."""
 
     family = "gpt2"
@@ -60,17 +61,16 @@ class GPT2Model(nn.Module):
                 kv_quant: str = "fp") -> torch.Tensor:
         B, L = ids.shape
         if cache_index is not None:
-            if L != 1:
-                raise NotImplementedError(
-                    "multi-token decode (speculative verify) is ROADMAP A.3")
             # per-slot positions (continuous-batching decode): each slot
-            # sits at its own depth, so the embedding is a gather. A slot
-            # whose budget ends mid-span is fed up to span - 1 positions
-            # past its last token, which can pass the table's end when
-            # prompt + budget == seq_len; clamp to the edge (those picks
-            # are discarded at fetch)
-            idx = torch.clamp(cache_index.long(), max=self.seq_len - 1)
-            pos = self.pos_emb[idx][:, None, :]
+            # sits at its own depth, so the embedding is a gather; a
+            # speculative-verify span's link j sits at cache_index + j. A
+            # slot whose budget ends mid-span is fed positions past its
+            # last token, which can pass the table's end when prompt +
+            # budget == seq_len; clamp to the edge (those picks are
+            # discarded by the host)
+            span = cache_index.long()[:, None] + torch.arange(
+                L, device=ids.device)[None, :]
+            pos = self.pos_emb[torch.clamp(span, max=self.seq_len - 1)]
         else:
             pos = self.pos_emb[None, :L]
         h = (self.word_emb.embedding[ids.long()] + pos).to(self.dtype)

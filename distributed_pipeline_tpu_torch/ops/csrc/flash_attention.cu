@@ -28,8 +28,11 @@
 //   JAX kernel casts p to v's dtype before p.v) and fed to O += P V as the
 //   register A operand. Backward (flash_bwd_sm90_kernel): one pass, one CTA
 //   per 128-row key tile (64 at Dh=128), five products per (query tile, key
-//   tile) pair and dq summed in f32 by atomics into a scratch buffer (so its
-//   last bits vary from run to run), then cast by a small kernel. Only
+//   tile) pair. Each CTA stores its key tile's dq part (its two warpgroups'
+//   parts summed in shared memory) into a plane of its own (f32, plain
+//   stores), and flash_bwd_dq_reduce_kernel sums the planes in ascending
+//   key order and casts: dq is the same bits on every run, as the JAX
+//   kernel's fixed-order dq scratch is. Only
 //   tiles on the diagonal, at the ragged end or holding padded keys take
 //   the mask arithmetic.
 // * float32: the FMA kernels below (flash_fwd_kernel, flash_bwd_dkdv_kernel
@@ -47,9 +50,11 @@
 // s * log2(e), and uses exp2.)
 //
 // Layouts (all contiguous): q, k, v, out, dout, dq, dk, dv [B, H, L, Dh] T;
-// pad_mask [B, L] int32 or null; lse, delta [B, H, L] f32; dq_accum
-// [B, H, L, Dh] f32 (bf16 backward only). T is float or __nv_bfloat16; Dh
-// is 64 or 128.
+// pad_mask [B, L] int32 or null; lse, delta [B, H, L] f32; bf16 backward
+// only: dq_part [planes, B, H, L, Dh] f32, one plane per key tile of a
+// launch, and dq_accum [B, H, L, Dh] f32 (the running sum when the key
+// tiles take more than one launch; null otherwise). T is float or
+// __nv_bfloat16; Dh is 64 or 128.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -696,6 +701,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive on a named barrier without waiting: the threads that bar.sync on
+// it see this thread's earlier shared-memory writes.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
@@ -940,16 +951,18 @@ struct BwdShape {
   static constexpr int kConsumers = DH == 64 ? 2 : 1;
   static constexpr int kKeys = 64 * kConsumers;           // key tile rows
   static constexpr int kThreads = (kConsumers + 1) * kWgThreads;
+  // f32 [64 x DH] where warpgroup 1 hands its dq part to warpgroup 0
+  static constexpr int kFold = (kConsumers - 1) * 64 * DH;
 };
 
 template <int DH>
 constexpr int bwd_sm90_smem() {
   // K, V (kKeys rows each), kStages x (Q, dO) (64 rows each), one 64 x 64
-  // bf16 dS^T tile per consumer warpgroup, kStages x (lse, delta) rows,
-  // barriers
+  // bf16 dS^T tile per consumer warpgroup, the dq fold, kStages x (lse,
+  // delta) rows, barriers
   return 1024 + 2 * BwdShape<DH>::kKeys * DH * 2 +
          2 * kStages * kSm90BwdQ * DH * 2 +
-         BwdShape<DH>::kConsumers * 64 * 64 * 2 +
+         BwdShape<DH>::kConsumers * 64 * 64 * 2 + BwdShape<DH>::kFold * 4 +
          2 * kStages * kSm90BwdQ * 4 + 128;
 }
 
@@ -960,10 +973,14 @@ constexpr int bwd_sm90_smem() {
 // accumulators and feed dV and dK as register A operands. Five products a
 // (query tile, key tile) pair:
 //   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, dQ_part = dS K
-// dQ_part is added into the f32 dq_accum with atomics: the order of those
-// additions, and so the last bits of dq, change from run to run.
-// Key tiles are launched heaviest first (tile 0 of a causal call has the
-// most query tiles).
+// dQ_part goes with plain stores into the CTA's own f32 plane
+// (dq_part + blockIdx.y * plane), rows q0.. of the query tile; with two
+// consumer warpgroups, warpgroup 1 first hands its part to warpgroup 0
+// through shared memory (named barriers 3 and 4), which adds it to its own
+// and stores the sum. No two CTAs write one element and every sum has a
+// fixed order, so dq is the same bits on every run. A launch covers key
+// tiles kt_begin + blockIdx.y. Key tiles are launched heaviest first (tile
+// 0 of a causal call has the most query tiles).
 template <int DH>
 __global__ void __launch_bounds__(BwdShape<DH>::kThreads, 1)
 flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -973,7 +990,8 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const int* __restrict__ pad_mask,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      float* __restrict__ dq_accum,
+                      float* __restrict__ dq_part, long long plane,
+                      int kt_begin,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int H, int L,
                       int causal, float scale) {
@@ -991,15 +1009,16 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* sQ = sV + kKVBytes;                       // [kStages]
   uint8_t* sdO = sQ + kStages * kQBytes;             // [kStages]
   uint8_t* sdS = sdO + kStages * kQBytes;            // [kConsumers]
-  float* sLse =
-      reinterpret_cast<float*>(sdS + kConsumers * kDSBytes);  // [kStages][64]
+  float* sFold =
+      reinterpret_cast<float*>(sdS + kConsumers * kDSBytes);  // [kFold]
+  float* sLse = sFold + BwdShape<DH>::kFold;                   // [kStages][64]
   float* sDelta = sLse + kStages * kSm90BwdQ;                    // [kStages][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDelta + kStages * kSm90BwdQ);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kKeys;
+  const int k0 = (kt_begin + blockIdx.y) * kKeys;
   const int q_begin = causal ? k0 : 0;
   const int n_qt = (L - q_begin + kSm90BwdQ - 1) / kSm90BwdQ;
   const long long sbase = (long long)bh * L;
@@ -1066,6 +1085,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const float sl2 = scale * kLog2e;
     const int wg_rows = wg * 64 * kPanelRowBytes;  // this warpgroup's keys
     uint8_t* sds = sdS + wg * kDSBytes;
+    float* my_plane = dq_part + (long long)blockIdx.y * plane;
     float dvacc[NP][32], dkacc[NP][32];
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
@@ -1198,19 +1218,37 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           }
           if (lane == 0) mbar_arrive(&empty[s]);
         }
+        if (kConsumers > 1) {
+          // the same fragment layout in both warpgroups: thread tid of
+          // warpgroup 1 holds the elements thread tid of warpgroup 0 holds
+          float* fold = sFold + p * 64 * kPanel;
+          if (wg == 1) {
+            if (j > 0 || p > 0)
+              named_sync(4, 2 * kWgThreads);  // warpgroup 0 read the last
+#pragma unroll
+            for (int e = 0; e < 32; ++e) fold[e * kWgThreads + tid] = dq[e];
+            named_arrive(3, 2 * kWgThreads);
+            continue;
+          }
+          named_sync(3, 2 * kWgThreads);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dq[e] += fold[e * kWgThreads + tid];
+          named_arrive(4, 2 * kWgThreads);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int qr = q0 + kl0 + 8 * h;
           if (qr >= L) continue;
           float2* dst = reinterpret_cast<float2*>(
-              dq_accum + (sbase + qr) * DH + p * kPanel + 2 * qd);
+              my_plane + (sbase + qr) * DH + p * kPanel + 2 * qd);
 #pragma unroll
           for (int i = 0; i < 8; ++i)
-            atomicAdd(dst + 4 * i,
-                      make_float2(dq[4 * i + 2 * h], dq[4 * i + 2 * h + 1]));
+            dst[4 * i] = make_float2(dq[4 * i + 2 * h], dq[4 * i + 2 * h + 1]);
         }
       }
     }
+    // the last hand-over's arrival on barrier 4 is consumed here
+    if (kConsumers > 1 && wg == 1 && n_qt > 0) named_sync(4, 2 * kWgThreads);
 
     // epilogue: dK carries the softmax scale; dK, dV as bf16
 #pragma unroll
@@ -1234,14 +1272,12 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// delta = rowsum(dO * O) in f32, 16 bytes of each a thread; zeroes
-// dq_accum's row when given one.
+// delta = rowsum(dO * O) in f32, 16 bytes of each a thread.
 template <typename T, int DH>
 __global__ void __launch_bounds__(256)
 flash_bwd_preprocess_kernel(const T* __restrict__ dout,
                             const T* __restrict__ out,
-                            float* __restrict__ delta,
-                            float* __restrict__ dq_accum, long long rows) {
+                            float* __restrict__ delta, long long rows) {
   constexpr int E = 16 / sizeof(T);   // elements a thread
   constexpr int TPR = DH / E;         // threads a row (8 to 32: one warp's
                                       // aligned lanes)
@@ -1258,11 +1294,6 @@ flash_bwd_preprocess_kernel(const T* __restrict__ dout,
     const T* tb = reinterpret_cast<const T*>(&b);
 #pragma unroll
     for (int e = 0; e < E; ++e) acc = fmaf(to_f32(ta[e]), to_f32(tb[e]), acc);
-    if (dq_accum != nullptr) {
-      float4* z = reinterpret_cast<float4*>(dq_accum + off);
-#pragma unroll
-      for (int e = 0; e < E / 4; ++e) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
   }
 #pragma unroll
   for (int o = TPR / 2; o > 0; o >>= 1)
@@ -1270,16 +1301,36 @@ flash_bwd_preprocess_kernel(const T* __restrict__ dout,
   if (valid && part == 0) delta[row] = acc;
 }
 
-// dq = bf16(dq_accum * scale), four elements a thread.
+// Sums one launch's dq planes, four elements a thread, in a fixed order:
+// the running sum of the earlier launches (dq_accum, when `first` is 0),
+// then the planes of key tiles kt_begin.. ascending. A causal call's key
+// tile kt wrote only query rows >= its first key (kt * keys); the other
+// rows of its plane hold stale bytes and are skipped. The last launch
+// writes dq = bf16(sum * scale), the others the running sum. Bound by
+// bytes: each plane element is read once.
 __global__ void __launch_bounds__(256)
-flash_bwd_dq_convert_kernel(const float4* __restrict__ dq_accum,
-                            uint2* __restrict__ dq, long long n4,
-                            float scale) {
+flash_bwd_dq_reduce_kernel(const float4* __restrict__ dq_part,
+                           float4* __restrict__ dq_accum,
+                           uint2* __restrict__ dq, long long plane4,
+                           int L, int DH, int keys, int kt_begin, int n_kt,
+                           int causal, int first, int last, float scale) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= n4) return;
-  const float4 a = dq_accum[i];
-  dq[i] = make_uint2(pack_bf16(a.x * scale, a.y * scale),
-                     pack_bf16(a.z * scale, a.w * scale));
+  if (i >= plane4) return;
+  const int r = (int)((i * 4 / DH) % L);   // the query row in its sequence
+  float4 a = first ? make_float4(0.f, 0.f, 0.f, 0.f) : dq_accum[i];
+  for (int t = 0; t < n_kt; ++t) {
+    if (causal && (kt_begin + t) * keys > r) break;
+    const float4 b = dq_part[(long long)t * plane4 + i];
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  if (last)
+    dq[i] = make_uint2(pack_bf16(a.x * scale, a.y * scale),
+                       pack_bf16(a.z * scale, a.w * scale));
+  else
+    dq_accum[i] = a;
 }
 
 // ------------------------------------------------------------------ host
@@ -1353,28 +1404,33 @@ cudaError_t launch_fwd_sm90(const void* q, const void* k, const void* v,
 
 template <typename T, int DH>
 cudaError_t launch_preprocess(const void* dout, const void* out, float* delta,
-                              float* dq_accum, long long rows,
-                              cudaStream_t stream) {
+                              long long rows, cudaStream_t stream) {
   constexpr int tpr = DH * (int)sizeof(T) / 16;   // threads a row
   flash_bwd_preprocess_kernel<T, DH><<<(unsigned)((rows * tpr + 255) / 256),
                                        256, 0, stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(out), delta,
-      dq_accum, rows);
+      static_cast<const T*>(dout), static_cast<const T*>(out), delta, rows);
   return cudaGetLastError();
 }
 
+// The key tiles go in launches of `kt_per_launch` (the planes' scratch is
+// capped by the caller), each followed by the reduce of its planes; with
+// one launch dq_accum is not used and may be null.
 template <int DH>
 cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v,
                             const int* pad_mask, const void* dout,
                             const void* out, const float* lse, float* delta,
-                            float* dq_accum, void* dq, void* dk, void* dv,
-                            int B, int H, int L, int causal,
+                            float* dq_part, float* dq_accum, void* dq,
+                            void* dk, void* dv, int B, int H, int L,
+                            int causal, int kt_per_launch,
                             cudaStream_t stream) {
-  if (dq_accum == nullptr) return cudaErrorInvalidValue;
+  constexpr int keys = BwdShape<DH>::kKeys;
+  const int n_kt = (L + keys - 1) / keys;
+  if (dq_part == nullptr || kt_per_launch < 1 ||
+      (kt_per_launch < n_kt && dq_accum == nullptr))
+    return cudaErrorInvalidValue;
   const long long rows = (long long)B * H * L;
-  cudaError_t err = launch_preprocess<__nv_bfloat16, DH>(dout, out, delta,
-                                                         dq_accum, rows,
-                                                         stream);
+  cudaError_t err =
+      launch_preprocess<__nv_bfloat16, DH>(dout, out, delta, rows, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, tdo;
   if ((err = make_tile_map(&tq, q, B * H, L, DH, kSm90BwdQ)) != cudaSuccess ||
@@ -1395,19 +1451,25 @@ cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v,
     smem_set = true;
   }
   const float scale = 1.0f / sqrtf((float)DH);
-  constexpr int keys = BwdShape<DH>::kKeys;
-  const dim3 grid(B * H, (L + keys - 1) / keys);
-  flash_bwd_sm90_kernel<DH><<<grid, BwdShape<DH>::kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, pad_mask, lse, delta, dq_accum,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, L,
-      causal, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long n4 = rows * DH / 4;
-  flash_bwd_dq_convert_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0,
+  const long long plane = rows * DH;
+  const long long plane4 = plane / 4;
+  for (int kt0 = 0; kt0 < n_kt; kt0 += kt_per_launch) {
+    const int nk = kt_per_launch < n_kt - kt0 ? kt_per_launch : n_kt - kt0;
+    const dim3 grid(B * H, nk);
+    flash_bwd_sm90_kernel<DH><<<grid, BwdShape<DH>::kThreads, smem,
                                 stream>>>(
-      reinterpret_cast<const float4*>(dq_accum), static_cast<uint2*>(dq), n4,
-      scale);
-  return cudaGetLastError();
+        tq, tk, tv, tdo, pad_mask, lse, delta, dq_part, plane, kt0,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+        L, causal, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    flash_bwd_dq_reduce_kernel<<<(unsigned)((plane4 + 255) / 256), 256, 0,
+                                 stream>>>(
+        reinterpret_cast<const float4*>(dq_part),
+        reinterpret_cast<float4*>(dq_accum), static_cast<uint2*>(dq), plane4,
+        L, DH, keys, kt0, nk, causal, kt0 == 0, kt0 + nk >= n_kt, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1438,23 +1500,25 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The backward: delta = rowsum(dO * O) into `delta` ([B, H, L] f32), then
-// for float32 the dk/dv and dq kernels, for bfloat16 the one-pass kernel
-// (dq summed in `dq_accum`, [B, H, L, Dh] f32 scratch, then cast). All on
-// one stream.
+// for float32 the dk/dv and dq kernels, for bfloat16 the one-pass kernel in
+// launches of `kt_per_launch` key tiles, each followed by the fixed-order
+// sum of its dq planes (`dq_part`, one [B, H, L, Dh] f32 plane a key tile
+// of the launch; `dq_accum`, one more, when there is more than one
+// launch). All on one stream.
 int dpt_flash_bwd(const void* q, const void* k, const void* v,
                   const int* pad_mask, const void* dout, const void* out,
-                  const float* lse, float* delta, float* dq_accum, void* dq,
-                  void* dk, void* dv, int B, int H, int L, int head_dim,
-                  int causal, int dtype, void* stream) {
+                  const float* lse, float* delta, float* dq_part,
+                  float* dq_accum, void* dq, void* dk, void* dv, int B, int H,
+                  int L, int head_dim, int causal, int dtype,
+                  int kt_per_launch, void* stream) {
   if (B == 0 || H == 0 || L == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = (long long)B * H * L;
   if (dtype == 0 && (head_dim == 64 || head_dim == 128)) {
     cudaError_t err =
         head_dim == 64
-            ? launch_preprocess<float, 64>(dout, out, delta, nullptr, rows, s)
-            : launch_preprocess<float, 128>(dout, out, delta, nullptr, rows,
-                                            s);
+            ? launch_preprocess<float, 64>(dout, out, delta, rows, s)
+            : launch_preprocess<float, 128>(dout, out, delta, rows, s);
     if (err != cudaSuccess) return (int)err;
     return head_dim == 64
                ? (int)launch_bwd<float, 64>(q, k, v, pad_mask, dout, lse,
@@ -1466,10 +1530,12 @@ int dpt_flash_bwd(const void* q, const void* k, const void* v,
   }
   if (dtype == 1 && head_dim == 64)
     return (int)launch_bwd_sm90<64>(q, k, v, pad_mask, dout, out, lse, delta,
-                                    dq_accum, dq, dk, dv, B, H, L, causal, s);
+                                    dq_part, dq_accum, dq, dk, dv, B, H, L,
+                                    causal, kt_per_launch, s);
   if (dtype == 1 && head_dim == 128)
     return (int)launch_bwd_sm90<128>(q, k, v, pad_mask, dout, out, lse, delta,
-                                     dq_accum, dq, dk, dv, B, H, L, causal, s);
+                                     dq_part, dq_accum, dq, dk, dv, B, H, L,
+                                     causal, kt_per_launch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,8 @@ scores never reach device memory. Two arms compute it:
   :func:`flash_forward` (``(out, lse)``) and :func:`flash_backward`
   (``(dq, dk, dv)``); each takes CUDA tensors only and counts its launches.
   bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles; a one-pass
-  backward whose dq is summed by f32 atomics), f32 the FMA kernels;
+  backward whose dq parts go to f32 planes, one per key tile, summed in a
+  fixed order, so dq is the same bits on every run), f32 the FMA kernels;
 * the plain versions :func:`torch_flash_forward` (the JAX package's
   ``_xla_forward`` line for line: f32 scores, the exact ``where`` mask,
   ``lse = m + log(max(l, 1e-20))``, zeros on fully masked rows) and
@@ -38,7 +39,8 @@ import torch
 __all__ = ["flash_attention", "flash_forward", "flash_backward",
            "torch_flash_forward", "torch_flash_backward", "NEG_INF",
            "forward_launch_count", "backward_launch_count",
-           "reset_launch_counts", "flash_flops", "flash_hbm_bytes"]
+           "reset_launch_counts", "flash_flops", "flash_hbm_bytes",
+           "dq_launch_plan", "DQ_SCRATCH_CAP"]
 
 NEG_INF = -1e9
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,6 +48,10 @@ _HEAD_DIMS = (64, 128)
 
 # Launches of each kernel since the last reset: one per wrapper call.
 _launches = {"forward": 0, "backward": 0}
+# The bf16 backward's dq planes (one f32 [B, H, L, Dh] plane per key tile)
+# are capped at this many bytes: past it, the key tiles go in several
+# launches whose sums chain through one more plane.
+DQ_SCRATCH_CAP = 256 * 2 ** 20
 
 
 def forward_launch_count() -> int:
@@ -175,14 +181,28 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def dq_launch_plan(B: int, H: int, L: int, Dh: int,
+                   cap: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(key tiles a launch, dq planes, launches)`` of the bf16 backward:
+    its key tiles are 128 keys at Dh 64 and 64 at Dh 128, one f32 dq plane
+    each; as many tiles go in one launch as keep the planes under ``cap``
+    bytes (default ``DQ_SCRATCH_CAP``), at least one."""
+    cap = DQ_SCRATCH_CAP if cap is None else cap
+    n_kt = -(-L // (128 if Dh == 64 else 64))
+    kt = max(1, min(n_kt, cap // (B * H * L * Dh * 4)))
+    return kt, kt, -(-n_kt // kt)
+
+
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    pad_mask: Optional[torch.Tensor], causal: bool,
                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels (one count per call): ``(dq, dk, dv)`` in q's
     dtype. A first kernel computes ``delta = rowsum(dO * O)`` in f32. bf16
-    then runs the one-pass kernel, which sums dq in an f32 scratch buffer
-    by atomics (its last bits vary from run to run) and casts it; f32 runs
+    then runs the one-pass kernel, whose CTAs store their key tile's dq
+    part in an f32 plane of their own (:func:`dq_launch_plan`), and a
+    kernel that sums the planes in ascending key order and casts: no
+    atomics, so two calls on the same inputs give the same bits. f32 runs
     the dk/dv kernel and the dq kernel."""
     _check_kernel_args("flash_backward", (q, k, v, out, dout), pad_mask)
     _stats_ok("flash_backward", q, lse)
@@ -190,18 +210,27 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load_library()
     B, H, L, Dh = q.shape
     delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    dq_accum = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-                if q.dtype == torch.bfloat16 else None)
+    dq_part = dq_accum = None
+    kt_per_launch = 0
+    if q.dtype == torch.bfloat16:
+        kt_per_launch, planes, launches = dq_launch_plan(B, H, L, Dh)
+        dq_part = torch.empty((planes,) + tuple(q.shape),
+                              dtype=torch.float32, device=q.device)
+        if launches > 1:
+            dq_accum = torch.empty(q.shape, dtype=torch.float32,
+                                   device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(q.device):
         err = lib.dpt_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if pad_mask is None else pad_mask.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pad_mask),
             dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(),
-            None if dq_accum is None else dq_accum.data_ptr(),
+            delta.data_ptr(), ptr(dq_part), ptr(dq_accum),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, L, Dh,
-            int(causal), _DTYPE_CODES[q.dtype],
+            int(causal), _DTYPE_CODES[q.dtype], kt_per_launch,
             torch.cuda.current_stream().cuda_stream)
     check(lib, err, "flash_backward")
     _launches["backward"] += 1

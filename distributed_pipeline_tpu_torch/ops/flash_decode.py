@@ -24,6 +24,17 @@ block-table entries past a slot's live prefix may hold anything, and the
 caller writes the current token's K/V before attending. ``positions[b] < 0``
 marks a slot with no live key, whose output is zeros.
 
+Speculative verify attends a whole draft chain at once: ``q`` [B, H, L, Dh]
+holds each slot's L links, link j at position ``positions[b, j]``, over the
+live prefix plus the earlier links (the caller has written every link's
+K/V). :func:`paged_span_attention` is its seam: the kernel arm runs
+:func:`flash_decode` over B*L pseudo-slots (link j of slot b is a slot of its
+own with b's block-table row and position ``positions[b, j]``), and
+:func:`torch_paged_span_decode`, the plain twin of the JAX package's
+``xla_paged_span_decode``, gathers each slot's pages once and attends link
+by link with the single-token plain version's own arithmetic, so a link's
+output is bitwise that version's output at the same position.
+
 Dispatch (:func:`resolve_decode_impl`): ``auto`` takes the kernel for CUDA
 tensors and the plain version for CPU tensors; ``cuda`` forces the kernel and
 raises on CPU tensors; ``torch`` forces the plain version. The TPU arm's
@@ -40,9 +51,10 @@ import numpy as np
 import torch
 
 __all__ = ["flash_decode", "torch_paged_decode", "paged_decode_attention",
+           "torch_paged_span_decode", "paged_span_attention",
            "resolve_decode_impl", "decode_hbm_bytes", "decode_plan",
            "device_limits", "DecodePlan", "launch_count",
-           "reset_launch_count"]
+           "span_launch_count", "reset_launch_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -55,8 +67,10 @@ _STAGES = 2
 _CTAS_PER_SM = 4  # the static grid aims at this many CTAs per SM
 
 # Launches of the CUDA kernel since the last reset, one per call, by page
-# type ("fp" pools of q's dtype, "int8" pools).
+# type ("fp" pools of q's dtype, "int8" pools), and, of those, the ones the
+# speculative-verify seam made over pseudo-slots.
 _launches = {"fp": 0, "int8": 0}
+_span_launches = [0]
 # per CUDA device: (SM count, opt-in shared memory per block)
 _device_limits: Dict[int, Tuple[int, int]] = {}
 # per CUDA device: the zeroed int32 tickets of the multi-chunk combine (the
@@ -71,9 +85,16 @@ def launch_count(pages: Optional[str] = None) -> int:
     return sum(_launches.values()) if pages is None else _launches[pages]
 
 
+def span_launch_count() -> int:
+    """Kernel launches made by :func:`paged_span_attention` since the last
+    reset (each is also one of :func:`launch_count`'s)."""
+    return _span_launches[0]
+
+
 def reset_launch_count() -> None:
     for key in _launches:
         _launches[key] = 0
+    _span_launches[0] = 0
 
 
 def resolve_decode_impl(impl: str, device: torch.device) -> str:
@@ -102,19 +123,55 @@ def torch_paged_decode(q: torch.Tensor, pages_k: torch.Tensor,
     line, plus one rule of the kernels: a slot with no live key
     (``pos < 0``) gives zeros, where the all-masked softmax would average
     whatever its pages hold."""
+    ks, vs = _gather_dense(q, pages_k, pages_v, block_table, scales_k,
+                           scales_v)
+    return _attend_dense(q, ks, vs, positions)
+
+
+def _gather_dense(q, pages_k, pages_v, block_table, scales_k, scales_v
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's pages as dense [B, H, n*page_size, Dh] K and V, int8
+    pools dequantized to q's dtype right after the gather."""
     from ..serving.paged_kv import dequant_gathered, gather_kv
-    from .attention import dot_product_attention
-    ks = gather_kv(pages_k, block_table)        # [B, H, n*page_size, Dh]
+    ks = gather_kv(pages_k, block_table)
     vs = gather_kv(pages_v, block_table)
     if scales_k is not None:
         ps = pages_k.shape[1]
         ks = dequant_gathered(ks, scales_k, block_table, ps, q.dtype)
         vs = dequant_gathered(vs, scales_v, block_table, ps, q.dtype)
+    return ks, vs
+
+
+def _attend_dense(q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """One query row a slot ([B, H, Dh]) over gathered K/V, live mask
+    ``arange <= pos``; a slot with ``pos < 0`` gives zeros."""
+    from .attention import dot_product_attention
     live = (torch.arange(ks.shape[2], device=ks.device)[None, :]
             <= positions[:, None]).to(torch.int32)
     o = dot_product_attention(q[:, :, None], ks, vs, live, causal=False)
     return torch.where((positions >= 0)[:, None, None], o[:, :, 0],
                        torch.zeros((), dtype=o.dtype, device=o.device))
+
+
+def torch_paged_span_decode(q: torch.Tensor, pages_k: torch.Tensor,
+                            pages_v: torch.Tensor, block_table: torch.Tensor,
+                            positions: torch.Tensor,
+                            scales_k: Optional[torch.Tensor] = None,
+                            scales_v: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The span's plain version, the twin of the JAX package's
+    ``xla_paged_span_decode``: ``q`` [B, H, L, Dh], ``positions`` [B, L]
+    -> [B, H, L, Dh]. Each slot's pages are gathered (and dequantized)
+    once; each link then attends with :func:`torch_paged_decode`'s own
+    arithmetic at its own position, so link j's output is bitwise the
+    single-token plain output for ``q[:, :, j]`` at ``positions[:, j]``
+    (one product a link: on the CPU a batched product's rows are not
+    bitwise those of a one-row product)."""
+    ks, vs = _gather_dense(q, pages_k, pages_v, block_table, scales_k,
+                           scales_v)
+    return torch.stack([_attend_dense(q[:, :, j], ks, vs, positions[:, j])
+                        for j in range(q.shape[2])], dim=2)
 
 
 class DecodePlan(NamedTuple):
@@ -308,6 +365,32 @@ def paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
                             scales_k, scales_v)
     return torch_paged_decode(q, pages_k, pages_v, block_table, positions,
                               scales_k, scales_v)
+
+
+def paged_span_attention(q: torch.Tensor, pages_k: torch.Tensor,
+                         pages_v: torch.Tensor, block_table: torch.Tensor,
+                         positions: torch.Tensor, impl: str = "auto",
+                         scales_k: Optional[torch.Tensor] = None,
+                         scales_v: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The speculative-verify seam: one dispatch attends a whole draft
+    chain, ``q`` [B, H, L, Dh] and ``positions`` [B, L] -> [B, H, L, Dh].
+    The caller has written every link's K/V into the pool and clamped the
+    positions to the block table's reach. The kernel arm runs
+    :func:`flash_decode` over B*L pseudo-slots: q as [B*L, H, Dh], each
+    slot's block-table row repeated L times, positions flattened. There is
+    no fallback: on CUDA tensors the kernel builds and launches or the call
+    raises."""
+    B, H, L, Dh = q.shape
+    if resolve_decode_impl(impl, q.device) == "torch":
+        return torch_paged_span_decode(q, pages_k, pages_v, block_table,
+                                       positions, scales_k, scales_v)
+    qf = q.transpose(1, 2).reshape(B * L, H, Dh).contiguous()
+    bt = block_table.repeat_interleave(L, dim=0).contiguous()
+    pos = positions.reshape(-1).to(torch.int32).contiguous()
+    o = flash_decode(qf, pages_k, pages_v, bt, pos, scales_k, scales_v)
+    _span_launches[0] += 1
+    return o.reshape(B, L, H, Dh).transpose(1, 2)
 
 
 def decode_hbm_bytes(block_table: np.ndarray, positions: np.ndarray,

@@ -12,7 +12,10 @@ decode-step attention through the flash-decode CUDA kernel on the GPU.
 stdout carries one JSON summary line (throughput, TTFT mean/p50/p95, step
 counts, wall time, device, decode-kernel launches, the KV pool's storage
 ``kv_quant`` and its bytes ``kv_pool_bytes``). ``--kv_quant int8`` serves
-from an int8 page pool with per-page scales.
+from an int8 page pool with per-page scales. ``--spec_tokens K`` serves by
+speculative decoding (``--spec_draft ngram|model``, ``--draft_layers``);
+the summary then adds ``spec_tokens``, ``accept_rate``,
+``accepted_tokens_per_s`` and the verify dispatches' span-kernel launches.
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ def serve(settings: ServeSettings) -> Tuple[dict, DecodeServer, list]:
         top_p=settings.top_p, seed=settings.seed,
         eos_id=settings.eos_id if settings.eos_id >= 0 else None,
         decode_impl=settings.decode_impl, kv_quant=settings.kv_quant,
-        device=device)
+        spec_tokens=settings.spec_tokens, spec_draft=settings.spec_draft,
+        draft_layers=settings.draft_layers, device=device)
 
     pending = _load_requests(settings, max_prompt_len, model.vocab_size)
     print(f"# serve: {len(pending)} requests on {settings.decode_slots} "
@@ -93,6 +97,7 @@ def serve(settings: ServeSettings) -> Tuple[dict, DecodeServer, list]:
           file=sys.stderr, flush=True)
 
     launches0 = fd.launch_count()
+    span0 = fd.span_launch_count()
     t0 = time.perf_counter()
     submitted = []
     cadence = settings.arrival_every_steps
@@ -148,6 +153,16 @@ def serve(settings: ServeSettings) -> Tuple[dict, DecodeServer, list]:
         "kv_quant": settings.kv_quant,
         "kv_pool_bytes": server.engine.kv_pool_bytes(),
     }
+    if settings.spec_tokens > 0:
+        # every fetched token is target-verified, so the accepted rate IS
+        # the service rate; accept_rate is the draft's hit rate
+        result["spec_tokens"] = settings.spec_tokens
+        result["spec_draft"] = settings.spec_draft
+        result["spec_rounds"] = server.spec_rounds
+        result["accept_rate"] = round(server.accept_rate, 4)
+        result["accepted_tokens_per_s"] = result[
+            "decode_tokens_per_s_per_chip"]
+        result["span_kernel_launches"] = fd.span_launch_count() - span0
     print(json.dumps(result), flush=True)
     return result, server, submitted
 

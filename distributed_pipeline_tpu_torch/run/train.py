@@ -73,7 +73,8 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         warmup_steps=args.warmup_steps, checkpoint_dir=run_dir,
         seed=args.seed, dispatch_lag=args.dispatch_lag,
         fused_update=args.fused_update, eval_callbacks=eval_callbacks,
-        logger=logger)
+        keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
+        prefetch_depth=args.prefetch_depth, logger=logger)
     # exact-order resume: skip the samples the restored step consumed
     meta = loop.resume_meta or {}
     consumed = int(meta.get("samples", loop.step * args.batch_size))

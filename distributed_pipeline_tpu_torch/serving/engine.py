@@ -6,7 +6,13 @@
   token, and merges it into the decode state at the requests' target slots;
 * ``decode``   — ``decode_span`` tokens for every decode slot: per-slot
   positions (each slot at its own depth), paged attention over each slot's
-  live prefix, sampling, state out.
+  live prefix, sampling, state out;
+* ``verify``   — speculative decoding (``spec_tokens`` K > 0): ONE forward
+  over each slot's chain ``[current, d_1..d_K]`` (the backbone's span
+  branch) and the target's pick at every link, keyed per (slot, position)
+  as ``decode`` keys it. The host owns rollback: it declares each round's
+  (token, position) state, and ``set_decode_state`` pushes it to an engine
+  that then decodes (the model draft).
 
 The JAX engine compiles each phase once; PyTorch runs eagerly, so each phase
 is a plain method (``decode_span`` steps are a Python loop per dispatch) and
@@ -95,6 +101,8 @@ class DecodeEngine:
     decode_impl : decode-step attention arm (``ops/flash_decode.py``).
     kv_quant : paged KV storage, "fp" (the model's dtype) or "int8" (int8
         pages with per-page f32 scales; ``serving/paged_kv.py``).
+    spec_tokens : draft length K of :meth:`verify` (0 = no speculative
+        decoding).
     """
 
     def __init__(self, model: GPT2Model, *, decode_slots: int,
@@ -102,7 +110,8 @@ class DecodeEngine:
                  max_len: int = 0, prefill_batch: int = 0,
                  decode_span: int = 1, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
-                 decode_impl: str = "auto", kv_quant: str = "fp") -> None:
+                 decode_impl: str = "auto", kv_quant: str = "fp",
+                 spec_tokens: int = 0) -> None:
         if model.family != "gpt2":
             raise ValueError(f"the decode engine serves the gpt2 family, "
                              f"got {model.family!r}")
@@ -121,7 +130,10 @@ class DecodeEngine:
                              f"page), got {max_pages}")
         if kv_quant not in KV_QUANTS:
             raise ValueError(f"kv_quant must be fp|int8, got {kv_quant!r}")
+        if spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
         self.model = model
+        self.spec_tokens = spec_tokens
         self.device = model.pos_emb.device
         self.decode_slots = decode_slots
         self.page_size = page_size
@@ -180,6 +192,15 @@ class DecodeEngine:
     def set_active(self, active: np.ndarray) -> None:
         self._active_host = np.asarray(active) > 0
         self.active = self._put(active)
+
+    def set_decode_state(self, tokens: np.ndarray,
+                         positions: np.ndarray) -> None:
+        """Push the full [S] (token, position) state from the host: the
+        speculative scheduler's rollback primitive, declaring the
+        post-acceptance state before a round's dispatches."""
+        self.tokens = self._put(tokens)
+        self.positions = self._put(positions)
+        self._positions_host = np.asarray(positions, np.int64).copy()
 
     @torch.inference_mode()
     def prefill(self, ids: np.ndarray, prompt_lens: np.ndarray,
@@ -242,3 +263,42 @@ class DecodeEngine:
             self._positions_host += self._active_host
             picked.append(self.tokens)
         return picked[0] if self.decode_span == 1 else torch.stack(picked)
+
+    @torch.inference_mode()
+    def verify(self, draft: np.ndarray, tokens: np.ndarray,
+               positions: np.ndarray) -> torch.Tensor:
+        """Speculatively verify a [K, S] draft in one forward: each slot's
+        chain ``[tokens[s], draft[:, s]]`` runs as a span at positions
+        ``positions[s] ..``, every link's K/V is written before the span
+        attention reads the live prefix plus the earlier links, and the
+        target's pick at every link comes back as a [K + 1, S] device
+        tensor (row j picks the token at ``positions + 1 + j``, keyed per
+        (slot, position) exactly as :meth:`decode` keys it, so accepted
+        tokens are the non-speculative path's, greedy or sampled). The
+        engine's own state vectors are not advanced: the host walks
+        acceptance and declares the next round's state. Rejected links'
+        writes sit past the live position in the slot's own pages, masked
+        until overwritten; inactive slots' picks are never read."""
+        if self.spec_tokens <= 0:
+            raise RuntimeError("engine built with spec_tokens=0")
+        S, kp1 = self.decode_slots, self.spec_tokens + 1
+        draft = np.asarray(draft, np.int32)
+        if draft.shape != (kp1 - 1, S):
+            raise ValueError(f"draft must be [{kp1 - 1}, {S}], got "
+                             f"{draft.shape}")
+        pos_h = np.asarray(positions, np.int64)
+        chain = np.concatenate([np.asarray(tokens, np.int32)[:, None],
+                                draft.T], axis=1)              # [S, K+1]
+        logits = self.model(self._put(chain), None,
+                            cache_index=self._put(pos_h),
+                            block_table=self.block_table,
+                            kv_cache=self.kv_cache,
+                            decode_impl=self.decode_impl,
+                            kv_quant=self.kv_quant)            # [S, K+1, V]
+        # one flattened pick over all S*(K+1) rows, keyed per (slot,
+        # position): row j of slot s picks what decode would there
+        pos_f = pos_h[:, None] + 1 + np.arange(kp1)[None, :]
+        slot_f = np.repeat(np.arange(S), kp1)
+        seq = self._pick(logits.reshape(S * kp1, -1), pos_f.reshape(-1),
+                         slot_f)
+        return seq.reshape(S, kp1).T.contiguous()

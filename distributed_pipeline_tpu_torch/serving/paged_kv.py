@@ -11,6 +11,9 @@ Device side, plain tensor functions:
   the slots' pages (padded rows -> the trash page);
 * :func:`write_token_kv`  — scatter one decode step's [B, H, Dh] row at each
   slot's own position;
+* :func:`write_span_kv`   — scatter a speculative-verify span's [B, H, L, Dh]
+  rows at positions ``start .. start + L - 1``, clamping overshoot past the
+  block table's reach to its last cell;
 * :func:`gather_kv`       — a dense ``[B, H, Lmax, Dh]`` view of each slot's
   pages (the plain decode attention reads it; the CUDA kernel does not).
 
@@ -22,6 +25,9 @@ scale per page in a ``[P]`` sidecar (value = q * scale, q in [-127, 127]):
 * :func:`write_token_kv_q8`  — one decode step's row, growing the page's
   scale when the row needs it and re-expressing the page's int8 content
   under the new scale;
+* :func:`write_span_kv_q8`   — a span's rows: scales grow by a scatter-max
+  over every row landing in a page, and the whole pool is re-expressed
+  under the grown scales (pages whose scale did not grow keep their bits);
 * :func:`dequant_gathered`   — dequantize a :func:`gather_kv` view.
 
 The JAX writers return a new pool; these write the pool (and the scales)
@@ -31,8 +37,7 @@ there, and no read ever sees it.
 
 Host side: :class:`PageManager` owns the free list as plain Python; the
 scheduler reserves a request's worst-case pages at admission. The prefix
-cache is ROADMAP A.4; the span writers come with speculative decoding
-(A.3).
+cache is ROADMAP A.4.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ import numpy as np
 import torch
 
 __all__ = ["TRASH_PAGE", "Q8_MAX", "gather_kv", "write_prompt_kv",
-           "write_token_kv", "write_prompt_kv_q8", "write_token_kv_q8",
-           "dequant_gathered", "PageManager"]
+           "write_token_kv", "write_span_kv", "write_prompt_kv_q8",
+           "write_token_kv_q8", "write_span_kv_q8", "dequant_gathered",
+           "PageManager"]
 
 TRASH_PAGE = 0  # reserved: masked/invalid writes land here, reads never do
 
@@ -89,6 +95,42 @@ def write_token_kv(pages: torch.Tensor, block_table: torch.Tensor,
     page_idx = torch.clamp(positions // ps, max=block_table.shape[1] - 1)
     phys = torch.gather(block_table, 1, page_idx[:, None].long())[:, 0]
     pages[phys.long(), (positions % ps).long()] = kv.to(pages.dtype)
+    return pages
+
+
+def _span_cells(block_table: torch.Tensor, start: torch.Tensor, L: int,
+                page_size: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """A span's cells and rows: ``(phys, offset, src)`` [B*L] each. Link j
+    of slot b sits at ``start[b] + j``, clamped to the block table's last
+    addressable cell instead of wrapping (``pos // ps`` would clamp to the
+    last column while ``pos % ps`` re-entered a live lower cell). Every
+    link that lands on that last cell takes the slot's LAST link's row
+    (``src``): the JAX writers' last-write-wins, made deterministic, since
+    rows written to one cell are then equal. Clamped links are always past
+    a slot's budget, so their picks are discarded by the host."""
+    B = start.shape[0]
+    addr = block_table.shape[1] * page_size
+    j = torch.arange(L, device=start.device)
+    pos = start.long()[:, None] + j[None, :]                  # [B, L]
+    src = torch.where(pos >= addr - 1, L - 1, j[None, :])
+    src = src + L * torch.arange(B, device=start.device)[:, None]
+    pos = torch.clamp(pos, max=addr - 1)
+    phys = torch.gather(block_table.long(), 1, pos // page_size)
+    return phys.reshape(-1), (pos % page_size).reshape(-1), src.reshape(-1)
+
+
+def write_span_kv(pages: torch.Tensor, block_table: torch.Tensor,
+                  kv: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Scatter a speculative-verify span's K (or V) rows, in place: ``kv``
+    [B, H, L, Dh] holds each slot's chain links at positions
+    ``start[b] .. start[b] + L - 1`` (overshoot clamps, see
+    :func:`_span_cells`). Without overshoot it is bitwise the L
+    :func:`write_token_kv` calls it replaces. Returns ``pages``."""
+    b, h, l, dh = kv.shape
+    phys, off, src = _span_cells(block_table, start, l, pages.shape[1])
+    rows = kv.transpose(1, 2).reshape(b * l, h, dh)
+    pages[phys, off] = rows[src].to(pages.dtype)
     return pages
 
 
@@ -159,6 +201,36 @@ def write_token_kv_q8(pages: torch.Tensor, scales: torch.Tensor,
          (positions % ps).long()] = _q8(kv, new[:, None, None])
     pages[phys] = page
     scales[phys] = new
+    return pages, scales
+
+
+def write_span_kv_q8(pages: torch.Tensor, scales: torch.Tensor,
+                     block_table: torch.Tensor, kv: torch.Tensor,
+                     start: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 twin of :func:`write_span_kv` with rescale-on-grow, in place.
+    Span rows may straddle a page boundary, so several rows can land in
+    one page: each touched page's scale grows to ``max(old, absmax(row) /
+    127)`` over every row landing in it (a scatter-max, which does not
+    depend on the order of the rows), and the WHOLE pool is re-expressed
+    under the grown scales (``round(q * old / new)``; a page whose scale
+    did not grow sees ratio 1.0 and keeps its bits). That is the JAX
+    writer's O(pool) pass, one per verify per layer, K and V. Returns
+    ``(pages, scales)``."""
+    b, h, l, dh = kv.shape
+    phys, off, src = _span_cells(block_table, start, l, pages.shape[1])
+    rows = kv.transpose(1, 2).reshape(b * l, h, dh)
+    row_amax = rows.float().abs().amax(dim=(1, 2))
+    new = scales.scatter_reduce(0, phys, row_amax / Q8_MAX, reduce="amax")
+    grown = new > 0
+    ratio = torch.where(grown, scales / torch.where(grown, new,
+                                                    torch.ones_like(new)),
+                        torch.zeros_like(new))
+    pages.copy_(torch.clamp(torch.round(pages.float()
+                                        * ratio[:, None, None, None]),
+                            -Q8_MAX, Q8_MAX).to(torch.int8))
+    scales.copy_(new)
+    pages[phys, off] = _q8(rows[src], new[phys][:, None, None])
     return pages, scales
 
 

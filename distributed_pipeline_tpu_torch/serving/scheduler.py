@@ -15,8 +15,17 @@ optional ``eos_id`` finishes a request early, observed at fetch.
 Invariants (tests/test_torch_port_serve.py): no slot or page leaks; pages
 for a request's worst case (prompt + budget) are reserved at admission, so
 an admitted request always completes; admissions touch only free slots and
-pages, so in-flight requests' outputs do not change. Speculative decoding,
-the prefix cache, the sanitizer and the cost ledger are ROADMAP A.3/A.4.
+pages, so in-flight requests' outputs do not change.
+
+``spec_tokens = K > 0`` turns on speculative decoding: each round a draft
+(``spec_draft``: "ngram" prompt lookup on the host, or "model", an
+early-exit engine over the target's first ``draft_layers`` blocks)
+proposes K tokens a slot, ONE verify forward yields the target's pick at
+every link, and the host walks acceptance (``serving/spec.py``): greedy
+output is token-identical to the non-speculative path. Rounds are
+synchronous (the verify result is the next round's input), so
+``dispatch_lag`` does not apply. The prefix cache, the sanitizer and the
+cost ledger are ROADMAP A.4.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..models.gpt2 import GPT2Model
 from ..utils.perf import EventStats
 from .engine import DecodeEngine
 from .paged_kv import TRASH_PAGE, PageManager
+from .spec import DRAFT_KINDS, ngram_propose, truncated_draft
 
 __all__ = ["Request", "DecodeServer"]
 
@@ -104,8 +114,13 @@ class DecodeServer:
                  top_p: float = 0.0, seed: int = 0,
                  eos_id: Optional[int] = None, dispatch_lag: int = 1,
                  decode_impl: str = "auto", kv_quant: str = "fp",
-                 device=None) -> None:
+                 spec_tokens: int = 0, spec_draft: str = "ngram",
+                 draft_layers: int = 2, device=None) -> None:
         from ..utils.device import resolve_device
+        if spec_tokens > 0 and spec_draft not in DRAFT_KINDS:
+            raise ValueError(f"spec_draft must be one of {DRAFT_KINDS}, "
+                             f"got {spec_draft!r}")
+        self.spec_tokens = spec_tokens
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
         max_len = max_len or model.seq_len
@@ -120,7 +135,26 @@ class DecodeServer:
             max_len=max_len, prefill_batch=prefill_batch,
             decode_span=decode_span, temperature=temperature, top_k=top_k,
             top_p=top_p, seed=seed, decode_impl=decode_impl,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, spec_tokens=spec_tokens)
+        self._draft_engine: Optional[DecodeEngine] = None
+        if spec_tokens > 0 and spec_draft == "model":
+            # Early-exit draft over the target's first draft_layers blocks,
+            # on a static full-residency pool: slot s owns pages
+            # [1 + s*pps, 1 + (s+1)*pps) for good, so the draft needs no
+            # allocator, and rollback is the host's state push each round
+            # (accepted draft K/V is valid by the acceptance rule)
+            pps = self.engine.pages_per_slot
+            self._draft_engine = DecodeEngine(
+                truncated_draft(model, draft_layers),
+                decode_slots=decode_slots, page_size=page_size,
+                max_pages=1 + decode_slots * pps,
+                max_prompt_len=max_prompt_len, max_len=max_len,
+                prefill_batch=prefill_batch, decode_span=1, seed=seed,
+                decode_impl=decode_impl, kv_quant=kv_quant)
+            self._draft_tables = np.arange(
+                1, 1 + decode_slots * pps,
+                dtype=np.int32).reshape(decode_slots, pps)
+            self._draft_engine.set_block_tables(self._draft_tables)
         self.mgr = PageManager(max_pages, page_size)
         s = decode_slots
         self.block_tables = np.zeros((s, self.engine.pages_per_slot),
@@ -141,6 +175,18 @@ class DecodeServer:
         self.decode_steps = 0
         self.prefill_steps = 0
         self.tokens_fetched = 0
+        # speculative gauges: rounds, draft tokens proposed and accepted
+        # (every fetched token is target-verified, so tokens_fetched is
+        # the accepted-token count)
+        self.spec_rounds = 0
+        self.draft_proposed = 0
+        self.draft_accepted = 0
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        return (self.draft_accepted / self.draft_proposed
+                if self.draft_proposed > 0 else 0.0)
 
     @property
     def free_slots(self) -> int:
@@ -229,6 +275,14 @@ class DecodeServer:
             smap[i] = slot
             stables[i] = self.block_tables[slot]
         toks = self.engine.prefill(ids, lens, smap, stables)
+        if self._draft_engine is not None:
+            # mirror the admission into the draft pool (its own static
+            # tables); the draft's first pick is never read: every round
+            # pushes the host's state first
+            dstables = np.zeros_like(stables)
+            for i, (slot, _) in enumerate(batch):
+                dstables[i] = self._draft_tables[slot]
+            self._draft_engine.prefill(ids, lens, smap, dstables)
         self.prefill_steps += 1
         self._ring.append((_Fetch(toks), list(batch)))
         # a budget-1 request is already complete at dispatch level
@@ -238,18 +292,32 @@ class DecodeServer:
                 self._release(slot)
         return True
 
-    def step(self) -> bool:
-        """One scheduler tick: sweep EOS completions -> admit -> dispatch
-        decode -> lagged fetch. Returns False when nothing advanced."""
+    def _sweep(self) -> None:
+        """Release the slots of requests an EOS finished at fetch."""
         if self._needs_sweep:
             for slot, st in enumerate(self.slots):
                 if st is not None and st.req.finished:
                     self._release(slot)
             self._needs_sweep = False
+
+    def step(self) -> bool:
+        """One scheduler tick: sweep EOS completions -> admit -> dispatch
+        decode (or a speculative round) -> lagged fetch. Returns False when
+        nothing advanced."""
+        self._sweep()
         # admit until the queue, the free slots, or the page pool runs out
         dispatched = False
         while self._admit():
             dispatched = True
+        if self.spec_tokens > 0:
+            # synchronous rounds: the round needs every slot's current token
+            # on the host, so the prefill ring drains first
+            self._fetch(0)
+            self._sweep()
+            if self.active.any():
+                self._spec_round()
+                dispatched = True
+            return dispatched
         if self.active.any():
             if self._dirty:
                 self.engine.set_block_tables(self.block_tables)
@@ -274,6 +342,70 @@ class DecodeServer:
         # lagged on busy ticks (the overlap); full drain on idle ticks
         self._fetch(self.dispatch_lag if dispatched else 0)
         return dispatched or bool(self._ring)
+
+    def _spec_round(self) -> None:
+        """One speculative round: propose K -> verify in one forward ->
+        walk acceptance -> advance the host mirrors by what was kept.
+        Pages were reserved worst-case at admission, and rejected links
+        only wrote rows past the live position in those pages (or the
+        trash page), masked until overwritten, so nothing leaks."""
+        if self._dirty:
+            self.engine.set_block_tables(self.block_tables)
+            self.engine.set_active(self.active)
+            if self._draft_engine is not None:
+                self._draft_engine.set_active(self.active)
+            self._dirty = False
+        S, K = len(self.slots), self.spec_tokens
+        cur_tok = np.zeros((S,), np.int32)
+        cur_pos = np.zeros((S,), np.int32)
+        snap = []
+        for s, st in enumerate(self.slots):
+            if st is None or not self.active[s]:
+                continue
+            cur_tok[s] = st.req.tokens[-1]   # the last fetched token
+            cur_pos[s] = st.position
+            snap.append((s, st))
+        draft = np.zeros((K, S), np.int32)
+        if self._draft_engine is not None:
+            # K greedy draft steps, each feeding the draft's own pick: the
+            # chain the target verifies
+            self._draft_engine.set_decode_state(cur_tok, cur_pos)
+            steps = [self._draft_engine.decode() for _ in range(K)]
+            draft[:] = torch.stack(steps).cpu().numpy()
+        else:
+            for s, st in snap:
+                hist = np.concatenate(
+                    [st.req.prompt, np.asarray(st.req.tokens, np.int32)])
+                draft[:, s] = ngram_propose(hist, K)
+        seq = self.engine.verify(draft, cur_tok, cur_pos).cpu().numpy()
+        self.decode_steps += 1
+        self.spec_rounds += 1
+        for s, st in snap:
+            req = st.req
+            kept = matched = 0
+            for j in range(K + 1):
+                tok = int(seq[j, s])
+                # row j is valid while every earlier draft link matched;
+                # the walk never reaches an invalid row
+                req.tokens.append(tok)
+                self.tokens_fetched += 1
+                kept += 1
+                if req.eos_id is not None and tok == req.eos_id:
+                    req.finished = True     # EOS inside an accepted prefix
+                elif len(req.tokens) >= req.g_max:
+                    req.finished = True
+                if req.finished:
+                    break
+                if j < K and int(draft[j, s]) == tok:
+                    matched += 1
+                    continue
+                break                        # first mismatch: reject the rest
+            st.generated += kept
+            st.position += kept
+            self.draft_proposed += K
+            self.draft_accepted += matched
+            if req.finished:
+                self._release(s)
 
     def _fetch(self, lag: int) -> None:
         """Drain the fetch ring down to ``lag`` entries, attributing each

@@ -23,15 +23,19 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 __all__ = ["parse_step_from_name", "find_resume_checkpoint", "save_run",
-           "save_checkpoint", "find_complete_step", "load_checkpoint"]
+           "save_checkpoint", "find_complete_step", "load_checkpoint",
+           "prune_checkpoints"]
 
 _STEP_RE = re.compile(r"model_(\d+)\.pt$")
 _META_RE = re.compile(r"meta_(\d+)\.json$")
+# every file of one saved step: model_, ema_{rate}_, opt_ and meta_
+_STEP_FILE_RE = re.compile(r"^(?:model|opt|ema_.+)_(\d{6,})\.pt$"
+                           r"|^meta_(\d{6,})\.json$")
 
 
 def parse_step_from_name(name: str) -> Optional[int]:
@@ -128,3 +132,25 @@ def load_checkpoint(run_dir: str, step: int, ema_rates: Sequence[str],
     return {"params": load(p["model"]),
             "ema": {r: load(path) for r, path in p["ema"].items()},
             "opt": load(p["opt"]), "meta": meta}
+
+
+def prune_checkpoints(run_dir: str, keep: int) -> List[int]:
+    """Delete every file of all but the newest ``keep`` saved steps (a step
+    counts once its meta file, written last, exists): model, every EMA
+    rate, opt and meta go together, as the JAX package's
+    ``prune_checkpoints`` prunes a step's model and companions. Files of a
+    step without its meta (a save in progress or torn) are left alone.
+    Returns the pruned steps; ``keep <= 0`` prunes nothing."""
+    if keep <= 0 or not os.path.isdir(run_dir):
+        return []
+    names = os.listdir(run_dir)
+    steps = sorted(int(m.group(1)) for m in map(_META_RE.search, names)
+                   if m)
+    doomed = set(steps[:-keep])
+    # meta first: a step whose deletion is cut short is already incomplete,
+    # so resume never picks it
+    for name in sorted(names, key=lambda n: not n.startswith("meta_")):
+        m = _STEP_FILE_RE.match(name)
+        if m and int(m.group(1) or m.group(2)) in doomed:
+            os.remove(os.path.join(run_dir, name))
+    return sorted(doomed)

@@ -31,9 +31,14 @@ exit.
 ``steps_per_sec``, ``tokens_per_sec``, ``tokens_per_sec_per_chip``,
 ``step_time_s`` and, on a GPU, ``mfu``), evaluates every ``eval_interval``
 (then runs each of ``eval_callbacks`` with the loop, as the JAX trainer
-does), saves every ``save_interval`` and once more at the end. Chaos, goodput,
-the sanitizer, the cost ledger, profiling and meshes are later work
-(ROADMAP A.8-A.10).
+does), saves every ``save_interval`` and once more at the end, keeping the
+newest ``keep_checkpoints`` steps when that is > 0. ``prefetch_depth`` > 0
+feeds the step from ``data/device_prefetch.py`` (batches copied to the
+device ahead of the step that reads them); ``debug_nans`` checks each
+step's metrics, gradients and parameters on the host and raises
+``FloatingPointError`` at the first non-finite one. Chaos, goodput, the
+sanitizer, the cost ledger, profiling and meshes are later work (ROADMAP
+A.8-A.10).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import numpy as np
 import torch
 
 from ..convert import init_params as random_params
+from ..data.device_prefetch import prefetch_to_device
 from ..models import Model, compute_losses
 from ..models.diffuseq import Draws, seeded_generator
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
@@ -84,9 +90,13 @@ class TrainLoop:
                  dispatch_lag: int = 0, fused_update: Any = "auto",
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
                  draws: Optional[Callable[[int, int], Draws]] = None,
+                 keep_checkpoints: int = 0, debug_nans: bool = False,
+                 prefetch_depth: int = 0,
                  logger: Optional[Logger] = None) -> None:
         self.model = model
-        self.data = data
+        self.keep_checkpoints = keep_checkpoints
+        self.debug_nans = debug_nans
+        self.prefetch_depth = prefetch_depth
         self.eval_data = eval_data
         self.eval_callbacks = tuple(eval_callbacks)
         self.seed = seed
@@ -118,6 +128,7 @@ class TrainLoop:
         self.history: List[Dict[str, float]] = []
         self._inflight: "collections.deque" = collections.deque()
 
+        self.data = self._wrap_prefetch(data)
         self._build_state(init_params, seed)
         self.step = 0
         self.resumed_from = ""
@@ -226,13 +237,18 @@ class TrainLoop:
                  samples_consumed: Optional[int] = None) -> None:
         """Wire the data streams after construction, once the resumed step
         is known (run/train.py fast-forwards them to it)."""
-        self.data = data
+        self.data = self._wrap_prefetch(data)
         if eval_data is not None:
             self.eval_data = eval_data
         if eval_batches_consumed is not None:
             self.eval_batches_consumed = eval_batches_consumed
         if samples_consumed is not None:
             self._samples = int(samples_consumed)
+
+    def _wrap_prefetch(self, data: Optional[Iterator]) -> Optional[Iterator]:
+        if data is None or self.prefetch_depth <= 0:
+            return data
+        return prefetch_to_device(data, self.device, self.prefetch_depth)
 
     # -------------------------------------------------------------- step
 
@@ -248,12 +264,14 @@ class TrainLoop:
             lr = lr * torch.clamp((s + 1) / self.warmup_steps, max=1.0)
         return lr
 
-    def _micro(self, batch: Dict[str, np.ndarray]) -> List[Dict]:
-        """Host batch [B, ...] -> microbatches of device tensors."""
+    def _micro(self, batch: Mapping[str, Any]) -> List[Dict]:
+        """Batch [B, ...] (numpy, or tensors from the prefetcher) ->
+        microbatches of device tensors."""
         out = [{} for _ in range(self.n_micro)]
         for key, val in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(val)).to(
-                self.device, non_blocking=True)
+            if not isinstance(val, torch.Tensor):
+                val = torch.from_numpy(np.ascontiguousarray(val))
+            t = val.to(self.device, non_blocking=True)
             for i, part in enumerate(t.reshape(
                     (self.n_micro, self.microbatch) + t.shape[1:])):
                 out[i][key] = part
@@ -293,6 +311,8 @@ class TrainLoop:
                self._rate_values, weight_decay=self.weight_decay)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = self._lr_at(self.count)
+        if self.debug_nans:
+            self._check_finite(metrics)
         self.count += 1
         self.step += 1
         self._samples += self.batch_size
@@ -303,6 +323,26 @@ class TrainLoop:
         self.logger.logkv("step", self.step)
         self.logger.logkv("samples", self._samples)
         return metrics
+
+    def _check_finite(self, metrics: Dict[str, torch.Tensor]) -> None:
+        """Raise ``FloatingPointError`` naming the step and the first
+        non-finite tensor: the metrics in name order, then the gradients
+        and the updated parameters in layout order. The torch analogue of
+        the JAX entry point's ``jax_debug_nans``; one host sync a step."""
+        step = self.step + 1
+        for k in sorted(metrics):
+            if not bool(torch.isfinite(metrics[k]).all()):
+                raise FloatingPointError(
+                    f"debug_nans: non-finite {k} at step {step}")
+        for what, flat in (("gradient", self.grads),
+                           ("parameter", self.params)):
+            if bool(torch.isfinite(flat).all()):
+                continue
+            for name in self._layout:
+                if not bool(torch.isfinite(self._view(flat, name)).all()):
+                    raise FloatingPointError(
+                        f"debug_nans: non-finite {what} {name} at step "
+                        f"{step}")
 
     def _emit_lagged(self) -> None:
         """Fetch the oldest in-flight step's metrics (one device->host copy)
@@ -390,3 +430,10 @@ class TrainLoop:
              "eval_batches_consumed": self.eval_batches_consumed})
         self.logger.info(f"saved checkpoint at step {self.step} -> "
                          f"{self.checkpoint_dir}")
+        if self.keep_checkpoints > 0:
+            pruned = ckpt.prune_checkpoints(self.checkpoint_dir,
+                                            self.keep_checkpoints)
+            if pruned:
+                self.logger.info(f"pruned checkpoints at steps {pruned} "
+                                 f"(keep_checkpoints="
+                                 f"{self.keep_checkpoints})")

@@ -197,7 +197,7 @@ def test_cuda_bf16_kernels_match_plain_version(cuda_device, Dh, L, causal,
     p.v as the JAX kernel's p.astype(v.dtype)); lse 1e-4. Gradients: a
     relative Frobenius error under 1e-2, and entrywise rtol 1e-2 and atol
     1e-2 of the largest entry, at least 1e-4 (p and ds enter their products
-    as bf16 and dq is summed by f32 atomics in a varying order; in a row
+    as bf16 and dq's parts are summed in f32 in another order; in a row
     with few live keys ds = p (dp - delta) is a difference of nearly equal
     terms, so those roundings are large against that row's own gradient,
     and with one live key a gradient that is zero in exact arithmetic is
@@ -227,3 +227,42 @@ def test_cuda_bf16_kernels_match_plain_version(cuda_device, Dh, L, causal,
         dead = lens.index(0)
         assert torch.all(out[dead] == 0)
         assert all(torch.all(t[dead] == 0) for t in got)
+
+
+def test_dq_launch_plan_caps_the_scratch():
+    """The bf16 backward's dq planes: one per key tile (128 keys at Dh 64,
+    64 at Dh 128), all key tiles in one launch while they fit under the
+    cap, else as many launches as needed, never less than one tile a
+    launch."""
+    plane = 4 * 12 * 1024 * 64 * 4
+    assert fa.dq_launch_plan(4, 12, 1024, 64) == (8, 8, 1)
+    assert fa.dq_launch_plan(4, 12, 1024, 64, cap=3 * plane) == (3, 3, 3)
+    assert fa.dq_launch_plan(4, 12, 1024, 64, cap=1) == (1, 1, 8)
+    assert fa.dq_launch_plan(2, 4, 1000, 128, cap=10 ** 12) == (16, 16, 1)
+    assert fa.dq_launch_plan(2, 4, 1, 64) == (1, 1, 1)
+    assert 8 * plane <= fa.DQ_SCRATCH_CAP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,causal,lens", [(64, True, None),
+                                            (64, False, [1000, 601]),
+                                            (128, True, [1000, 17])])
+def test_cuda_bf16_backward_is_bitwise_reproducible(cuda_device, Dh, causal,
+                                                    lens, monkeypatch):
+    """dq's parts are summed in a fixed order: two backward calls on the
+    same inputs give the same bits, and so does a call whose key tiles go
+    in several launches (a small scratch cap)."""
+    B, H, L = 2, 4, 1000
+    rng = np.random.default_rng(Dh + L)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, L, Dh)).astype(
+        np.float32)).to(cuda_device).to(torch.bfloat16) for _ in range(4))
+    mask = (None if lens is None else
+            torch.from_numpy(lens_mask(B, L, lens)).to(cuda_device))
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    first = fa.flash_backward(q, k, v, mask, causal, out, lse, do)
+    again = fa.flash_backward(q, k, v, mask, causal, out, lse, do)
+    monkeypatch.setattr(fa, "DQ_SCRATCH_CAP", B * H * L * Dh * 4 * 2)
+    assert fa.dq_launch_plan(B, H, L, Dh)[2] > 1
+    split = fa.flash_backward(q, k, v, mask, causal, out, lse, do)
+    for a, b, c in zip(first, again, split):
+        assert torch.equal(a, b) and torch.equal(a, c)
