@@ -57,21 +57,24 @@ Phases (any failure raises, and the script exits non-zero):
    bf16 comparison is printed), and the kernel timed at that state's
    depths beside its bound there. The int8 pool must hold at most 0.55x
    the fp pool's bytes;
-7b. speculative decoding: the span seam's kernel arm (``flash_decode`` over
-   32 x (K + 1) pseudo-slots, K = 4) against ``torch_paged_span_decode`` at
-   the serve shapes over bf16 and int8 pools (the decode phase's bars; two
-   calls bitwise equal), timed beside its bound and one
-   ``scaled_dot_product_attention`` call over pre-gathered K/V with a
+7b. speculative decoding: the span seam's kernel arm at the serve shapes
+   (32 slots x (K + 1) links, K = 4) over bf16 and int8 pools against
+   ``torch_paged_span_decode``: bf16 q on the span kernel ``flash_span``
+   (launches on its counter, none on the decode kernel's), f32 q on the
+   decode kernel over 32 x (K + 1) pseudo-slots (the decode phase's bars;
+   two calls bitwise equal); the span kernel timed beside its bound
+   (``span_hbm_bytes``), the pseudo-slot route on the same bf16 inputs and
+   one ``scaled_dot_product_attention`` call over pre-gathered K/V with a
    [K + 1, Lmax] mask; then ``run.serve --spec_tokens 4`` at GPT-2 base
    width: the ngram draft over a bf16 pool (the serve phase's 64
    requests) and the model draft (``--draft_layers 2``) over an int8 pool
    (16 requests): every request's tokens, the span launches (12 a verify
-   round), tokens/s and ``accept_rate`` beside the non-spec run's; in
-   bf16 the share of streams identical to the non-spec run's and the
-   top-2 logit gap at every first divergence (each at most 2% of that
-   position's largest |logit|); and at f32 compute, 32 requests of 64
-   tokens on each pool, the spec streams equal the non-spec ones token for
-   token;
+   round, all on the span kernel), tokens/s and ``accept_rate`` beside the
+   non-spec run's; in bf16 the share of streams identical to the non-spec
+   run's and the top-2 logit gap at every first divergence (each at most
+   2% of that position's largest |logit|); and at f32 compute (the pseudo-slot
+   route), 32 requests of 64 tokens on each pool, the spec streams equal
+   the non-spec ones token for token;
 8. train: GPT-2 base at full width and its 1024 context through
    ``run.train`` (synthetic-lm, batch 8 in microbatches of 4, 20 steps, lr
    3e-4, EMA 0.5/0.9/0.99, attention and update ``auto``): the flash
@@ -413,16 +416,34 @@ def kernel_bound(fd, table, positions, ps, H, Dh, bw, bf16_peak,
             "hbm_bytes": hbm_bytes}
 
 
+def span_bound(fd, table, positions, ps, H, Dh, bw, bf16_peak,
+               quantized: bool = False) -> dict:
+    """The least time the card could take for one span call with bf16 q
+    (``positions`` [B, L]): the larger of the span kernel's own bytes
+    (``span_hbm_bytes``: distinct live K/V pages once, 2 bytes an element
+    or 1 for int8 pools, q and out per link, each slot's live table
+    entries once, a position a link, and for int8 the two scales of each
+    live entry) over the memory rate and its flops (q.k and p.v over each
+    link's live keys) over the bf16 peak."""
+    bt, pos = table.cpu().numpy(), positions.cpu().numpy()
+    live_keys = sum(min(int(p) + 1, bt.shape[1] * ps)
+                    for p in pos.reshape(-1) if p >= 0)
+    return bound(fd.span_hbm_bytes(bt, pos, ps, H, Dh, dtype_bytes=2,
+                                   quantized=quantized),
+                 4 * live_keys * H * Dh, bw, bf16_peak)  # q.k and p.v
+
+
 def span_phase(torch, fd, bw, bf16_peak) -> list:
-    """The span seam's kernel arm (``paged_span_attention``: flash_decode
-    over B*(K+1) pseudo-slots) against its plain twin
-    ``torch_paged_span_decode`` at the serve shapes (32 slots, H=12,
-    Dh=64, page 16, 64-page reservations, K=4), over bf16 and int8 pools
-    with bf16 q (and f32 q for the strict bar), with the decode check's
-    bars; two calls bitwise equal; both timed (clean cold L2) beside their
-    bound (``decode_hbm_bytes`` over the repeated table) and one
-    ``scaled_dot_product_attention`` over pre-gathered K/V with a
-    [K+1, Lmax] mask."""
+    """The span seam's kernel arm (``paged_span_attention``) against its
+    plain twin ``torch_paged_span_decode`` at the serve shapes (32 slots,
+    H=12, Dh=64, page 16, 64-page reservations, K=4), over bf16 and int8
+    pools: bf16 q on the span kernel (``flash_span``: one launch on its
+    counter, none on the decode kernel's), f32 q on the decode kernel over
+    B*(K+1) pseudo-slots (the strict bar), with the decode check's bars;
+    two bf16 calls bitwise equal. Timed in turns (clean cold L2): the span
+    kernel beside its bound (``span_hbm_bytes``), the pseudo-slot route
+    on the same bf16 inputs, and one ``scaled_dot_product_attention`` over
+    pre-gathered K/V with a [K+1, Lmax] mask."""
     from distributed_pipeline_tpu_torch.serving.paged_kv import (
         dequant_gathered, gather_kv)
 
@@ -456,8 +477,15 @@ def span_phase(torch, fd, bw, bf16_peak) -> list:
     errs = {}
     for kind in ("fp", "int8"):
         for dt in (torch.float32, torch.bfloat16):
+            fd.reset_launch_count()
             got = span(kind, dt)
             torch.cuda.synchronize()
+            # bf16 on the span kernel, f32 on the decode kernel
+            routed = ((fd.span_kernel_launch_count(kind), fd.launch_count())
+                      if dt == torch.bfloat16 else
+                      (fd.launch_count(kind), fd.span_kernel_launch_count()))
+            check(routed == (1, 0), f"span {kind} {dt}: launches (route, "
+                  f"other kernel) {routed}, expected (1, 0)")
             ref = span(kind, dt, impl="torch", upcast=True)
             tol = (1e-4, 1e-5) if dt == torch.float32 else (8e-3, 8e-3)
             err = (got.float() - ref).abs()
@@ -467,8 +495,13 @@ def span_phase(torch, fd, bw, bf16_peak) -> list:
             errs[f"{kind}_{str(dt)[6:]}"] = float(err.max())
         a, b = span(kind, torch.bfloat16), span(kind, torch.bfloat16)
         check(torch.equal(a, b), f"two {kind} span calls differ")
-    print(f"# span check: max abs err {json.dumps(errs)}; two calls "
-          f"bitwise equal (fp and int8 pools)", flush=True)
+    print(f"# span check: max abs err {json.dumps(errs)} (bf16: the span "
+          f"kernel, f32: the decode kernel over pseudo-slots); two bf16 "
+          f"calls bitwise equal (fp and int8 pools)", flush=True)
+    plans = {kind: fd.span_plan(B, L, H, Dh, ps, n, kb,
+                                *fd.device_limits(dev))._asdict()
+             for kind, kb in (("fp", 2), ("int8", 1))}
+    print(f"# span plans: {json.dumps(plans)}", flush=True)
 
     bf16 = torch.bfloat16
     live = (torch.arange(n * ps, device=dev)[None, None, :]
@@ -490,40 +523,47 @@ def span_phase(torch, fd, bw, bf16_peak) -> list:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fns = {"fp": lambda: seam("fp"),
+           "fp_pseudo": lambda: fd.pseudo_slot_span(*args["fp"]),
            "fp_lib": lambda: sdpa(qb, ks, vs, attn_mask=live),
            "int8": lambda: seam("int8"),
+           "int8_pseudo": lambda: fd.pseudo_slot_span(*args["int8"],
+                                                      **scales["int8"]),
            "int8_lib": lambda: sdpa(qb, ks8, vs8, attn_mask=live)}
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     runs = {name: [] for name in fns}
     split = {}
-    for order in (("fp", "fp_lib", "int8", "int8_lib"),
-                  ("fp_lib", "fp", "int8_lib", "int8")):
+    for order in (("fp", "fp_pseudo", "fp_lib", "int8", "int8_pseudo",
+                   "int8_lib"),
+                  ("fp_lib", "fp_pseudo", "fp", "int8_lib", "int8_pseudo",
+                   "int8")):
         for name in order:
             total, split[name] = device_ms(fns[name], torch, flush,
                                            clean_l2=True)
             runs[name].append(total)
     ms = {name: statistics.median(t) for name, t in runs.items()}
-    rep_table = table.repeat_interleave(L, dim=0)
     rows = []
     for kind in ("fp", "int8"):
         plain = time_ms(lambda: seam(kind, impl="torch"), torch, flush,
                         reps=10)
-        kernel = [v for k, v in split[kind].items() if "flash_decode" in k]
+        kernel = [v for k, v in split[kind].items() if "flash_span" in k]
         row = {"name": "flash_decode_span" + ("_int8" if kind == "int8"
                                               else ""),
                "route": "cuda",
                "source": "distributed_pipeline_tpu_torch/ops/csrc/"
-                         "flash_decode.cu",
+                         "flash_span.cu",
                "replaces": "distributed_pipeline_tpu/ops/flash_decode.py:328",
                "call_site": "ops/flash_decode.py paged_span_attention, "
                             f"{B} slots x {L} links",
                "launches": None, "max_abs_err": errs[f"{kind}_bfloat16"],
-               "max_abs_err_f32": errs[f"{kind}_float32"],
+               "max_abs_err_f32_pseudo_slot": errs[f"{kind}_float32"],
                "ms": ms[kind], "ms_runs": runs[kind],
-               "kernels_ms": split[kind],
-               "decode_kernel_ms": sum(kernel), "plain_ms": plain,
-               **kernel_bound(fd, rep_table, pos.reshape(-1), ps, H, Dh, bw,
-                              bf16_peak, quantized=kind == "int8"),
+               "kernels_ms": split[kind], "span_kernel_ms": sum(kernel),
+               "pseudo_slot_ms": ms[kind + "_pseudo"],
+               "pseudo_slot_ms_runs": runs[kind + "_pseudo"],
+               "pseudo_slot_kernels_ms": split[kind + "_pseudo"],
+               "plain_ms": plain,
+               **span_bound(fd, table, pos, ps, H, Dh, bw, bf16_peak,
+                            quantized=kind == "int8"),
                "library_ms": ms[kind + "_lib"],
                "library_ms_runs": runs[kind + "_lib"],
                "library_call": "scaled_dot_product_attention over "
@@ -532,12 +572,15 @@ def span_phase(torch, fd, bw, bf16_peak) -> list:
                                + "K/V with a [K+1, Lmax] mask"}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["x_library"] = row["ms"] / row["library_ms"]
+        row["x_pseudo_slot"] = row["ms"] / row["pseudo_slot_ms"]
         print(f"# span timing: {row['name']} {row['ms']:.6f} ms, of it "
-              f"the decode kernel {row['decode_kernel_ms']:.6f} ms "
+              f"the span kernel {row['span_kernel_ms']:.6f} ms "
               f"({row['share_of_bound']:.3f} of the bound "
               f"{row['bound_ms']:.6f} ms, {row['x_library']:.3f}x the "
-              f"library's {row['library_ms']:.6f} ms; device time, clean "
-              f"cold L2; plain {plain:.5f} ms)", flush=True)
+              f"library's {row['library_ms']:.6f} ms, "
+              f"{row['x_pseudo_slot']:.3f}x the pseudo-slot route's "
+              f"{row['pseudo_slot_ms']:.6f} ms; device time, clean cold "
+              f"L2; plain {plain:.5f} ms)", flush=True)
         rows.append(row)
     return rows
 
@@ -571,18 +614,25 @@ def spec_run(torch, fd, run, draft: str, kv_quant: str, requests: int,
               f"spec request {r.id} returned {len(r.tokens)} tokens")
     rounds = server.spec_rounds
     span = fd.span_launch_count()
+    span_kernel = fd.span_kernel_launch_count(kv_quant)
     draft_launches = 2 * K * rounds if draft == "model" else 0
     other = "fp" if kv_quant == "int8" else "int8"
-    check(span == summary["span_kernel_launches"] == layers * rounds
-          and fd.launch_count(kv_quant) == span + draft_launches
-          and fd.launch_count(other) == 0,
-          f"spec {draft}/{kv_quant}: span launches {span} over {rounds} "
-          f"rounds, {fd.launch_count(kv_quant)} {kv_quant} launches in all")
+    # every verify (bf16 q) runs on the span kernel, over the run's page
+    # type; the decode kernel runs only the model draft's steps
+    check(span == span_kernel == summary["span_kernel_launches"]
+          == layers * rounds
+          and fd.launch_count(kv_quant) == draft_launches
+          and fd.launch_count(other) == 0
+          and fd.span_kernel_launch_count(other) == 0,
+          f"spec {draft}/{kv_quant}: span launches {span} ({span_kernel} "
+          f"on the span kernel) over {rounds} rounds, "
+          f"{fd.launch_count(kv_quant)} decode kernel launches")
     # against the non-spec run's streams of the same requests
     same, gaps = divergence_gaps(torch, server.engine.model, reqs,
                                  base["streams"][:requests])
     out = {"draft": draft, "kv_quant": kv_quant, "requests": requests,
            "spec_rounds": rounds, "span_launches": span,
+           "span_kernel_launches": span_kernel,
            "draft_decode_launches": draft_launches,
            "accept_rate": summary["accept_rate"],
            "decode_tokens_per_s_per_chip":
@@ -668,9 +718,13 @@ def spec_identity_f32(torch, fd, run) -> dict:
             srv.drain()
             streams[spec] = reqs
             if spec:
-                check(fd.span_launch_count() == 12 * srv.spec_rounds > 0,
+                # f32 verifies take the decode kernel over pseudo-slots
+                check(fd.span_launch_count() == 12 * srv.spec_rounds > 0
+                      and fd.span_kernel_launch_count() == 0,
                       f"f32 spec run: {fd.span_launch_count()} span "
-                      f"launches over {srv.spec_rounds} rounds")
+                      f"launches over {srv.spec_rounds} rounds, "
+                      f"{fd.span_kernel_launch_count()} of them on the "
+                      f"span kernel")
                 out[f"{kv_quant}_{draft}_accept_rate"] = srv.accept_rate
             del srv
         same, gaps = divergence_gaps(torch, m32, streams[4],
@@ -1713,7 +1767,7 @@ def main() -> int:
         row["launches"] = run.pop("launches")
         row.update({k: v for k, v in run.items() if k.startswith("serve_")})
     for row, key in zip(span, ("ngram_fp", "model_int8")):
-        row["launches"] = spec[key]["span_launches"]
+        row["launches"] = spec[key]["span_kernel_launches"]
     train = clocked("train", train_phase, torch, fa, fu)
     for row in (*flash, update):
         row["launches"] = train["launches"][row["name"]]

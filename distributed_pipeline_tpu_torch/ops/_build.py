@@ -1,9 +1,11 @@
 """Builds and loads the port's CUDA kernels at first use.
 
 Every source under ``ops/csrc/`` has a plain C interface and includes no
-PyTorch header. ``nvcc`` compiles each one for ``sm_90a`` into an object
-file, all of them at once, and links the objects into one shared library in
-``ops/_build/``, named by the hash of the sources and flags; ``ctypes``
+PyTorch header (the ``*.cuh`` headers there are shared by sources).
+``nvcc`` compiles each ``*.cu`` for ``sm_90a`` into an object file, all of
+them at once, and links the objects into one shared library in
+``ops/_build/``, named by the hash of the sources, headers and flags;
+``ctypes``
 loads it. A cold build takes seconds, a warm one nothing. The compiler's
 register and shared-memory report (``-Xptxas -v``) is kept beside the
 library as ``build_<hash>.log``.
@@ -28,6 +30,7 @@ __all__ = ["load_library", "build_library", "build_log_path", "check"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = sorted(glob.glob(os.path.join(_DIR, "csrc", "*.cu")))
+_HEADERS = sorted(glob.glob(os.path.join(_DIR, "csrc", "*.cuh")))
 _BUILD_DIR = os.path.join(_DIR, "_build")
 ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,6 +44,7 @@ _I = ctypes.c_int
 # every C function of the library: (argtypes, restype)
 _SIGNATURES = {
     "dpt_flash_decode": ([_P] * 11 + [_I] * 11 + [_P], _I),
+    "dpt_flash_span": ([_P] * 11 + [_I] * 11 + [_P], _I),
     "dpt_flash_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "dpt_flash_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
     "dpt_flash_smem_bytes": ([_I] * 2, _I),
@@ -64,7 +68,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

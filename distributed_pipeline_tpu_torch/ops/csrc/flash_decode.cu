@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_pipeline.cuh"
+
 namespace {
 
 // At most 12 heads (consumer warps) a CTA, so that two CTAs of 416 threads
@@ -79,65 +81,6 @@ namespace {
 constexpr int kMaxGroupHeads = 12;
 constexpr int kMaxThreads = 32 * (kMaxGroupHeads + 1);  // + one producer
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the barrier's phase with parity `phase` has completed. A wait
-// that never ends (a broken pipeline) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(phase)
-        : "memory");
-    if (done) return;
-  }
-}
-
-// One bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends
-// 16-byte aligned) from device memory into shared memory, completing on
-// `bar`'s transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // 16 bytes of a page row -> 16 / sizeof(KV) floats.
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {

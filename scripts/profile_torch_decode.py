@@ -120,8 +120,9 @@ def build(name: str, edits) -> ctypes.CDLL:
     so = os.path.join(OUT, f"decode_{name}.so")
     with open(cu, "w") as f:
         f.write(text)
-    r = subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o", so,
-                        cu], capture_output=True, text=True)
+    r = subprocess.run([_build._nvcc(), *_build._FLAGS, "-I",
+                        os.path.dirname(SRC), "-shared", "-o", so, cu],
+                       capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(so)

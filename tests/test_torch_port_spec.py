@@ -351,6 +351,7 @@ def test_span_seam_dispatch_on_the_cpu():
     for impl in ("auto", "torch"):
         assert torch.equal(fd.paged_span_attention(*t, impl=impl), ref)
     assert fd.launch_count() == fd.span_launch_count() == 0
+    assert fd.span_kernel_launch_count() == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         fd.paged_span_attention(*t, impl="cuda")
     with pytest.raises(ValueError, match="auto|cuda|torch"):
@@ -381,10 +382,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
 def test_cuda_span_kernel_matches_plain_twin(cuda_device, quantized):
-    """The seam's kernel arm (B*L pseudo-slots through flash_decode)
+    """The seam's kernel arm for bf16 q (the span kernel, flash_span)
     against the plain twin evaluated in f32 from the same inputs, one
-    launch counted on both counters; bf16 q within one bf16 output
-    rounding (8e-3 rel and abs, the decode kernel's bar)."""
+    launch counted on the seam's and the span kernel's counters and none
+    on the decode kernel's; within one bf16 rounding of the output and of
+    P (8e-3 rel and abs, the decode kernel's bar)."""
     case = list(_span_case(np.random.default_rng(8), quantized))
     for i in range(3):          # q and the pools to Dh 64, a kernel width
         case[i] = np.concatenate([case[i]] * 4, axis=-1)
@@ -397,7 +399,8 @@ def test_cuda_span_kernel_matches_plain_twin(cuda_device, quantized):
                                   scales_k=(t[5:] or [None])[0],
                                   scales_v=(t[6:] or [None])[0])
     torch.cuda.synchronize()
-    assert fd.launch_count() == fd.span_launch_count() == 1
+    assert fd.span_kernel_launch_count() == fd.span_launch_count() == 1
+    assert fd.launch_count() == 0
     ref = fd.torch_paged_span_decode(
         q.float(), *[p.float() if p.dtype == torch.bfloat16 else p
                      for p in pools], t[3], t[4], *t[5:])
