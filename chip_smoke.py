@@ -75,6 +75,25 @@ Phases (any failure raises, and the script exits non-zero):
    2% of that position's largest |logit|); and at f32 compute (the pseudo-slot
    route), 32 requests of 64 tokens on each pool, the spec streams equal
    the non-spec ones token for token;
+7c. serving options, at GPT-2 base width: the serve phase's runs above go
+   through the engine that captures each phase once as a CUDA graph and
+   replays it (run.serve's default); each is served again through the
+   eager engine (bf16 pool, int8 pool, ``--spec_tokens 4`` ngram): every
+   stream identical token for token, every launch counter equal (the
+   graph's counted through its replays), tokens/s and TTFT p50/p95 of
+   both, and the device idle share of both from a ``torch.profiler``
+   window; ``--sanitize true`` on the bf16 workload (``recompile_count``
+   0, one capture per phase, no violation in ``sanitize_report.json``,
+   then a sync injected into a dispatch through the engine's test hook
+   raises and is recorded); whether a prefill's K/V rows are bitwise
+   equal at another batch row (printed: the prefix cache does not rely
+   on it); ``--prefix_cache true --shared_prefix_len 256
+   --synthetic_prompt_len 384 --traffic poisson`` (32 requests) against
+   the same run without the cache (streams equal, hits > 0, the pool
+   whole after the drain); ``--serve_quant int8 --cost_ledger true``
+   (every request's tokens, tokens/s, the share of streams equal to the
+   unquantized run's; ``serve_decode`` and ``serve_prefill`` rows, the
+   gap-sum identity within 1e-9, ``mfu`` in (0, 1));
 8. train: GPT-2 base at full width and its 1024 context through
    ``run.train`` (synthetic-lm, batch 8 in microbatches of 4, 20 steps, lr
    3e-4, EMA 0.5/0.9/0.99, attention and update ``auto``): the flash
@@ -126,6 +145,10 @@ DIFFUSEQ_BASE = dict(model_family="diffuseq", model_size="base",
                      vocab_size=8192, seq_len=128, hidden_size=768,
                      num_layers=12, num_heads=12, diffusion_steps=2000,
                      noise_schedule="sqrt", dtype="bfloat16")
+
+
+# the card's `nvidia-smi --query-gpu=name,power.limit` line, set by main()
+CARD = ""
 
 
 def check(ok: bool, msg: str) -> None:
@@ -597,16 +620,13 @@ def spec_run(torch, fd, run, draft: str, kv_quant: str, requests: int,
     from distributed_pipeline_tpu_torch.run.serve import serve
 
     K, new_tokens, layers = 4, 128, GPT2_BASE["num_layers"]
-    settings = parse_settings([
-        "--checkpoint_path", run, "--decode_slots", "32",
-        "--page_size", "16", "--max_prompt_len", "512",
-        "--synthetic_requests", str(requests), "--synthetic_prompt_len",
-        "256", "--max_new_tokens", str(new_tokens), "--temperature", "0",
-        "--decode_impl", "auto", "--kv_quant", kv_quant,
+    settings_argv = serve_argv(run, kv_quant, requests) + [
         "--spec_tokens", str(K), "--spec_draft", draft,
-        "--draft_layers", "2"])
+        "--draft_layers", "2"]
+    settings = parse_settings(settings_argv)
     fd.reset_launch_count()
     summary, server, reqs = serve(settings)
+    counters = fd.launch_counters()
     check(len(reqs) == requests, f"{len(reqs)} requests served")
     for r in reqs:
         check(len(r.tokens) == new_tokens
@@ -644,6 +664,8 @@ def spec_run(torch, fd, run, draft: str, kv_quant: str, requests: int,
            "first_divergence_gaps": gaps, "wall_s": summary["wall_s"]}
     print(f"# spec serve: {json.dumps(out)}", flush=True)
     check_near_ties(gaps, f"spec {draft}/{kv_quant}")
+    out.update(argv=settings_argv, streams=[list(r.tokens) for r in reqs],
+               counters=counters, summary=summary)
     del server
     torch.cuda.empty_cache()
     return out
@@ -782,8 +804,9 @@ def serve_phase(torch, fd, bw, bf16_peak) -> tuple:
     """GPT-2 base at full width through run.serve, once over an fp (bf16)
     KV pool and once with ``--kv_quant int8``; the int8 pool must hold at
     most 0.55x the fp pool's bytes. Then the speculative runs on the same
-    weights (``spec_run``, ``spec_identity_f32``). Returns the non-spec
-    and the spec results."""
+    weights (``spec_run``, ``spec_identity_f32``), and the serving options
+    (``options_phase``). Returns the non-spec, the spec and the options'
+    results."""
     from distributed_pipeline_tpu_torch.convert import init_params
     from distributed_pipeline_tpu_torch.utils.checkpoint import save_run
 
@@ -801,15 +824,271 @@ def serve_phase(torch, fd, bw, bf16_peak) -> tuple:
                                       torch, fd, run, "model", "int8", 16,
                                       runs["int8"]),
                 "identity_f32": spec_identity_f32(torch, fd, run)}
-    for r in runs.values():
-        del r["streams"]
+        options = options_phase(torch, fd, run, runs, spec)
+    for r in (*runs.values(), spec["ngram_fp"], spec["model_int8"]):
+        for key in ("streams", "counters", "summary", "argv"):
+            del r[key]
     ratio = runs["int8"]["kv_pool_bytes"] / runs["fp"]["kv_pool_bytes"]
     print(f"# serve: int8 KV pool {runs['int8']['kv_pool_bytes']} bytes, "
           f"{ratio:.4f} of the fp pool's {runs['fp']['kv_pool_bytes']}",
           flush=True)
     check(ratio <= 0.55, f"the int8 KV pool is {ratio:.4f} of the fp pool "
           f"(at most 0.55)")
-    return runs, spec
+    return runs, spec, options
+
+
+def options_phase(torch, fd, run, runs, spec) -> dict:
+    """The serving options at GPT-2 base width (phase 7c): graph against
+    eager over the bf16 and int8 pools and with ``--spec_tokens 4``, the
+    sanitizer, the prefix cache under wall-clock traffic, and
+    ``--serve_quant int8`` with the cost ledger."""
+    out = {"card": CARD}
+    for key, base in (("fp", runs["fp"]), ("int8", runs["int8"]),
+                      ("spec_ngram_fp", spec["ngram_fp"])):
+        out[f"graph_vs_eager_{key}"] = clocked(
+            f"graph vs eager {key}", graph_vs_eager, torch, fd, key, base)
+    out["sanitize"] = clocked("sanitize", sanitize_run, torch, fd, run)
+    out["prefill_rows_bitwise"] = prefill_rows_bitwise(torch, run)
+    out["prefix_cache"] = clocked("prefix cache", prefix_run, torch, fd, run)
+    out["serve_quant"] = clocked("serve_quant", quant_ledger_run, torch,
+                                 fd, run, runs["fp"]["streams"])
+    return out
+
+
+def serve_profiled(torch, argv: list, cuda_graphs: bool) -> dict:
+    """One run.serve pass under ``torch.profiler`` (device activity only):
+    its wall, the kernels' summed device time (one stream: they do not
+    overlap) and the idle share 1 - busy / wall."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run.serve import serve
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        summary, server, _ = serve(parse_settings(argv),
+                                   cuda_graphs=cuda_graphs)
+    del server
+    torch.cuda.empty_cache()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    return {"wall_s": summary["wall_s"], "device_busy_s": busy_s,
+            "idle_share": 1.0 - busy_s / summary["wall_s"],
+            "kernel_launches": sum(e.count for e in events),
+            "tokens_per_s": summary["decode_tokens_per_s_per_chip"]}
+
+
+def graph_vs_eager(torch, fd, key: str, base: dict) -> dict:
+    """The run of ``base`` (graph engine: its argv, streams, launch
+    counters and summary) served again through the eager engine: streams
+    identical token for token, every launch counter equal; then a
+    profiled pass of each engine for its device idle share."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run.serve import serve
+    fd.reset_launch_count()
+    summary, server, reqs = serve(parse_settings(base["argv"]),
+                                  cuda_graphs=False)
+    counters = fd.launch_counters()
+    check(server.engine.executables() == {} and server.compile_time_s == 0,
+          f"{key}: the eager engine captured graphs")
+    del server
+    torch.cuda.empty_cache()
+    streams = [list(r.tokens) for r in reqs]
+    differ = sum(a != b for a, b in zip(streams, base["streams"]))
+    check(len(streams) == len(base["streams"]) and differ == 0,
+          f"{key}: {differ} of {len(streams)} graph-engine streams differ "
+          f"from the eager engine's")
+    check(counters == base["counters"] and sum(counters.values()) > 0,
+          f"{key}: launches through graph replays {base['counters']} vs "
+          f"eager {counters}")
+    g, e = base["summary"], summary
+    out = {"streams": len(streams), "identical": True,
+           "launches": counters,
+           "graph": {k: g[k] for k in ("decode_tokens_per_s_per_chip",
+                                       "ttft_p50_s", "ttft_p95_s", "wall_s",
+                                       "compile_time_s")},
+           "eager": {k: e[k] for k in ("decode_tokens_per_s_per_chip",
+                                       "ttft_p50_s", "ttft_p95_s", "wall_s",
+                                       "compile_time_s")}}
+    out["speedup"] = (g["decode_tokens_per_s_per_chip"]
+                      / e["decode_tokens_per_s_per_chip"])
+    out["graph_profiled"] = serve_profiled(torch, base["argv"], True)
+    out["eager_profiled"] = serve_profiled(torch, base["argv"], False)
+    print(f"# graph vs eager {key} ({CARD}): {json.dumps(out)}", flush=True)
+    return out
+
+
+def sanitize_run(torch, fd, run) -> dict:
+    """``run.serve --sanitize true`` on the bf16 workload: no capture after
+    the first fetched token, one per phase, an empty report; then a host
+    sync injected into a dispatch (the engine's test hook) raises and is
+    recorded as a ``transfer_guard`` violation."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run.serve import serve
+    summary, server, reqs = serve(parse_settings(
+        serve_argv(run, "fp") + ["--sanitize", "true"]))
+    eng = server.engine
+    with open(os.path.join(run, "sanitize_report.json")) as f:
+        report = json.load(f)
+    check(summary["recompile_count"] == 0
+          and summary["xla_compiles_total"] == 2
+          and eng.captures == {"prefill": 1, "decode": 1}
+          and set(eng.executables()) == {"prefill", "decode"},
+          f"sanitize: recompile_count {summary['recompile_count']}, "
+          f"captures {eng.captures} ({summary['xla_compiles_total']})")
+    check(report == {"version": 1, "violations": []},
+          f"sanitize: the report lists violations: {report}")
+    check(all(len(r.tokens) == 128 for r in reqs),
+          "sanitize: a request lacks tokens")
+    eng._dispatch_hook = lambda phase: eng.tokens.cpu()
+    server.submit(reqs[0].prompt, max_new_tokens=4)
+    tripped = ""
+    try:
+        server.step()
+    except RuntimeError as err:
+        tripped = str(err)
+    kinds = [v["kind"] for v in server.sanitize_report.violations]
+    check("synchronizing" in tripped and kinds == ["transfer_guard"]
+          and torch.cuda.get_sync_debug_mode() == 0,
+          f"sanitize: an injected sync gave {tripped!r}, violations "
+          f"{kinds}")
+    out = {"recompile_count": summary["recompile_count"],
+           "captures": eng.captures,
+           "compile_time_s": summary["compile_time_s"],
+           "decode_tokens_per_s_per_chip":
+               summary["decode_tokens_per_s_per_chip"],
+           "injected_sync": server.sanitize_report.violations[0]}
+    print(f"# sanitize ({CARD}): {json.dumps(out)}", flush=True)
+    del server, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_rows_bitwise(torch, run) -> dict:
+    """Is a prompt's K/V bitwise the same when its prefill runs at another
+    row of a batch among other prompts? (bf16 GEMMs need not give
+    bitwise-equal rows across batches; the prefix cache never rewrites an
+    acquired page, so it does not depend on the answer.)"""
+    import numpy as np
+    from distributed_pipeline_tpu_torch.run.sample import load_run
+    from distributed_pipeline_tpu_torch.serving.engine import DecodeEngine
+    model, _, _ = load_run(run, device=torch.device("cuda"))
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(4, GPT2_BASE["vocab_size"], (384,))
+    pools = []
+    for row in (0, 5):
+        eng = DecodeEngine(model, decode_slots=8, page_size=16,
+                           max_pages=1 + 8 * 32, max_prompt_len=512,
+                           max_len=512, prefill_batch=8, cuda_graphs=False)
+        ids = rng.integers(4, GPT2_BASE["vocab_size"], (8, 512))
+        ids[row, :384] = prompt
+        ids[row, 384:] = 0
+        lens = rng.integers(200, 512, (8,))
+        lens[row] = 384
+        tables = np.arange(1, 1 + 8 * 32).reshape(8, 32)
+        eng.prefill(ids, lens, np.arange(8), tables)
+        pools.append([(e[0][tables[row, :16]].clone(),
+                       e[1][tables[row, :16]].clone())
+                      for e in eng.kv_cache])
+        del eng
+    same = all(torch.equal(a, b) for x, y in zip(*pools)
+               for a, b in zip(x, y))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for x, y in zip(*pools) for a, b in zip(x, y))
+    out = {"bitwise_equal": same, "max_abs_diff": diff}
+    print(f"# prefill K/V of one prompt at batch rows 0 and 5, 16 full "
+          f"pages, 12 layers: {json.dumps(out)}", flush=True)
+    del model, pools
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_run(torch, fd, run) -> dict:
+    """``--prefix_cache true --shared_prefix_len 256
+    --synthetic_prompt_len 384 --traffic poisson`` against the same
+    requests without the cache: streams equal, hits > 0, the pool whole
+    after the drain (free + cache-resident pages = capacity)."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run.serve import serve
+    rate = 16.0
+    argv = ["--checkpoint_path", run, "--decode_slots", "32",
+            "--page_size", "16", "--max_prompt_len", "512",
+            "--synthetic_requests", "32", "--synthetic_prompt_len", "384",
+            "--shared_prefix_len", "256", "--max_new_tokens", "128",
+            "--temperature", "0", "--traffic", "poisson",
+            "--rate_rps", str(rate)]
+    print(f"# prefix cache: poisson arrivals at {rate} requests/s",
+          flush=True)
+    results = {}
+    for cache in (True, False):
+        summary, server, reqs = serve(parse_settings(
+            argv + ["--prefix_cache", str(cache).lower()]))
+        results[cache] = (summary, [list(r.tokens) for r in reqs])
+        if cache:
+            whole = (server.mgr.free_pages + summary["prefix_resident_pages"]
+                     == server.mgr.capacity)
+        del server
+        torch.cuda.empty_cache()
+    (hot, hot_streams), (cold, cold_streams) = results[True], results[False]
+    same = sum(a == b for a, b in zip(hot_streams, cold_streams))
+    out = {"rate_rps": rate, "requests": len(hot_streams),
+           "identical_streams": same / len(hot_streams),
+           **{k: v for k, v in hot.items() if k.startswith("prefix_")},
+           "pool_whole": whole,
+           "cached": {k: hot[k] for k in ("decode_tokens_per_s_per_chip",
+                                          "ttft_p50_s", "ttft_p95_s",
+                                          "wall_s")},
+           "uncached": {k: cold[k] for k in (
+               "decode_tokens_per_s_per_chip", "ttft_p50_s", "ttft_p95_s",
+               "wall_s")}}
+    print(f"# prefix cache ({CARD}): {json.dumps(out)}", flush=True)
+    check(same == len(hot_streams), f"prefix cache: {len(hot_streams) - same}"
+          f" streams differ from the run without the cache")
+    check(hot["prefix_hits"] > 0 and whole,
+          f"prefix cache: hits {hot['prefix_hits']}, pool whole {whole}")
+    return out
+
+
+def quant_ledger_run(torch, fd, run, fp_streams) -> dict:
+    """``--serve_quant int8 --cost_ledger true`` on the bf16 workload:
+    every request's tokens, tokens/s, the share of streams equal to the
+    unquantized run's; the ledger's decode and prefill rows, the gap-sum
+    identity within 1e-9 and ``mfu`` in (0, 1)."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.obs.ledger import gap_sum_identity
+    from distributed_pipeline_tpu_torch.run.serve import serve
+    summary, server, reqs = serve(parse_settings(
+        serve_argv(run, "fp") + ["--serve_quant", "int8",
+                                 "--cost_ledger", "true"]))
+    del server
+    torch.cuda.empty_cache()
+    check(len(reqs) == 64 and all(len(r.tokens) == 128 for r in reqs),
+          "serve_quant: a request lacks tokens")
+    same = sum(list(r.tokens) == s for r, s in zip(reqs, fp_streams))
+    rows = summary["ledger"]
+    decode = rows.get("serve_decode", {})
+    identity = gap_sum_identity(decode)
+    out = {"decode_tokens_per_s_per_chip":
+               summary["decode_tokens_per_s_per_chip"],
+           "identical_to_unquantized": same / len(reqs),
+           "ledger": rows, "gap_sum_identity": identity}
+    print(f"# serve_quant int8 + cost ledger ({CARD}): {json.dumps(out)}",
+          flush=True)
+    check({"serve_decode", "serve_prefill"} <= set(rows)
+          and abs(identity - 1.0) <= 1e-9 and 0.0 < decode["mfu"] < 1.0,
+          f"cost ledger rows {sorted(rows)}, identity {identity}, mfu "
+          f"{decode.get('mfu')}")
+    return out
+
+
+def serve_argv(run: str, kv_quant: str, requests: int = 64) -> list:
+    """run.serve's flags for the serve workload: GPT-2 base on 32 slots,
+    pages of 16, prompts of 256 tokens padded to 512, 128 new tokens
+    each, greedy."""
+    return ["--checkpoint_path", run, "--decode_slots", "32",
+            "--page_size", "16", "--max_prompt_len", "512",
+            "--synthetic_requests", str(requests),
+            "--synthetic_prompt_len", "256", "--max_new_tokens", "128",
+            "--temperature", "0", "--decode_impl", "auto",
+            "--kv_quant", kv_quant]
 
 
 def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
@@ -822,14 +1101,10 @@ def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
     from distributed_pipeline_tpu_torch.run.serve import serve
 
     new_tokens = 128
-    settings = parse_settings([
-        "--checkpoint_path", run, "--decode_slots", "32",
-        "--page_size", "16", "--max_prompt_len", "512",
-        "--synthetic_requests", "64", "--synthetic_prompt_len", "256",
-        "--max_new_tokens", str(new_tokens), "--temperature", "0",
-        "--decode_impl", "auto", "--kv_quant", kv_quant])
+    settings = parse_settings(serve_argv(run, kv_quant))
     fd.reset_launch_count()
     summary, server, reqs = serve(settings)
+    counters = fd.launch_counters()
     other = "fp" if kv_quant == "int8" else "int8"
     launches = fd.launch_count(kv_quant)
 
@@ -907,7 +1182,8 @@ def serve_run(torch, fd, run, kv_quant: str, bw, bf16_peak) -> dict:
     del server, eng, saved, pool
     torch.cuda.empty_cache()
     return {"launches": launches, "kv_pool_bytes": pool_bytes,
-            "streams": streams,
+            "streams": streams, "counters": counters, "summary": summary,
+            "argv": serve_argv(run, kv_quant),
             "decode_tokens_per_s_per_chip":
                 summary["decode_tokens_per_s_per_chip"],
             "ttft_p50_s": summary["ttft_p50_s"],
@@ -1732,6 +2008,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     bw, bf16_peak, f32_peak = card_rates(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1759,7 +2037,7 @@ def main() -> int:
                         name="fused_adamw_ema_diffuseq")
     small_model_phase(torch)
     t0 = time.perf_counter()
-    serve, spec = serve_phase(torch, fd, bw, bf16_peak)
+    serve, spec, options = serve_phase(torch, fd, bw, bf16_peak)
     print(f"# serve phase, spec runs included: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for row, kv_quant in zip(decode, ("fp", "int8")):
@@ -1777,6 +2055,7 @@ def main() -> int:
         row["launches_diffuseq_seq1024"] = n
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"spec": spec}), flush=True)
+    print(json.dumps({"serve_options": options}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"diffuseq": diffuseq}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",

@@ -2,10 +2,11 @@
 ``ServeSettings`` (``distributed_pipeline_tpu/config/serve.py``) as a
 dataclass with an argparse bridge.
 
-Every field is a ``--flag`` with the JAX package's name and default. Flags
-of options this port does not serve yet are accepted by the parser so that a
-JAX command line reads the same, but any value other than the default fails
-at parse time with the ROADMAP item that brings it.
+Every field is a ``--flag`` with the JAX package's name, default and
+meaning. The fleet's flags (``--replicas``, ``--disagg``) and ``--ema`` are
+accepted by the parser so that a JAX command line reads the same, but any
+value other than the default fails at parse time with the ROADMAP item
+that brings it (``DEFERRED``).
 """
 
 from __future__ import annotations
@@ -18,14 +19,8 @@ __all__ = ["ServeSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value served now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "prefix_cache": (False, "ROADMAP A.4 (prefix cache)"),
-    "serve_quant": ("off", "ROADMAP A.4 (int8 serving weights)"),
-    "cost_ledger": (False, "ROADMAP A.4 (cost ledger)"),
-    "sanitize": (False, "ROADMAP A.4 (sanitizer, CUDA graphs)"),
-    "trace": (False, "ROADMAP A.4 (span tracing)"),
     "replicas": (0, "ROADMAP A.5 (serving fleet)"),
     "disagg": (0, "ROADMAP A.5 (disaggregated prefill/decode)"),
-    "traffic": ("steps", "ROADMAP A.5 (wall-clock traffic processes)"),
     "ema": ("", "ROADMAP A.5 (EMA weights, orbax run-dir import)"),
 }
 
@@ -89,8 +84,10 @@ class ServeSettings:
     synthetic_requests: int = _f(32, "synthetic workload: request count")
     synthetic_prompt_len: int = _f(0, "synthetic prompt length "
                                       "(0 = max_prompt_len)")
-    arrival_every_steps: int = _f(0, "enqueue one request every N scheduler "
-                                     "steps (0 = all queued at start)")
+    arrival_every_steps: int = _f(0, "synthetic-arrival knob "
+                                     "(traffic='steps' only): enqueue one "
+                                     "request every N scheduler steps "
+                                     "(0 = all queued at start)")
     out: str = _f("", "write per-request JSONL results here")
     decode_impl: str = _f("auto", "decode-step attention: 'cuda' = the "
                                   "flash-decode kernel, 'torch' = the plain "
@@ -111,16 +108,47 @@ class ServeSettings:
     draft_layers: int = _f(2, "spec_draft='model': how many leading target "
                               "blocks the draft model keeps")
 
+    prefix_cache: bool = _f(False, "shared-prefix KV page reuse: requests "
+                                   "whose prompts open with the same token "
+                                   "run share the paged-KV pages holding "
+                                   "that prefix (refcounted; evicted LRU "
+                                   "under pool pressure)")
+    serve_quant: str = _f("off", "quantize the WEIGHTS at load "
+                                 "(serving/quantize.py): int8 storage "
+                                 "round-trip with per-channel scales and a "
+                                 "round-trip error guard", ("off", "int8"))
+    cost_ledger: bool = _f(False, "per-phase cost ledger (obs/ledger.py): "
+                                  "FLOPs/bytes census of the prefill/decode "
+                                  "phases and the roofline MFU-gap "
+                                  "attribution in the summary")
+    sanitize: bool = _f(False, "runtime sanitizer: count CUDA graph "
+                               "captures (recompile_count must stay 0 "
+                               "after the first token) and refuse host "
+                               "syncs inside engine dispatches; writes "
+                               "sanitize_report.json beside the checkpoint")
+    trace: bool = _f(False, "span tracing: instruments fleet mode "
+                            "(--replicas, ROADMAP A.5); the single-replica "
+                            "path prints a notice and ignores it")
+    traffic: str = _f("steps", "arrival process: 'steps' keeps the "
+                               "scheduler-step cadence; poisson/bursty/"
+                               "diurnal are seeded wall-clock processes "
+                               "(serving/traffic.py)",
+                      ("steps", "poisson", "bursty", "diurnal"))
+    rate_rps: float = _f(8.0, "mean arrival rate (requests/second) for the "
+                              "wall-clock traffic processes")
+    burst_every_s: float = _f(2.0, "bursty traffic: seconds between bursts")
+    burst_size: int = _f(8, "bursty traffic: arrivals per burst")
+    diurnal_period_s: float = _f(30.0, "diurnal traffic: ramp period (a "
+                                       "compressed day/night cycle)")
+    diurnal_floor: float = _f(0.2, "diurnal traffic: trough rate as a "
+                                   "fraction of rate_rps")
+    shared_prefix_len: int = _f(0, "synthetic prompts open with this many "
+                                   "SHARED tokens (the prefix-cache "
+                                   "workload; 0 = fully random prompts)")
+
     # options of the JAX server that later slices bring (DEFERRED)
-    prefix_cache: bool = _f(False, "shared-prefix KV page reuse")
-    serve_quant: str = _f("off", "quantize serving weights", ("off", "int8"))
-    cost_ledger: bool = _f(False, "per-phase cost ledger")
-    sanitize: bool = _f(False, "runtime sanitizer")
-    trace: bool = _f(False, "span tracing")
     replicas: int = _f(0, "serve through a fleet of N replicas")
     disagg: int = _f(0, "disaggregated prefill/decode serving")
-    traffic: str = _f("steps", "arrival process",
-                      ("steps", "poisson", "bursty", "diurnal"))
     ema: str = _f("", "EMA rate to serve; empty = raw params")
 
     def __post_init__(self) -> None:

@@ -51,8 +51,11 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pad_mask: Optional[torch.Tensor],
                      causal: bool) -> torch.Tensor:
     dh = q.shape[-1]
+    # the scale rounded to q's dtype, as a 0-d host tensor: a scalar
+    # operand, so no host-to-device copy (which a CUDA graph cannot
+    # capture and the sanitizer refuses)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.tensor(
-        dh ** -0.5, dtype=q.dtype, device=q.device)
+        dh ** -0.5, dtype=q.dtype)
     if pad_mask is not None:
         logits = logits + make_attention_bias(pad_mask, causal, logits.dtype)
     elif causal:

@@ -65,7 +65,8 @@ __all__ = ["flash_decode", "torch_paged_decode", "paged_decode_attention",
            "paged_span_attention", "resolve_decode_impl", "decode_hbm_bytes",
            "span_hbm_bytes", "decode_plan", "span_plan", "device_limits",
            "DecodePlan", "SpanPlan", "launch_count", "span_launch_count",
-           "span_kernel_launch_count", "reset_launch_count"]
+           "span_kernel_launch_count", "reset_launch_count",
+           "launch_counters", "add_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -96,8 +97,10 @@ _span_launches = [0]
 _device_limits: Dict[int, Tuple[int, int]] = {}
 # per CUDA device: the zeroed int32 tickets of the multi-chunk combine (the
 # slot's last chunk resets its ticket, so they stay zero between calls on
-# one stream)
+# one stream). A buffer outgrown by a larger call is kept alive in
+# _retired_tickets: a CUDA graph captured over it goes on using it.
 _tickets: Dict[int, torch.Tensor] = {}
+_retired_tickets: list = []
 
 
 def launch_count(pages: Optional[str] = None) -> int:
@@ -125,6 +128,30 @@ def reset_launch_count() -> None:
         for key in counts:
             counts[key] = 0
     _span_launches[0] = 0
+
+
+def launch_counters() -> Dict[str, int]:
+    """Every counter as one flat dict: ``decode_fp``, ``decode_int8``,
+    ``span_fp``, ``span_int8`` (the span kernel) and ``seam`` (the span
+    seam's calls). A CUDA graph takes a snapshot before and after its
+    capture: the difference is what one replay launches."""
+    out = {f"decode_{k}": v for k, v in _launches.items()}
+    out.update({f"span_{k}": v for k, v in _span_kernel_launches.items()})
+    out["seam"] = _span_launches[0]
+    return out
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`launch_counters` difference) to
+    the counters: a graph replay's launches, which run no Python wrapper,
+    or (``times=-1``) a capture's, which launched nothing."""
+    for key, n in delta.items():
+        if key == "seam":
+            _span_launches[0] += times * n
+        elif key.startswith("decode_"):
+            _launches[key[len("decode_"):]] += times * n
+        else:
+            _span_kernel_launches[key[len("span_"):]] += times * n
 
 
 def resolve_decode_impl(impl: str, device: torch.device) -> str:
@@ -354,6 +381,8 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
         else torch.cuda.current_device()
     buf = _tickets.get(index)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired_tickets.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _tickets[index] = buf
     return buf
@@ -604,15 +633,9 @@ def decode_hbm_bytes(block_table: np.ndarray, positions: np.ndarray,
                                                    else dtype_bytes)
     qo_bytes = n_heads * head_dim * dtype_bytes
     n_live = np.clip(pos // page_size + 1, 0, n)
-    total = 0
-    seen: set = set()
-    for b in range(B):
-        for j in range(int(n_live[b])):
-            page = int(bt[b, j])
-            if page not in seen:
-                total += 2 * page_bytes            # K and V blocks
-                seen.add(page)
-        total += 2 * qo_bytes                      # q read + out write
+    live_entries = bt[np.arange(n)[None, :] < n_live[:, None]]
+    total = 2 * page_bytes * np.unique(live_entries).size  # K and V blocks
+    total += B * 2 * qo_bytes                  # q read + out write
     if step_table:
         total += (B * n) * (9 if quantized else 7) * 4   # TPU step table
     else:
@@ -641,9 +664,9 @@ def span_hbm_bytes(block_table: np.ndarray, positions: np.ndarray,
     page_bytes = page_size * n_heads * head_dim * (1 if quantized
                                                    else dtype_bytes)
     n_live = np.clip(pos.max(axis=1) // page_size + 1, 0, n)
-    pages = {int(bt[b, j]) for b in range(B) for j in range(int(n_live[b]))}
+    pages = np.unique(bt[np.arange(n)[None, :] < n_live[:, None]])
     live = int(n_live.sum())
-    total = 2 * page_bytes * len(pages)                # K and V blocks
+    total = 2 * page_bytes * pages.size                # K and V blocks
     total += 2 * B * L * n_heads * head_dim * dtype_bytes  # q and out
     total += (live + B * L) * 4                        # entries, positions
     if quantized:

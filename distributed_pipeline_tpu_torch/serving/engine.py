@@ -14,19 +14,44 @@
   (token, position) state, and ``set_decode_state`` pushes it to an engine
   that then decodes (the model draft).
 
-The JAX engine compiles each phase once; PyTorch runs eagerly, so each phase
-is a plain method (``decode_span`` steps are a Python loop per dispatch) and
-the kernel launches are asynchronous on the current stream. State (the
-paged KV pool, the token/position vectors, block tables, the active mask)
-stays on the device; the pool is updated in place. ``kv_quant="int8"``
-keeps int8 pages with a ``[P]`` f32 scale sidecar for K and for V per layer
-(about half the bytes of a bf16 pool). CUDA graphs, the analogue of the
-compile-once executables, are later work (ROADMAP A.4).
+The JAX engine compiles each phase once (AOT executables). Here each phase
+is a method over fixed-shape device buffers, and on a CUDA device it is
+captured once as a ``torch.cuda.CUDAGraph`` — after one eager call, the
+phase's real first dispatch — and from then on only replayed: ``prefill``
+at ``[prefill_batch, max_prompt_len]``, ``decode`` with all
+``decode_span`` steps in one graph, ``verify`` at ``[S, K + 1]``.
+``executables()`` returns the graphs by phase, ``compile_time_s`` sums the
+capture time, and a capture or a replay that fails raises; nothing falls
+back to eager. ``cuda_graphs=False`` builds the eager engine, the on-card
+reference; CPU tensors always run eagerly.
+
+Every input of a phase lives in a static device buffer, filled by a
+non-blocking copy from pinned host memory (``_stage``); every output is
+copied out of the graph's buffers before the call returns, so the next
+replay cannot overwrite what a caller holds. State (the paged KV pool,
+the token/position vectors, block tables, the active mask) stays on the
+device; the pool is updated in place. ``kv_quant="int8"`` keeps int8
+pages with a ``[P]`` f32 scale sidecar for K and for V per layer (about
+half the bytes of a bf16 pool).
+
+Sampling keys its noise on the device as a pure function of (seed, slot,
+position, vocab index) (:func:`keyed_gumbel`), the JAX engine's
+per-(slot, position) key fold, so nothing in a phase reads the host.
+Launch counters (``ops/flash_decode.py``) tick in the kernels' Python
+wrappers, which a replay does not run: each graph records the launches
+its capture made and adds them on every replay.
+
+``guard=True`` (the sanitizer) runs every dispatch under
+``torch.cuda.set_sync_debug_mode("error")``, the analogue of JAX's
+``transfer_guard("disallow")``: an operation that synchronizes with the
+host inside a dispatch raises.
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,52 +59,83 @@ import torch
 from ..models.backbone import KV_QUANTS
 from ..models.gpt2 import GPT2Model
 from ..models.sampling import _truncate_logits
+from ..ops import flash_decode as fd
 
-__all__ = ["DecodeEngine"]
+__all__ = ["DecodeEngine", "keyed_gumbel"]
 
-_SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant (golden ratio)
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x):
+    """A 32-bit integer mixer over int64 tensors (or Python ints) holding
+    values in [0, 2^32): every product stays below 2^63, so torch's int64
+    arithmetic gives the same bits on the CPU and on the card."""
+    x = x & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def _seed_key(seed: int) -> int:
+    return _hash32(_hash32(seed & _M32) ^ ((seed >> 32) & _M32))
+
+
+def keyed_gumbel(seed: int, slots: torch.Tensor, positions: torch.Tensor,
+                 vocab_hash: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise [N, V] as a pure function of (seed, slot, position,
+    vocab index): an integer hash, then a uniform in (0, 1) from its top 24
+    bits, then ``-log(-log u)``. ``vocab_hash`` is ``_hash32(arange(V))``.
+    The same code on the CPU and on the card; the keys match bit for bit,
+    the logarithms to the last ulp of each device's ``log``."""
+    key = _hash32(_hash32(slots.long() ^ _seed_key(seed))
+                  ^ positions.long())                          # [N]
+    h = _hash32(key[:, None] ^ vocab_hash[None, :])            # [N, V]
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
 
 
 class _SlotPicker:
     """Per-slot token picker ``(logits [N, V], positions [N], slots [N]) ->
-    int32 [N]``. Greedy at temperature <= 0; otherwise temperature, then
-    :func:`_truncate_logits`, then a categorical pick (Gumbel-max) whose
-    noise comes from a ``torch.Generator`` seeded per (seed, slot,
-    position) — the JAX engine's per-(slot, position) key fold, so two slots
-    at the same depth draw different noise and a request's stream is fixed
-    from its first token on. ``positions``/``slots`` are host arrays: the
-    engine mirrors positions on the host, so picking never waits for the
-    device."""
+    int32 [N]``, all device tensors. Greedy at temperature <= 0; otherwise
+    temperature, then :func:`_truncate_logits`, then a categorical pick by
+    Gumbel-max whose noise is keyed per (seed, slot, position)
+    (:func:`keyed_gumbel`) — the JAX engine's per-(slot, position) key
+    fold, so two slots at the same depth draw different noise and a
+    request's stream is fixed from its first token on."""
 
     def __init__(self, temperature: float, top_k: int, top_p: float,
-                 seed: int, device: torch.device) -> None:
+                 seed: int, vocab_size: int, device: torch.device) -> None:
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
         self.seed = seed
-        self.gen = (torch.Generator(device=device)
-                    if temperature > 0.0 else None)
+        self.vocab_hash = (_hash32(torch.arange(vocab_size, device=device))
+                           if temperature > 0.0 else None)
 
-    def __call__(self, logits: torch.Tensor, positions: np.ndarray,
-                 slots: np.ndarray) -> torch.Tensor:
-        if self.gen is None:
+    def __call__(self, logits: torch.Tensor, positions: torch.Tensor,
+                 slots: torch.Tensor) -> torch.Tensor:
+        if self.vocab_hash is None:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         l = _truncate_logits(logits.float() / self.temperature, self.top_k,
                              self.top_p)
-        noise = torch.empty_like(l)
-        for i, (s, p) in enumerate(zip(slots.tolist(), positions.tolist())):
-            key = (((self.seed * _SEED_MIX + s) * _SEED_MIX + p)
-                   % (2 ** 63))
-            self.gen.manual_seed(key)
-            noise[i].exponential_(generator=self.gen)
-        # argmax(l - log(E)), E ~ Exp(1), is a categorical draw from
-        # softmax(l) (the Gumbel-max trick)
-        return torch.argmax(l - noise.log(), dim=-1).to(torch.int32)
+        noise = keyed_gumbel(self.seed, slots, positions, self.vocab_hash)
+        return torch.argmax(l + noise, dim=-1).to(torch.int32)
+
+
+class _Phase:
+    """One captured phase: its graph, the launches one replay makes (by
+    counter), and the static output buffer it fills."""
+
+    def __init__(self, graph, launches: Dict[str, int],
+                 out: torch.Tensor) -> None:
+        self.graph = graph
+        self.launches = launches
+        self.out = out
 
 
 class DecodeEngine:
     """Device half of the serving stack: paged-cache decode state plus the
-    two phases that advance it.
+    phases that advance it.
 
     Parameters
     ----------
@@ -103,6 +159,10 @@ class DecodeEngine:
         pages with per-page f32 scales; ``serving/paged_kv.py``).
     spec_tokens : draft length K of :meth:`verify` (0 = no speculative
         decoding).
+    cuda_graphs : on a CUDA device, capture each phase once and replay it
+        (default); False keeps every call eager (the on-card reference).
+    guard : run every dispatch under ``set_sync_debug_mode("error")``.
+    on_capture : called with (phase name, seconds) after each capture.
     """
 
     def __init__(self, model: GPT2Model, *, decode_slots: int,
@@ -111,7 +171,10 @@ class DecodeEngine:
                  decode_span: int = 1, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  decode_impl: str = "auto", kv_quant: str = "fp",
-                 spec_tokens: int = 0) -> None:
+                 spec_tokens: int = 0, cuda_graphs: bool = True,
+                 guard: bool = False,
+                 on_capture: Optional[Callable[[str, float], None]] = None
+                 ) -> None:
         if model.family != "gpt2":
             raise ValueError(f"the decode engine serves the gpt2 family, "
                              f"got {model.family!r}")
@@ -145,8 +208,11 @@ class DecodeEngine:
         self.decode_span = decode_span
         self.decode_impl = decode_impl
         self.kv_quant = kv_quant
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self.guard = bool(guard) and self.device.type == "cuda"
+        self._on_capture = on_capture
         self._pick = _SlotPicker(temperature, top_k, top_p, seed,
-                                 self.device)
+                                 model.vocab_size, self.device)
 
         s, dev = decode_slots, self.device
         H = model.num_heads
@@ -163,19 +229,37 @@ class DecodeEngine:
                 entry += [torch.zeros((max_pages,), dtype=torch.float32,
                                       device=dev) for _ in range(2)]
             self.kv_cache.append(tuple(entry))
-        self.tokens = torch.zeros((s,), dtype=torch.int32, device=dev)
-        self.positions = torch.zeros((s,), dtype=torch.int32, device=dev)
-        self.block_table = torch.zeros((s, self.pages_per_slot),
-                                       dtype=torch.int32, device=dev)
-        self.active = torch.zeros((s,), dtype=torch.int32, device=dev)
-        # host mirrors of the positions and the active mask: the sampler
-        # keys its noise by position without reading the device
-        self._positions_host = np.zeros((s,), np.int64)
-        self._active_host = np.zeros((s,), bool)
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
-            self.device)
+        def zeros(*shape_):
+            return torch.zeros(shape_, dtype=torch.int32, device=dev)
+
+        # decode state: row s of the token/position buffers is the scratch
+        # row a prefill's dummy rows merge into
+        self._tok_buf, self._pos_buf = zeros(s + 1), zeros(s + 1)
+        self.tokens, self.positions = self._tok_buf[:s], self._pos_buf[:s]
+        self.block_table = zeros(s, self.pages_per_slot)
+        self.active = zeros(s)
+        self._slot_ids = torch.arange(s, dtype=torch.int32, device=dev)
+        # phase inputs and outputs
+        bp, lp = self.prefill_batch, max_prompt_len
+        self._pf_ids, self._pf_lens = zeros(bp, lp), zeros(bp)
+        self._pf_smap, self._pf_tables = zeros(bp), zeros(bp,
+                                                          self.pages_per_slot)
+        self._pf_out = zeros(s)
+        self._dec_out = zeros(decode_span, s)
+        kp1 = spec_tokens + 1
+        self._vf_chain, self._vf_pos = zeros(s, kp1), zeros(s)
+        self._vf_out = zeros(kp1, s)
+
+        self._phases: Dict[str, _Phase] = {}
+        self.compile_time_s = 0.0
+        self.captures: Dict[str, int] = {}
+        self.dispatches: Dict[str, int] = {}
+        # test hook: called inside each guarded dispatch with the phase's
+        # name (the sanitizer's test injects a host sync through it)
+        self._dispatch_hook: Optional[Callable[[str], None]] = None
+
+    # ------------------------------------------------------------ plumbing
 
     def kv_pool_bytes(self) -> int:
         """Device bytes the paged KV pool holds: pages and scale sidecars,
@@ -184,23 +268,162 @@ class DecodeEngine:
         return int(sum(t.numel() * t.element_size()
                        for entry in self.kv_cache for t in entry))
 
+    def executables(self) -> Dict[str, "torch.cuda.CUDAGraph"]:
+        """The captured graphs keyed by phase name ("prefill", "decode",
+        "verify"); empty on an eager engine."""
+        return {name: ph.graph for name, ph in self._phases.items()}
+
+    @contextlib.contextmanager
+    def _guarded(self):
+        if not self.guard:
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    def _stage(self, dst: torch.Tensor, x: np.ndarray) -> None:
+        """Copy a host array into a static device buffer: through a fresh
+        pinned host tensor and a non-blocking copy on the card (PyTorch's
+        pinned allocator does not hand the block out again before the copy
+        has run), in place on the CPU."""
+        src = torch.from_numpy(np.ascontiguousarray(x, np.int32)).reshape(
+            dst.shape)
+        if dst.is_cuda:
+            pinned = torch.empty(dst.shape, dtype=torch.int32,
+                                 pin_memory=True)
+            pinned.copy_(src)
+            dst.copy_(pinned, non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _dispatch(self, name: str, fn: Callable[[], torch.Tensor]
+                  ) -> torch.Tensor:
+        """Run one phase: eagerly, or (graphs) its first call eagerly, then
+        a capture outside the guard, then replays only. Returns a copy of
+        the phase's output buffer."""
+        self.dispatches[name] = self.dispatches.get(name, 0) + 1
+        if self._dispatch_hook is not None:
+            self._dispatch_hook(name)
+        phase = self._phases.get(name)
+        if phase is not None:
+            phase.graph.replay()
+            fd.add_launches(phase.launches)
+            return phase.out.clone()
+        out = fn()
+        if self.cuda_graphs:
+            copy = out.clone()
+            self._capture(name, fn)
+            return copy
+        return out.clone()
+
+    def _capture(self, name: str, fn: Callable[[], torch.Tensor]) -> None:
+        """Capture ``fn`` as a CUDA graph. A capture synchronizes the
+        device, so the sanitizer's guard is lifted for it (as a JAX
+        compile runs outside the transfer guard's reach). The launches the
+        capture counted are taken back and kept for the replays."""
+        prev = torch.cuda.get_sync_debug_mode() if self.guard else None
+        if self.guard:
+            torch.cuda.set_sync_debug_mode(0)
+        try:
+            t0 = time.perf_counter()
+            before = fd.launch_counters()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+            after = fd.launch_counters()
+            delta = {k: after[k] - before[k] for k in after}
+            fd.add_launches(delta, times=-1)
+            torch.cuda.synchronize(self.device)
+            seconds = time.perf_counter() - t0
+        finally:
+            if self.guard:
+                torch.cuda.set_sync_debug_mode(prev)
+        self._phases[name] = _Phase(graph, delta, out)
+        self.captures[name] = self.captures.get(name, 0) + 1
+        self.compile_time_s += seconds
+        if self._on_capture is not None:
+            self._on_capture(name, seconds)
+
+    # ---------------------------------------------------------- host state
+
     def set_block_tables(self, table: np.ndarray) -> None:
         """Refresh the device block table (admission/free changed the host
         copy). Shape stays [S, pages_per_slot]."""
-        self.block_table = self._put(table)
+        with self._guarded():
+            self._stage(self.block_table, table)
 
     def set_active(self, active: np.ndarray) -> None:
-        self._active_host = np.asarray(active) > 0
-        self.active = self._put(active)
+        with self._guarded():
+            self._stage(self.active, active)
 
     def set_decode_state(self, tokens: np.ndarray,
                          positions: np.ndarray) -> None:
         """Push the full [S] (token, position) state from the host: the
         speculative scheduler's rollback primitive, declaring the
         post-acceptance state before a round's dispatches."""
-        self.tokens = self._put(tokens)
-        self.positions = self._put(positions)
-        self._positions_host = np.asarray(positions, np.int64).copy()
+        with self._guarded():
+            self._stage(self.tokens, tokens)
+            self._stage(self.positions, positions)
+
+    # --------------------------------------------------------------- phases
+
+    def _prefill_fn(self) -> torch.Tensor:
+        ids, lens, smap = self._pf_ids, self._pf_lens, self._pf_smap
+        pad = (torch.arange(ids.shape[1], device=self.device)[None, :]
+               < lens[:, None]).to(torch.int32)
+        logits = self.model(ids, pad, block_table=self._pf_tables,
+                            kv_cache=self.kv_cache,
+                            decode_impl=self.decode_impl,
+                            kv_quant=self.kv_quant)
+        rows = torch.arange(ids.shape[0], device=self.device)
+        last = logits[rows, torch.clamp(lens - 1, min=0).long()]  # [Bp, V]
+        # the first token sits at position prompt_len of its target slot
+        # (dummies fold as slot 0: picked, then merged into the scratch row)
+        first = self._pick(last, lens, torch.clamp(smap, min=0))
+        target = torch.where(smap >= 0, smap, self.decode_slots).long()
+        self._tok_buf.scatter_(0, target, first)
+        self._pos_buf.scatter_(0, target, lens)
+        self._pf_out.copy_(self.tokens)
+        return self._pf_out
+
+    def _decode_fn(self) -> torch.Tensor:
+        live = self.active > 0
+        for i in range(self.decode_span):
+            logits = self.model(self.tokens[:, None], None,
+                                cache_index=self.positions,
+                                block_table=self.block_table,
+                                kv_cache=self.kv_cache,
+                                decode_impl=self.decode_impl,
+                                kv_quant=self.kv_quant)
+            nxt = self._pick(logits[:, 0], self.positions + 1,
+                             self._slot_ids)
+            self.tokens.copy_(torch.where(live, nxt, self.tokens))
+            self.positions.copy_(torch.where(live, self.positions + 1,
+                                             self.positions))
+            self._dec_out[i].copy_(self.tokens)
+        return self._dec_out
+
+    def _verify_fn(self) -> torch.Tensor:
+        S, kp1 = self.decode_slots, self.spec_tokens + 1
+        pos = self._vf_pos
+        logits = self.model(self._vf_chain, None, cache_index=pos,
+                            block_table=self.block_table,
+                            kv_cache=self.kv_cache,
+                            decode_impl=self.decode_impl,
+                            kv_quant=self.kv_quant)            # [S, K+1, V]
+        # one flattened pick over all S*(K+1) rows, keyed per (slot,
+        # position): row j of slot s picks what decode would there
+        pos_f = pos[:, None] + 1 + torch.arange(
+            kp1, dtype=torch.int32, device=self.device)[None, :]
+        slot_f = self._slot_ids.repeat_interleave(kp1)
+        seq = self._pick(logits.reshape(S * kp1, -1), pos_f.reshape(-1),
+                         slot_f)
+        self._vf_out.copy_(seq.reshape(S, kp1).T)
+        return self._vf_out
 
     @torch.inference_mode()
     def prefill(self, ids: np.ndarray, prompt_lens: np.ndarray,
@@ -208,35 +431,16 @@ class DecodeEngine:
                 ) -> torch.Tensor:
         """One admission batch. ``ids`` [Bp, Lp] zero-padded prompts;
         ``slot_map`` [Bp] target decode slot (-1 = dummy padding row);
-        ``slot_tables`` [Bp, pages_per_slot] the target slots' block-table
-        rows (all-trash for dummies). Returns the post-merge tokens vector
-        (a fresh device tensor that later calls do not modify)."""
-        lens_np = np.asarray(prompt_lens, np.int64)
-        smap = np.asarray(slot_map, np.int64)
-        lens = self._put(lens_np)
-        ids_t = self._put(ids)
-        pad = (torch.arange(ids_t.shape[1], device=self.device)[None, :]
-               < lens[:, None]).to(torch.int32)
-        logits = self.model(ids_t, pad, block_table=self._put(slot_tables),
-                            kv_cache=self.kv_cache,
-                            decode_impl=self.decode_impl,
-                            kv_quant=self.kv_quant)
-        last_idx = torch.clamp(lens - 1, min=0).long()
-        rows = torch.arange(ids_t.shape[0], device=self.device)
-        last = logits[rows, last_idx]                            # [Bp, V]
-        # the first token sits at position prompt_len of its target slot
-        # (dummies fold as slot 0: picked, then dropped)
-        first = self._pick(last, lens_np, np.maximum(smap, 0))
-        real = np.nonzero(smap >= 0)[0]
-        targets = torch.from_numpy(smap[real]).to(self.device)
-        src = torch.from_numpy(real).to(self.device)
-        tokens = self.tokens.clone()
-        positions = self.positions.clone()
-        tokens[targets] = first[src]
-        positions[targets] = lens[src]
-        self.tokens, self.positions = tokens, positions
-        self._positions_host[smap[real]] = lens_np[real]
-        return self.tokens
+        ``slot_tables`` [Bp, pages_per_slot] the block-table rows the
+        prefill writes through (all-trash for dummies). Returns the
+        post-merge tokens vector (a fresh device tensor that later calls do
+        not modify)."""
+        with self._guarded():
+            self._stage(self._pf_ids, ids)
+            self._stage(self._pf_lens, prompt_lens)
+            self._stage(self._pf_smap, slot_map)
+            self._stage(self._pf_tables, slot_tables)
+            return self._dispatch("prefill", self._prefill_fn)
 
     @torch.inference_mode()
     def decode(self) -> torch.Tensor:
@@ -246,23 +450,9 @@ class DecodeEngine:
         at the position it will occupy). Inactive slots write to trash and
         keep their state frozen. Returns the picked tokens, [S] at span 1
         and [span, S] above, as a fresh device tensor."""
-        slots = np.arange(self.decode_slots)
-        picked = []
-        for _ in range(self.decode_span):
-            logits = self.model(self.tokens[:, None], None,
-                                cache_index=self.positions,
-                                block_table=self.block_table,
-                                kv_cache=self.kv_cache,
-                                decode_impl=self.decode_impl,
-                                kv_quant=self.kv_quant)
-            nxt = self._pick(logits[:, 0], self._positions_host + 1, slots)
-            live = self.active > 0
-            self.tokens = torch.where(live, nxt, self.tokens)
-            self.positions = torch.where(live, self.positions + 1,
-                                         self.positions)
-            self._positions_host += self._active_host
-            picked.append(self.tokens)
-        return picked[0] if self.decode_span == 1 else torch.stack(picked)
+        with self._guarded():
+            out = self._dispatch("decode", self._decode_fn)
+        return out[0] if self.decode_span == 1 else out
 
     @torch.inference_mode()
     def verify(self, draft: np.ndarray, tokens: np.ndarray,
@@ -286,19 +476,9 @@ class DecodeEngine:
         if draft.shape != (kp1 - 1, S):
             raise ValueError(f"draft must be [{kp1 - 1}, {S}], got "
                              f"{draft.shape}")
-        pos_h = np.asarray(positions, np.int64)
         chain = np.concatenate([np.asarray(tokens, np.int32)[:, None],
                                 draft.T], axis=1)              # [S, K+1]
-        logits = self.model(self._put(chain), None,
-                            cache_index=self._put(pos_h),
-                            block_table=self.block_table,
-                            kv_cache=self.kv_cache,
-                            decode_impl=self.decode_impl,
-                            kv_quant=self.kv_quant)            # [S, K+1, V]
-        # one flattened pick over all S*(K+1) rows, keyed per (slot,
-        # position): row j of slot s picks what decode would there
-        pos_f = pos_h[:, None] + 1 + np.arange(kp1)[None, :]
-        slot_f = np.repeat(np.arange(S), kp1)
-        seq = self._pick(logits.reshape(S * kp1, -1), pos_f.reshape(-1),
-                         slot_f)
-        return seq.reshape(S, kp1).T.contiguous()
+        with self._guarded():
+            self._stage(self._vf_chain, chain)
+            self._stage(self._vf_pos, positions)
+            return self._dispatch("verify", self._verify_fn)

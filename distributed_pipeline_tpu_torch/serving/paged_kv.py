@@ -36,13 +36,15 @@ server. Page 0 is the TRASH page: every write that must land nowhere goes
 there, and no read ever sees it.
 
 Host side: :class:`PageManager` owns the free list as plain Python; the
-scheduler reserves a request's worst-case pages at admission. The prefix
-cache is ROADMAP A.4.
+scheduler reserves a request's worst-case pages at admission.
+:class:`PrefixCache` (a copy of the JAX class) lets requests whose prompts
+open with the same full pages share them, refcounted.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import collections
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +52,7 @@ import torch
 __all__ = ["TRASH_PAGE", "Q8_MAX", "gather_kv", "write_prompt_kv",
            "write_token_kv", "write_span_kv", "write_prompt_kv_q8",
            "write_token_kv_q8", "write_span_kv_q8", "dequant_gathered",
-           "PageManager"]
+           "PageManager", "PrefixCache"]
 
 TRASH_PAGE = 0  # reserved: masked/invalid writes land here, reads never do
 
@@ -164,9 +166,12 @@ def write_prompt_kv_q8(pages: torch.Tensor, scales: torch.Tensor,
     row_amax = rows.float().abs().amax(dim=(1, 2))
     fresh = torch.zeros_like(scales).scatter_reduce(
         0, phys, row_amax / Q8_MAX, reduce="amax")
-    touched = torch.zeros_like(scales, dtype=torch.bool)
-    touched[phys] = True
-    touched[TRASH_PAGE] = False
+    # fills, not ``touched[phys] = True``: a scalar assigned through an
+    # index is copied from the host first, which a CUDA graph cannot
+    # capture
+    touched = torch.zeros_like(scales, dtype=torch.bool).index_fill_(
+        0, phys, True)
+    touched[TRASH_PAGE].fill_(False)
     scales.copy_(torch.where(touched, fresh, scales))
     off = (pos % ps).expand(b, l).reshape(-1)
     pages[phys, off] = _q8(rows, scales[phys][:, None, None])
@@ -290,3 +295,195 @@ class PageManager:
                 raise ValueError(f"double free / foreign page id {i}")
             self._allocated.discard(i)
             self._free.append(i)
+
+
+class PrefixCache:
+    """Shared read-only block-table entries: requests whose prompts open
+    with the same token run reuse the pages holding that prefix's K/V.
+
+    WHY THIS IS SOUND: a GPT-2 K/V row at position ``p`` is a pure
+    function of tokens ``0..p`` — identical prefix tokens produce
+    bit-identical K/V. Sharing is restricted to FULL pages strictly
+    inside the prompt (``prompt_len // page_size`` pages), so a sharer's
+    own writes — the rest of its prompt and every generated token — land
+    at positions past the shared region, in its private pages. In the
+    port a sharing prefill does not write the pages it acquired (the
+    scheduler routes them to the trash page): a GEMM over another batch
+    need not give bitwise-equal rows on the card, so readers keep exactly
+    the values of the cold prefill that published them.
+
+    LIFETIME is refcounted, because replay/eviction must never free a
+    page a live slot still reads:
+
+    * ``slot refs`` — how many in-flight requests hold the page in their
+      block table. Incremented by :meth:`acquire`, decremented by
+      :meth:`release`.
+    * ``entry refs`` — how many cache entries contain the page. A page is
+      returned to the :class:`PageManager` only when BOTH hit zero
+      (release frees private pages immediately; shared pages persist in
+      the cache — that is the feature — until eviction drops their
+      entries under pool pressure, LRU-first). Eviction never frees a
+      page a live slot still reads: dropping the entry merely orphans
+      it, and :meth:`release` frees it with the last slot ref. Entries
+      are always droppable — eviction that waited for slot refs to
+      clear would deadlock admission on shared-prefix workloads, where
+      every entry's head pages are pinned by the very request being
+      admitted.
+
+    Entries are keyed by the raw bytes of the page-aligned token prefix,
+    one entry per full-page depth, so nested prefixes share page ids and
+    a lookup takes the LONGEST cached match.
+    """
+
+    def __init__(self, mgr: PageManager, max_entries: int = 512) -> None:
+        self.mgr = mgr
+        self.page_size = mgr.page_size
+        self.max_entries = max_entries
+        self._entries: "collections.OrderedDict[bytes, List[int]]" = \
+            collections.OrderedDict()
+        self._slot_refs: Dict[int, int] = collections.defaultdict(int)
+        self._entry_refs: Dict[int, int] = collections.defaultdict(int)
+        self.hits = 0
+        self.misses = 0
+        self.pages_reused = 0
+        self.evicted_entries = 0
+
+    # ------------------------------------------------------------- internal
+
+    def _key(self, prompt: np.ndarray, n_pages: int) -> bytes:
+        return np.ascontiguousarray(
+            prompt[:n_pages * self.page_size], np.int32).tobytes()
+
+    def _full_pages(self, prompt_len: int) -> int:
+        return int(prompt_len) // self.page_size
+
+    @property
+    def resident_pages(self) -> int:
+        """Pages held alive by cache entries (shared capital; an upper
+        bound on what :meth:`evict` could hand back under pressure)."""
+        return len(self._entry_refs)
+
+    # -------------------------------------------------------------- acquire
+
+    def acquire(self, prompt: np.ndarray) -> Tuple[List[int], int]:
+        """Longest cached full-page prefix of ``prompt``: slot-refs its
+        pages for the caller and returns ``(page_ids, covered_tokens)``.
+        ``([], 0)`` on a miss — the caller allocates everything fresh."""
+        for j in range(self._full_pages(len(prompt)), 0, -1):
+            pages = self._entries.get(self._key(prompt, j))
+            if pages is not None:
+                self._entries.move_to_end(self._key(prompt, j))
+                for p in pages:
+                    self._slot_refs[p] += 1
+                self.hits += 1
+                self.pages_reused += len(pages)
+                return list(pages), j * self.page_size
+        self.misses += 1
+        return [], 0
+
+    def publish(self, prompt: np.ndarray, pages: np.ndarray,
+                n_acquired: int = 0) -> None:
+        """Register every full-page prefix of an admitted prompt, making
+        its pages shared-capable. ``pages`` is the slot's full reserved
+        page list (shared head + fresh); only the prompt-covering full
+        pages are published — the tail (partial prompt page + generation
+        budget) stays private to the slot.
+
+        INVARIANT: after admission, the slot holds ONE slot-ref on every
+        page of its full-page head — :meth:`acquire` ref'd the first
+        ``n_acquired`` (the cached share), and publish refs the freshly
+        allocated remainder here. Without the publisher's own refs, a
+        sharer could still be reading the pages when the publisher
+        completes, drops the count to zero, and pool-pressure eviction
+        hands them to a new request mid-read (caught by test)."""
+        ids = [int(p) for p in np.asarray(pages).ravel()]
+        k = self._full_pages(len(prompt))
+        for p in ids[n_acquired:k]:
+            self._slot_refs[p] += 1
+        for j in range(1, k + 1):
+            key = self._key(prompt, j)
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            entry = ids[:j]
+            self._entries[key] = entry
+            for p in entry:
+                self._entry_refs[p] += 1
+        while len(self._entries) > self.max_entries:
+            if not self._evict_one():
+                break
+
+    # -------------------------------------------------------------- release
+
+    def release(self, prompt: np.ndarray, pages: np.ndarray) -> np.ndarray:
+        """A slot finished (completion OR replay-abandonment): drop its
+        slot refs on the prefix pages and return the pages now safe to
+        free — the PRIVATE tail, plus any prefix page ORPHANED by an
+        eviction that ran while this slot still read it (entry refs
+        already zero; this was its last slot ref). Shared pages still in
+        the cache stay resident for the next sharer."""
+        ids = [int(p) for p in np.asarray(pages).ravel()]
+        k = min(self._full_pages(len(prompt)), len(ids))
+        freeable = ids[k:]
+        for p in ids[:k]:
+            if self._slot_refs[p] > 0:
+                self._slot_refs[p] -= 1
+            if self._slot_refs[p] == 0:
+                del self._slot_refs[p]
+                if self._entry_refs.get(p, 0) == 0:
+                    freeable.append(p)
+        return np.asarray(freeable, np.int32)
+
+    # --------------------------------------------------------------- evict
+
+    def _evict_one(self) -> bool:
+        """Drop one cache entry, LRU-first, and free every page that
+        leaves BOTH its last entry and its last slot ref. Pages a live
+        slot still reads are never freed here — dropping the entry only
+        orphans them, and :meth:`release` frees them when the last slot
+        ref goes. Prefers the oldest entry whose eviction frees a page
+        RIGHT NOW; with nothing immediately freeable it still drops the
+        LRU head (progress under pool pressure must not depend on the
+        eviction freeing synchronously — a shared-prefix workload keeps
+        slot refs on every entry's head pages, and skipping all of them
+        deadlocked admission: nothing evictable, pool exhausted, the
+        scheduler's head-of-line wait spinning forever). Returns whether
+        an entry was dropped."""
+        def drop(key: bytes) -> None:
+            entry = self._entries.pop(key)
+            self.evicted_entries += 1
+            freed = []
+            for p in entry:
+                self._entry_refs[p] -= 1
+                if self._entry_refs[p] == 0:
+                    del self._entry_refs[p]
+                    if self._slot_refs.get(p, 0) == 0:
+                        freed.append(p)
+            if freed:
+                self.mgr.free(np.asarray(freed, np.int32))
+
+        if not self._entries:
+            return False
+        for key in list(self._entries):
+            entry = self._entries[key]
+            if any(self._entry_refs[p] == 1
+                   and self._slot_refs.get(p, 0) == 0 for p in entry):
+                drop(key)
+                return True
+        drop(next(iter(self._entries)))
+        return True
+
+    def evict_for(self, n_pages: int) -> int:
+        """Free cache-resident pages until the pool can cover ``n_pages``
+        (or nothing evictable remains). Returns pages freed."""
+        freed0 = self.mgr.free_pages
+        while self.mgr.free_pages < n_pages and self._evict_one():
+            pass
+        return self.mgr.free_pages - freed0
+
+    def stats(self) -> Dict[str, int]:
+        return {"prefix_hits": self.hits, "prefix_misses": self.misses,
+                "prefix_pages_reused": self.pages_reused,
+                "prefix_entries": len(self._entries),
+                "prefix_resident_pages": self.resident_pages,
+                "prefix_evicted_entries": self.evicted_entries}

@@ -24,13 +24,25 @@ proposes K tokens a slot, ONE verify forward yields the target's pick at
 every link, and the host walks acceptance (``serving/spec.py``): greedy
 output is token-identical to the non-speculative path. Rounds are
 synchronous (the verify result is the next round's input), so
-``dispatch_lag`` does not apply. The prefix cache, the sanitizer and the
-cost ledger are ROADMAP A.4.
+``dispatch_lag`` does not apply.
+
+``prefix_cache=True`` shares the pages of full prompt pages between
+requests whose prompts open with the same tokens (``PrefixCache``,
+refcounted, LRU eviction under pool pressure); a sharing prefill writes
+none of the pages it acquired. ``sanitize=True`` counts the engines' CUDA
+graph captures (``recompile_count``; growth after the first fetched token
+is a ``steady_recompile``) and runs every engine dispatch under
+``set_sync_debug_mode("error")``; trips and steady captures go into
+``sanitize_report``. ``census=True`` counts each dispatch's FLOPs and
+bytes (``obs/ledger.ServeCensus``, ~0.1 ms of host time a decode
+dispatch, so it is armed only for the ledger) and ``cost_ledger()`` gives
+the JAX package's per-phase ledger rows.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Deque, List, Optional
@@ -39,9 +51,12 @@ import numpy as np
 import torch
 
 from ..models.gpt2 import GPT2Model
-from ..utils.perf import EventStats
+from ..obs.ledger import (ServeCensus, device_peak_flops,
+                          roofline_attribution)
+from ..utils.perf import (EventStats, RecompileMonitor, SanitizeReport,
+                          transformer_decode_flops_per_token)
 from .engine import DecodeEngine
-from .paged_kv import TRASH_PAGE, PageManager
+from .paged_kv import TRASH_PAGE, PageManager, PrefixCache
 from .spec import DRAFT_KINDS, ngram_propose, truncated_draft
 
 __all__ = ["Request", "DecodeServer"]
@@ -74,6 +89,8 @@ class _SlotState:
 
     req: Request
     pages: np.ndarray               # page ids reserved for this request
+    n_shared: int = 0               # leading pages acquired from the
+    # prefix cache (written by the request that published them)
     generated: int = 1              # prefill produced token #1
     position: int = 0               # index of the token currently in state
 
@@ -104,7 +121,9 @@ class DecodeServer:
     ``submit()`` enqueues requests; ``step()`` advances the world by one
     decode dispatch (admitting first, fetching last); ``drain()`` runs until
     everything submitted has completed. ``device`` is where the model lives
-    and where the engine keeps its state (the model is moved there)."""
+    and where the engine keeps its state (the model is moved there).
+    ``cuda_graphs=False`` builds eager engines (the on-card reference of
+    the graph-replayed ones; CPU engines are eager anyway)."""
 
     def __init__(self, model: GPT2Model, *, decode_slots: int = 8,
                  page_size: int = 16, max_pages: int = 0,
@@ -115,13 +134,23 @@ class DecodeServer:
                  eos_id: Optional[int] = None, dispatch_lag: int = 1,
                  decode_impl: str = "auto", kv_quant: str = "fp",
                  spec_tokens: int = 0, spec_draft: str = "ngram",
-                 draft_layers: int = 2, device=None) -> None:
+                 draft_layers: int = 2, sanitize: bool = False,
+                 prefix_cache: bool = False, cuda_graphs: bool = True,
+                 census: bool = False, device=None) -> None:
         from ..utils.device import resolve_device
         if spec_tokens > 0 and spec_draft not in DRAFT_KINDS:
             raise ValueError(f"spec_draft must be one of {DRAFT_KINDS}, "
                              f"got {spec_draft!r}")
         self.spec_tokens = spec_tokens
+        self.spec_draft = spec_draft
         self.device = resolve_device(device)
+        self.sanitize = sanitize
+        # the port's compiles are graph captures: counted always (the
+        # summary's compile split), their sites kept under sanitize
+        self._recompiles = RecompileMonitor(capture_sites=sanitize)
+        self.sanitize_report = SanitizeReport()
+        self._recompiles_at_first_token: Optional[int] = None
+        self._sanitizer_reported = False
         model = model.to(self.device).eval()
         max_len = max_len or model.seq_len
         max_prompt_len = max_prompt_len or max(2, max_len // 2)
@@ -135,8 +164,11 @@ class DecodeServer:
             max_len=max_len, prefill_batch=prefill_batch,
             decode_span=decode_span, temperature=temperature, top_k=top_k,
             top_p=top_p, seed=seed, decode_impl=decode_impl,
-            kv_quant=kv_quant, spec_tokens=spec_tokens)
+            kv_quant=kv_quant, spec_tokens=spec_tokens,
+            cuda_graphs=cuda_graphs, guard=sanitize,
+            on_capture=self._recompiles.note)
         self._draft_engine: Optional[DecodeEngine] = None
+        self._draft_fpt = 0.0
         if spec_tokens > 0 and spec_draft == "model":
             # Early-exit draft over the target's first draft_layers blocks,
             # on a static full-residency pool: slot s owns pages
@@ -144,18 +176,31 @@ class DecodeServer:
             # allocator, and rollback is the host's state push each round
             # (accepted draft K/V is valid by the acceptance rule)
             pps = self.engine.pages_per_slot
+            draft = truncated_draft(model, draft_layers)
             self._draft_engine = DecodeEngine(
-                truncated_draft(model, draft_layers),
-                decode_slots=decode_slots, page_size=page_size,
+                draft, decode_slots=decode_slots, page_size=page_size,
                 max_pages=1 + decode_slots * pps,
                 max_prompt_len=max_prompt_len, max_len=max_len,
                 prefill_batch=prefill_batch, decode_span=1, seed=seed,
-                decode_impl=decode_impl, kv_quant=kv_quant)
+                decode_impl=decode_impl, kv_quant=kv_quant,
+                cuda_graphs=cuda_graphs, guard=sanitize,
+                on_capture=self._recompiles.note)
+            self._draft_fpt = transformer_decode_flops_per_token(
+                sum(p.numel() for p in draft.parameters()))
             self._draft_tables = np.arange(
                 1, 1 + decode_slots * pps,
                 dtype=np.int32).reshape(decode_slots, pps)
             self._draft_engine.set_block_tables(self._draft_tables)
         self.mgr = PageManager(max_pages, page_size)
+        # shared-prefix page reuse: requests whose prompts open with the
+        # same full pages share them, refcounted (PrefixCache)
+        self.prefix = PrefixCache(self.mgr) if prefix_cache else None
+        self.model = model
+        self.census = None if not census else ServeCensus(
+            num_layers=model.num_layers, hidden=model.hidden_size,
+            heads=model.num_heads, vocab=model.vocab_size,
+            compute_bytes=torch.empty((), dtype=model.dtype).element_size(),
+            kv_quant=kv_quant, page_size=page_size, max_pages=max_pages)
         s = decode_slots
         self.block_tables = np.zeros((s, self.engine.pages_per_slot),
                                      np.int32)  # all TRASH_PAGE
@@ -171,16 +216,137 @@ class DecodeServer:
         self._needs_sweep = False  # a fetch EOS-finished a request whose
         # slot is still held (count-based completions release inline)
         self._req_counter = 0
+        self.reset_stats()
+
+    # ----------------------------------------------------------- gauges etc.
+
+    def reset_stats(self) -> None:
+        """Zero the serving gauges (a warm-up window against a timed
+        one), the census included."""
         self.ttft = EventStats()
         self.decode_steps = 0
         self.prefill_steps = 0
         self.tokens_fetched = 0
+        # cost-ledger occupancy and padding counters: actual vs padded
+        # prompt tokens per prefill dispatch, active vs run slot-steps per
+        # decode dispatch (the JAX counters)
+        self.prompt_tokens_prefilled = 0
+        self.prefill_token_slots = 0
+        self.slot_steps_active = 0
+        self.slot_steps_total = 0
         # speculative gauges: rounds, draft tokens proposed and accepted
         # (every fetched token is target-verified, so tokens_fetched is
         # the accepted-token count)
         self.spec_rounds = 0
         self.draft_proposed = 0
         self.draft_accepted = 0
+        if self.census is not None:
+            self.census.reset()
+
+    @property
+    def compile_time_s(self) -> float:
+        """Seconds spent capturing CUDA graphs (0 on eager engines)."""
+        return self.engine.compile_time_s + (
+            self._draft_engine.compile_time_s
+            if self._draft_engine is not None else 0.0)
+
+    @property
+    def recompile_count(self) -> int:
+        """Graph captures so far, every engine of the server."""
+        return self._recompiles.count
+
+    def stop_sanitizer(self) -> int:
+        """Fold the captures observed after the first fetched token into
+        ``steady_recompile`` violations (once); returns the capture
+        count."""
+        if self.sanitize and not self._sanitizer_reported:
+            self._sanitizer_reported = True
+            if self._recompiles_at_first_token is not None:
+                self.sanitize_report.note_recompiles(
+                    self._recompiles, self._recompiles_at_first_token)
+        return self._recompiles.count
+
+    def write_sanitize_report(self, out_dir: str) -> str:
+        """Finalize the evidence and write ``sanitize_report.json`` into
+        ``out_dir``; "" when sanitize was off or the write failed."""
+        if not self.sanitize:
+            return ""
+        self.stop_sanitizer()
+        return self.sanitize_report.write(out_dir)
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache gauges (empty dict when the cache is off)."""
+        return self.prefix.stats() if self.prefix is not None else {}
+
+    def cost_ledger(self, *, wall_s: float, n_devices: int = 1) -> dict:
+        """Per-phase cost-ledger rows (``obs/ledger.py``), the JAX rows
+        with the census in place of XLA's extraction: the DECODE row
+        carries the roofline MFU-gap attribution (tokens/s over ``wall_s``
+        against the 2N FLOPs/token roofline, slot-occupancy waste as its
+        padding term); the other phases carry their census and the
+        prompt-padding waste (prefill runs at
+        [prefill_batch, max_prompt_len] whatever the prompts' lengths).
+        A phase that never ran has no row. Needs ``census=True``."""
+        if self.census is None:
+            raise RuntimeError("cost_ledger() needs a server built with "
+                               "census=True")
+        n_params = sum(p.numel() for p in self.model.parameters())
+        fpt = transformer_decode_flops_per_token(n_params)
+        device_kind = (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu")
+        rows: dict = {}
+        for name in ("prefill", "decode", "verify"):
+            if not self.engine.dispatches.get(name):
+                continue
+            row = {"program": f"serve_{name}",
+                   **self.census.cost(name),
+                   "collective_bytes_per_step": 0.0}
+            if name == "decode":
+                tokens_per_s = (self.tokens_fetched / wall_s
+                                if wall_s > 0 else 0.0)
+                steps_per_s = (self.decode_steps / wall_s
+                               if wall_s > 0 else 0.0)
+                occupancy_waste = (
+                    1.0 - self.slot_steps_active / self.slot_steps_total
+                    if self.slot_steps_total > 0 else 0.0)
+                row.update({
+                    "flops_per_token": fpt,
+                    "n_params": n_params,
+                    "tokens_per_s": tokens_per_s,
+                    "steps_per_s": steps_per_s,
+                    "decode_span": self.engine.decode_span,
+                    "kv_pool_bytes": self.engine.kv_pool_bytes(),
+                    "kv_quant": self.engine.kv_quant,
+                })
+                if self.spec_tokens > 0:
+                    tf = max(1, self.tokens_fetched)
+                    row.update({
+                        "spec_tokens": self.spec_tokens,
+                        "spec_draft": self.spec_draft,
+                        "accept_rate": self.accept_rate,
+                        "accepted_tokens_per_s": tokens_per_s,
+                        "accepted_tokens_per_s_per_chip":
+                            tokens_per_s / max(1, n_devices),
+                        "draft_flops_per_token": self._draft_fpt,
+                        "spec_flops_per_fetched_token":
+                            fpt * self.slot_steps_active / tf
+                            + self._draft_fpt * self.draft_proposed / tf,
+                    })
+                row.update(roofline_attribution(
+                    tokens_per_s=tokens_per_s, flops_per_token=fpt,
+                    peak_flops=device_peak_flops(device_kind),
+                    n_devices=n_devices, steps_per_s=steps_per_s,
+                    collective_bytes_per_step=0.0,
+                    bytes_accessed=row["bytes_accessed"],
+                    device_kind=device_kind,
+                    padding_waste_frac=occupancy_waste))
+            else:
+                row["padding_waste_frac"] = (
+                    1.0 - self.prompt_tokens_prefilled
+                    / self.prefill_token_slots
+                    if self.prefill_token_slots > 0 else 0.0)
+            rows[f"serve_{name}"] = row
+        return rows
 
     @property
     def accept_rate(self) -> float:
@@ -231,11 +397,49 @@ class DecodeServer:
         st = self.slots[slot]
         if st is None:
             return
-        self.mgr.free(st.pages)
+        if self.prefix is not None:
+            # shared prefix pages stay cache-resident for the next sharer;
+            # only the slot's private tail frees now
+            to_free = self.prefix.release(st.req.prompt, st.pages)
+            if to_free.size:
+                self.mgr.free(to_free)
+        else:
+            self.mgr.free(st.pages)
         self.block_tables[slot, :] = TRASH_PAGE
         self.active[slot] = 0
         self.slots[slot] = None
         self._dirty = True
+
+    def _reserve_pages(self, req: Request) -> Optional[tuple]:
+        """All-or-nothing worst-case page reservation for one admission:
+        ``(pages, n_shared)`` or None. With the prefix cache on, the cached
+        full-page prompt prefix is slot-ref'd (not re-allocated) and only
+        the remainder comes from the pool, evicting idle cache entries
+        under pressure before giving up (the JAX method)."""
+        n_total = self.mgr.pages_for(req.prompt_len + req.g_max)
+        if self.prefix is None:
+            pages = self.mgr.alloc(n_total)
+            return None if pages is None else (pages, 0)
+        shared, covered = self.prefix.acquire(req.prompt)
+        need = n_total - len(shared)
+        fresh = (self.mgr.alloc(need) if need > 0
+                 else np.zeros((0,), np.int32))
+        if fresh is None:
+            self.prefix.evict_for(need)
+            fresh = self.mgr.alloc(need)
+        if fresh is None:
+            if shared:
+                # roll the acquire back; if evict_for dropped the shared
+                # pages' entries, ours were the last refs: free the orphans
+                back = self.prefix.release(req.prompt[:covered],
+                                           np.asarray(shared, np.int32))
+                if back.size:
+                    self.mgr.free(back)
+            return None
+        pages = np.concatenate(
+            [np.asarray(shared, np.int32), fresh]) if shared else fresh
+        self.prefix.publish(req.prompt, pages, n_acquired=len(shared))
+        return pages, len(shared)
 
     def _admit(self) -> bool:
         """Admit queued requests into free slots, up to one prefill batch.
@@ -249,16 +453,17 @@ class DecodeServer:
         while (self.queue and free
                and len(batch) < self.engine.prefill_batch):
             req = self.queue[0]
-            pages = self.mgr.alloc(
-                self.mgr.pages_for(req.prompt_len + req.g_max))
-            if pages is None:
+            got = self._reserve_pages(req)
+            if got is None:
                 break  # pool exhausted: wait for completions to free pages
+            pages, n_shared = got
             slot = free.pop(0)
             self.queue.popleft()
             self.block_tables[slot, :] = TRASH_PAGE
             self.block_tables[slot, :len(pages)] = pages
             self.active[slot] = 1
             self.slots[slot] = _SlotState(req=req, pages=pages,
+                                          n_shared=n_shared,
                                           position=req.prompt_len)
             self._dirty = True
             batch.append((slot, req))
@@ -274,6 +479,9 @@ class DecodeServer:
             lens[i] = req.prompt_len
             smap[i] = slot
             stables[i] = self.block_tables[slot]
+            # pages acquired from the prefix cache keep their publisher's
+            # values: this prefill's writes to them go to the trash page
+            stables[i, :self.slots[slot].n_shared] = TRASH_PAGE
         toks = self.engine.prefill(ids, lens, smap, stables)
         if self._draft_engine is not None:
             # mirror the admission into the draft pool (its own static
@@ -284,6 +492,12 @@ class DecodeServer:
                 dstables[i] = self._draft_tables[slot]
             self._draft_engine.prefill(ids, lens, smap, dstables)
         self.prefill_steps += 1
+        # padding accounting: actual prompt tokens vs the padded
+        # [prefill_batch, max_prompt_len] shape the phase ran at
+        self.prompt_tokens_prefilled += int(lens.sum())
+        self.prefill_token_slots += bp * lp
+        if self.census is not None:
+            self.census.prefill(bp, lp)
         self._ring.append((_Fetch(toks), list(batch)))
         # a budget-1 request is already complete at dispatch level
         for slot, _ in batch:
@@ -300,10 +514,31 @@ class DecodeServer:
                     self._release(slot)
             self._needs_sweep = False
 
+    def _note_first_token(self) -> None:
+        # serving steady-state boundary: every capture so far was warm-up;
+        # growth past this snapshot is a violation
+        if self.sanitize and self._recompiles_at_first_token is None \
+                and self.tokens_fetched > 0:
+            self._recompiles_at_first_token = self._recompiles.count
+
+    def _positions_now(self) -> np.ndarray:
+        """[S] each active slot's position (inactive: 0), for the census."""
+        pos = np.zeros((len(self.slots),), np.int64)
+        for s, st in enumerate(self.slots):
+            if st is not None and self.active[s]:
+                pos[s] = st.position
+        return pos
+
     def step(self) -> bool:
         """One scheduler tick: sweep EOS completions -> admit -> dispatch
         decode (or a speculative round) -> lagged fetch. Returns False when
-        nothing advanced."""
+        nothing advanced. Under sanitize a guard trip's evidence is
+        recorded on its way out."""
+        with (self.sanitize_report.watch() if self.sanitize
+              else contextlib.nullcontext()):
+            return self._step_inner()
+
+    def _step_inner(self) -> bool:
         self._sweep()
         # admit until the queue, the free slots, or the page pool runs out
         dispatched = False
@@ -317,6 +552,7 @@ class DecodeServer:
             if self.active.any():
                 self._spec_round()
                 dispatched = True
+            self._note_first_token()
             return dispatched
         if self.active.any():
             if self._dirty:
@@ -325,9 +561,16 @@ class DecodeServer:
                 self._dirty = False
             snap = [(s, st.req) for s, st in enumerate(self.slots)
                     if st is not None and self.active[s]]
-            toks = self.engine.decode()
             span = self.engine.decode_span
+            if self.census is not None:
+                self.census.decode(self.block_tables, self._positions_now(),
+                                   span)
+            toks = self.engine.decode()
             self.decode_steps += 1
+            # occupancy accounting: active vs run slot-steps (inactive
+            # slots run anyway, writing to trash)
+            self.slot_steps_active += int(self.active.sum()) * span
+            self.slot_steps_total += len(self.slots) * span
             self._ring.append((_Fetch(toks), snap))
             for s, _ in snap:
                 st = self.slots[s]
@@ -341,6 +584,7 @@ class DecodeServer:
             dispatched = True
         # lagged on busy ticks (the overlap); full drain on idle ticks
         self._fetch(self.dispatch_lag if dispatched else 0)
+        self._note_first_token()
         return dispatched or bool(self._ring)
 
     def _spec_round(self) -> None:
@@ -377,9 +621,14 @@ class DecodeServer:
                 hist = np.concatenate(
                     [st.req.prompt, np.asarray(st.req.tokens, np.int32)])
                 draft[:, s] = ngram_propose(hist, K)
+        if self.census is not None:
+            self.census.verify(self.block_tables, cur_pos.astype(np.int64),
+                               K + 1)
         seq = self.engine.verify(draft, cur_tok, cur_pos).cpu().numpy()
         self.decode_steps += 1
         self.spec_rounds += 1
+        self.slot_steps_active += len(snap) * (K + 1)
+        self.slot_steps_total += S * (K + 1)
         for s, st in snap:
             req = st.req
             kept = matched = 0

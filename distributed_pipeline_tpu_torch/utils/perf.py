@@ -1,16 +1,24 @@
 """Performance gauges: the port's part of
 ``distributed_pipeline_tpu/utils/perf.py`` - ``EventStats`` (serving TTFT
-percentiles), ``StepTimer``, the training FLOP count and ``mfu`` - plus the
-published rates of the cards the port targets (``CARDS``). No TPU peak is
-carried over: MFU here is always against a card's own data sheet."""
+percentiles), ``StepTimer``, the training and decode FLOP counts and
+``mfu``, and the serving sanitizer's ``RecompileMonitor`` and
+``SanitizeReport`` - plus the published rates of the cards the port
+targets (``CARDS``). No TPU peak is carried over: MFU here is always
+against a card's own data sheet."""
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import time
-from typing import Optional, Tuple
+import traceback
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["EventStats", "StepTimer", "CARDS", "card_rates",
-           "transformer_train_flops_per_token", "mfu"]
+           "transformer_train_flops_per_token",
+           "transformer_decode_flops_per_token", "mfu", "RecompileMonitor",
+           "SanitizeReport", "SANITIZE_REPORT_NAME"]
 
 # Published rates of the cards this port targets (NVIDIA data sheets; dense,
 # no sparsity): HBM bytes/s, bf16 tensor-core flop/s and f32 flop/s outside
@@ -40,6 +48,12 @@ def transformer_train_flops_per_token(n_params: int, n_layers: int,
     12*l*h*s attention term (score and value matmuls, forward 4lhs, x3 with
     the backward) - the JAX package's accounting."""
     return 6.0 * n_params + 12.0 * n_layers * hidden * seq_len
+
+
+def transformer_decode_flops_per_token(n_params: int) -> float:
+    """Forward-only FLOPs per decoded token: the 2N weight-matmul term, the
+    JAX package's serving roofline numerator."""
+    return 2.0 * n_params
 
 
 def mfu(tokens_per_sec: float, flops_per_token: float, device_name: str,
@@ -107,3 +121,131 @@ class EventStats:
             "p95": v[min(n - 1, max(0, -(-95 * n // 100) - 1))],
             "max": v[-1],
         }
+
+
+class RecompileMonitor:
+    """Counts the serving engines' CUDA-graph captures, the port's compiles:
+    the ``recompile_count`` gauge behind ``--sanitize``. An engine calls
+    :meth:`note` after each capture. ``count`` is the total; ``sites``
+    keeps (with ``capture_sites``) where in the port each capture was
+    triggered, with its ordinal, for the sanitizer's report."""
+
+    _MAX_SITES = 16
+
+    def __init__(self, capture_sites: bool = False) -> None:
+        self.count = 0
+        self.last = ""
+        self.sites: List[Dict[str, Any]] = []
+        self._capture_sites = capture_sites
+
+    def note(self, name: str, seconds: float) -> None:
+        self.count += 1
+        self.last = f"captured {name} in {seconds:.3f} s"
+        if self._capture_sites and len(self.sites) < self._MAX_SITES:
+            site = _user_site(traceback.extract_stack())
+            if site is not None:
+                site["detail"] = self.last
+                site["ordinal"] = self.count
+                self.sites.append(site)
+
+
+SANITIZE_REPORT_NAME = "sanitize_report.json"
+
+_THIS_FILE = os.path.abspath(__file__)
+_STDLIB_DIR = os.path.dirname(os.path.abspath(contextlib.__file__))
+
+
+def _user_site(frames) -> Optional[Dict[str, Any]]:
+    """Deepest frame of the port's own code (not torch or site-packages,
+    not the stdlib, not this module)."""
+    for fr in reversed(list(frames)):
+        fn = fr.filename or ""
+        if (not fn or fn.startswith("<")
+                or "site-packages" in fn or "dist-packages" in fn
+                or "importlib" in fn
+                or os.path.abspath(fn) == _THIS_FILE
+                or fn.startswith(_STDLIB_DIR)):
+            continue
+        return {"path": os.path.abspath(fn), "line": int(fr.lineno or 1),
+                "func": fr.name or "?", "snippet": (fr.line or "")[:200]}
+    return None
+
+
+class SanitizeReport:
+    """The runtime sanitizer's evidence, in the JAX package's
+    ``sanitize_report.json`` schema: ``{"version": 1, "violations": [...]}``
+    with each violation ``{kind, path, line, func, snippet, detail}``.
+    ``kind`` keeps the JAX names: ``transfer_guard`` (a dispatch
+    synchronized with the host under ``set_sync_debug_mode("error")``,
+    the port's transfer guard) and ``steady_recompile`` (a CUDA graph was
+    captured after steady state). :meth:`write` never raises."""
+
+    VERSION = 1
+    # PyTorch's message when set_sync_debug_mode("error") refuses a sync
+    _TRIP = "synchronizing CUDA operation"
+
+    def __init__(self) -> None:
+        self.violations: List[Dict[str, Any]] = []
+
+    def record(self, kind: str, detail: str,
+               site: Optional[Dict[str, Any]] = None) -> None:
+        if site is None:  # {} means "explicitly no location"
+            site = _user_site(traceback.extract_stack()) or {}
+        self.violations.append({
+            "kind": kind,
+            "path": site.get("path", ""),
+            "line": site.get("line", 0),
+            "func": site.get("func", ""),
+            "snippet": site.get("snippet", ""),
+            "detail": detail[:500],
+        })
+
+    @classmethod
+    def _is_trip(cls, exc: BaseException) -> bool:
+        return cls._TRIP in str(exc)
+
+    @contextlib.contextmanager
+    def watch(self):
+        """Record a guard trip's evidence (site: the deepest port frame of
+        the raising traceback) as it propagates; the error is re-raised."""
+        try:
+            yield
+        except Exception as e:
+            if self._is_trip(e):
+                self.record("transfer_guard", detail=str(e)[:500],
+                            site=_user_site(
+                                traceback.extract_tb(e.__traceback__)))
+            raise
+
+    def note_recompiles(self, monitor: RecompileMonitor,
+                        steady_after: int) -> None:
+        """Every capture past the first ``steady_after`` becomes a
+        ``steady_recompile`` violation."""
+        for site in monitor.sites:
+            if site.get("ordinal", 0) <= steady_after:
+                continue
+            self.record("steady_recompile",
+                        detail=f"CUDA graph capture after steady state "
+                               f"({site.get('detail', '')})", site=site)
+        if not monitor.sites and monitor.count > steady_after:
+            self.record("steady_recompile",
+                        detail=f"{monitor.count - steady_after} capture(s) "
+                               f"after steady state ({monitor.last})",
+                        site={})
+
+    def write(self, out_dir: str) -> str:
+        """Atomic best-effort sidecar write; returns the path ("" on any
+        failure)."""
+        if not out_dir or "://" in out_dir:
+            return ""
+        path = os.path.join(out_dir, SANITIZE_REPORT_NAME)
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"version": self.VERSION,
+                           "violations": self.violations}, f, indent=1)
+            os.replace(tmp, path)
+            return path
+        except OSError:
+            return ""
