@@ -119,7 +119,27 @@ Phases (any failure raises, and the script exits non-zero):
    grad norm within 3%; then ``run.sample`` on the trained run dir (2
    batches of 32, 20 reverse-diffusion steps): ``decode_acc`` in [0, 1],
    ``eval_loss`` finite. The fused update is also held against its plain
-   version and timed at DiffuSeq-base's parameter count (phase 5's checks).
+   version and timed at DiffuSeq-base's parameter count (phase 5's checks);
+10. GPT-2 decoding and eval, on the train phase's run dir (GPT-2 base,
+   step 20; run between phases 8 and 9): ``run.sample`` greedy, 2 batches
+   of 8 rows with 512-token prompts, through the graph engine (every row
+   gets 512 generated tokens, the decode kernel runs 12 x 2 x 511 times
+   and its plain version never; ``decode_acc`` in [0, 1], ``eval_loss``
+   finite; wall and generated tokens/s); ``gpt2_decode`` (dense KV cache)
+   on batch 0 in bf16 (the flash forward 12 times, the prefill; each row
+   equal to run.sample's or parting at a near-tie, the share printed); at
+   f32, 4 rows with 960-token prompts, ``one_shot_decode`` and
+   ``gpt2_decode`` token-identical (both prefills on the flash forward);
+   ``--temperature 1.0 --top_k 50`` seeds 0 and 1 on one reused graph
+   server, each equal to a fresh eager server at that seed, the two
+   different; ``run.sample --ema 0.99`` (``"params": "ema_0.99"``) and
+   ``run.serve --ema 0.99`` (4 requests); ``run.train --model_family gpt2
+   --eval_decode true``, 4 steps, an eval every 2 (``decode_acc`` in
+   ``progress.csv``, the flash forward launched by the training and eval
+   passes plus 12 a callback); the port's native library built and
+   loaded, native and Python BPE ids equal over a seeded corpus (host
+   times), and the tokenizer CLI writing ``bpe.json``. Its JSON line is
+   ``{"gpt2_decoding": {...}}``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -1588,71 +1608,69 @@ def update_phase(torch, bw, f32_peak, cfg: dict,
                             "no EMA)"}
 
 
-def train_phase(torch, fa, fu) -> dict:
-    """GPT-2 base, seq 1024, 20 steps through run.train; then the run dir
-    served, and one step from the saved state through the kernels and
-    through the plain versions."""
+def train_phase(torch, fa, fu, run: str) -> dict:
+    """GPT-2 base, seq 1024, 20 steps through run.train into ``run`` (kept
+    for the decoding phase); then the run dir served, and one step from
+    the saved state through the kernels and through the plain versions."""
     from distributed_pipeline_tpu_torch.run import serve as serve_mod
     from distributed_pipeline_tpu_torch.run.train import main as train_main
 
     steps, layers, n_micro = 20, GPT2_BASE["num_layers"], 2
-    with tempfile.TemporaryDirectory() as tmp:
-        run = os.path.join(tmp, "gpt2_base_train")
-        argv = ["--checkpoint_path", run, "--model_family", "gpt2",
-                "--model_size", "base", "--vocab_size", "50257",
-                "--seq_len", "1024", "--hidden_size", "768",
-                "--num_layers", "12", "--num_heads", "12",
-                "--dtype", "bfloat16", "--dataset", "synthetic-lm",
-                "--batch_size", "8", "--microbatch", "4",
-                "--learning_steps", str(steps), "--lr", "3e-4",
-                "--ema_rate", "0.5,0.9,0.99", "--attention_impl", "auto",
-                "--fused_update", "auto", "--log_interval", "5",
-                "--save_interval", "0", "--seed", "0"]
-        fa.reset_launch_counts()
-        fu.reset_launch_count()
-        t0 = time.perf_counter()
-        loop = train_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"flash_forward": fa.forward_launch_count(),
-                    "flash_backward": fa.backward_launch_count(),
-                    "fused_adamw_ema": fu.launch_count()}
-        want = layers * n_micro * steps
-        check(launches["flash_forward"] == want
-              and launches["flash_backward"] == want,
-              f"flash launches {launches}, expected {want} each")
-        check(launches["fused_adamw_ema"] == steps,
-              f"update launches {launches['fused_adamw_ema']}, expected "
-              f"{steps} (one a step)")
-        losses = [h["loss"] for h in loop.history]
-        check(len(losses) == steps and all(
-            x == x and abs(x) < float("inf") for x in losses),
-            f"losses not finite: {losses}")
-        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-        with open(os.path.join(run, "progress.csv")) as f:
-            rows = f.read().splitlines()
-        last = dict(zip(rows[0].split(","), rows[-1].split(",")))
-        gauges = {k: float(last[k]) for k in
-                  ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
-        print(f"# train: {steps} steps in {wall:.1f} s, losses "
-              f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}, "
-              f"last window {gauges}", flush=True)
-        for name in ("model_000020.pt", "opt_000020.pt", "meta_000020.json",
-                     "ema_0.5_000020.pt", "ema_0.9_000020.pt",
-                     "ema_0.99_000020.pt"):
-            check(os.path.exists(os.path.join(run, name)), f"no {name}")
-        del loop
-        torch.cuda.empty_cache()
+    argv = ["--checkpoint_path", run, "--model_family", "gpt2",
+            "--model_size", "base", "--vocab_size", "50257",
+            "--seq_len", "1024", "--hidden_size", "768",
+            "--num_layers", "12", "--num_heads", "12",
+            "--dtype", "bfloat16", "--dataset", "synthetic-lm",
+            "--batch_size", "8", "--microbatch", "4",
+            "--learning_steps", str(steps), "--lr", "3e-4",
+            "--ema_rate", "0.5,0.9,0.99", "--attention_impl", "auto",
+            "--fused_update", "auto", "--log_interval", "5",
+            "--save_interval", "0", "--seed", "0"]
+    fa.reset_launch_counts()
+    fu.reset_launch_count()
+    t0 = time.perf_counter()
+    loop = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_forward": fa.forward_launch_count(),
+                "flash_backward": fa.backward_launch_count(),
+                "fused_adamw_ema": fu.launch_count()}
+    want = layers * n_micro * steps
+    check(launches["flash_forward"] == want
+          and launches["flash_backward"] == want,
+          f"flash launches {launches}, expected {want} each")
+    check(launches["fused_adamw_ema"] == steps,
+          f"update launches {launches['fused_adamw_ema']}, expected "
+          f"{steps} (one a step)")
+    losses = [h["loss"] for h in loop.history]
+    check(len(losses) == steps and all(
+        x == x and abs(x) < float("inf") for x in losses),
+        f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    with open(os.path.join(run, "progress.csv")) as f:
+        rows = f.read().splitlines()
+    last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+    gauges = {k: float(last[k]) for k in
+              ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
+    print(f"# train: {steps} steps in {wall:.1f} s, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}, "
+          f"last window {gauges}", flush=True)
+    for name in ("model_000020.pt", "opt_000020.pt", "meta_000020.json",
+                 "ema_0.5_000020.pt", "ema_0.9_000020.pt",
+                 "ema_0.99_000020.pt"):
+        check(os.path.exists(os.path.join(run, name)), f"no {name}")
+    del loop
+    torch.cuda.empty_cache()
 
-        summary = serve_mod.main([
-            "--checkpoint_path", run, "--decode_slots", "4",
-            "--max_prompt_len", "128", "--synthetic_requests", "4",
-            "--max_new_tokens", "16"])
-        check(summary["requests"] == 4 and summary["decode_tokens"] == 64
-              and summary["step"] == steps,
-              f"serving the trained run dir: {summary}")
-        torch.cuda.empty_cache()
-        twice = one_step_twice(torch, fa, fu, run, argv)
+    summary = serve_mod.main([
+        "--checkpoint_path", run, "--decode_slots", "4",
+        "--max_prompt_len", "128", "--synthetic_requests", "4",
+        "--max_new_tokens", "16"])
+    check(summary["requests"] == 4 and summary["decode_tokens"] == 64
+          and summary["step"] == steps,
+          f"serving the trained run dir: {summary}")
+    torch.cuda.empty_cache()
+    twice = one_step_twice(torch, fa, fu, run, argv)
     return {"launches": launches, "losses": losses, "wall_s": wall,
             **gauges, **twice}
 
@@ -1992,6 +2010,333 @@ def diffuseq_long_step(torch, fa, fu) -> dict:
     return {**out, "row_lengths": lens}
 
 
+class CallCount:
+    """Counts the calls of ``module.name`` while installed (a plain
+    version the phase must not reach); ``with CallCount(m, "f") as c:``."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name, self.calls = module, name, 0
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.orig(*args, **kwargs)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+def row_gaps(torch, model, preds, refs, plen: int) -> tuple:
+    """(identical rows, one record a diverging row): the position of its
+    first divergence from ``refs`` and the top-2 gap of ``model``'s
+    next-token logits there, from a dense forward over the common
+    prefix."""
+    same, gaps = 0, []
+    for r, (got, ref) in enumerate(zip(preds, refs)):
+        if list(got) == list(ref):
+            same += 1
+            continue
+        i = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+        check(i >= plen, f"row {r}: a prompt token differs at {i}")
+        ids = torch.tensor(list(ref[:i]), device="cuda")
+        with torch.inference_mode():
+            logits = model(ids[None])[0, -1].float()
+        top = logits.topk(2).values
+        gaps.append({"row": r, "position": i,
+                     "gap": float(top[0] - top[1]),
+                     "max_abs_logit": float(logits.abs().max())})
+    return same, gaps
+
+
+def gpt2_decode_phase(torch, fa, fd, fu, run: str) -> dict:
+    """Phase 10 on the train phase's run dir (GPT-2 base, step 20):
+    ``run.sample`` greedy through the graph engine, ``gpt2_decode`` on its
+    first batch, the f32 identity of the two decoders, per-batch seeds on
+    a reused graph server, the EMA weights through ``run.sample`` and
+    ``run.serve``, a GPT-2 ``run.train --eval_decode true``, and the native
+    encoder with the tokenizer CLI."""
+    import numpy as np
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.models.sampling import gpt2_decode
+    from distributed_pipeline_tpu_torch.run import sample as sample_mod
+    from distributed_pipeline_tpu_torch.run import serve as serve_mod
+    from distributed_pipeline_tpu_torch.serving.scheduler import (
+        DecodeServer, one_shot_decode)
+
+    layers, vocab, L = (GPT2_BASE["num_layers"], GPT2_BASE["vocab_size"],
+                        GPT2_BASE["seq_len"])
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. greedy run.sample, 2 batches of 8 rows, 512 generated tokens a
+        # row, through the graph-replayed prefill and decode phases
+        pred_path = os.path.join(tmp, "pred.jsonl")
+        plen, batches = 512, 2
+        fd.reset_launch_count()
+        fa.reset_launch_counts()
+        clocks("before gpt2 run.sample")
+        t0 = time.perf_counter()
+        with CallCount(fd, "torch_paged_decode") as plain:
+            sampled = sample_mod.main([
+                "--checkpoint_path", run, "--batch_size", "8",
+                "--num_batches", str(batches), "--prompt_len", str(plen),
+                "--out", pred_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        clocks(f"after gpt2 run.sample ({wall:.1f} s)")
+        launches = fd.launch_count()
+        want = layers * batches * (L - plen - 1)
+        check(launches == fd.launch_count("fp") == want and plain.calls == 0,
+              f"run.sample: {launches} decode kernel launches (expected "
+              f"{want}: 12 a decode step), the plain version called "
+              f"{plain.calls} times")
+        # a prefill (the second one a graph replay) and an eval-loss
+        # forward a batch, each 12 flash forward launches
+        fwd = fa.forward_launch_count()
+        check(fwd == 2 * layers * batches, f"run.sample: {fwd} flash "
+              f"forward launches, expected {2 * layers * batches}")
+        with open(pred_path) as f:
+            rows = [json.loads(line) for line in f]
+        check(len(rows) == 8 * batches and all(
+            len(r["pred"]) == L and r["pred"][:plen] == r["gold"][:plen]
+            and all(0 <= t < vocab for t in r["pred"][plen:]) for r in rows),
+            "run.sample: a row without its 512 generated tokens")
+        check(0.0 <= sampled["decode_acc"] <= 1.0
+              and math.isfinite(sampled["eval_loss"])
+              and sampled["params"] == "raw" and sampled["step"] == 20,
+              f"run.sample: {sampled}")
+        out["sample"] = {**sampled, "wall_s": wall,
+                         "generated_tokens_per_s":
+                             8 * batches * (L - plen) / wall,
+                         "decode_kernel_launches": launches,
+                         "flash_forward_launches": fwd}
+        print(f"# gpt2 run.sample: {json.dumps(out['sample'])}", flush=True)
+
+        # 2. gpt2_decode (dense cache) on batch 0: the flash forward runs
+        # the prefill (12 launches); rows equal run.sample's or part at a
+        # near-tie
+        model, _, _ = sample_mod.load_run(run, device=torch.device("cuda"))
+        batch0 = next(load_data_from_args(
+            "valid", batch_size=8, dataset="synthetic-lm", seq_len=L,
+            vocab_size=vocab, seed=0, deterministic=True))
+        ids = torch.from_numpy(batch0["input_ids"]).cuda()
+        check(batch0["input_ids"].tolist() == [r["gold"] for r in rows[:8]],
+              "batch 0 is not run.sample's first batch")
+        fa.reset_launch_counts()
+        clocks("before gpt2_decode")
+        t0 = time.perf_counter()
+        with CallCount(fa, "torch_flash_forward") as plain:
+            dense = gpt2_decode(model, ids, plen)
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+        clocks(f"after gpt2_decode ({dwall:.1f} s)")
+        fwd = fa.forward_launch_count()
+        check(fwd == layers and plain.calls == 0,
+              f"gpt2_decode: {fwd} flash forward launches (expected "
+              f"{layers}, the prefill), plain {plain.calls}")
+        same, gaps = row_gaps(torch, model, dense.tolist(),
+                              [r["pred"] for r in rows[:8]], plen)
+        out["gpt2_decode_bf16"] = {"identical_rows": same / 8,
+                                   "first_divergence_gaps": gaps,
+                                   "wall_s": dwall,
+                                   "flash_forward_launches": fwd}
+        print(f"# gpt2_decode bf16 against run.sample: "
+              f"{json.dumps(out['gpt2_decode_bf16'])}", flush=True)
+        check_near_ties(gaps, "gpt2_decode against run.sample (bf16)")
+
+        # f32 compute: one_shot_decode (paged, the decode kernel) and
+        # gpt2_decode (dense) from 960-token prompts give the same tokens;
+        # both prefills run at L = 1024, so both take the flash forward
+        m32 = create_model_from_config(**{**GPT2_BASE, "dtype": "float32"},
+                                       device="cuda")
+        m32.load_state_dict(model.state_dict())
+        ids4 = batch0["input_ids"][:4]
+        fd.reset_launch_count()
+        fa.reset_launch_counts()
+        paged = one_shot_decode(m32, ids4, 960, device="cuda")
+        paged_fwd = fa.forward_launch_count()
+        dense32 = gpt2_decode(m32, torch.from_numpy(ids4).cuda(), 960)
+        torch.cuda.synchronize()
+        same32, gaps32 = row_gaps(torch, m32, dense32.tolist(),
+                                  paged.tolist(), 960)
+        out["f32_identity"] = {
+            "identical_rows": same32 / 4, "first_divergence_gaps": gaps32,
+            "decode_kernel_launches": fd.launch_count(),
+            "flash_forward_launches": {"one_shot_decode": paged_fwd,
+                                       "gpt2_decode": fa.forward_launch_count()
+                                       - paged_fwd}}
+        print(f"# f32 one_shot_decode vs gpt2_decode: "
+              f"{json.dumps(out['f32_identity'])}", flush=True)
+        check(same32 == 4 and paged_fwd == layers
+              and fa.forward_launch_count() == 2 * layers
+              and fd.launch_count() == layers * (L - 960 - 1),
+              f"f32: one_shot_decode and gpt2_decode differ, or took "
+              f"another arm: {out['f32_identity']}")
+        del m32
+        torch.cuda.empty_cache()
+
+        # 3. seeds on one reused graph server against fresh eager servers
+        kw = dict(decode_slots=8, page_size=64, max_prompt_len=L, max_len=L,
+                  prefill_batch=8, temperature=1.0, top_k=50, device="cuda")
+        reused = DecodeServer(model, seed=7, **kw)
+        streams = {}
+        for seed in (0, 1):
+            got = one_shot_decode(model, batch0["input_ids"], 960, seed=seed,
+                                  server=reused)
+            ref = one_shot_decode(model, batch0["input_ids"], 960,
+                                  server=DecodeServer(model, seed=seed,
+                                                      cuda_graphs=False,
+                                                      **kw))
+            check(np.array_equal(got, ref), f"seed {seed}: the reused "
+                  f"graph server's streams differ from a fresh eager "
+                  f"server's")
+            streams[seed] = got
+        check(not np.array_equal(streams[0], streams[1]),
+              "seeds 0 and 1 gave the same streams")
+        check(reused.engine.captures == {"prefill": 1, "decode": 1},
+              f"captures {reused.engine.captures}")
+        out["seeds"] = {"reused_equals_fresh": True, "captures":
+                        reused.engine.captures,
+                        "differing_tokens": int((streams[0]
+                                                 != streams[1]).sum())}
+        print(f"# reused graph server seeds: {json.dumps(out['seeds'])}",
+              flush=True)
+        del reused, model
+        torch.cuda.empty_cache()
+
+        # 4. EMA weights through run.sample and run.serve
+        ema = sample_mod.main(["--checkpoint_path", run, "--batch_size",
+                               "8", "--num_batches", "1", "--prompt_len",
+                               "960", "--ema", "0.99"])
+        check(ema["params"] == "ema_0.99" and 0.0 <= ema["decode_acc"] <= 1.0
+              and math.isfinite(ema["eval_loss"]), f"run.sample --ema: {ema}")
+        served = serve_mod.main([
+            "--checkpoint_path", run, "--decode_slots", "4",
+            "--max_prompt_len", "128", "--synthetic_requests", "4",
+            "--max_new_tokens", "16", "--ema", "0.99"])
+        check(served["requests"] == 4 and served["decode_tokens"] == 64
+              and served["params"] == "ema_0.99",
+              f"run.serve --ema: {served}")
+        out["ema"] = {"sample": ema, "serve_params": served["params"],
+                      "serve_decode_tokens": served["decode_tokens"]}
+        torch.cuda.empty_cache()
+
+        # 5. GPT-2 training with --eval_decode: the callback's prefill on
+        # the flash forward
+        out["eval_decode"] = clocked("gpt2 eval_decode train",
+                                     eval_decode_train, torch, fa, fu,
+                                     os.path.join(tmp, "eval_decode"))
+        # 6. the native encoder and the tokenizer CLI
+        out["native"] = native_phase(tmp)
+    return out
+
+
+def eval_decode_train(torch, fa, fu, run: str) -> dict:
+    """``run.train --model_family gpt2 --eval_decode true``, 4 steps at
+    batch 8 in microbatches of 4, an eval every 2: ``decode_acc`` in
+    ``progress.csv``, and the flash forward launched by the training and
+    eval passes plus 12 a callback (its dense-cache prefill)."""
+    from distributed_pipeline_tpu_torch.run.train import main as train_main
+
+    steps, every, layers, n_micro = 4, 2, GPT2_BASE["num_layers"], 2
+    argv = ["--checkpoint_path", run, "--model_family", "gpt2",
+            "--vocab_size", "50257", "--seq_len", "1024",
+            "--hidden_size", "768", "--num_layers", "12", "--num_heads",
+            "12", "--dtype", "bfloat16", "--dataset", "synthetic-lm",
+            "--batch_size", "8", "--microbatch", "4", "--learning_steps",
+            str(steps), "--lr", "3e-4", "--log_interval", "1",
+            "--eval_interval", str(every), "--eval_decode", "true",
+            "--save_interval", "0", "--seed", "1"]
+    fa.reset_launch_counts()
+    fu.reset_launch_count()
+    t0 = time.perf_counter()
+    loop = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    evals = steps // every
+    launches = {"flash_forward": fa.forward_launch_count(),
+                "flash_backward": fa.backward_launch_count(),
+                "fused_adamw_ema": fu.launch_count()}
+    passes = layers * n_micro * (steps + evals)  # training + eval forwards
+    check(launches == {"flash_forward": passes + layers * evals,
+                       "flash_backward": layers * n_micro * steps,
+                       "fused_adamw_ema": steps},
+          f"eval_decode run: launches {launches}, expected forward "
+          f"{passes} + {layers} x {evals} callbacks")
+    with open(os.path.join(run, "progress.csv")) as f:
+        head, *rows = [r.split(",") for r in f.read().splitlines()]
+    col = head.index("decode_acc") if "decode_acc" in head else -1
+    accs = [float(r[col]) for r in rows if col >= 0 and r[col]]
+    check(accs and all(0.0 <= a <= 1.0 for a in accs),
+          f"progress.csv decode_acc: {accs}")
+    del loop
+    torch.cuda.empty_cache()
+    result = {"launches": launches, "callbacks": evals,
+              "decode_acc": accs, "wall_s": wall}
+    print(f"# gpt2 eval_decode: {json.dumps(result)}", flush=True)
+    return result
+
+
+def native_phase(tmp: str) -> dict:
+    """The port's native library builds and loads; the native BPE encoder
+    gives the Python path's ids over the 24,000 texts of a seeded
+    synthetic corpus of 12,000 jsonl lines (host times of both printed);
+    the tokenizer CLI writes ``bpe.json`` from it; the native jsonl index
+    counts its lines."""
+    import random
+    from distributed_pipeline_tpu_torch import native
+    from distributed_pipeline_tpu_torch.data.tokenizer import BPEVocab
+
+    check(native.load_library() is not None,
+          "the native library did not build or load")
+    rng = random.Random(0)
+    letters = "abcdefghijklmnopqrstuvwxyzéüß日本"
+    words = ["".join(rng.choice(letters) for _ in range(rng.randrange(2, 9)))
+             for _ in range(3000)]
+    weights = [1.0 / (i + 1) for i in range(len(words))]
+    texts = [" ".join(rng.choices(words, weights, k=rng.randrange(4, 16)))
+             for _ in range(24000)]
+    data = os.path.join(tmp, "corpus")
+    os.makedirs(data)
+    with open(os.path.join(data, "train.jsonl"), "w") as f:
+        for i in range(0, len(texts), 2):
+            f.write(json.dumps({"src": texts[i], "trg": texts[i + 1]},
+                               ensure_ascii=False) + "\n")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "distributed_pipeline_tpu_torch.data."
+         "tokenizer", "--data_dir", data, "--vocab_size", "512"],
+        capture_output=True, text=True, timeout=300, check=True)
+    cli_s = time.perf_counter() - t0
+    info = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(os.path.exists(os.path.join(data, "bpe.json"))
+          and info["merges"] > 0, f"tokenizer CLI: {info}")
+    fast = BPEVocab.load(os.path.join(data, "bpe.json"), 512)
+    slow = BPEVocab.load(os.path.join(data, "bpe.json"), 512)
+    slow._native = None
+    check(fast._native is not None, "BPEVocab did not take the native "
+          "encoder")
+    t0 = time.perf_counter()
+    got = [fast.encode(t) for t in texts]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = [slow.encode(t) for t in texts]
+    python_s = time.perf_counter() - t0
+    check(got == ref, "native and Python BPE ids differ")
+    index = native.NativeJsonlIndex(os.path.join(data, "train.jsonl"))
+    check(len(index) == len(texts) // 2, f"jsonl index: {len(index)} lines")
+    result = {"texts": len(texts), "jsonl_lines": len(index),
+              "tokens": sum(map(len, got)),
+              "native_encode_s": native_s, "python_encode_s": python_s,
+              "cli_s": cli_s, "cli": info}
+    print(f"# native BPE (host times): {json.dumps(result)}", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2046,9 +2391,19 @@ def main() -> int:
         row.update({k: v for k, v in run.items() if k.startswith("serve_")})
     for row, key in zip(span, ("ngram_fp", "model_int8")):
         row["launches"] = spec[key]["span_kernel_launches"]
-    train = clocked("train", train_phase, torch, fa, fu)
-    for row in (*flash, update):
-        row["launches"] = train["launches"][row["name"]]
+    with tempfile.TemporaryDirectory() as work:
+        run = os.path.join(work, "gpt2_base_train")
+        train = clocked("train", train_phase, torch, fa, fu, run)
+        for row in (*flash, update):
+            row["launches"] = train["launches"][row["name"]]
+        gpt2 = clocked("gpt2 decoding and eval", gpt2_decode_phase, torch,
+                       fa, fd, fu, run)
+    decode[0]["launches_gpt2_sample"] = gpt2["sample"][
+        "decode_kernel_launches"]
+    flash[0]["launches_gpt2_decode_prefill"] = gpt2["gpt2_decode_bf16"][
+        "flash_forward_launches"]
+    flash[0]["launches_gpt2_eval_decode"] = gpt2["eval_decode"]["launches"][
+        "flash_forward"]
     diffuseq = clocked("diffuseq", diffuseq_phase, torch, fa, fu)
     update_dq["launches"] = diffuseq["launches"]["fused_adamw_ema"]
     for row, n in zip(flash, diffuseq["seq1024"]["kernels"]["launches"]):
@@ -2058,6 +2413,7 @@ def main() -> int:
     print(json.dumps({"serve_options": options}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"diffuseq": diffuseq}), flush=True)
+    print(json.dumps({"gpt2_decoding": gpt2}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, update,

@@ -3,10 +3,10 @@
 dataclass with an argparse bridge.
 
 Every field is a ``--flag`` with the JAX package's name, default and
-meaning. The fleet's flags (``--replicas``, ``--disagg``) and ``--ema`` are
-accepted by the parser so that a JAX command line reads the same, but any
-value other than the default fails at parse time with the ROADMAP item
-that brings it (``DEFERRED``).
+meaning. The fleet's flags (``--replicas``, ``--disagg``) are accepted by
+the parser so that a JAX command line reads the same, but any value other
+than the default fails at parse time with the ROADMAP item that brings it
+(``DEFERRED``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ __all__ = ["ServeSettings", "DEFERRED", "create_parser", "parse_settings"]
 DEFERRED: Dict[str, Tuple[object, str]] = {
     "replicas": (0, "ROADMAP A.5 (serving fleet)"),
     "disagg": (0, "ROADMAP A.5 (disaggregated prefill/decode)"),
-    "ema": ("", "ROADMAP A.5 (EMA weights, orbax run-dir import)"),
 }
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
@@ -146,10 +145,12 @@ class ServeSettings:
                                    "SHARED tokens (the prefix-cache "
                                    "workload; 0 = fully random prompts)")
 
+    ema: str = _f("", "EMA rate to serve (ema_{rate}_NNNNNN.pt); empty = "
+                      "raw params")
+
     # options of the JAX server that later slices bring (DEFERRED)
     replicas: int = _f(0, "serve through a fleet of N replicas")
     disagg: int = _f(0, "disaggregated prefill/decode serving")
-    ema: str = _f("", "EMA rate to serve; empty = raw params")
 
     def __post_init__(self) -> None:
         if self.spec_tokens < 0:

@@ -8,8 +8,7 @@ choices, so the port trains what the JAX package trains with no flags:
 DiffuSeq on the synthetic seq2seq stream. Flags of options this port does
 not train yet are accepted so that a JAX command line reads the same, but
 any value other than the default fails at parse time with the ROADMAP item
-that brings it; so does ``--eval_decode true`` for GPT-2, whose decoder is
-ROADMAP A.7b. ``--device`` is the port's own: empty means CUDA.
+that brings it. ``--device`` is the port's own: empty means CUDA.
 """
 
 from __future__ import annotations
@@ -21,8 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 from ..models.diffusion import NOISE_SCHEDULES
 
-__all__ = ["TrainSettings", "DEFERRED", "GPT2_DECODE", "create_parser",
-           "parse_settings"]
+__all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
@@ -61,7 +59,6 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
 # compiles nothing across runs, so only the JAX default and "off" (both
 # meaning "nothing to cache" here) are accepted
 COMPILATION_CACHE_DIRS = ("auto", "off")
-GPT2_DECODE = "ROADMAP A.7b (gpt2_decode, one_shot_decode)"
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
 _FALSE = {"false", "f", "0", "no", "n", "off"}
@@ -124,7 +121,7 @@ class TrainSettings:
                                             "only 'auto' and 'off' are "
                                             "accepted")
     eval_decode: bool = _f(False, "decode a validation batch at every eval "
-                                  "interval and log decode_acc (diffuseq)")
+                                  "interval and log decode_acc")
     eval_decode_sample_steps: int = _f(32, "reverse-diffusion steps for eval "
                                            "decoding (diffuseq only)")
     # data
@@ -194,10 +191,6 @@ class TrainSettings:
     mpmd_max_restarts: int = _f(3, "MPMD per-stage restart budget")
 
     def __post_init__(self) -> None:
-        if self.eval_decode and self.model_family == "gpt2":
-            raise ValueError(f"--eval_decode true with --model_family gpt2 "
-                             f"is not ported yet; it comes with "
-                             f"{GPT2_DECODE}")
         for name, (served, item) in DEFERRED.items():
             if getattr(self, name) != served:
                 raise ValueError(

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..native import NativeJsonlIndex, load_library
 from .tokenizer import N_RESERVED, BPEVocab, stable_hash_id
 
 __all__ = ["SyntheticSeq2SeqDataset", "SyntheticLMDataset",
@@ -163,17 +164,28 @@ class WordVocab:
 class JsonlSeq2SeqDataset:
     """A DiffuSeq-format jsonl corpus: one ``{"src": ..., "trg": ...}``
     object a line in ``{split}.jsonl`` under ``data_dir`` (``"tgt"`` is
-    read where ``"trg"`` is missing). Lines are read in Python and blank
-    lines (``str.strip()`` empty) skipped, as the JAX package's fallback
-    path does; each item is tokenized when it is read. The vocabulary is
-    ``data_dir/bpe.json`` when it exists, else ``data_dir/vocab.json``, else
-    the stable hash."""
+    read where ``"trg"`` is missing). Lines are indexed by the native mmap
+    index (``native/jsonl_index.cpp``: an offset table, no line copies)
+    when the native library loads, else held in a Python list; blank
+    (whitespace-only) lines are skipped on both paths, and each item is
+    tokenized when it is read. The vocabulary is ``data_dir/bpe.json``
+    when it exists, else ``data_dir/vocab.json``, else the stable hash."""
 
     def __init__(self, data_dir: str, split: str, seq_len: int = 128,
                  vocab_size: int = 8192, vocab_file: Optional[str] = None):
         path = os.path.join(data_dir, f"{split}.jsonl")
-        with open(path) as f:
-            self.lines = [ln for ln in f if ln.strip()]
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        self._index: Optional[NativeJsonlIndex] = None
+        self.lines: Optional[List[str]] = None
+        if load_library() is not None:
+            try:
+                self._index = NativeJsonlIndex(path)
+            except RuntimeError:  # the open or mmap failed: read in Python
+                pass
+        if self._index is None:
+            with open(path) as f:
+                self.lines = [ln for ln in f if ln.strip()]
         if vocab_file is None:
             bpe = os.path.join(data_dir, "bpe.json")
             vocab_file = bpe if os.path.exists(bpe) else os.path.join(
@@ -183,10 +195,14 @@ class JsonlSeq2SeqDataset:
         self.vocab_size = vocab_size
 
     def __len__(self) -> int:
+        if self._index is not None:
+            return len(self._index)
         return len(self.lines)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        obj = json.loads(self.lines[idx])
+        raw = (self._index.line(idx) if self._index is not None
+               else self.lines[idx])
+        obj = json.loads(raw)
         src = self.vocab.encode(str(obj.get("src", "")))
         tgt = self.vocab.encode(str(obj.get("trg", obj.get("tgt", ""))))
         L = self.seq_len

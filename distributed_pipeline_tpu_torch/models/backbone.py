@@ -24,7 +24,12 @@ Attention runs one of three branches:
   chain links sit at positions ``idx .. idx + L - 1``; every link's K/V is
   written first, then one span dispatch
   (``ops.flash_decode.paged_span_attention``) attends link j at ``idx + j``
-  over the live prefix plus the earlier links.
+  over the live prefix plus the earlier links;
+* the dense decode cache (a layer's ``kv`` is a :class:`DenseKV`): a
+  full-length call is the prefill, which keeps every position's K/V and
+  runs causal attention through the seam (so the flash forward from
+  L >= 1024 on CUDA); a single-token call with a 0-d ``cache_index`` i
+  writes position i and attends densely over ``cache[0..i]``.
 
 ``kv_quant`` names the pool's storage, as the JAX module attribute of that
 name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
@@ -33,13 +38,13 @@ name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
 by the ``_q8`` writers and dequantized by both decode arms. The prefill's own
 attention runs on the local fp k/v either way.
 
-The dense-cache decode, MoE and stacked (``scan_layers``) weights are later
-work (ROADMAP A.7b, A.8).
+MoE and stacked (``scan_layers``) weights are later work (ROADMAP A.8,
+A.9).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +57,23 @@ from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
                                 write_token_kv, write_token_kv_q8)
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
-           "LayerNorm", "Embed"]
+           "LayerNorm", "Embed", "DenseKV"]
+
+
+class DenseKV:
+    """One layer's dense decode cache, the JAX ``decode=True`` "cache"
+    collection: K and V ``[B, H, Lmax, Dh]`` in the compute dtype, sized
+    and filled by the first (full-length, prefill) call and updated in
+    place by each single-token call."""
+
+    def __init__(self) -> None:
+        self.k: Optional[torch.Tensor] = None
+        self.v: Optional[torch.Tensor] = None
+
 
 # one layer's (pages_k, pages_v), or (pages_k, pages_v, scales_k, scales_v)
-# for an int8 pool
-LayerKV = Tuple[torch.Tensor, ...]
+# for an int8 pool, or a dense decode cache
+LayerKV = Union[Tuple[torch.Tensor, ...], DenseKV]
 KV_QUANTS = ("fp", "int8")
 
 
@@ -114,7 +131,12 @@ class SelfAttention(nn.Module):
                 kv_quant: str = "fp") -> torch.Tensor:
         qkv = torch.einsum("bld,dthk->tbhlk", x, self.qkv.to(self.dtype))
         q, k, v = qkv[0], qkv[1], qkv[2]
-        if kv is not None:
+        if isinstance(kv, DenseKV):
+            if block_table is not None:
+                raise ValueError("block_table is only meaningful with a "
+                                 "paged KV cache")
+            o = self._cached_attention(q, k, v, pad_mask, cache_index, kv)
+        elif kv is not None:
             if block_table is None:
                 raise ValueError("paged attention needs a block_table")
             o = self._paged_attention(q, k, v, pad_mask, cache_index,
@@ -126,6 +148,37 @@ class SelfAttention(nn.Module):
             o = dot_product_attention(q, k, v, pad_mask, causal=self.causal,
                                       impl=self.attention_impl)
         return torch.einsum("bhlk,hkd->bld", o, self.out.to(self.dtype))
+
+    def _cached_attention(self, q, k, v, pad_mask, cache_index,
+                          cache: DenseKV):
+        B, H, L, Dh = q.shape
+        if cache.k is None or L == cache.k.shape[2]:
+            # prefill (the first call sizes the cache): keep every
+            # position's K/V, attend causally through the seam
+            cache.k = k.clone(memory_format=torch.contiguous_format)
+            cache.v = v.clone(memory_format=torch.contiguous_format)
+            return dot_product_attention(q, k, v, pad_mask, causal=True,
+                                         impl=self.attention_impl)
+        Lmax = cache.k.shape[2]
+        if L != 1:
+            raise ValueError(
+                f"decode calls take the full length ({Lmax}, prefill) or a "
+                f"single token, got {L}")
+        if cache_index is None:
+            raise ValueError("single-token decode needs cache_index")
+        # the position as a device tensor (no host sync), clamped to the
+        # cache as JAX's dynamic_update_slice clamps it
+        idx = torch.clamp(cache_index.reshape(1).long(), 0, Lmax - 1)
+        cache.k.index_copy_(2, idx, k)
+        cache.v.index_copy_(2, idx, v)
+        # positions beyond idx hold stale or unwritten rows: masked
+        # (causality IS this mask for one query row)
+        live = (torch.arange(Lmax, device=q.device)[None, :]
+                <= idx).to(torch.int32).expand(B, Lmax)
+        if pad_mask is not None:
+            live = live * pad_mask
+        return dot_product_attention(q, cache.k, cache.v, live,
+                                     causal=False, impl="xla")
 
     def _paged_attention(self, q, k, v, pad_mask, cache_index, block_table,
                          kv, decode_impl, kv_quant):

@@ -37,7 +37,7 @@ from .backbone import Embed, TransformerBackbone, _param
 from .diffusion import DiffusionSchedule
 
 __all__ = ["DiffuSeqModel", "diffuseq_losses", "timestep_embedding",
-           "Draws", "DIFFUSEQ_EMB_DIM", "seeded_generator"]
+           "Draws", "DIFFUSEQ_EMB_DIM", "seeded_generator", "mix_seed"]
 
 DIFFUSEQ_EMB_DIM = 128  # DiffuSeq's low-dim embedding space
 
@@ -45,13 +45,17 @@ DIFFUSEQ_EMB_DIM = 128  # DiffuSeq's low-dim embedding space
 Draws = Union[torch.Generator, Mapping[str, torch.Tensor]]
 
 
-def seeded_generator(device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from the non-negative integers
-    ``words`` (e.g. seed, step, microbatch index), mixed by numpy's
-    ``SeedSequence`` so that nearby words give unrelated streams."""
+def mix_seed(*words: int) -> int:
+    """One 63-bit seed from the non-negative integers ``words`` (e.g. seed,
+    step, microbatch index), mixed by numpy's ``SeedSequence`` so that
+    nearby words give unrelated streams."""
     state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
-    seed = (int(state[0]) << 31) ^ int(state[1])
-    return torch.Generator(device=device).manual_seed(seed)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def seeded_generator(device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``mix_seed(*words)``."""
+    return torch.Generator(device=device).manual_seed(mix_seed(*words))
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,

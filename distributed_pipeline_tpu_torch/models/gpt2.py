@@ -28,8 +28,11 @@ class GPT2Model(nn.Module):
     ``block_table`` it is the paged serving path: a prefill over the prompt
     batch when ``cache_index`` is None, one decode step when ``ids`` is
     [B, 1] and ``cache_index`` holds each slot's position, and a
-    speculative-verify span when ``ids`` is [B, L] with ``cache_index``. Parameters start
-    at zero; load weights with ``load_state_dict``."""
+    speculative-verify span when ``ids`` is [B, L] with ``cache_index``.
+    With ``kv_cache`` a list of :class:`DenseKV` (one a layer) it is the
+    dense decode: a prefill over the full length, then one token at a time
+    at the 0-d position ``cache_index``. Parameters start at zero; load
+    weights with ``load_state_dict``."""
 
     family = "gpt2"
 
@@ -67,9 +70,11 @@ class GPT2Model(nn.Module):
             # slot whose budget ends mid-span is fed positions past its
             # last token, which can pass the table's end when prompt +
             # budget == seq_len; clamp to the edge (those picks are
-            # discarded by the host)
-            span = cache_index.long()[:, None] + torch.arange(
-                L, device=ids.device)[None, :]
+            # discarded by the host). A 0-d cache_index is the dense
+            # decode's one position for every row
+            idx = cache_index.long()
+            start = idx.reshape(1, 1) if idx.dim() == 0 else idx[:, None]
+            span = start + torch.arange(L, device=ids.device)[None, :]
             pos = self.pos_emb[torch.clamp(span, max=self.seq_len - 1)]
         else:
             pos = self.pos_emb[None, :L]

@@ -32,14 +32,15 @@ the plain versions take any shape.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["flash_attention", "flash_forward", "flash_backward",
            "torch_flash_forward", "torch_flash_backward", "NEG_INF",
            "forward_launch_count", "backward_launch_count",
-           "reset_launch_counts", "flash_flops", "flash_hbm_bytes",
+           "reset_launch_counts", "launch_counters", "add_launches",
+           "flash_flops", "flash_hbm_bytes",
            "dq_launch_plan", "DQ_SCRATCH_CAP"]
 
 NEG_INF = -1e9
@@ -65,6 +66,21 @@ def backward_launch_count() -> int:
 def reset_launch_counts() -> None:
     for key in _launches:
         _launches[key] = 0
+
+
+def launch_counters() -> Dict[str, int]:
+    """Both counters (``forward``, ``backward``) as a dict: a CUDA graph
+    takes a snapshot before and after its capture, and the difference is
+    what one replay launches."""
+    return dict(_launches)
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`launch_counters` difference): a
+    graph replay's launches, which run no Python wrapper, or
+    (``times=-1``) a capture's, which launched nothing."""
+    for key, n in delta.items():
+        _launches[key] += times * n
 
 
 # ----------------------------------------------------------- plain versions

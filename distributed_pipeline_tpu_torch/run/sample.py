@@ -1,19 +1,24 @@
 """Sampling/eval entry point: the port of
-``distributed_pipeline_tpu/run/sample.py`` for DiffuSeq run directories.
+``distributed_pipeline_tpu/run/sample.py``.
 
     python -m distributed_pipeline_tpu_torch.run.sample --checkpoint_path RUN
     python -m distributed_pipeline_tpu_torch.run.sample \\
         --checkpoint_path RUN --ema 0.99 --sample_steps 64 --num_batches 4
+    python -m distributed_pipeline_tpu_torch.run.sample \\
+        --checkpoint_path GPT2_RUN --prompt_len 512 --temperature 0.8 \\
+        --top_k 50
 
 Loads a run directory that ``run.train`` wrote (the model config from its
 ``training_args.json``, raw or EMA parameters from the newest or the given
-step), decodes validation batches by reverse diffusion (MBR over
-``--mbr`` candidates), and prints one JSON line with the target-span
-``decode_acc`` and the ``eval_loss``, the JAX entry point's keys; ``--out``
-writes the decoded ids as JSONL. A GPT-2 run directory fails at parse
-time, and the GPT-2 decoding flags (``--prompt_len``, ``--temperature``,
-``--top_k``, ``--top_p``) are not accepted: GPT-2 decoding is ROADMAP A.7b.
-Runs on CUDA unless ``--device cpu`` is given.
+step) and decodes validation batches: a DiffuSeq run by reverse diffusion
+(MBR over ``--mbr`` candidates), scored over the target span; a GPT-2 run
+by continuing each row after ``--prompt_len`` (default seq_len/2) through
+the serving path (``serving.one_shot_decode``: one ``DecodeServer`` built
+on the first batch and reused, a seed a batch), greedy or sampled
+(``--temperature``, ``--top_k``, ``--top_p``), scored over the generated
+span. Prints one JSON line with ``decode_acc`` and ``eval_loss``, the JAX
+entry point's keys; ``--out`` writes the decoded ids as JSONL. Runs on
+CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -26,11 +31,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config.train import GPT2_DECODE
 from ..data import load_data_from_args
 from ..models import Model, compute_losses, create_model_from_config
-from ..models.diffuseq import seeded_generator
+from ..models.diffuseq import mix_seed, seeded_generator
 from ..models.sampling import diffuseq_sample_mbr, target_span_accuracy
+from ..serving.scheduler import DecodeServer, one_shot_decode
 from ..utils.checkpoint import find_resume_checkpoint, parse_step_from_name
 from ..utils.device import resolve_device
 
@@ -79,12 +84,22 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--num_batches", type=int, default=2)
     p.add_argument("--sample_steps", type=int, default=64,
-                   help="reverse-diffusion steps (<=0 = all)")
+                   help="reverse-diffusion steps (diffuseq; <=0 = all)")
     p.add_argument("--mbr", type=int, default=1,
-                   help="minimum-Bayes-risk decoding over this many "
-                        "candidates (1 = single sample)")
+                   help="diffuseq: minimum-Bayes-risk decoding over this "
+                        "many candidates (1 = single sample)")
     p.add_argument("--no_clamp", action="store_true",
                    help="disable DiffuSeq's nearest-embedding clamping")
+    p.add_argument("--prompt_len", type=int, default=0,
+                   help="gpt2: prompt prefix length (0 = seq_len/2)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="gpt2: 0 = greedy; > 0 samples from the "
+                        "temperature-scaled distribution")
+    p.add_argument("--top_k", type=int, default=0,
+                   help="gpt2: restrict sampling to the k most likely "
+                        "tokens (0 = off)")
+    p.add_argument("--top_p", type=float, default=0.0,
+                   help="gpt2: nucleus sampling mass (0 = off)")
     p.add_argument("--seed", type=int, default=0, help="sampling seed")
     p.add_argument("--out", default="",
                    help="write decoded batches as JSONL to this path")
@@ -97,11 +112,11 @@ def create_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = create_parser()
     ns = parser.parse_args(argv)
-    with open(os.path.join(ns.checkpoint_path, "training_args.json")) as f:
-        family = json.load(f).get("model_family", "diffuseq")
-    if family != "diffuseq":
-        parser.error(f"{ns.checkpoint_path} is a {family} run: sampling it "
-                     f"is not ported yet; it comes with {GPT2_DECODE}")
+    if (ns.top_k > 0 or ns.top_p > 0) and ns.temperature <= 0:
+        parser.error("--top_k/--top_p shape the SAMPLING distribution; with "
+                     "the default --temperature 0 decoding is greedy and "
+                     "they would be silently ignored. Pass --temperature "
+                     "> 0.")
     device = resolve_device(ns.device)
     model, targs, step = load_run(ns.checkpoint_path, ns.step, device,
                                   ns.ema)
@@ -109,29 +124,52 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ns.split, **{**targs, "batch_size": ns.batch_size,
                      "deterministic": True, "num_loader_proc": 0,
                      "data_loader_workers": 0})
+    plen = ns.prompt_len or model.seq_len // 2
+    server: Optional[DecodeServer] = None
     accs, losses, golds, preds = [], [], [], []
     with torch.no_grad():
         for i in range(max(ns.num_batches, 0)):
             host = next(data)
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in host.items()}
-            # distinct streams for the sampler's noise and the loss's draws
-            pred = diffuseq_sample_mbr(
-                model, batch, seeded_generator(device, ns.seed, i, 0),
-                ns.mbr, ns.sample_steps, clamp=not ns.no_clamp)
-            accs.append(target_span_accuracy(pred, batch))
+            # distinct streams for the decoder and the loss's draws
+            if model.family == "gpt2":
+                if server is None:
+                    # built once: each batch brings its own seed
+                    server = DecodeServer(
+                        model, decode_slots=ns.batch_size,
+                        page_size=min(model.seq_len, 64),
+                        max_prompt_len=model.seq_len, max_len=model.seq_len,
+                        prefill_batch=ns.batch_size,
+                        temperature=ns.temperature, top_k=ns.top_k,
+                        top_p=ns.top_p, seed=ns.seed, device=device)
+                pred = one_shot_decode(model, host["input_ids"], plen,
+                                       seed=mix_seed(ns.seed, i, 0),
+                                       server=server)
+                # the generated span's accuracy, on the host (the
+                # prediction is already there)
+                m = ((np.arange(model.seq_len)[None, :] >= plen)
+                     * host["pad_mask"]).astype(np.float64)
+                hit = (pred == host["input_ids"]).astype(np.float64)
+                accs.append(float((hit * m).sum() / max(m.sum(), 1.0)))
+            else:
+                pred = diffuseq_sample_mbr(
+                    model, batch, seeded_generator(device, ns.seed, i, 0),
+                    ns.mbr, ns.sample_steps, clamp=not ns.no_clamp)
+                accs.append(target_span_accuracy(pred, batch))
             losses.append(compute_losses(
                 model, batch, seeded_generator(device, ns.seed, i, 1))["loss"])
             if ns.out:
                 golds.append(host["input_ids"])
-                preds.append(pred.cpu().numpy())
+                preds.append(pred if isinstance(pred, np.ndarray)
+                             else pred.cpu().numpy())
     accs = [float(a) for a in accs]
     losses = [float(x) for x in losses]
     if ns.out:
         with open(ns.out, "w") as f:
             for gold_b, pred_b in zip(golds, preds):
                 for gold, p_row in zip(np.asarray(gold_b).tolist(),
-                                       pred_b.tolist()):
+                                       np.asarray(pred_b).tolist()):
                     f.write(json.dumps({"gold": gold, "pred": p_row}) + "\n")
     result = {
         "step": step, "params": f"ema_{ns.ema}" if ns.ema else "raw",

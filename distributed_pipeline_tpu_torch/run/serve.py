@@ -27,8 +27,9 @@ the cache's ``prefix_*`` gauges, ``--cost_ledger true`` a ``ledger`` of
 per-phase rows (``obs/ledger.py``), and ``--sanitize true``
 ``recompile_count`` (captures after the first fetched token, 0 in a
 sound run) and ``xla_compiles_total`` (all captures), with the evidence in
-``sanitize_report.json`` beside the checkpoint. ``--trace true`` prints
-that tracing instruments fleet mode only.
+``sanitize_report.json`` beside the checkpoint. ``--ema RATE`` serves the
+step's ``ema_{RATE}_NNNNNN.pt`` weights (``"params": "ema_RATE"``).
+``--trace true`` prints that tracing instruments fleet mode only.
 """
 
 from __future__ import annotations
@@ -129,7 +130,7 @@ def serve(settings: ServeSettings, cuda_graphs: bool = True
               flush=True)
     device = resolve_device(settings.device)
     model, _targs, step = load_run(settings.checkpoint_path, settings.step,
-                                   device)
+                                   device, settings.ema)
     _quantize_for_serving(settings, model)
     max_len = settings.max_len or model.seq_len
     max_prompt_len = settings.max_prompt_len or max(2, max_len // 2)
@@ -217,7 +218,8 @@ def serve(settings: ServeSettings, cuda_graphs: bool = True
 
     ttft = server.ttft.summary()
     result = {
-        "step": step, "params": "raw",
+        "step": step,
+        "params": f"ema_{settings.ema}" if settings.ema else "raw",
         "requests": len(submitted),
         "decode_tokens": server.tokens_fetched,
         # one device serves the whole state: the service rate IS the

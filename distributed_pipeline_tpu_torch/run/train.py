@@ -10,8 +10,10 @@
 Settings -> run dir -> logger -> ``training_args.json`` -> model ->
 ``TrainLoop`` (which resumes from the run dir's newest complete checkpoint)
 -> data streams fast-forwarded past the samples the checkpoint consumed ->
-``run_loop``. ``--eval_decode true`` (DiffuSeq) adds the decode callback
-over one held-out batch of at most 32, as the JAX entry point does. Runs on
+``run_loop``. ``--eval_decode true`` adds the decode callback over one
+held-out batch of at most 32 rows, as the JAX entry point does: DiffuSeq
+samples ``--eval_decode_sample_steps`` reverse steps, GPT-2 continues the
+second half of each row greedily (dense KV cache). Runs on
 CUDA unless ``--device cpu`` is given, and raises when CUDA is missing.
 """
 

@@ -35,11 +35,15 @@ pages with a ``[P]`` f32 scale sidecar for K and for V per layer (about
 half the bytes of a bf16 pool).
 
 Sampling keys its noise on the device as a pure function of (seed, slot,
-position, vocab index) (:func:`keyed_gumbel`), the JAX engine's
-per-(slot, position) key fold, so nothing in a phase reads the host.
-Launch counters (``ops/flash_decode.py``) tick in the kernels' Python
-wrappers, which a replay does not run: each graph records the launches
-its capture made and adds them on every replay.
+position, vocab index) (``models.sampling.keyed_gumbel``), the JAX
+engine's per-(slot, position) key fold, so nothing in a phase reads the
+host. The seed is a device tensor the graphs read:
+:meth:`DecodeEngine.set_seed` (the JAX engine's ``set_rng``) rewrites it
+in place, and the next replay draws from the new seed. Launch counters
+(``ops/flash_decode.py``, and ``ops/flash_attention.py`` for a prefill at
+L >= 1024 on the flash forward) tick in the kernels' Python wrappers,
+which a replay does not run: each graph records the launches its capture
+made and adds them on every replay.
 
 ``guard=True`` (the sanitizer) runs every dispatch under
 ``torch.cuda.set_sync_debug_mode("error")``, the analogue of JAX's
@@ -58,75 +62,26 @@ import torch
 
 from ..models.backbone import KV_QUANTS
 from ..models.gpt2 import GPT2Model
-from ..models.sampling import _truncate_logits
+from ..models.sampling import KeyedPicker
+from ..ops import flash_attention as fa
 from ..ops import flash_decode as fd
 
-__all__ = ["DecodeEngine", "keyed_gumbel"]
+__all__ = ["DecodeEngine"]
 
-_M32 = 0xFFFFFFFF
-
-
-def _hash32(x):
-    """A 32-bit integer mixer over int64 tensors (or Python ints) holding
-    values in [0, 2^32): every product stays below 2^63, so torch's int64
-    arithmetic gives the same bits on the CPU and on the card."""
-    x = x & _M32
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    return (x >> 16) ^ x
+def _launch_counters() -> Dict[str, Dict[str, int]]:
+    return {"decode": fd.launch_counters(), "flash": fa.launch_counters()}
 
 
-def _seed_key(seed: int) -> int:
-    return _hash32(_hash32(seed & _M32) ^ ((seed >> 32) & _M32))
-
-
-def keyed_gumbel(seed: int, slots: torch.Tensor, positions: torch.Tensor,
-                 vocab_hash: torch.Tensor) -> torch.Tensor:
-    """Gumbel noise [N, V] as a pure function of (seed, slot, position,
-    vocab index): an integer hash, then a uniform in (0, 1) from its top 24
-    bits, then ``-log(-log u)``. ``vocab_hash`` is ``_hash32(arange(V))``.
-    The same code on the CPU and on the card; the keys match bit for bit,
-    the logarithms to the last ulp of each device's ``log``."""
-    key = _hash32(_hash32(slots.long() ^ _seed_key(seed))
-                  ^ positions.long())                          # [N]
-    h = _hash32(key[:, None] ^ vocab_hash[None, :])            # [N, V]
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
-
-
-class _SlotPicker:
-    """Per-slot token picker ``(logits [N, V], positions [N], slots [N]) ->
-    int32 [N]``, all device tensors. Greedy at temperature <= 0; otherwise
-    temperature, then :func:`_truncate_logits`, then a categorical pick by
-    Gumbel-max whose noise is keyed per (seed, slot, position)
-    (:func:`keyed_gumbel`) — the JAX engine's per-(slot, position) key
-    fold, so two slots at the same depth draw different noise and a
-    request's stream is fixed from its first token on."""
-
-    def __init__(self, temperature: float, top_k: int, top_p: float,
-                 seed: int, vocab_size: int, device: torch.device) -> None:
-        self.temperature = temperature
-        self.top_k = top_k
-        self.top_p = top_p
-        self.seed = seed
-        self.vocab_hash = (_hash32(torch.arange(vocab_size, device=device))
-                           if temperature > 0.0 else None)
-
-    def __call__(self, logits: torch.Tensor, positions: torch.Tensor,
-                 slots: torch.Tensor) -> torch.Tensor:
-        if self.vocab_hash is None:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        l = _truncate_logits(logits.float() / self.temperature, self.top_k,
-                             self.top_p)
-        noise = keyed_gumbel(self.seed, slots, positions, self.vocab_hash)
-        return torch.argmax(l + noise, dim=-1).to(torch.int32)
+def _add_launches(delta: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    fd.add_launches(delta["decode"], times)
+    fa.add_launches(delta["flash"], times)
 
 
 class _Phase:
     """One captured phase: its graph, the launches one replay makes (by
-    counter), and the static output buffer it fills."""
+    module and counter), and the static output buffer it fills."""
 
-    def __init__(self, graph, launches: Dict[str, int],
+    def __init__(self, graph, launches: Dict[str, Dict[str, int]],
                  out: torch.Tensor) -> None:
         self.graph = graph
         self.launches = launches
@@ -211,7 +166,7 @@ class DecodeEngine:
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self.guard = bool(guard) and self.device.type == "cuda"
         self._on_capture = on_capture
-        self._pick = _SlotPicker(temperature, top_k, top_p, seed,
+        self._pick = KeyedPicker(temperature, top_k, top_p, seed,
                                  model.vocab_size, self.device)
 
         s, dev = decode_slots, self.device
@@ -311,7 +266,7 @@ class DecodeEngine:
         phase = self._phases.get(name)
         if phase is not None:
             phase.graph.replay()
-            fd.add_launches(phase.launches)
+            _add_launches(phase.launches)
             return phase.out.clone()
         out = fn()
         if self.cuda_graphs:
@@ -330,13 +285,14 @@ class DecodeEngine:
             torch.cuda.set_sync_debug_mode(0)
         try:
             t0 = time.perf_counter()
-            before = fd.launch_counters()
+            before = _launch_counters()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 out = fn()
-            after = fd.launch_counters()
-            delta = {k: after[k] - before[k] for k in after}
-            fd.add_launches(delta, times=-1)
+            after = _launch_counters()
+            delta = {mod: {k: after[mod][k] - before[mod][k]
+                           for k in after[mod]} for mod in after}
+            _add_launches(delta, times=-1)
             torch.cuda.synchronize(self.device)
             seconds = time.perf_counter() - t0
         finally:
@@ -359,6 +315,12 @@ class DecodeEngine:
     def set_active(self, active: np.ndarray) -> None:
         with self._guarded():
             self._stage(self.active, active)
+
+    def set_seed(self, seed: int) -> None:
+        """Sample from ``seed`` from the next dispatch on (the seed is
+        written in place, so the captured graphs read it)."""
+        with self._guarded():
+            self._pick.set_seed(seed)
 
     def set_decode_state(self, tokens: np.ndarray,
                          positions: np.ndarray) -> None:

@@ -59,7 +59,7 @@ from .engine import DecodeEngine
 from .paged_kv import TRASH_PAGE, PageManager, PrefixCache
 from .spec import DRAFT_KINDS, ngram_propose, truncated_draft
 
-__all__ = ["Request", "DecodeServer"]
+__all__ = ["Request", "DecodeServer", "one_shot_decode"]
 
 
 @dataclasses.dataclass
@@ -363,6 +363,12 @@ class DecodeServer:
         """Anything queued, in flight, or awaiting fetch."""
         return bool(self.queue or any(s is not None for s in self.slots)
                     or self._ring)
+
+    def set_seed(self, seed: int) -> None:
+        """Sample from ``seed`` from the next dispatch on (the JAX server's
+        ``set_rng``): a reused server gives each batch its own stream, the
+        captured graphs included."""
+        self.engine.set_seed(seed)
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
                eos_id: Optional[int] = None) -> Request:
@@ -689,3 +695,51 @@ class DecodeServer:
             if not self.step():
                 break
         self._fetch(0)
+
+
+def one_shot_decode(model: GPT2Model, ids: np.ndarray, prompt_len: int, *,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 0.0, seed: Optional[int] = None,
+                    page_size: int = 0,
+                    server: Optional[DecodeServer] = None,
+                    device=None) -> np.ndarray:
+    """Batch continuation through the serving path: the prefill and decode
+    phases that serve traffic, driven as one lockstep batch (one code path
+    for one-shot decoding in ``run.sample`` and for served decoding).
+
+    ``ids`` int [B, L]: positions < ``prompt_len`` are the prompts, the
+    suffix is regenerated out to L (int32 host array out). Greedy output
+    is :func:`models.sampling.gpt2_decode`'s, token for token up to
+    near-ties (tested); sampling keys each pick per (slot, position) and
+    row i takes slot i, so it draws what ``gpt2_decode`` draws for row i
+    at the same seed. Pass ``server`` to reuse one across calls (its state
+    recycles between drained batches and its CUDA graphs are kept; a
+    given ``seed`` is set on it first); by default one is built on
+    ``device`` as the JAX function builds it, prompts padded to L (the
+    prefill runs at ``gpt2_decode``'s prefill length) and one prefill for
+    the batch, but with pages of ``min(L, 64)`` tokens, ``run.sample``'s
+    size, where JAX takes one page of L a slot: the decode kernel holds
+    two stages of a page per head in shared memory, which a 1024-token
+    page overflows."""
+    ids = np.ascontiguousarray(ids, np.int32)
+    b, l = ids.shape
+    if not 1 <= prompt_len < l:
+        if prompt_len == l:
+            return ids.copy()
+        raise ValueError(f"prompt_len {prompt_len} outside [1, {l}]")
+    if server is None:
+        server = DecodeServer(
+            model, decode_slots=b, page_size=page_size or min(l, 64),
+            max_prompt_len=l, max_len=l, prefill_batch=b,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            seed=seed or 0, device=device)
+    elif seed is not None:
+        server.set_seed(seed)
+    reqs = [server.submit(ids[i, :prompt_len], max_new_tokens=l - prompt_len)
+            for i in range(b)]
+    server.drain()
+    out = ids.copy()
+    for i, req in enumerate(reqs):
+        gen = np.asarray(req.tokens, np.int32)
+        out[i, prompt_len:prompt_len + len(gen)] = gen
+    return out

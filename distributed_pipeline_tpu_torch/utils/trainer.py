@@ -44,6 +44,7 @@ A.8-A.10).
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence)
@@ -204,6 +205,22 @@ class TrainLoop:
             self._load_flat(self.mu, opt["mu"])
             self._load_flat(self.nu, opt["nu"])
             self.count.fill_(int(opt["count"]))
+
+    @contextlib.contextmanager
+    def ema_weights(self, rate: str) -> Iterator[None]:
+        """Inside the block the model computes with the EMA copy of
+        ``rate``: each parameter's ``data`` is a view into that EMA row
+        (nothing is copied, nothing is written), and a view into the
+        training buffer again after it."""
+        ema = self.state_dict_of(self.ema[self.ema_rates.index(rate)])
+        named = list(self.model.named_parameters())
+        try:
+            for name, p in named:
+                p.data = ema[name]
+            yield
+        finally:
+            for name, p in named:
+                p.data = self._view(self.params, name)
 
     def ema_state_dicts(self) -> Dict[str, StateDict]:
         return {r: self.state_dict_of(self.ema[i])

@@ -304,7 +304,7 @@ def test_run_serve_without_device_needs_cuda(run_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("replicas", "2"), ("disagg", "1"), ("ema", "0.99")])
+    ("replicas", "2"), ("disagg", "1")])
 def test_deferred_options_fail_at_parse_time(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         parse_settings(["--checkpoint_path", "x", f"--{flag}", value])
@@ -319,7 +319,8 @@ SERVED = [("prefix_cache", False, True), ("serve_quant", "off", "int8"),
           ("trace", False, True), ("traffic", "steps", "poisson"),
           ("rate_rps", 8.0, 3.5), ("burst_every_s", 2.0, 0.5),
           ("burst_size", 8, 3), ("diurnal_period_s", 30.0, 4.0),
-          ("diurnal_floor", 0.2, 0.5), ("shared_prefix_len", 0, 16)]
+          ("diurnal_floor", 0.2, 0.5), ("shared_prefix_len", 0, 16),
+          ("ema", "", "0.99")]
 
 
 @pytest.mark.parametrize("flag,default,value", SERVED,
@@ -327,10 +328,10 @@ SERVED = [("prefix_cache", False, True), ("serve_quant", "off", "int8"),
 def test_served_options_parse(flag, default, value):
     """Each option is served: the JAX default when absent, the value
     given otherwise, and no longer in DEFERRED (which keeps only the
-    fleet's options and --ema)."""
+    fleet's options)."""
     from distributed_pipeline_tpu.config.serve import \
         ServeSettings as JaxServeSettings
-    assert set(DEFERRED) == {"replicas", "disagg", "ema"}
+    assert set(DEFERRED) == {"replicas", "disagg"}
     assert getattr(parse_settings(["--checkpoint_path", "x"]), flag) \
         == default == JaxServeSettings.model_fields[flag].default
     arg = str(value).lower() if isinstance(value, bool) else str(value)

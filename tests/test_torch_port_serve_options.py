@@ -32,7 +32,7 @@ from distributed_pipeline_tpu_torch.ops import flash_decode as fd  # noqa
 from distributed_pipeline_tpu_torch.run import serve as serve_mod  # noqa
 from distributed_pipeline_tpu_torch.serving import paged_kv  # noqa: E402
 from distributed_pipeline_tpu_torch.serving import traffic  # noqa: E402
-from distributed_pipeline_tpu_torch.serving.engine import (  # noqa: E402
+from distributed_pipeline_tpu_torch.models.sampling import (  # noqa: E402
     _hash32, keyed_gumbel)
 from distributed_pipeline_tpu_torch.serving.quantize import (  # noqa: E402
     QuantizationError, quantize_state_dict)

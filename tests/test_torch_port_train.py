@@ -235,17 +235,16 @@ def test_run_train_without_device_needs_cuda(tmp_path, monkeypatch):
     ("train", ["--profile_dir", "x"], "ROADMAP A.10"),
     ("train", ["--mpmd", "true"], "ROADMAP A.9"),
     ("train", ["--attention_impl", "ring"], "ROADMAP A.8"),
-    ("train", ["--model_family", "gpt2", "--eval_decode", "true"],
-     "ROADMAP A.7b"),
+    ("train", ["--moe_top_k", "1"], "ROADMAP A.8"),
     ("train", ["--noise_schedule", "quadratic"], "invalid choice"),
-    ("sample", [], "ROADMAP A.7b"),
-    ("sample", ["--temperature", "0.8"], "unrecognized arguments")])
+    ("sample", ["--top_k", "5"], "Pass --temperature > 0"),
+    ("sample", ["--top_p", "0.9"], "Pass --temperature > 0")])
 def test_options_not_ported_fail_at_parse_time(entry, argv, expect, tmp_path,
                                                capsys):
     """Options not trained yet fail at parse time, naming the ROADMAP item
-    that brings them; so do an unknown noise schedule, run.sample on a
-    GPT-2 run directory (its decoder is A.7b) and GPT-2 decoding flags
-    given to run.sample."""
+    that brings them; so do an unknown noise schedule and run.sample's
+    ``--top_k``/``--top_p`` without ``--temperature > 0`` (greedy decoding
+    would ignore them), as in the JAX entry point."""
     with pytest.raises(SystemExit) as e:
         if entry == "train":
             parse_settings(argv)
