@@ -139,7 +139,25 @@ Phases (any failure raises, and the script exits non-zero):
    passes plus 12 a callback); the port's native library built and
    loaded, native and Python BPE ids equal over a seeded corpus (host
    times), and the tokenizer CLI writing ``bpe.json``. Its JSON line is
-   ``{"gpt2_decoding": {...}}``.
+   ``{"gpt2_decoding": {...}}``;
+11. serving fleet, on the same run dir after phase 10: ``run.serve
+   --replicas 2`` (two supervised replica processes on the one card, each
+   32 slots, the serve workload's geometry, greedy, bf16 pool, graph
+   engine, 64 poisson requests at 5/s) against the single-replica
+   ``run.serve`` of the same requests: every request completes, every
+   stream equal or parting at a bf16 near-tie, every replica's exit code
+   0, and each replica's sidecar shows the decode kernel launched and the
+   plain version never called (with its peak device memory); the same
+   with a ``kill_replica`` fault on replica 1 (``replayed >= 1``, a
+   second attempt in its ``attempts.jsonl``); a hot swap after 32
+   completions to a step-21 checkpoint (step 20 plus seeded noise): both
+   replicas moved, one at a time, requests after the swap equal a fresh
+   server at step 21; a ``corrupt_swap_checkpoint``: the
+   canary refuses, no replica moves, every request served off step 20;
+   ``--serve_transport socket``; ``--replicas 1 --disagg 1`` (16
+   requests; the decode worker's decode kernel launched, plain never).
+   Tokens/s and TTFT p50/p95 beside the single run's; its line is
+   ``{"serving_fleet": {...}}``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -152,6 +170,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2337,6 +2356,328 @@ def native_phase(tmp: str) -> dict:
     return result
 
 
+# ----------------------------------------------------------------- fleet
+
+class _Stream:
+    """One request's stream as ``divergence_gaps`` reads it."""
+
+    def __init__(self, rid: int, prompt, tokens) -> None:
+        self.id, self.prompt, self.tokens = rid, list(prompt), list(tokens)
+
+
+def fleet_argv(run: str, requests: int, rate: float, fleet_dir: str,
+               out: str, *extra) -> list:
+    """run.serve's flags for a phase 11 fleet run: the serve workload's
+    geometry (``serve_argv``: 32 slots a replica, pages of 16, 256-token
+    prompts padded to 512, 128 new tokens, greedy, bf16 pool, graph
+    engine) on the train phase's step 20, 2 replicas, poisson arrivals."""
+    return serve_argv(run, "fp", requests) + [
+        "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate),
+        "--replicas", "2", "--fleet_dir", fleet_dir, "--out", out,
+        "--fleet_deadline_s", "240", *extra]
+
+
+def worker_log_tails(root: str, lines: int = 12) -> None:
+    """The last lines of every replica worker's log under ``root``."""
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name.startswith("worker_") and name.endswith(".log"):
+                path = os.path.join(dirpath, name)
+                with open(path, errors="replace") as f:
+                    tail = f.read().splitlines()[-lines:]
+                print(f"# fleet log {path}:", *tail, sep="\n#   ",
+                      flush=True)
+
+
+def fleet_sidecars(fleet_dir: str) -> dict:
+    """replica id -> its clean-exit sidecars (attempt -> record), and
+    replica id -> its attempt records."""
+    from distributed_pipeline_tpu_torch.chaos import goodput
+    cars, attempts = {}, {}
+    for rdir in goodput.list_replica_dirs(fleet_dir):
+        rid = goodput.replica_id(rdir)
+        cars[rid] = goodput.read_serving_records(rdir)
+        attempts[rid] = goodput.read_attempts(rdir)
+    return {"sidecars": cars, "attempts": attempts}
+
+
+def check_replicas(fleet_dir: str, what: str) -> dict:
+    """Every replica's last clean exit: the decode kernel launched (> 0
+    times after warm-up), the plain decode version never called, on the
+    card; returns replica -> (launches, peak device memory in bytes)."""
+    got = fleet_sidecars(fleet_dir)
+    out = {}
+    for rid, cars in sorted(got["sidecars"].items()):
+        check(bool(cars), f"{what}: replica {rid} wrote no clean-exit "
+              f"sidecar (attempts {got['attempts'].get(rid)})")
+        last = cars[max(cars)]
+        check(last.get("decode_kernel_launches", 0) > 0
+              and last.get("plain_decode_calls") == 0
+              and last.get("device", "cpu") != "cpu",
+              f"{what}: replica {rid}'s sidecar {last}")
+        out[rid] = {"launches": last["decode_kernel_launches"],
+                    "peak_memory_bytes": last.get("peak_memory_bytes"),
+                    "attempts": len(got["attempts"].get(rid, []))}
+    return out
+
+
+def served_window_rate(fleet_dir: str, tokens: int) -> float:
+    """Tokens over the window from the router's first placement to its
+    last completion (the journal's stamps): the fleet's rate without the
+    replicas' start-up, during which arrivals queue."""
+    from distributed_pipeline_tpu_torch.chaos import goodput
+    ev = goodput.read_journal(goodput.serving_journal_path(fleet_dir))
+    t0 = min(e["t"] for e in ev if e["ev"] == "assign")
+    t1 = max(e["t"] for e in ev if e["ev"] == "complete")
+    return tokens / max(t1 - t0, 1e-9)
+
+
+def fleet_run(serve_mod, argv: list, n: int, what: str) -> tuple:
+    """One fleet run through ``run.serve``: its summary and its ``--out``
+    rows, every request completed, every replica's exit code 0."""
+    t0 = time.perf_counter()
+    summary = serve_mod.main(argv)
+    wall = time.perf_counter() - t0
+    out = argv[argv.index("--out") + 1]
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    check(summary["mode"] == "fleet" and summary["completed"] == n
+          and summary["dropped"] == 0 and not summary["deadline_hit"]
+          and len(rows) == n,
+          f"{what}: {summary['completed']}/{n} completed: {summary}")
+    check(all(rc == 0 for rc in summary["replica_rcs"]),
+          f"{what}: replica exit codes {summary['replica_rcs']}")
+    for r in rows:
+        check(len(r["tokens"]) == 128, f"{what}: request {r['id']} "
+              f"returned {len(r['tokens'])} tokens")
+    print(f"# fleet {what}: {wall:.1f} s, {json.dumps(summary)}",
+          flush=True)
+    return summary, rows
+
+
+def hold_streams(torch, model, rows, refs, what: str) -> dict:
+    """The fleet's streams against the single server's (the same prompts
+    in the same order): equal, or parting at a bf16 near-tie
+    (``check_near_ties``)."""
+    for r, ref in zip(rows, refs):
+        check(list(r["prompt"]) == list(ref.prompt),
+              f"{what}: request {r['id']}'s prompt is not the single "
+              f"run's")
+    same, gaps = divergence_gaps(
+        torch, model, [_Stream(r["id"], r["prompt"], r["tokens"])
+                       for r in rows], [list(q.tokens) for q in refs])
+    check_near_ties(gaps, what)
+    return {"identical_streams": same / len(rows),
+            "first_divergence_gaps": gaps}
+
+
+def perturbed_checkpoint(torch, run: str, step: int, seed: int) -> str:
+    """A second finalized checkpoint: step 20's weights plus seeded noise
+    (std 0.02, GPT-2's init scale) on every matrix, saved as ``step`` with
+    the port's own ``save_run``."""
+    from distributed_pipeline_tpu_torch.utils.checkpoint import save_run
+    sd = torch.load(os.path.join(run, "model_000020.pt"), map_location="cpu",
+                    weights_only=True)
+    g = torch.Generator().manual_seed(seed)
+    for key, t in sd.items():
+        if t.ndim >= 2:
+            noise = torch.randn(t.shape, generator=g) * 0.02
+            sd[key] = (t.float() + noise).to(t.dtype)
+    with open(os.path.join(run, "training_args.json")) as f:
+        targs = json.load(f)
+    return save_run(run, targs, sd, step)
+
+
+def fleet_phase(torch, fd, run: str) -> dict:
+    """Phase 11 on the train phase's run dir (GPT-2 base, step 20): the
+    serving fleet through ``run.serve --replicas 2`` against the
+    single-replica ``run.serve``; a replica killed mid-request; a hot swap
+    to a second checkpoint and a corrupted one; the socket transport; and
+    ``--replicas 1 --disagg 1`` against the colocated server."""
+    import numpy as np
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.run import serve as serve_mod
+    from distributed_pipeline_tpu_torch.run.sample import load_run
+
+    n = 64
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return _fleet_checks(torch, fd, np, parse_settings, serve_mod,
+                                 load_run, run, tmp, n, out)
+        except BaseException:
+            worker_log_tails(tmp)
+            raise
+
+
+def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
+                  tmp, n, out) -> dict:
+    def paths(tag):
+        return os.path.join(tmp, tag), os.path.join(tmp, f"{tag}.jsonl")
+
+    # the single-replica reference: the same flags, one server in process.
+    # At 5 requests/s the 64 arrivals span ~13 s, about twice a replica's
+    # start-up on the card (~6.5 s to its first beacon): requests that
+    # arrive before the first replica is ready all go to it, so later
+    # arrivals are what the second replica serves.
+    rate = 5.0
+    t0 = time.perf_counter()
+    single_argv = serve_argv(run, "fp", n) + [
+        "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate)]
+    fd.reset_launch_count()
+    single, server, refs = serve_mod.serve(parse_settings(single_argv))
+    check(single["decode_kernel_launches"] > 0
+          and fd.plain_call_count() == 0,
+          f"single run: {single['decode_kernel_launches']} decode kernel "
+          f"launches, {fd.plain_call_count()} plain calls")
+    del server
+    torch.cuda.empty_cache()
+    model, _, _ = load_run(run, 20, torch.device("cuda"))
+    out["single"] = {k: single[k] for k in (
+        "decode_tokens_per_s_per_chip", "ttft_p50_s", "ttft_p95_s",
+        "wall_s", "decode_kernel_launches")}
+    print(f"# fleet: single-replica reference in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(out['single'])}",
+          flush=True)
+
+    def one(tag, *extra, requests=n, rate_=rate):
+        fdir, jsonl = paths(tag)
+        summary, rows = clocked(
+            f"fleet {tag}", fleet_run, serve_mod,
+            fleet_argv(run, requests, rate_, fdir, jsonl, *extra),
+            requests, tag)
+        rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
+               "served_window_tokens_per_s": served_window_rate(
+                   fdir, summary["decode_tokens"]),
+               "ttft_p50_s": summary["ttft_p50_s"],
+               "ttft_p95_s": summary["ttft_p95_s"],
+               "wall_s": summary["wall_s"], "replayed": summary["replayed"],
+               "serving_goodput": summary["serving_goodput"],
+               "replicas": check_replicas(fdir, tag)}
+        return summary, rows, rec, fdir
+
+    # 1. two replicas, no fault
+    summary, rows, rec, _ = one("file")
+    rec.update(hold_streams(torch, model, rows, refs, "fleet file"))
+    out["file"] = rec
+
+    # 2. a replica killed while it holds requests
+    plan = json.dumps({"faults": [{"kind": "kill_replica", "step": 4,
+                                   "rank": 1, "sig": "SIGKILL"}]})
+    summary, rows, rec, fdir = one("kill", "--chaos_plan", plan)
+    check(summary["replayed"] >= 1, f"kill: nothing replayed: {summary}")
+    check(rec["replicas"][1]["attempts"] >= 2,
+          f"kill: replica 1's attempts.jsonl: {rec['replicas'][1]}")
+    rec.update(hold_streams(torch, model, rows, refs, "fleet kill"))
+    out["kill"] = rec
+
+    # 3. a hot swap to step 21 after 32 completions; arrivals at 3/s so
+    # that requests keep coming after the roll
+    t_ck = time.perf_counter()
+    perturbed_checkpoint(torch, run, 21, seed=5)
+    print(f"# fleet: wrote the perturbed step 21 in "
+          f"{time.perf_counter() - t_ck:.1f} s", flush=True)
+    summary, rows, rec, fdir = one(
+        "swap", "--swap_after_requests", "32", "--swap_step", "21",
+        rate_=3.0)
+    sw = summary["swap"]
+    check(sw and sw["ok"] and sorted(sw["swapped"]) == [0, 1],
+          f"swap: {sw}")
+    windows = sorted(tuple(w) for w in sw["windows"].values())
+    for (s0, e0), (s1, _e1) in zip(windows, windows[1:]):
+        check(e0 is not None and e0 <= s1 + 1e-6,
+              f"swap: two replicas out of service at once: {windows}")
+    old = [r for r in rows if r["params_step"] == 20]
+    new = [r for r in rows if r["params_step"] == 21]
+    check(len(new) >= 1 and len(old) + len(new) == n,
+          f"swap: {len(old)} requests at step 20, {len(new)} at 21")
+    by_prompt = {tuple(q.prompt): q for q in refs}
+    rec.update(hold_streams(torch, model, old,
+                            [by_prompt[tuple(r["prompt"])] for r in old],
+                            "fleet swap (step 20)"))
+    m21, _, _ = load_run(run, 21, torch.device("cuda"))
+    from distributed_pipeline_tpu_torch.serving.scheduler import \
+        DecodeServer
+    fresh = DecodeServer(m21, decode_slots=32, page_size=16,
+                         max_prompt_len=512, decode_span=4, dispatch_lag=2,
+                         device="cuda")
+    refs21 = [fresh.submit(np.asarray(r["prompt"], np.int32), 128)
+              for r in new]
+    fresh.drain()
+    del fresh
+    held = hold_streams(torch, m21, new, refs21, "fleet swap (step 21)")
+    moved = sum(r["tokens"] != by_prompt[tuple(r["prompt"])].tokens
+                for r in new)
+    check(moved >= 1, "swap: every step-21 stream equals its step-20 "
+          "stream: the new weights did not reach the replicas")
+    rec.update({"swap": {"ok": sw["ok"], "swapped": sw["swapped"],
+                         "windows": sw["windows"]},
+                "requests_step20": len(old), "requests_step21": len(new),
+                "step21_streams_differing_from_step20": moved,
+                "step21": held})
+    del m21
+    out["swap"] = rec
+
+    # 4. a corrupted swap target (a copy of step 21 as step 22): the
+    # canary refuses it, no replica moves, the old weights serve on
+    shutil.copy(os.path.join(run, "model_000021.pt"),
+                os.path.join(run, "model_000022.pt"))
+    plan = json.dumps({"faults": [{"kind": "corrupt_swap_checkpoint",
+                                   "step": 0}]})
+    summary, rows, rec, _ = one(
+        "corrupt", "--swap_after_requests", "32", "--swap_step", "22",
+        "--chaos_plan", plan)
+    sw = summary["swap"]
+    check(sw and not sw["ok"] and sw["swapped"] == [] and sw["injected"]
+          and "refused" in sw["error"], f"corrupt swap: {sw}")
+    check(all(r["params_step"] == 20 for r in rows),
+          "corrupt swap: a request was served off step 20")
+    rec.update(hold_streams(torch, model, rows, refs, "fleet corrupt"))
+    rec["swap"] = {"ok": sw["ok"], "swapped": sw["swapped"],
+                   "error": sw["error"][:200]}
+    out["corrupt_swap"] = rec
+
+    # 5. the socket transport
+    summary, rows, rec, _ = one("socket", "--serve_transport", "socket")
+    check(summary["transport"] == "socket", f"socket: {summary}")
+    rec.update(hold_streams(torch, model, rows, refs, "fleet socket"))
+    out["socket"] = rec
+
+    # 6. --replicas 1 --disagg 1, 16 requests, against the colocated run
+    k = 16
+    fdir, jsonl = paths("disagg")
+    dargv = serve_argv(run, "fp", k) + [
+        "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate),
+        "--replicas", "1", "--disagg", "1", "--fleet_dir", fdir,
+        "--out", jsonl, "--fleet_deadline_s", "240"]
+    summary, rows = clocked("fleet disagg", fleet_run, serve_mod, dargv, k,
+                            "disagg")
+    check(summary.get("decode_rcs") == [0], f"disagg: {summary}")
+    dec = check_replicas(os.path.join(fdir, "decode"), "disagg decode")
+    rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "ttft_p50_s": summary["ttft_p50_s"],
+           "ttft_p95_s": summary["ttft_p95_s"], "wall_s": summary["wall_s"],
+           "decode_worker": dec[0]}
+    # the colocated streams: the single run's first 16 requests (the
+    # generator draws prompts in order, whatever the request count)
+    rec.update(hold_streams(torch, model, rows, refs[:k], "fleet disagg"))
+    out["disagg"] = rec
+    del model
+    torch.cuda.empty_cache()
+    print(f"# fleet vs single (tokens/s, TTFT p50/p95 s): single "
+          f"{out['single']['decode_tokens_per_s_per_chip']} "
+          f"{out['single']['ttft_p50_s']}/{out['single']['ttft_p95_s']}; "
+          f"fleet {out['file']['decode_tokens_per_s']} (served window "
+          f"{out['file']['served_window_tokens_per_s']:.1f}) "
+          f"{out['file']['ttft_p50_s']}/{out['file']['ttft_p95_s']}",
+          flush=True)
+    for tag in ("file", "kill", "swap", "corrupt_swap", "socket"):
+        print(f"# fleet {tag} ({CARD}): replicas' launches, peak device "
+              f"memory, attempts {json.dumps(out[tag]['replicas'])}",
+              flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2398,8 +2739,15 @@ def main() -> int:
             row["launches"] = train["launches"][row["name"]]
         gpt2 = clocked("gpt2 decoding and eval", gpt2_decode_phase, torch,
                        fa, fd, fu, run)
+        fleet = clocked("serving fleet", fleet_phase, torch, fd, run)
     decode[0]["launches_gpt2_sample"] = gpt2["sample"][
         "decode_kernel_launches"]
+    # phase 11: each replica's launches (read from its sidecar) and the
+    # disaggregated decode worker's
+    decode[0]["launches_fleet_replicas"] = [
+        r["launches"] for r in fleet["file"]["replicas"].values()]
+    decode[0]["launches_disagg_decode"] = fleet["disagg"]["decode_worker"][
+        "launches"]
     flash[0]["launches_gpt2_decode_prefill"] = gpt2["gpt2_decode_bf16"][
         "flash_forward_launches"]
     flash[0]["launches_gpt2_eval_decode"] = gpt2["eval_decode"]["launches"][
@@ -2414,6 +2762,7 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"diffuseq": diffuseq}), flush=True)
     print(json.dumps({"gpt2_decoding": gpt2}), flush=True)
+    print(json.dumps({"serving_fleet": fleet}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, update,

@@ -1,12 +1,12 @@
-"""Serving settings: the single-replica fields of the JAX package's
-``ServeSettings`` (``distributed_pipeline_tpu/config/serve.py``) as a
-dataclass with an argparse bridge.
+"""Serving settings: the fields of the JAX package's ``ServeSettings``
+(``distributed_pipeline_tpu/config/serve.py``) as a dataclass with an
+argparse bridge, the single replica's and the fleet's.
 
 Every field is a ``--flag`` with the JAX package's name, default and
-meaning. The fleet's flags (``--replicas``, ``--disagg``) are accepted by
-the parser so that a JAX command line reads the same, but any value other
-than the default fails at parse time with the ROADMAP item that brings it
-(``DEFERRED``).
+meaning; ``--device`` is the port's own (the JAX package picks its backend
+from the environment). ``DEFERRED`` maps an option that the parser accepts
+but the port does not serve yet to the ROADMAP item that brings it; every
+option is served now, so it is empty.
 """
 
 from __future__ import annotations
@@ -18,10 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple
 __all__ = ["ServeSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value served now, the ROADMAP item that brings more)
-DEFERRED: Dict[str, Tuple[object, str]] = {
-    "replicas": (0, "ROADMAP A.5 (serving fleet)"),
-    "disagg": (0, "ROADMAP A.5 (disaggregated prefill/decode)"),
-}
+DEFERRED: Dict[str, Tuple[object, str]] = {}
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
 _FALSE = {"false", "f", "0", "no", "n", "off"}
@@ -126,8 +123,9 @@ class ServeSettings:
                                "syncs inside engine dispatches; writes "
                                "sanitize_report.json beside the checkpoint")
     trace: bool = _f(False, "span tracing: instruments fleet mode "
-                            "(--replicas, ROADMAP A.5); the single-replica "
-                            "path prints a notice and ignores it")
+                            "(--replicas; span files in the fleet dir); "
+                            "the single-replica path prints a notice and "
+                            "ignores it")
     traffic: str = _f("steps", "arrival process: 'steps' keeps the "
                                "scheduler-step cadence; poisson/bursty/"
                                "diurnal are seeded wall-clock processes "
@@ -148,9 +146,113 @@ class ServeSettings:
     ema: str = _f("", "EMA rate to serve (ema_{rate}_NNNNNN.pt); empty = "
                       "raw params")
 
-    # options of the JAX server that later slices bring (DEFERRED)
-    replicas: int = _f(0, "serve through a fleet of N replicas")
-    disagg: int = _f(0, "disaggregated prefill/decode serving")
+    # ----------------------------------------------------------- fleet
+    replicas: int = _f(0, "serve through a fleet of N replicas (each its "
+                          "own supervised worker process behind the "
+                          "request router) instead of one in-process "
+                          "server; 0 = single-replica path")
+    fleet_dir: str = _f("", "fleet working dir (journal + per-replica run "
+                            "dirs); empty = <checkpoint_path>/fleet")
+    fleet_worker_dir: str = _f("", "INTERNAL: run as a fleet replica worker "
+                                   "against this replica dir (set by the "
+                                   "fleet supervisor)")
+    replica_id: int = _f(-1, "INTERNAL: this worker's replica index")
+    replica_platform: str = _f("auto", "the replica workers' device: "
+                                       "'auto' passes on this process's "
+                                       "--device; 'cpu' or 'cuda' "
+                                       "overrides it",
+                               ("auto", "cpu", "cuda"))
+    hang_timeout_s: float = _f(10.0, "per-replica hang watchdog: a replica "
+                                     "whose beacons freeze this long is "
+                                     "SIGKILLed and its in-flight requests "
+                                     "replay on a sibling; must exceed the "
+                                     "slowest legitimate tick + swap-"
+                                     "restore gap. 0 disables")
+    fleet_max_restarts: int = _f(3, "per-replica restart budget (sliding "
+                                    "window, launcher semantics)")
+    fleet_backoff_s: float = _f(0.25, "per-replica restart backoff base")
+    stale_beacon_s: float = _f(10.0, "router health gate: stop placing NEW "
+                                     "requests on a replica whose newest "
+                                     "beacon is older than this")
+    fleet_deadline_s: float = _f(300.0, "hard wall-clock cap on the fleet "
+                                        "run; anything unfinished is "
+                                        "reported dropped (acceptance is "
+                                        "zero)")
+    chaos_plan: str = _f("", "serving chaos schedule (JSON / @file; kinds "
+                             "kill_replica / stall_replica / "
+                             "corrupt_swap_checkpoint); also honors the "
+                             "DPT_CHAOS_PLAN env")
+    serve_transport: str = _f("file", "replica data-plane transport: "
+                                      "'file' = atomic-rename mailboxes + "
+                                      "beacon-mtime liveness; 'socket' = "
+                                      "length-prefixed JSON frames over "
+                                      "TCP + heartbeat liveness. The ctrl "
+                                      "plane (ready/swap/stop/beacons) "
+                                      "stays file-based either way",
+                              ("file", "socket"))
+    route_affinity: bool = _f(False, "prefix-affinity routing: place each "
+                                     "request on the replica whose "
+                                     "advertised prefix-cache index "
+                                     "matches the most leading page-"
+                                     "aligned prompt blocks (least-loaded "
+                                     "on ties/cold prefixes); pair with "
+                                     "--prefix_cache")
+
+    # ------------------------------------------------------- autoscale
+    autoscale: bool = _f(False, "SLO-driven autoscaler (serving/"
+                                "autoscale.py): grow the replica set when "
+                                "backlog/TTFT breach the SLO, shrink it "
+                                "via the drain path when idle; --replicas "
+                                "is the INITIAL size")
+    autoscale_min: int = _f(1, "autoscaler floor (never drain below this "
+                               "many active replicas)")
+    autoscale_max: int = _f(0, "autoscaler ceiling (0 = the initial "
+                               "--replicas count, i.e. scale-down only)")
+    autoscale_slo_ttft_s: float = _f(10.0, "the TTFT SLO target: windowed "
+                                           "p95 above this (or backlog "
+                                           "above autoscale_up_backlog per "
+                                           "ready replica) scales UP")
+    autoscale_up_backlog: float = _f(2.0, "scale-up pressure threshold: "
+                                          "pending requests per ready "
+                                          "replica")
+    autoscale_down_frac: float = _f(0.5, "hysteresis band: scale DOWN only "
+                                         "when backlog is zero and "
+                                         "windowed p95 TTFT sits below "
+                                         "down_frac * slo")
+    autoscale_cooldown_s: float = _f(5.0, "minimum seconds between "
+                                          "structural changes (either "
+                                          "direction)")
+    autoscale_window_s: float = _f(30.0, "trailing window over completed "
+                                         "requests feeding the p95-TTFT "
+                                         "signal")
+
+    # -------------------------------------------------- disaggregation
+    disagg: int = _f(0, "disaggregated prefill/decode serving (mpmd/"
+                        "disagg.py): the --replicas workers become PREFILL-"
+                        "only workers that stream each admitted request's "
+                        "paged-KV pages + first token over a StageLink to "
+                        "a separately supervised DECODE ring; value = "
+                        "decode ring count (only 1 is supported); 0 = "
+                        "colocated")
+    disagg_role: str = _f("", "INTERNAL: 'prefill' or 'decode' — set on "
+                              "the worker argv by the disaggregated fleet "
+                              "parent")
+    disagg_links: str = _f("", "INTERNAL: StageLink directory shared by "
+                               "the prefill and decode workers")
+    disagg_peers: int = _f(0, "INTERNAL: number of prefill workers whose "
+                              "kv/tok links the decode worker polls")
+
+    # -------------------------------------------------------- hot-swap
+    swap_after_requests: int = _f(0, "trigger a zero-downtime checkpoint "
+                                     "hot-swap once this many requests "
+                                     "have completed (0 = no swap)")
+    swap_step: int = _f(0, "hot-swap target step (0 = newest finalized "
+                           "checkpoint at swap time)")
+    drain_timeout_s: float = _f(60.0, "hot-swap: max wait for one "
+                                      "replica's outstanding requests to "
+                                      "finish before the swap aborts")
+    swap_timeout_s: float = _f(120.0, "hot-swap: max wait for one replica "
+                                      "to load + ack the new checkpoint")
 
     def __post_init__(self) -> None:
         if self.spec_tokens < 0:

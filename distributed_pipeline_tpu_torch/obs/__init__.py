@@ -1,1 +1,2 @@
-"""Observability: the per-phase cost ledger (``ledger.py``)."""
+"""Observability: the per-phase cost ledger (``ledger.py``) and span
+tracing (``trace.py``, torch-free)."""

@@ -66,7 +66,7 @@ __all__ = ["flash_decode", "torch_paged_decode", "paged_decode_attention",
            "span_hbm_bytes", "decode_plan", "span_plan", "device_limits",
            "DecodePlan", "SpanPlan", "launch_count", "span_launch_count",
            "span_kernel_launch_count", "reset_launch_count",
-           "launch_counters", "add_launches"]
+           "launch_counters", "add_launches", "plain_call_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -93,6 +93,9 @@ _SPAN_CTAS_PER_SM = 2
 _launches = {"fp": 0, "int8": 0}
 _span_kernel_launches = {"fp": 0, "int8": 0}
 _span_launches = [0]
+# calls the two seams routed to their plain versions (a CPU run's only
+# route; on the card a process that serves must keep it at 0)
+_plain_calls = [0]
 # per CUDA device: (SM count, opt-in shared memory per block)
 _device_limits: Dict[int, Tuple[int, int]] = {}
 # per CUDA device: the zeroed int32 tickets of the multi-chunk combine (the
@@ -123,11 +126,21 @@ def span_kernel_launch_count(pages: Optional[str] = None) -> int:
             else _span_kernel_launches[pages])
 
 
+def plain_call_count() -> int:
+    """Calls that :func:`paged_decode_attention` and
+    :func:`paged_span_attention` routed to their plain versions since the
+    last reset (counted where the seam picks the route, eager calls only:
+    a CUDA graph captured over a plain call replays it uncounted, and its
+    capture's eager first call has counted it)."""
+    return _plain_calls[0]
+
+
 def reset_launch_count() -> None:
     for counts in (_launches, _span_kernel_launches):
         for key in counts:
             counts[key] = 0
     _span_launches[0] = 0
+    _plain_calls[0] = 0
 
 
 def launch_counters() -> Dict[str, int]:
@@ -574,6 +587,7 @@ def paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
     if resolve_decode_impl(impl, q.device) == "cuda":
         return flash_decode(q, pages_k, pages_v, block_table, positions,
                             scales_k, scales_v)
+    _plain_calls[0] += 1
     return torch_paged_decode(q, pages_k, pages_v, block_table, positions,
                               scales_k, scales_v)
 
@@ -595,6 +609,7 @@ def paged_span_attention(q: torch.Tensor, pages_k: torch.Tensor,
     f32's bar. There is no fallback: on CUDA tensors the route's kernel
     builds and launches or the call raises."""
     if resolve_decode_impl(impl, q.device) == "torch":
+        _plain_calls[0] += 1
         return torch_paged_span_decode(q, pages_k, pages_v, block_table,
                                        positions, scales_k, scales_v)
     if q.dtype == torch.bfloat16:

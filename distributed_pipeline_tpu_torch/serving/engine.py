@@ -45,6 +45,15 @@ L >= 1024 on the flash forward) tick in the kernels' Python wrappers,
 which a replay does not run: each graph records the launches its capture
 made and adds them on every replay.
 
+Page migration (disaggregated serving, ``mpmd/disagg.py``):
+:meth:`DecodeEngine.extract_pages` pulls pages out of every pool tensor as
+host rows keyed by the JAX engine's leaf paths
+(``['backbone']['block_{i}']['attn']['pages_k']``, ...), so the wire format
+is the JAX package's; :meth:`DecodeEngine.ingest_pages` scatters such rows
+in place at this engine's own page ids, into the pool tensors the graphs
+were captured on, and :meth:`DecodeEngine.set_slot_state` seeds one slot's
+token and position.
+
 ``guard=True`` (the sanitizer) runs every dispatch under
 ``torch.cuda.set_sync_debug_mode("error")``, the analogue of JAX's
 ``transfer_guard("disallow")``: an operation that synchronizes with the
@@ -67,6 +76,10 @@ from ..ops import flash_attention as fa
 from ..ops import flash_decode as fd
 
 __all__ = ["DecodeEngine"]
+
+# the pool tensors of one layer's kv_cache entry, in order (the int8 pools'
+# scale sidecars last), named as the JAX engine's cache leaves
+_POOL_NAMES = ("pages_k", "pages_v", "scales_k", "scales_v")
 
 def _launch_counters() -> Dict[str, Dict[str, int]]:
     return {"decode": fd.launch_counters(), "flash": fa.launch_counters()}
@@ -222,6 +235,70 @@ class DecodeEngine:
         geometry (the JAX package's bar)."""
         return int(sum(t.numel() * t.element_size()
                        for entry in self.kv_cache for t in entry))
+
+    def _pool_leaves(self) -> List[tuple]:
+        """(key, tensor) for every pool tensor, keyed as the JAX engine's
+        ``_pool_leaves`` keys its cache leaves: an engine built from the
+        same model config in another process derives the same keys."""
+        return [(f"['backbone']['block_{i}']['attn']['{name}']", t)
+                for i, entry in enumerate(self.kv_cache)
+                for name, t in zip(_POOL_NAMES, entry)]
+
+    def extract_pages(self, page_ids: np.ndarray) -> Dict[str, np.ndarray]:
+        """The contents of ``page_ids`` in every pool tensor as host arrays
+        keyed by leaf path: the KV payload a disaggregated prefill worker
+        ships to a decode server. Row i holds page ``page_ids[i]`` (the
+        receiver scatters the same rows at its own ids). bf16 rows travel
+        as their int16 bit pattern (numpy has no bf16);
+        :meth:`ingest_pages` views them back."""
+        idx = torch.as_tensor(np.ascontiguousarray(page_ids, np.int64),
+                              device=self.device)
+        out = {}
+        for key, leaf in self._pool_leaves():
+            rows = leaf.index_select(0, idx)
+            if rows.dtype == torch.bfloat16:
+                rows = rows.view(torch.int16)
+            out[key] = rows.cpu().numpy()
+        return out
+
+    @torch.inference_mode()
+    def ingest_pages(self, page_ids: np.ndarray,
+                     pools: Dict[str, np.ndarray]) -> None:
+        """Scatter transferred pool rows (an :meth:`extract_pages` payload)
+        into this engine's pools at ``page_ids``, in place: the pool
+        tensors stay the ones the graphs were captured on. Raises
+        ``ValueError`` when the payload's keys or row shapes differ from
+        this engine's (the prefill and decode engines were built from
+        different models or geometries); nothing is written then."""
+        mine = dict(self._pool_leaves())
+        if set(pools) != set(mine):
+            raise ValueError(
+                f"pool-leaf mismatch: payload has {sorted(pools)} but this "
+                f"engine has {sorted(mine)} (prefill/decode model drift?)")
+        n = len(page_ids)
+        for key, leaf in mine.items():
+            shape = tuple(np.shape(pools[key]))
+            if shape != (n, *leaf.shape[1:]):
+                raise ValueError(
+                    f"{key}: payload rows {shape} do not fit {n} pages of "
+                    f"{tuple(leaf.shape[1:])}")
+        idx = torch.as_tensor(np.ascontiguousarray(page_ids, np.int64),
+                              device=self.device)
+        for key, leaf in mine.items():
+            src = torch.from_numpy(np.array(pools[key]))  # a writable copy
+            if leaf.dtype == torch.bfloat16 and src.dtype == torch.int16:
+                src = src.view(torch.bfloat16)
+            leaf.index_copy_(0, idx, src.to(self.device, leaf.dtype))
+
+    def set_slot_state(self, slot: int, token: int, position: int) -> None:
+        """Seed one slot's decode state by hand: the disaggregated
+        admission path's stand-in for the merge at the tail of the prefill
+        phase (the transferred request arrives with its first token and
+        position already picked by the prefill worker). Written in place,
+        so the captured graphs read it."""
+        with self._guarded():
+            self._tok_buf[slot].fill_(int(token))
+            self._pos_buf[slot].fill_(int(position))
 
     def executables(self) -> Dict[str, "torch.cuda.CUDAGraph"]:
         """The captured graphs keyed by phase name ("prefill", "decode",

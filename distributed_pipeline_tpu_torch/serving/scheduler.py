@@ -37,6 +37,12 @@ is a ``steady_recompile``) and runs every engine dispatch under
 bytes (``obs/ledger.ServeCensus``, ~0.1 ms of host time a decode
 dispatch, so it is armed only for the ledger) and ``cost_ledger()`` gives
 the JAX package's per-phase ledger rows.
+
+``set_params`` is the fleet's hot swap: the new weights are copied IN
+PLACE into the model's tensors, which the captured graphs read, so the
+next replay serves them. ``submit_prefilled`` admits a request whose
+prefill ran in another process (disaggregated serving,
+``mpmd/disagg.py``).
 """
 
 from __future__ import annotations
@@ -370,8 +376,37 @@ class DecodeServer:
         captured graphs included."""
         self.engine.set_seed(seed)
 
-    def submit(self, prompt: np.ndarray, max_new_tokens: int,
-               eos_id: Optional[int] = None) -> Request:
+    @torch.no_grad()
+    def set_params(self, state_dict) -> None:
+        """Hot swap: copy ``state_dict`` (the model's keys, e.g. a loaded
+        ``model_NNNNNN.pt``) IN PLACE into the model's tensors. A captured
+        graph reads the tensors it was captured with, so the swap never
+        replaces a module or a parameter; the model draft shares the
+        target's tensors and follows. Every key, shape and dtype is
+        checked before anything is written: a mismatch raises
+        ``ValueError`` and the old weights stay. Call it on a drained
+        server; the prefix cache's idle entries (KV of the old weights)
+        are evicted."""
+        mine = self.model.state_dict()
+        if set(state_dict) != set(mine):
+            raise ValueError(
+                f"swap state dict keys differ: missing "
+                f"{sorted(set(mine) - set(state_dict))[:4]}, unexpected "
+                f"{sorted(set(state_dict) - set(mine))[:4]}")
+        for key, t in mine.items():
+            new = state_dict[key]
+            if tuple(new.shape) != tuple(t.shape) or new.dtype != t.dtype:
+                raise ValueError(
+                    f"swap tensor {key}: {tuple(new.shape)} {new.dtype} "
+                    f"does not fit {tuple(t.shape)} {t.dtype}")
+        for key, t in mine.items():
+            t.copy_(state_dict[key])
+        if self.prefix is not None:
+            self.prefix.evict_for(self.mgr.num_pages)
+
+    def _check_request(self, prompt: np.ndarray,
+                       max_new_tokens: int) -> tuple:
+        """(int32 prompt, g_max) of a valid request; raises ValueError."""
         prompt = np.ascontiguousarray(prompt, np.int32).ravel()
         if not 1 <= prompt.shape[0] <= self.engine.max_prompt_len:
             raise ValueError(
@@ -391,12 +426,79 @@ class DecodeServer:
                 f"request needs {self.mgr.pages_for(total)} pages but the "
                 f"pool holds {self.mgr.capacity}; raise max_pages or lower "
                 f"max_new_tokens")
+        return prompt, g_max
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               eos_id: Optional[int] = None) -> Request:
+        prompt, g_max = self._check_request(prompt, max_new_tokens)
         self._req_counter += 1
         req = Request(id=self._req_counter, prompt=prompt,
                       max_new_tokens=max_new_tokens, g_max=g_max,
                       eos_id=self.default_eos_id if eos_id is None else eos_id,
                       submit_t=time.perf_counter())
         self.queue.append(req)
+        return req
+
+    def submit_prefilled(self, prompt: np.ndarray, max_new_tokens: int, *,
+                         first_token: int, kv_pages: dict,
+                         eos_id: Optional[int] = None,
+                         submit_t: Optional[float] = None
+                         ) -> Optional[Request]:
+        """Admit a request whose prefill ran on ANOTHER engine (the
+        disaggregated serving path, ``mpmd/disagg.py``): ``kv_pages`` is a
+        ``DecodeEngine.extract_pages`` payload covering the prompt's
+        ``pages_for(prompt_len)`` pages, ``first_token`` the token the
+        prefill worker picked at ``position = prompt_len``.
+
+        Unlike :meth:`submit` this admits IMMEDIATELY (no queue): the
+        payload is only valid against the page ids allocated here, so
+        returning None (no free slot / pool exhausted) pushes the
+        backpressure onto the caller's StageLink instead. Pages come
+        straight from the PageManager, never the prefix cache (the
+        transferred pages hold state the local prefill never wrote)."""
+        prompt, g_max = self._check_request(prompt, max_new_tokens)
+        n_filled = self.mgr.pages_for(prompt.shape[0])
+        got = {k: np.shape(v)[0] for k, v in kv_pages.items()}
+        if any(n != n_filled for n in got.values()):
+            raise ValueError(f"kv_pages rows {got} != pages_for(prompt_len)"
+                             f"={n_filled}")
+        free = [s for s in range(len(self.slots)) if self.slots[s] is None]
+        if not free:
+            return None
+        pages = self.mgr.alloc(self.mgr.pages_for(prompt.shape[0] + g_max))
+        if pages is None:
+            return None
+        try:
+            self.engine.ingest_pages(pages[:n_filled], kv_pages)
+        except ValueError:
+            self.mgr.free(pages)
+            raise
+        slot = free[0]
+        self._req_counter += 1
+        req = Request(id=self._req_counter, prompt=prompt,
+                      max_new_tokens=max_new_tokens, g_max=g_max,
+                      eos_id=self.default_eos_id if eos_id is None else eos_id,
+                      submit_t=(time.perf_counter() if submit_t is None
+                                else submit_t))
+        self.engine.set_slot_state(slot, first_token, req.prompt_len)
+        self.block_tables[slot, :] = TRASH_PAGE
+        self.block_tables[slot, :len(pages)] = pages
+        self.active[slot] = 1
+        self.slots[slot] = _SlotState(req=req, pages=pages,
+                                      position=req.prompt_len)
+        self._dirty = True
+        # the transferred first token is this request's first FETCHED
+        # token too (there is no local prefill dispatch to ride here)
+        req.tokens.append(int(first_token))
+        self.tokens_fetched += 1
+        req.ttft_s = max(0.0, time.perf_counter() - req.submit_t)
+        self.ttft.add(req.ttft_s)
+        if req.eos_id is not None and int(first_token) == req.eos_id:
+            req.finished = True
+        elif len(req.tokens) >= req.g_max:
+            req.finished = True
+        if req.finished or req.g_max <= 1:
+            self._release(slot)
         return req
 
     def _release(self, slot: int) -> None:

@@ -305,11 +305,14 @@ def test_run_serve_without_device_needs_cuda(run_dir, monkeypatch):
 
 @pytest.mark.parametrize("flag,value", [
     ("replicas", "2"), ("disagg", "1")])
-def test_deferred_options_fail_at_parse_time(flag, value, capsys):
-    with pytest.raises(SystemExit) as e:
-        parse_settings(["--checkpoint_path", "x", f"--{flag}", value])
-    assert e.value.code == 2
-    assert DEFERRED[flag][1] in capsys.readouterr().err
+def test_deferred_options_fail_at_parse_time(flag, value):
+    """The fleet's options were deferred; now they parse and are served
+    (``run.serve`` takes the fleet path for them: tests/
+    test_torch_port_fleet.py and test_torch_port_disagg.py), and nothing
+    is deferred any more."""
+    assert DEFERRED == {}
+    got = parse_settings(["--checkpoint_path", "x", f"--{flag}", value])
+    assert getattr(got, flag) == int(value)
 
 
 # every single-replica option the JAX server reads: (flag, JAX default, a
@@ -327,11 +330,10 @@ SERVED = [("prefix_cache", False, True), ("serve_quant", "off", "int8"),
                          ids=[f for f, _, _ in SERVED])
 def test_served_options_parse(flag, default, value):
     """Each option is served: the JAX default when absent, the value
-    given otherwise, and no longer in DEFERRED (which keeps only the
-    fleet's options)."""
+    given otherwise, and not in DEFERRED (which is empty)."""
     from distributed_pipeline_tpu.config.serve import \
         ServeSettings as JaxServeSettings
-    assert set(DEFERRED) == {"replicas", "disagg"}
+    assert set(DEFERRED) == set()
     assert getattr(parse_settings(["--checkpoint_path", "x"]), flag) \
         == default == JaxServeSettings.model_fields[flag].default
     arg = str(value).lower() if isinstance(value, bool) else str(value)
