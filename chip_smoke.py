@@ -143,7 +143,7 @@ Phases (any failure raises, and the script exits non-zero):
 11. serving fleet, on the same run dir after phase 10: ``run.serve
    --replicas 2`` (two supervised replica processes on the one card, each
    32 slots, the serve workload's geometry, greedy, bf16 pool, graph
-   engine, 64 poisson requests at 5/s) against the single-replica
+   engine, 64 poisson requests at 2.5/s) against the single-replica
    ``run.serve`` of the same requests: every request completes, every
    stream equal or parting at a bf16 near-tie, every replica's exit code
    0, and each replica's sidecar shows the decode kernel launched and the
@@ -157,7 +157,24 @@ Phases (any failure raises, and the script exits non-zero):
    ``--serve_transport socket``; ``--replicas 1 --disagg 1`` (16
    requests; the decode worker's decode kernel launched, plain never).
    Tokens/s and TTFT p50/p95 beside the single run's; its line is
-   ``{"serving_fleet": {...}}``.
+   ``{"serving_fleet": {...}}``;
+12. data-parallel training, last: GPT-2 base at full width (seq 1024,
+   synthetic-lm, global batch 8 in global microbatches of 4, 5 steps from
+   seed 0) through ``python -m distributed_pipeline_tpu_torch.run.train``
+   as subprocesses, three times: without ``--distributed``; with
+   ``--distributed --nprocs 1`` (a one-rank NCCL group), whose losses,
+   grad norms and final parameters (``train_summary.json``'s SHA-256) must
+   be bitwise the first run's; and with ``--distributed --nprocs 2`` (two
+   gloo ranks sharing ``cuda:0``, batch 4 in microbatches of 2 each),
+   whose two ranks' final parameters must be bitwise equal and whose
+   losses and grad norms must match the one-rank run's within bf16
+   rounding at the other microbatch shape (loss 5e-3, grad norm 3e-2
+   relative: the bars of phase 8's kernel-against-plain step). Every rank
+   must launch the flash forward and backward 12 x 2 x 5 times and the
+   fused update 5 times, and call no plain version; each rank's backend,
+   device, launches, all-reduce seconds a step, step time, tokens/s and
+   peak memory are printed from its sidecar. Its line is
+   ``{"data_parallel": {...}}``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -2516,11 +2533,12 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
         return os.path.join(tmp, tag), os.path.join(tmp, f"{tag}.jsonl")
 
     # the single-replica reference: the same flags, one server in process.
-    # At 5 requests/s the 64 arrivals span ~13 s, about twice a replica's
-    # start-up on the card (~6.5 s to its first beacon): requests that
-    # arrive before the first replica is ready all go to it, so later
-    # arrivals are what the second replica serves.
-    rate = 5.0
+    # At 2.5 requests/s the 64 arrivals span ~26 s, about twice the
+    # slowest replica start-up seen on the card (6.5-13 s to the first
+    # beacon, host-dependent): requests that arrive before the first
+    # replica is ready all go to it, so later arrivals are what the second
+    # replica serves.
+    rate = 2.5
     t0 = time.perf_counter()
     single_argv = serve_argv(run, "fp", n) + [
         "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate)]
@@ -2540,11 +2558,11 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
           f"{time.perf_counter() - t0:.1f} s: {json.dumps(out['single'])}",
           flush=True)
 
-    def one(tag, *extra, requests=n, rate_=rate):
+    def one(tag, *extra, requests=n):
         fdir, jsonl = paths(tag)
         summary, rows = clocked(
             f"fleet {tag}", fleet_run, serve_mod,
-            fleet_argv(run, requests, rate_, fdir, jsonl, *extra),
+            fleet_argv(run, requests, rate, fdir, jsonl, *extra),
             requests, tag)
         rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
                "served_window_tokens_per_s": served_window_rate(
@@ -2571,15 +2589,14 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     rec.update(hold_streams(torch, model, rows, refs, "fleet kill"))
     out["kill"] = rec
 
-    # 3. a hot swap to step 21 after 32 completions; arrivals at 3/s so
-    # that requests keep coming after the roll
+    # 3. a hot swap to step 21 after 32 completions; arrivals keep coming
+    # after the roll
     t_ck = time.perf_counter()
     perturbed_checkpoint(torch, run, 21, seed=5)
     print(f"# fleet: wrote the perturbed step 21 in "
           f"{time.perf_counter() - t_ck:.1f} s", flush=True)
     summary, rows, rec, fdir = one(
-        "swap", "--swap_after_requests", "32", "--swap_step", "21",
-        rate_=3.0)
+        "swap", "--swap_after_requests", "32", "--swap_step", "21")
     sw = summary["swap"]
     check(sw and sw["ok"] and sorted(sw["swapped"]) == [0, 1],
           f"swap: {sw}")
@@ -2678,6 +2695,148 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     return out
 
 
+# ------------------------------------------------------- data parallel
+
+DP_STEPS = 5
+# the phase's wall budget: three run.train processes of GPT-2 base (start,
+# 5 steps, the final save); 80 s measured on the H100
+DP_BUDGET_S = 240.0
+
+
+def dp_argv(run: str, batch: int, micro: int) -> list:
+    return ["--checkpoint_path", run, "--model_family", "gpt2",
+            "--model_size", "base", "--vocab_size", "50257",
+            "--seq_len", "1024", "--hidden_size", "768",
+            "--num_layers", "12", "--num_heads", "12",
+            "--dtype", "bfloat16", "--dataset", "synthetic-lm",
+            "--batch_size", str(batch), "--microbatch", str(micro),
+            "--learning_steps", str(DP_STEPS), "--lr", "3e-4",
+            "--ema_rate", "0.5,0.9,0.99", "--attention_impl", "auto",
+            "--fused_update", "auto", "--log_interval", "1",
+            "--save_interval", "0", "--seed", "0"]
+
+
+def dp_run(run: str, argv: list, what: str) -> dict:
+    """``python -m distributed_pipeline_tpu_torch.run.train argv`` as a
+    subprocess; returns its progress rows and its ranks' sidecars."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+        "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP")}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_pipeline_tpu_torch.run.train",
+         *argv], cwd=repo, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stdout[-4000:], out.stderr[-8000:], file=sys.stderr)
+    check(out.returncode == 0, f"{what}: run.train exited "
+                               f"{out.returncode}")
+    with open(os.path.join(run, "progress.csv")) as f:
+        lines = f.read().splitlines()
+    head = lines[0].split(",")
+    rows = [dict(zip(head, line.split(","))) for line in lines[1:]]
+    sides = []
+    for name in sorted(n for n in os.listdir(run)
+                       if n.startswith("train_summary")):
+        with open(os.path.join(run, name)) as f:
+            sides.append(json.load(f))
+    return {"rows": rows, "ranks": sorted(sides, key=lambda d: d["rank"]),
+            "wall_s": wall}
+
+
+def dp_phase(torch) -> dict:
+    """Phase 12 (see the module doc)."""
+    t0 = time.perf_counter()
+    layers, micro_steps = GPT2_BASE["num_layers"], 2
+    want = {"flash_forward": layers * micro_steps * DP_STEPS,
+            "flash_backward": layers * micro_steps * DP_STEPS,
+            "fused_adamw_ema": DP_STEPS}
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        for key, extra, batch, micro in (
+                ("single", [], 8, 4),
+                ("nprocs1", ["--distributed", "--nprocs", "1"], 8, 4),
+                ("nprocs2", ["--distributed", "--nprocs", "2"], 4, 2)):
+            run = os.path.join(work, key)
+            runs[key] = dp_run(run, extra + dp_argv(run, batch, micro), key)
+            torch.cuda.empty_cache()
+    out = {"steps": DP_STEPS, "wall_s": {k: r["wall_s"]
+                                         for k, r in runs.items()}}
+    for key, r in runs.items():
+        check(len(r["rows"]) == DP_STEPS, f"{key}: {len(r['rows'])} rows")
+        world = 2 if key == "nprocs2" else 1
+        check(len(r["ranks"]) == world, f"{key}: {len(r['ranks'])} "
+                                        f"sidecars, expected {world}")
+        for side in r["ranks"]:
+            check(side["launches"] == want,
+                  f"{key} rank {side['rank']}: launches "
+                  f"{side['launches']}, expected {want}")
+            check(not any(side["plain_calls"].values()),
+                  f"{key} rank {side['rank']}: plain calls "
+                  f"{side['plain_calls']}")
+            check(side["device"].startswith("cuda"),
+                  f"{key} rank {side['rank']} on {side['device']}")
+            print(f"# data parallel {key} rank {side['rank']}/"
+                  f"{side['world_size']}: backend {side['backend']}, "
+                  f"device {side['device']}, launches {side['launches']}, "
+                  f"plain {side['plain_calls']}, all-reduce "
+                  f"{side['allreduce_s_per_step']:.6f} s a step over "
+                  f"{side['allreduce_calls']} calls, step "
+                  f"{side.get('step_time_s', 0.0):.6f} s, "
+                  f"{side.get('tokens_per_sec', 0.0):.1f} tokens/s "
+                  f"(global batch), peak memory "
+                  f"{side['peak_memory_bytes']} B", flush=True)
+        out[key] = {
+            "losses": [float(row["loss"]) for row in r["rows"]],
+            "grad_norms": [float(row["grad_norm"]) for row in r["rows"]],
+            "ranks": [{k: side.get(k) for k in (
+                "rank", "backend", "device", "launches", "plain_calls",
+                "allreduce_s_per_step", "allreduce_calls", "step_time_s",
+                "tokens_per_sec", "tokens_per_sec_per_chip", "mfu",
+                "peak_memory_bytes", "params_sha256")}
+                for side in r["ranks"]]}
+    single, one, two = (runs[k] for k in ("single", "nprocs1", "nprocs2"))
+    check(one["ranks"][0]["backend"] == "nccl",
+          f"--nprocs 1 took {one['ranks'][0]['backend']}")
+    check([s["backend"] for s in two["ranks"]] == ["gloo", "gloo"]
+          and [s["device"] for s in two["ranks"]] == ["cuda:0", "cuda:0"],
+          f"--nprocs 2 ranks: {two['ranks']}")
+    check(single["ranks"][0]["backend"] == "none",
+          "the run without --distributed joined a group")
+    # (a) bitwise: the CSV holds each float's repr
+    for col in ("loss", "grad_norm"):
+        a = [row[col] for row in one["rows"]]
+        b = [row[col] for row in single["rows"]]
+        check(a == b, f"--nprocs 1 {col} {a} differ from the run without "
+                      f"a group {b}")
+    check(one["ranks"][0]["params_sha256"]
+          == single["ranks"][0]["params_sha256"],
+          "--nprocs 1 final parameters differ from the run without a group")
+    # (b): the ranks agree bitwise, and match (a) within bf16 rounding
+    check(two["ranks"][0]["params_sha256"] == two["ranks"][1]["params_sha256"],
+          "the two ranks' final parameters differ")
+    rel = {}
+    for col, bar in (("loss", 5e-3), ("grad_norm", 3e-2)):
+        a = [float(row[col]) for row in one["rows"]]
+        b = [float(row[col]) for row in two["rows"]]
+        rel[col] = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+        check(rel[col] <= bar, f"--nprocs 2 {col} {b} vs one rank {a}: "
+                               f"relative {rel[col]} > {bar}")
+    out["nprocs2_vs_nprocs1_max_rel"] = rel
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# data parallel: --nprocs 1 bitwise the run without a group "
+          f"(losses, grad norms, parameters); --nprocs 2 against it, "
+          f"largest relative difference {rel}; walls {out['wall_s']}; "
+          f"phase {out['phase_s']:.1f} s of its {DP_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= DP_BUDGET_S,
+          f"phase 12 took {out['phase_s']:.1f} s, over {DP_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2756,6 +2915,12 @@ def main() -> int:
     update_dq["launches"] = diffuseq["launches"]["fused_adamw_ema"]
     for row, n in zip(flash, diffuseq["seq1024"]["kernels"]["launches"]):
         row["launches_diffuseq_seq1024"] = n
+    dp = clocked("data parallel", dp_phase, torch)
+    # phase 12: each rank's launches, read from its sidecar
+    for row in (*flash, update):
+        for key in ("nprocs1", "nprocs2"):
+            row[f"launches_dp_{key}"] = [r["launches"][row["name"]]
+                                         for r in dp[key]["ranks"]]
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"serve_options": options}), flush=True)
@@ -2763,6 +2928,7 @@ def main() -> int:
     print(json.dumps({"diffuseq": diffuseq}), flush=True)
     print(json.dumps({"gpt2_decoding": gpt2}), flush=True)
     print(json.dumps({"serving_fleet": fleet}), flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, update,

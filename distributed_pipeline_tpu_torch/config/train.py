@@ -1,7 +1,8 @@
-"""Training settings: the single-GPU fields of the JAX package's
-``TrainSettings`` (``distributed_pipeline_tpu/config/train.py``) as a
+"""Training settings: the fields of the JAX package's ``TrainSettings``
+(``distributed_pipeline_tpu/config/train.py``) that this port trains, as a
 dataclass with an argparse bridge and a mutually exclusive
-``--config_json``.
+``--config_json``. ``--dp`` is the data-parallel world size (-1: all the
+ranks; any other value must equal ``WORLD_SIZE``, 1 for one process).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 from ..models.diffusion import NOISE_SCHEDULES
@@ -24,19 +26,19 @@ __all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "remat": (False, "ROADMAP A.8 (activation rematerialization)"),
-    "moe_experts": (0, "ROADMAP A.8 (mixture of experts)"),
+    "remat": (False, "ROADMAP A.8b (activation rematerialization)"),
+    "moe_experts": (0, "ROADMAP A.8b (mixture of experts)"),
     "scan_layers": (False, "ROADMAP A.9 (stacked layers, pipeline)"),
     "pp_chunks": (4, "ROADMAP A.9 (pipeline parallelism)"),
     "pp_schedule": ("1f1b", "ROADMAP A.9 (pipeline parallelism)"),
     "pp_virtual": (2, "ROADMAP A.9 (pipeline parallelism)"),
-    "fsdp": (1, "ROADMAP A.8 (multi-GPU meshes)"),
-    "tensor": (1, "ROADMAP A.8 (multi-GPU meshes)"),
-    "sequence": (1, "ROADMAP A.8 (multi-GPU meshes, ring attention)"),
-    "expert": (1, "ROADMAP A.8 (multi-GPU meshes)"),
+    "fsdp": (1, "ROADMAP A.8c (sharded state)"),
+    "tensor": (1, "ROADMAP A.8c (sharded state)"),
+    "sequence": (1, "ROADMAP A.8d (ring attention)"),
+    "expert": (1, "ROADMAP A.8c (sharded state)"),
     "pipe": (1, "ROADMAP A.9 (pipeline parallelism)"),
-    "shard_optimizer": (False, "ROADMAP A.8 (ZeRO-1)"),
-    "partition_rules": ("", "ROADMAP A.8 (partition rules)"),
+    "shard_optimizer": (False, "ROADMAP A.8c (ZeRO-1)"),
+    "partition_rules": ("", "ROADMAP A.8c (partition rules)"),
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
     "trace": (False, "ROADMAP A.10 (span tracing)"),
     "cost_ledger": (False, "ROADMAP A.10 (cost ledger)"),
@@ -47,9 +49,9 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "profile_steps": ("", "ROADMAP A.10 (profiler window)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
     "scan_unroll": (0, "ROADMAP A.9 (stacked layers, pipeline)"),
-    "moe_top_k": (2, "ROADMAP A.8 (mixture of experts)"),
-    "moe_every": (2, "ROADMAP A.8 (mixture of experts)"),
-    "moe_capacity_factor": (1.25, "ROADMAP A.8 (mixture of experts)"),
+    "moe_top_k": (2, "ROADMAP A.8b (mixture of experts)"),
+    "moe_every": (2, "ROADMAP A.8b (mixture of experts)"),
+    "moe_capacity_factor": (1.25, "ROADMAP A.8b (mixture of experts)"),
     "mpmd_stages": (2, "ROADMAP A.9 (MPMD pipeline)"),
     "mpmd_link_capacity": (8, "ROADMAP A.9 (MPMD pipeline)"),
     "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9 (MPMD pipeline)"),
@@ -80,7 +82,7 @@ def _f(default, help: str, choices: Optional[Sequence] = None):
 
 @dataclasses.dataclass
 class TrainSettings:
-    """Single-GPU training of a port model."""
+    """Training of a port model, data-parallel over the ranks."""
 
     # loop and optimizer (the JAX GeneralSettings)
     lr: float = _f(1e-4, "learning rate")
@@ -164,7 +166,8 @@ class TrainSettings:
     pp_schedule: str = _f("1f1b", "pipeline schedule",
                           ("1f1b", "gpipe", "interleaved"))
     pp_virtual: int = _f(2, "virtual pipeline stages per device")
-    dp: int = _f(-1, "data-parallel axis size (-1 or 1: one GPU)")
+    dp: int = _f(-1, "data-parallel axis size: -1 = every rank, else the "
+                     "world size (WORLD_SIZE; 1 for one process)")
     fsdp: int = _f(1, "FSDP axis size")
     tensor: int = _f(1, "tensor-parallel axis size")
     sequence: int = _f(1, "sequence-parallel axis size")
@@ -207,12 +210,14 @@ class TrainSettings:
         if self.prefetch_depth < 0:
             raise ValueError(f"--prefetch_depth must be >= 0, got "
                              f"{self.prefetch_depth}")
-        if self.dp not in (-1, 1):
-            raise ValueError(f"--dp {self.dp}: this port trains on one GPU "
-                             f"(dp -1 or 1); multi-GPU is ROADMAP A.8")
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if self.dp not in (-1, world):
+            raise ValueError(f"--dp {self.dp}: the data-parallel axis spans "
+                             f"every rank (-1 or the world size, {world}); "
+                             f"other meshes come with ROADMAP A.8c")
         if self.attention_impl == "ring":
             raise ValueError("--attention_impl ring is not trained by this "
-                             "port yet; it comes with ROADMAP A.8 (ring "
+                             "port yet; it comes with ROADMAP A.8d (ring "
                              "attention)")
 
     def to_dict(self) -> dict:

@@ -8,8 +8,11 @@ stream of fixed-shape ``[batch_size, seq_len]`` numpy batches, reshuffled
 each epoch from a fold of the seed, optionally assembled by background
 threads (the delivered order does not depend on their scheduling), and
 fast-forwarded in O(1) by ``skip_batches`` so a resumed run sees exactly
-the batches an uninterrupted one would have. Multi-process sharding waits
-for multi-GPU training (ROADMAP A.8).
+the batches an uninterrupted one would have. Under several processes each
+rank streams its own shard: rank r takes ``order[r::P]`` of every epoch's
+order, trimmed so every rank gets the same count (``load_data_from_args``
+reads the rank from ``parallel/dist.py``; ``host_sharded=False`` gives
+every rank the same stream).
 """
 
 from __future__ import annotations
@@ -32,23 +35,35 @@ __all__ = ["load_data_from_args", "batch_iterator",
 LM_DATASETS = ("synthetic-lm", "lm", "gpt2")
 
 
-def skip_batches_for_samples(consumed_samples: int, batch_size: int) -> int:
-    """Batches of ``batch_size`` to skip so the stream lands after
-    ``consumed_samples`` examples (rounding down)."""
-    if batch_size <= 0:
-        raise ValueError(f"batch size must be positive, got {batch_size}")
-    return max(0, int(consumed_samples)) // batch_size
+def skip_batches_for_samples(consumed_samples: int, batch_size: int,
+                             process_count: int = 1) -> int:
+    """Batches of this rank's ``batch_size`` to skip so the stream lands
+    after ``consumed_samples`` GLOBAL examples (global batch = ``batch_size
+    * process_count``; rounding down): the position that survives a change
+    of world size."""
+    gb = batch_size * max(process_count, 1)
+    if gb <= 0:
+        raise ValueError(f"global batch must be positive, got {gb}")
+    return max(0, int(consumed_samples)) // gb
 
 
 def _host_index_stream(n_items: int, *, shuffle: bool, seed: int,
-                       loop: bool, skip_items: int = 0) -> Iterator[int]:
-    """The (optionally shuffled) index sequence, epochs reshuffled with a
-    different fold of the seed; ``skip_items`` jumps whole epochs
-    arithmetically and slices only the first yielded one."""
-    if n_items == 0:
-        raise ValueError("an empty dataset cannot feed a stream")
-    epoch = skip_items // n_items
-    offset = skip_items % n_items
+                       loop: bool, skip_items: int = 0,
+                       process_index: int = 0, process_count: int = 1
+                       ) -> Iterator[int]:
+    """This rank's slice of the (optionally shuffled) index sequence,
+    epochs reshuffled with a different fold of the seed: rank r takes
+    ``order[r::P][:n // P]``, so every rank yields the same count (a rank
+    with one more batch would desynchronize the collectives).
+    ``skip_items`` (this rank's items) jumps whole epochs arithmetically
+    and slices only the first yielded one."""
+    per_rank = n_items // process_count
+    if per_rank == 0:
+        raise ValueError(f"dataset of {n_items} items cannot feed "
+                         f"{process_count} ranks (at least one item per "
+                         f"rank per epoch)")
+    epoch = skip_items // per_rank
+    offset = skip_items % per_rank
     if not loop and epoch > 0:
         return
     while True:
@@ -58,7 +73,8 @@ def _host_index_stream(n_items: int, *, shuffle: bool, seed: int,
             ).permutation(n_items)
         else:
             order = np.arange(n_items)
-        yield from order[offset:].tolist()
+        sl = order[process_index::process_count][:per_rank]
+        yield from sl[offset:].tolist()
         offset = 0
         if not loop:
             return
@@ -66,15 +82,18 @@ def _host_index_stream(n_items: int, *, shuffle: bool, seed: int,
 
 
 def batch_iterator(dataset: Any, batch_size: int, *, shuffle: bool = True,
-                   seed: int = 0, loop: bool = True, num_workers: int = 0,
+                   seed: int = 0, loop: bool = True, process_index: int = 0,
+                   process_count: int = 1, num_workers: int = 0,
                    prefetch: int = 4, skip_batches: int = 0
                    ) -> Iterator[Dict[str, np.ndarray]]:
-    """Fixed-shape batches from any ``__len__``/``__getitem__`` dataset,
-    optionally thread-prefetched; ``skip_batches`` fast-forwards in O(1)."""
+    """Fixed-shape batches of rank ``process_index``'s shard of any
+    ``__len__``/``__getitem__`` dataset, optionally thread-prefetched;
+    ``skip_batches`` fast-forwards in O(1)."""
     n = len(dataset)
-    if n < batch_size and not loop:
-        raise ValueError(f"dataset of {n} items cannot fill one batch of "
-                         f"{batch_size} without looping")
+    if n < batch_size * process_count and not loop:
+        raise ValueError(f"dataset of {n} items cannot fill one global "
+                         f"batch of {batch_size}x{process_count} without "
+                         f"looping")
 
     def gen(worker_id: int = 0, stride: int = 1
             ) -> Iterator[Dict[str, np.ndarray]]:
@@ -83,7 +102,8 @@ def batch_iterator(dataset: Any, batch_size: int, *, shuffle: bool = True,
         interleaved stream equals the single-producer one."""
         idx_stream = _host_index_stream(
             n, shuffle=shuffle, seed=seed, loop=loop,
-            skip_items=skip_batches * batch_size)
+            skip_items=skip_batches * batch_size,
+            process_index=process_index, process_count=process_count)
         b = skip_batches
         while True:
             mine = b % stride == worker_id
@@ -175,15 +195,21 @@ def load_data_from_args(split: str = "train", data_dir: str = "",
                         dataset: str = "synthetic-seq2seq",
                         seq_len: int = 128, vocab_size: int = 8192,
                         seed: int = 0, data_loader_workers: int = 0,
-                        skip_batches: int = 0,
+                        host_sharded: bool = True, skip_batches: int = 0,
                         **_unused: Any) -> Iterator[Dict[str, np.ndarray]]:
-    """The JAX package's loader entry point for one process: the batches of
-    ``split`` (``_build_dataset``), shuffled unless ``deterministic``,
-    looped unless ``loop`` is false, assembled by ``num_loader_proc`` (or
-    ``data_loader_workers``) threads, fast-forwarded by ``skip_batches``."""
+    """The JAX package's loader entry point: the batches of ``split``
+    (``_build_dataset``), shuffled unless ``deterministic``, looped unless
+    ``loop`` is false, assembled by ``num_loader_proc`` (or
+    ``data_loader_workers``) threads, fast-forwarded by ``skip_batches``.
+    ``batch_size`` is per rank, and each rank streams its shard
+    (``parallel/dist.py``'s rank and world size); ``host_sharded=False``
+    gives every rank the same stream (the eval-decode callback's batch)."""
+    from ..parallel import dist
     ds = _build_dataset(dataset, data_dir, split, seq_len=seq_len,
                         vocab_size=vocab_size, seed=seed)
     return batch_iterator(
         ds, batch_size, shuffle=not deterministic, seed=seed, loop=loop,
+        process_index=dist.get_rank() if host_sharded else 0,
+        process_count=dist.get_world_size() if host_sharded else 1,
         num_workers=max(num_loader_proc, data_loader_workers),
         skip_batches=skip_batches)

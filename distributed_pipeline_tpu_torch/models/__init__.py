@@ -5,7 +5,10 @@ directory's ``training_args.json`` describes, ignoring the training-only keys
 in it: a :class:`DiffuSeqModel` (holding its diffusion schedule) or a
 :class:`GPT2Model`. ``compute_losses(model, batch, draws)`` is the one loss
 seam the trainer calls for either family, in place of the JAX ``Workload``'s
-``compute_losses``.
+``compute_losses``. Under data parallelism the trainer passes a global
+microbatch's denominator (the ranks' ``loss_count`` summed) so each rank's
+terms are its share of the global masked means, and ``finish_losses``
+adds the metrics that are not sums of shares once the shares are summed.
 """
 
 from __future__ import annotations
@@ -15,13 +18,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from .diffuseq import (DIFFUSEQ_EMB_DIM, DiffuSeqModel, Draws,
-                       diffuseq_losses)
+                       diffuseq_loss_count, diffuseq_losses)
 from .diffusion import make_schedule
-from .gpt2 import GPT2Model, gpt2_losses
+from .gpt2 import GPT2Model, gpt2_loss_count, gpt2_losses, gpt2_ppl
 
 __all__ = ["PRESETS", "create_model_from_config", "compute_losses",
-           "GPT2Model", "DiffuSeqModel", "gpt2_losses", "diffuseq_losses",
-           "torch_dtype", "Model"]
+           "loss_count", "finish_losses", "GPT2Model", "DiffuSeqModel",
+           "gpt2_losses", "diffuseq_losses", "torch_dtype", "Model"]
 
 Model = Union[DiffuSeqModel, GPT2Model]
 
@@ -83,14 +86,36 @@ def create_model_from_config(*, model_family: str = "diffuseq",
 
 
 def compute_losses(model: Model, batch: Dict[str, torch.Tensor],
-                   draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+                   draws: Optional[Draws] = None,
+                   denom: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
     """The training loss of the model's family on one (micro)batch: a dict
     whose ``"loss"`` is optimized and whose other entries are logged.
     ``draws`` (a generator, or ``{"t", "noise"}``) feeds DiffuSeq's random
-    draws; GPT-2's loss takes none."""
+    draws; GPT-2's loss takes none. ``denom``, when given, is the masked
+    means' denominator (a global microbatch's ``loss_count``, clamped to
+    >= 1), and the result is this batch's share of them."""
     if model.family == "diffuseq":
         if draws is None:
             raise ValueError("the diffuseq loss needs draws: a "
                              "torch.Generator or {'t', 'noise'} tensors")
-        return diffuseq_losses(model, batch, draws)
-    return gpt2_losses(model, batch)
+        return diffuseq_losses(model, batch, draws, denom)
+    return gpt2_losses(model, batch, denom)
+
+
+def loss_count(model: Model, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    """The positions the family's masked means average over in ``batch``
+    (f32 0-d)."""
+    if model.family == "diffuseq":
+        return diffuseq_loss_count(batch)
+    return gpt2_loss_count(batch)
+
+
+def finish_losses(model: Model, shares: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The metrics of a global microbatch from its summed shares: the
+    shares themselves, plus GPT-2's ``ppl`` of the summed loss."""
+    if model.family == "gpt2":
+        return {**shares, "ppl": gpt2_ppl(shares["loss"])}
+    return dict(shares)

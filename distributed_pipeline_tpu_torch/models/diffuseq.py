@@ -36,8 +36,9 @@ from ..ops.xent import token_cross_entropy
 from .backbone import Embed, TransformerBackbone, _param
 from .diffusion import DiffusionSchedule
 
-__all__ = ["DiffuSeqModel", "diffuseq_losses", "timestep_embedding",
-           "Draws", "DIFFUSEQ_EMB_DIM", "seeded_generator", "mix_seed"]
+__all__ = ["DiffuSeqModel", "diffuseq_losses", "diffuseq_loss_count",
+           "timestep_embedding", "Draws", "DIFFUSEQ_EMB_DIM",
+           "seeded_generator", "mix_seed", "rank_draws"]
 
 DIFFUSEQ_EMB_DIM = 128  # DiffuSeq's low-dim embedding space
 
@@ -156,10 +157,39 @@ class DiffuSeqModel(nn.Module):
         return self.out_proj(h).float()
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of per-position values [B, L] over the positions mask == 1."""
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of per-position values [B, L] over the positions mask == 1;
+    ``denom`` replaces the count (clamped to >= 1) when given."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(x * m) / denom
+
+
+def diffuseq_loss_count(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The positions the masked means average over (the target span), f32
+    0-d: what a rank contributes to a global denominator."""
+    return torch.sum(batch["input_mask"].float())
+
+
+def rank_draws(schedule: DiffusionSchedule, draws: Draws,
+               shape: Tuple[int, ...], rank: int, world: int
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global microbatch's draws. ``draws`` is the
+    global microbatch's (``world * shape[0]`` rows): a generator, drawn
+    as one process would draw that many rows (t first, then the noise),
+    or ``{"t", "noise"}`` tensors; rank r takes rows ``r * B : (r + 1) *
+    B`` of each, ``shape`` being its x_start's ``[B, L, E]``."""
+    rows = shape[0]
+    if isinstance(draws, torch.Generator):
+        t = schedule.sample_t(draws, rows * world)
+        noise = torch.randn((rows * world, *shape[1:]), generator=draws,
+                            device=draws.device, dtype=torch.float32)
+        draws = {"t": t, "noise": noise}
+    lo = rank * rows
+    return {"t": draws["t"][lo:lo + rows],
+            "noise": draws["noise"][lo:lo + rows]}
 
 
 def draw(schedule: DiffusionSchedule, draws: Draws, x_start: torch.Tensor
@@ -177,11 +207,14 @@ def draw(schedule: DiffusionSchedule, draws: Draws, x_start: torch.Tensor
 
 
 def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
-                    draws: Draws) -> Dict[str, torch.Tensor]:
+                    draws: Draws, denom: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The DiffuSeq objective, as the JAX package's ``diffuseq_losses``:
     ``loss = mse + tT + decoder_nll``, each a 0-d f32 tensor, over a batch
     of ``input_ids``, ``input_mask`` (the diffused target span) and
-    ``pad_mask`` [B, L]."""
+    ``pad_mask`` [B, L]. ``denom`` (a global microbatch's target count,
+    clamped to >= 1) replaces the batch's own in every masked mean: a
+    rank's terms then sum over the ranks to the global ones."""
     ids = batch["input_ids"]
     tgt_mask = batch["input_mask"].float()
     pad_mask = batch["pad_mask"]
@@ -192,9 +225,11 @@ def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     # partial noising: the target span diffuses, the source span anchors
     x_t = torch.where(tgt_mask[..., None] > 0, x_noisy, x_start)
     x0_hat = model(x_t, t, pad_mask)
-    mse = _masked_mean(torch.mean((x0_hat - x_start) ** 2, dim=-1), tgt_mask)
-    tT = _masked_mean(schedule.mean_flat_tT(x_start), tgt_mask)
+    mse = _masked_mean(torch.mean((x0_hat - x_start) ** 2, dim=-1), tgt_mask,
+                       denom)
+    tT = _masked_mean(schedule.mean_flat_tT(x_start), tgt_mask, denom)
     logits = model.logits(x_start)
-    decoder_nll = _masked_mean(token_cross_entropy(logits, ids), tgt_mask)
+    decoder_nll = _masked_mean(token_cross_entropy(logits, ids), tgt_mask,
+                               denom)
     return {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
             "decoder_nll": decoder_nll}

@@ -16,7 +16,7 @@ from torch import nn
 from ..ops.xent import token_cross_entropy
 from .backbone import Embed, LayerKV, TransformerBackbone
 
-__all__ = ["GPT2Model", "gpt2_losses"]
+__all__ = ["GPT2Model", "gpt2_losses", "gpt2_loss_count", "gpt2_ppl"]
 
 
 class GPT2Model(nn.Module):
@@ -88,22 +88,46 @@ class GPT2Model(nn.Module):
                             self.word_emb.embedding.to(self.dtype))
 
 
-def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor]
+def _loss_mask(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (batch["input_mask"] * batch["pad_mask"])[:, 1:].float()
+
+
+def gpt2_loss_count(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The predicted positions the loss averages over, f32 0-d: what a
+    rank contributes to a global denominator."""
+    return _loss_mask(batch).sum()
+
+
+def gpt2_ppl(loss: torch.Tensor) -> torch.Tensor:
+    """Perplexity from a mean NLL (clamped at 20, as the JAX package)."""
+    return torch.exp(torch.clamp(loss, max=20.0))
+
+
+def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
+                denom: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
     """Next-token cross-entropy over the loss span, as the JAX package's
     ``gpt2_losses``: ``loss`` (= ``nll``), teacher-forced ``acc`` and
     ``ppl``, each a 0-d f32 tensor. ``batch`` holds ``input_ids``,
-    ``input_mask`` and ``pad_mask`` [B, L]. Pipeline (1F1B) and MoE
-    training are ROADMAP A.9 and A.8."""
+    ``input_mask`` and ``pad_mask`` [B, L]. ``denom`` (a global
+    microbatch's count, clamped to >= 1) replaces the batch's own: the
+    result is then a rank's share, ``loss``, ``nll`` and ``acc`` only,
+    which sum over the ranks to the global means (``gpt2_ppl`` of the
+    summed loss gives ``ppl``). Pipeline (1F1B) and MoE training are
+    ROADMAP A.9 and A.8b."""
     ids = batch["input_ids"]
     pad_mask = batch["pad_mask"]
-    loss_mask = (batch["input_mask"] * pad_mask)[:, 1:].float()
+    loss_mask = _loss_mask(batch)
     logits = model(ids, pad_mask)[:, :-1]        # predict ids[:, 1:]
     targets = ids[:, 1:]
     nll = token_cross_entropy(logits, targets)
-    denom = torch.clamp(loss_mask.sum(), min=1.0)
+    share = denom is not None
+    if not share:
+        denom = torch.clamp(loss_mask.sum(), min=1.0)
     loss = (nll * loss_mask).sum() / denom
     hit = (torch.argmax(logits, dim=-1) == targets).float()
     acc = (hit * loss_mask).sum() / denom
-    return {"loss": loss, "nll": loss, "acc": acc,
-            "ppl": torch.exp(torch.clamp(loss, max=20.0))}
+    out = {"loss": loss, "nll": loss, "acc": acc}
+    if not share:
+        out["ppl"] = gpt2_ppl(loss)
+    return out

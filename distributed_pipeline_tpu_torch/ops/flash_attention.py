@@ -40,6 +40,7 @@ __all__ = ["flash_attention", "flash_forward", "flash_backward",
            "torch_flash_forward", "torch_flash_backward", "NEG_INF",
            "forward_launch_count", "backward_launch_count",
            "reset_launch_counts", "launch_counters", "add_launches",
+           "plain_call_counts",
            "flash_flops", "flash_hbm_bytes",
            "dq_launch_plan", "DQ_SCRATCH_CAP"]
 
@@ -49,6 +50,8 @@ _HEAD_DIMS = (64, 128)
 
 # Launches of each kernel since the last reset: one per wrapper call.
 _launches = {"forward": 0, "backward": 0}
+# Calls the autograd seam routed to the plain versions since the last reset
+_plain_calls = {"forward": 0, "backward": 0}
 # The bf16 backward's dq planes (one f32 [B, H, L, Dh] plane per key tile)
 # are capped at this many bytes: past it, the key tiles go in several
 # launches whose sums chain through one more plane.
@@ -64,8 +67,17 @@ def backward_launch_count() -> int:
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counts and the plain-call counts."""
     for key in _launches:
         _launches[key] = 0
+        _plain_calls[key] = 0
+
+
+def plain_call_counts() -> Dict[str, int]:
+    """``{"forward", "backward"}``: the seam's calls of
+    ``torch_flash_forward`` / ``torch_flash_backward`` since the last
+    reset."""
+    return dict(_plain_calls)
 
 
 def launch_counters() -> Dict[str, int]:
@@ -262,6 +274,7 @@ class _FlashAttention(torch.autograd.Function):
             out, lse = flash_forward(q, k, v, pad_mask, causal)
         else:
             out, lse = torch_flash_forward(q, k, v, pad_mask, causal)
+            _plain_calls["forward"] += 1
         ctx.save_for_backward(q, k, v, pad_mask, out, lse)
         ctx.causal = causal
         ctx.use_kernel = use_kernel
@@ -276,6 +289,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = torch_flash_backward(q, k, v, pad_mask, ctx.causal,
                                               out, lse, dout)
+            _plain_calls["backward"] += 1
         return dq, dk, dv, None, None, None
 
 

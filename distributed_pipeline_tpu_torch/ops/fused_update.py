@@ -34,7 +34,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 __all__ = ["fused_adamw_ema", "torch_fused_update", "resolve_fused_update", "update_scalars", "update_hbm_bytes",
-           "launch_count", "reset_launch_count", "B1", "B2", "EPS"]
+           "launch_count", "reset_launch_count", "plain_call_count", "B1", "B2", "EPS"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults, as the trainer
 _MAX_RATES = 8                   # the kernel's EMA slots
@@ -44,15 +44,24 @@ _FALSE = ("false", "off", "no", "0")
 
 # Launches of the CUDA kernel since the last reset: one per call.
 _launches = 0
+# Calls of the plain version since the last reset
+_plain_calls = 0
 
 
 def launch_count() -> int:
     return _launches
 
 
+def plain_call_count() -> int:
+    """Calls of ``torch_fused_update`` since the last reset."""
+    return _plain_calls
+
+
 def reset_launch_count() -> None:
-    global _launches
+    """Zero the launch count and the plain-call count."""
+    global _launches, _plain_calls
     _launches = 0
+    _plain_calls = 0
 
 
 def resolve_fused_update(val: Any, device: torch.device) -> bool:
@@ -103,6 +112,8 @@ def torch_fused_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                        b2: float = B2, eps: float = EPS) -> None:
     """The plain version, in place: optax's op sequence, one torch op per
     step of it. ``ema`` is ``[R, n]`` (``R = len(rates)``)."""
+    global _plain_calls
+    _plain_calls += 1
     c = [float(x) for x in _coefs(rates, weight_decay, b1, b2, eps)]
     cb1, comb1, cb2, comb2, ceps, cwd = c[:6]
     n_r = len(rates)

@@ -1,2 +1,23 @@
-"""Process supervision: the supervised one-process worker ring
-(``launcher.py``) the serving fleet runs each replica under. Torch-free."""
+"""Processes: the supervised worker ring (``launcher.py``, torch-free: the
+serving fleet's parent imports it) and the communication shim over
+``torch.distributed`` (``dist.py``). The shim's names are imported on
+first use, so importing this package imports no torch."""
+
+from .launcher import (AUTORUN_ENV_FLAG, find_free_port, parse_and_autorun,
+                       parse_distributed_args, run_argv_as_distributed)
+
+_DIST_NAMES = ("barrier", "broadcast", "dev", "device_count", "get_rank",
+               "get_world_size", "is_available", "is_initialized",
+               "setup_dist", "sync_params", "all_reduce",
+               "all_gather_object", "backend")
+
+__all__ = ["AUTORUN_ENV_FLAG", "find_free_port", "parse_and_autorun",
+           "parse_distributed_args", "run_argv_as_distributed",
+           *_DIST_NAMES]
+
+
+def __getattr__(name: str):
+    if name in _DIST_NAMES:
+        from . import dist
+        return getattr(dist, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,173 @@
+"""The communication shim over ``torch.distributed``: the port of
+``distributed_pipeline_tpu/parallel/dist.py``.
+
+The same call sites work under a multi-process launch and in a bare single
+process: with nothing in the environment to join, ``setup_dist`` does
+nothing and every primitive is the identity (rank 0 of 1), the reference
+contract.
+
+A launch is detectable from torch's ``env://`` keys (``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; ``LOCAL_RANK``), which
+``parallel/launcher.py`` (or torchrun) sets on every worker. Backend rule,
+logged once at start:
+
+* NCCL when the rank is on a CUDA device of its own (the host has a card
+  for every local rank, ``utils/device.py``);
+* gloo on the CPU, or when ranks share a card: NCCL refuses two ranks on
+  one device. Gloo takes CUDA tensors as they are (it copies through host
+  memory inside the collective), so the ranks run the same kernels on the
+  same card either way.
+
+Divergence from the JAX shim: when the environment describes a launch and
+the process group fails to form, ``setup_dist`` RAISES. The JAX shim
+degrades to one process there; a rank that trained alone on its shard
+would log a wrong loss and nobody would see it (ROADMAP C.11).
+"""
+
+from __future__ import annotations
+
+import datetime
+import functools
+import os
+import sys
+from typing import Any, List, Optional
+
+import torch
+import torch.distributed as tdist
+
+from ..utils.device import ranks_share_card, resolve_device
+from .launcher import AUTORUN_ENV_FLAG, find_free_port
+
+__all__ = ["is_available", "is_initialized", "setup_dist", "get_rank",
+           "get_world_size", "barrier", "dev", "device_count", "broadcast",
+           "sync_params", "all_reduce", "all_gather_object", "backend",
+           "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG"]
+
+_ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+# distinct devices of the ring, learned once at setup
+_state = {"device_count": 1}
+
+
+def is_available() -> bool:
+    """True when the environment describes a launch to join (torch's
+    ``env://`` keys, or the launcher's autorun flag with them)."""
+    if not tdist.is_available():
+        return False
+    return all(k in os.environ for k in _ENV_KEYS)
+
+
+def is_initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def choose_backend(device: torch.device) -> str:
+    """``nccl`` for a rank on a CUDA device of its own, else ``gloo``."""
+    if device.type == "cuda" and not ranks_share_card():
+        return "nccl"
+    return "gloo"
+
+
+@functools.lru_cache(maxsize=None)
+def setup_dist(device: Optional[torch.device] = None,
+               timeout_s: Optional[float] = None) -> None:
+    """Join the process group the environment describes, once (later calls
+    return at once); nothing to join -> one process. ``device`` is this
+    rank's device (default: ``resolve_device()``), which picks the backend
+    (``choose_backend``). Raises ``RuntimeError`` when the group fails to
+    form within ``timeout_s`` (default: torch's)."""
+    if is_initialized() or not is_available():
+        return
+    device = torch.device(device) if device is not None else resolve_device()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    backend_name = choose_backend(device)
+    kw: dict = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+    if backend_name == "nccl":
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    elif device.type == "cuda":
+        torch.cuda.set_device(device)
+    try:
+        tdist.init_process_group(backend_name, init_method="env://",
+                                 world_size=world, rank=rank, **kw)
+    except Exception as e:
+        raise RuntimeError(
+            f"rank {rank} of {world}: the {backend_name} process group did "
+            f"not form ({type(e).__name__}: {e}); a rank does not train "
+            f"alone on its shard") from e
+    devices = all_gather_object(str(device))
+    _state["device_count"] = len(set(devices))
+    print(f"[dist] rank {rank}/{world} backend {backend_name} device "
+          f"{device} ({_state['device_count']} distinct device(s) in the "
+          f"ring)", file=sys.stderr, flush=True)
+
+
+def get_rank() -> int:
+    """This process's rank; 0 when not distributed."""
+    return tdist.get_rank() if is_initialized() else 0
+
+
+def get_world_size() -> int:
+    """The number of processes; 1 when not distributed."""
+    return tdist.get_world_size() if is_initialized() else 1
+
+
+def backend() -> str:
+    """The process group's backend (``nccl``/``gloo``), or ``none``."""
+    return str(tdist.get_backend()) if is_initialized() else "none"
+
+
+def barrier(name: str = "barrier") -> None:
+    """Every rank waits here; a no-op single-process. ``name`` documents
+    the call site (the JAX shim's barrier takes one)."""
+    del name
+    if get_world_size() > 1:
+        tdist.barrier()
+
+
+def dev() -> torch.device:
+    """This rank's device (``utils/device.py``'s rule)."""
+    return resolve_device()
+
+
+def device_count() -> int:
+    """The number of distinct devices the ring runs on: the world size
+    when every rank has a card of its own, 1 when they share one (or all
+    run on the CPU)."""
+    return _state["device_count"] if is_initialized() else 1
+
+
+def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
+    """Sum ``tensor`` over the ranks in place (the identity
+    single-process); returns it."""
+    if is_initialized():
+        tdist.all_reduce(tensor)
+    return tensor
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``tensor`` to every rank, in place (the identity
+    single-process); returns it."""
+    if get_world_size() > 1:
+        tdist.broadcast(tensor, src)
+    return tensor
+
+
+def sync_params(flat: torch.Tensor) -> torch.Tensor:
+    """Make every rank hold rank 0's parameters: one broadcast of the flat
+    parameter buffer (the trainer keeps the model's parameters as views
+    into it)."""
+    return broadcast(flat)
+
+
+def all_gather_object(obj: Any) -> List[Any]:
+    """Every rank's ``obj``, in rank order (``[obj]`` single-process)."""
+    if get_world_size() == 1:
+        return [obj]
+    out: List[Any] = [None] * get_world_size()
+    tdist.all_gather_object(out, obj)
+    return out

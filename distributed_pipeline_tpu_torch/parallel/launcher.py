@@ -1,53 +1,80 @@
-"""The supervised worker ring for one process: the port of
-``run_argv_as_distributed`` in ``distributed_pipeline_tpu/parallel/
-launcher.py``.
+"""The supervised worker ring: the port of
+``distributed_pipeline_tpu/parallel/launcher.py``.
 
 :func:`run_argv_as_distributed` runs ``python -m <module> <argv>`` as a
-supervised ring: when the worker dies, it is respawned, with
+supervised ring of ``nprocs`` local worker processes. Each worker's
+environment carries torch's ``env://`` rendezvous keys (``MASTER_ADDR`` /
+``MASTER_PORT`` on a free loopback port, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), the autorun flag
+(``DPT_DIST_AUTORUN``) and the run timestamp ``DPT_RUN_TIMESTAMP``, pinned
+once for every worker of every attempt so that all ranks and every restart
+resolve one auto-generated run dir. ``parallel/dist.py`` joins the
+workers into a ``torch.distributed`` process group from those keys. When
+a worker dies,
 
+* its SIBLINGS are terminated (they would otherwise block in a collective
+  forever; torchrun's elastic-agent behaviour) and the whole ring is
+  respawned, with
 * an EXPONENTIAL BACKOFF between attempts (``restart_backoff_s`` doubling
   per consecutive failure, capped by ``restart_backoff_max_s``),
 * a RESTART-RATE BUDGET (``max_restarts`` per sliding ``restart_window_s``
   window — not a lifetime counter, :class:`_RestartBudget`),
 * CRASH-LOOP fail-fast (two consecutive failed attempts with zero progress,
   :func:`_crash_looping`),
-* the HANG WATCHDOG: the worker's progress beacons (``chaos/goodput``'s
-  ``.progress_rank*.json``) double as its liveness signal; once the
+* the HANG WATCHDOG: the workers' progress beacons (``chaos/goodput``'s
+  ``.progress_rank*.json``) double as the liveness signal; once the
   attempt writes its first beacon the watchdog arms, and a beacon that
-  freezes for ``hang_timeout_s`` gets the worker SIGKILLed (optionally
-  also one that never writes a first beacon within
-  ``hang_startup_timeout_s``),
+  freezes for ``hang_timeout_s`` gets the ring SIGKILLed (optionally also
+  one that never writes a first beacon within ``hang_startup_timeout_s``),
 * a structured record per attempt appended to ``attempts.jsonl`` in the
-  worker's run dir (:func:`_harvest_attempt`), which the worker names
-  through the ``DPT_RUN_DIR_FILE`` handshake.
+  run dir (:func:`_harvest_attempt`), which the workers name through the
+  ``DPT_RUN_DIR_FILE`` handshake.
 
-The serving fleet runs one such ring per replica, each in a thread of the
-fleet parent; this module imports no torch. Its log lines go to stderr
-(the fleet's stdout carries only its JSON summary). ``nprocs`` must be 1:
-a ring of several processes needs the ``torch.distributed`` rendezvous,
-which comes with multi-GPU training (ROADMAP A.8). The worker's environment
-carries torch's ``env://`` keys (``MASTER_ADDR``/``MASTER_PORT`` on a free
-local port, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) for that item. The
-JAX launcher pins the worker's backend through ``JAX_PLATFORMS``; the
-port's workers take their device from their own ``--device`` flag, which
-rides the worker argv (``serving/fleet.py``).
+``DPT_FORCE_NPROCS`` (a per-attempt schedule, ``"2,1"``) makes an attempt
+respawn at another world size; the trainer then resumes by global samples
+consumed. :func:`parse_and_autorun` is the entry points' ``--distributed``
+flag: ``--distributed --nprocs N`` relaunches the running module as such a
+ring and exits with its code. The multi-host in-process path
+(``--coordinator_address``, ``--num_processes``, ``--process_id``) is not
+ported (ROADMAP A.8c).
+
+The serving fleet runs one ring of one process per replica, each in a
+thread of the fleet parent; this module imports no torch. Its log lines go
+to stderr (the fleet's stdout carries only its JSON summary). The JAX
+launcher pins the worker's backend through ``JAX_PLATFORMS``; the port's
+workers take their device from their own ``--device`` flag.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..chaos import goodput as goodput_lib
 from ..obs import trace as trace_lib
 
-__all__ = ["run_argv_as_distributed", "find_free_port"]
+__all__ = ["run_argv_as_distributed", "find_free_port",
+           "create_distributed_parser", "parse_distributed_args",
+           "parse_and_autorun", "get_main_modname",
+           "parse_capacity_schedule", "AUTORUN_ENV_FLAG",
+           "FORCE_NPROCS_ENV", "RUN_TIMESTAMP_ENV"]
+
+# Set on every spawned worker (the reference's DIST_UTIL_AUTORUN_FLAG):
+# ``parallel/dist.py`` takes it as a launch to join.
+AUTORUN_ENV_FLAG = "DPT_DIST_AUTORUN"
+# The run timestamp every worker of every attempt resolves its run dir with
+RUN_TIMESTAMP_ENV = "DPT_RUN_TIMESTAMP"
+# Per-attempt world-size schedule: "2,1" = attempt 0 at 2 workers, every
+# later attempt at 1 (on one host the env is the capacity probe)
+FORCE_NPROCS_ENV = "DPT_FORCE_NPROCS"
 
 
 def find_free_port() -> int:
@@ -61,22 +88,83 @@ def find_free_port() -> int:
         s.close()
 
 
+def parse_capacity_schedule(text: str) -> Optional[List[int]]:
+    """``"2,1"`` -> [2, 1]; empty -> None. Raises on a malformed or
+    non-positive entry: an override that is silently ignored would run the
+    wrong topology."""
+    if not text:
+        return None
+    out = []
+    for tok in text.split(","):
+        tok = tok.strip()
+        if not tok.isdigit() or int(tok) < 1:
+            raise ValueError(f"capacity schedule entries must be positive "
+                             f"ints, got {tok!r} in {text!r}")
+        out.append(int(tok))
+    return out
+
+
+def _capacity_at(schedule: Optional[List[int]], attempt: int,
+                 default: int) -> int:
+    if not schedule:
+        return default
+    return schedule[min(attempt, len(schedule) - 1)]
+
+
 def _worker_env(rank: int, nprocs: int, port: int,
-                extra_env: Optional[dict] = None) -> dict:
+                extra_env: Optional[dict] = None,
+                run_timestamp: str = "") -> dict:
     """Environment for spawned worker ``rank``: the caller's environment,
-    torch's ``env://`` rendezvous keys, and the supervision channel
-    (``DPT_ATTEMPT`` / ``DPT_SPAWN_T`` / ``DPT_RUN_DIR_FILE`` ride
-    ``extra_env``: launcher-owned keys win over anything inherited)."""
+    torch's ``env://`` rendezvous keys, the autorun flag, the pinned run
+    timestamp, ``OMP_NUM_THREADS`` (the host's cores over the ranks,
+    unless the caller set it), and the supervision channel (``DPT_ATTEMPT`` /
+    ``DPT_SPAWN_T`` / ``DPT_RUN_DIR_FILE`` ride ``extra_env``:
+    launcher-owned keys win over anything inherited)."""
     env = dict(os.environ)
+    if run_timestamp:
+        env[RUN_TIMESTAMP_ENV] = run_timestamp
+    if nprocs > 1 and "OMP_NUM_THREADS" not in env:
+        # the host's cores split over the ranks (torchrun's default too):
+        # ranks that each spin a thread per core stall one another at
+        # every collective
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1)
+                                         // nprocs))
     env.update({
+        AUTORUN_ENV_FLAG: "1",
         "MASTER_ADDR": "127.0.0.1",
         "MASTER_PORT": str(port),
         "WORLD_SIZE": str(nprocs),
         "RANK": str(rank),
         "LOCAL_RANK": str(rank),
+        "LOCAL_WORLD_SIZE": str(nprocs),
     })
     env.update(extra_env or {})
     return env
+
+
+def _tee_pump(proc: subprocess.Popen, sink, prefix: str
+              ) -> threading.Thread:
+    """A daemon thread copying one worker's piped output to its log file
+    and to this process's stderr, each line prefixed (torchrun's ``-t``
+    tee). The log always gets the line; a broken console only stops the
+    echo (stopping the pump would block the worker on a full pipe)."""
+
+    def pump() -> None:
+        echo = True
+        for line in iter(proc.stdout.readline, b""):
+            sink.write(line)
+            sink.flush()
+            if echo:
+                try:
+                    sys.stderr.write(
+                        f"{prefix} {line.decode(errors='replace')}")
+                    sys.stderr.flush()
+                except (ValueError, OSError):
+                    echo = False
+
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    return t
 
 
 def _beacon_mtimes(run_dir_file: str) -> Optional[Dict[str, float]]:
@@ -96,13 +184,16 @@ def _beacon_mtimes(run_dir_file: str) -> Optional[Dict[str, float]]:
 
 def _run_worker_ring(cmd_base: List[str], nprocs: int,
                      monitor_interval: float, log_dir: str = "",
+                     log_tee: bool = False, run_timestamp: str = "",
                      attempt: int = 0, extra_env: Optional[dict] = None,
                      hang_timeout_s: float = 0.0,
                      hang_startup_timeout_s: float = 0.0,
                      run_dir_file: str = "",
                      status: Optional[dict] = None, tag: str = "") -> int:
-    """One attempt: spawn the worker, poll liveness and the hang watchdog.
-    Returns the worker's exit code (negative for a signal). ``status`` (a
+    """One attempt: spawn the ring, poll liveness and the hang watchdog;
+    when any worker exits non-zero, terminate its siblings (they would
+    block in a collective forever). Returns the first non-zero exit code
+    (negative for a signal), else 0. ``status`` (a
     caller-provided dict) receives ``hung``/``hang_s``/``hang_kind`` when
     the watchdog kills the attempt, so its record books the wasted window
     to the ``hang`` goodput category."""
@@ -113,15 +204,17 @@ def _run_worker_ring(cmd_base: List[str], nprocs: int,
     print(f"{label} worker cmd: {' '.join(cmd_base)}", file=sys.stderr,
           flush=True)
     logs = []
+    tees: List[threading.Thread] = []
     if log_dir:
         os.makedirs(log_dir, exist_ok=True)
-        print(f"{label} per-worker output -> {log_dir}/worker_N.log",
+        mode = "tee'd to stderr and" if log_tee else "->"
+        print(f"{label} per-worker output {mode} {log_dir}/worker_N.log",
               file=sys.stderr, flush=True)
     procs: List[subprocess.Popen] = []
     codes: List[Optional[int]] = []
     try:
         for i in range(nprocs):
-            env = _worker_env(i, nprocs, port, extra_env)
+            env = _worker_env(i, nprocs, port, extra_env, run_timestamp)
             if log_dir:
                 # append: a restarted ring continues the same file, with an
                 # attempt header as the boundary
@@ -129,8 +222,16 @@ def _run_worker_ring(cmd_base: List[str], nprocs: int,
                 f.write(f"[launcher] attempt {attempt}\n".encode())
                 f.flush()
                 logs.append(f)
-                procs.append(subprocess.Popen(cmd_base, env=env, stdout=f,
-                                              stderr=subprocess.STDOUT))
+                if log_tee:
+                    p = subprocess.Popen(cmd_base, env=env,
+                                         stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT)
+                    procs.append(p)
+                    tees.append(_tee_pump(p, f, f"[worker {i}]"))
+                else:
+                    procs.append(subprocess.Popen(
+                        cmd_base, env=env, stdout=f,
+                        stderr=subprocess.STDOUT))
             else:
                 procs.append(subprocess.Popen(cmd_base, env=env))
         codes = [None] * len(procs)
@@ -214,6 +315,8 @@ def _run_worker_ring(cmd_base: List[str], nprocs: int,
                 p.wait()
         raise
     finally:
+        for t in tees:
+            t.join(timeout=5)
         for f in logs:
             f.close()
     # any nonzero code fails the attempt (a signal-killed worker's code is
@@ -367,26 +470,34 @@ def run_argv_as_distributed(modname: str, script_argv: Sequence[str],
                             hang_timeout_s: float = 0.0,
                             hang_startup_timeout_s: float = 0.0,
                             extra_env: Optional[dict] = None,
-                            tag: str = "") -> int:
-    """Run ``python -m modname script_argv`` as a supervised ring of one
-    worker process; returns the final attempt's exit code.
+                            tag: str = "", log_tee: bool = False) -> int:
+    """Run ``python -m modname script_argv`` as a supervised ring of
+    ``nprocs`` worker processes; returns the final attempt's exit code.
 
     Between attempts: exponential backoff, the sliding-window restart
     budget, crash-loop fail-fast, and one ``attempts.jsonl`` record per
-    attempt (rc, duration, downtime, progress, hang window, post-mortem
-    snapshot). ``extra_env`` reaches the worker of every attempt
-    (launcher-owned keys win); ``log_dir`` captures the worker's output
-    to ``worker_0.log`` (appended across attempts); ``tag`` prefixes this
-    supervisor's log lines, so rings supervised concurrently from one
-    process stay attributable. Thread-safe: all state is local, and the
-    run-dir handshake file is a fresh tempfile per call.
-    ``devices_per_proc`` is recorded in the attempt records."""
-    if nprocs != 1:
-        raise NotImplementedError(
-            f"nprocs={nprocs}: a ring of several processes needs the "
-            f"torch.distributed rendezvous, which comes with multi-GPU "
-            f"training (ROADMAP A.8); the supervised ring runs one process")
+    attempt (rc, duration, downtime, progress, hang window, world size,
+    post-mortem snapshot). An attempt's world size comes from the
+    ``DPT_FORCE_NPROCS`` schedule when it is set, else ``nprocs``.
+    ``extra_env`` reaches every worker of every attempt (launcher-owned
+    keys win); ``log_dir`` captures worker i's output to
+    ``worker_{i}.log`` (appended across attempts), and ``log_tee`` also
+    echoes it to stderr; ``tag`` prefixes this supervisor's log lines, so
+    rings supervised concurrently from one process stay attributable.
+    Thread-safe: all state is local, and the run-dir handshake file is a
+    fresh tempfile per call. ``devices_per_proc`` is recorded in the
+    attempt records."""
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
     cmd_base = [sys.executable, "-m", modname, *script_argv]
+    # one timestamp for every worker of every attempt (the workers' env
+    # only: this process's environ stays as it was, so a second launch
+    # from it mints its own)
+    run_timestamp = (os.environ.get(RUN_TIMESTAMP_ENV)
+                     or time.strftime("%Y%m%d-%H%M%S"))
+    # parsed once, so a malformed schedule fails the launch, not attempt 3
+    nprocs_sched = parse_capacity_schedule(
+        os.environ.get(FORCE_NPROCS_ENV, ""))
     budget = _RestartBudget(max_restarts, restart_window_s)
     fd, run_dir_file = tempfile.mkstemp(prefix="dpt_run_dir_")
     os.close(fd)
@@ -403,9 +514,15 @@ def run_argv_as_distributed(modname: str, script_argv: Sequence[str],
     try:
         while True:
             t_spawn = time.time()
+            nprocs_a = _capacity_at(nprocs_sched, attempt, nprocs)
+            if nprocs_a != nprocs:
+                print(f"{label} attempt {attempt}: capacity override -> "
+                      f"{nprocs_a} worker(s) (was {nprocs})",
+                      file=sys.stderr, flush=True)
             ring_status: dict = {}
             code = _run_worker_ring(
-                cmd_base, nprocs, monitor_interval, log_dir=log_dir,
+                cmd_base, nprocs_a, monitor_interval, log_dir=log_dir,
+                log_tee=log_tee, run_timestamp=run_timestamp,
                 attempt=attempt,
                 extra_env={**(extra_env or {}),
                            "DPT_ATTEMPT": str(attempt),
@@ -417,7 +534,7 @@ def run_argv_as_distributed(modname: str, script_argv: Sequence[str],
             t_exit = time.time()
             record, run_dir = _harvest_attempt(
                 run_dir_file, attempt, code, t_spawn, t_exit, prev_t_exit,
-                prev_max_step, ring_status=ring_status, nprocs=nprocs,
+                prev_max_step, ring_status=ring_status, nprocs=nprocs_a,
                 devices_per_proc=devices_per_proc)
             records.append(record)
             if run_dir and os.path.isdir(run_dir):
@@ -434,7 +551,7 @@ def run_argv_as_distributed(modname: str, script_argv: Sequence[str],
                     f"attempt {attempt}", "supervise", t_spawn,
                     t_exit - t_spawn,
                     args={"rc": code, "steps": record["steps"],
-                          "nprocs": nprocs,
+                          "nprocs": nprocs_a,
                           "devices_per_proc": devices_per_proc})
                 if ring_status.get("hung"):
                     tracer.instant(
@@ -489,3 +606,95 @@ def run_argv_as_distributed(modname: str, script_argv: Sequence[str],
             os.unlink(run_dir_file)
         except OSError:
             pass
+
+
+def create_distributed_parser() -> argparse.ArgumentParser:
+    """The launcher's own flags (the JAX launcher's, less the multi-host
+    and fake-device ones). ``--devices_per_proc`` is recorded in the
+    attempt records only: each worker takes one device."""
+    # allow_abbrev=False: parse_known_args must not take a prefix of a
+    # script flag for a launcher flag
+    p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    p.add_argument("--distributed", action="store_true",
+                   help="launch a multi-process run (with --nprocs N) or "
+                        "join the one the environment describes")
+    p.add_argument("--nprocs", type=int, default=0,
+                   help="spawn N local worker processes joined in one "
+                        "torch.distributed process group")
+    p.add_argument("--devices_per_proc", type=int, default=1,
+                   help="recorded in attempts.jsonl; each worker runs on "
+                        "one device")
+    p.add_argument("--max_restarts", type=int, default=0,
+                   help="respawn the ring after a failure at most this many "
+                        "times per sliding --restart_window_s window; "
+                        "checkpoint auto-resume continues the run")
+    p.add_argument("--restart_window_s", type=float, default=3600.0,
+                   help="sliding window of the --max_restarts budget; <= 0 "
+                        "counts restarts over the whole run")
+    p.add_argument("--restart_backoff_s", type=float, default=1.0,
+                   help="base seconds of exponential backoff between "
+                        "attempts (doubling per consecutive failure); 0 "
+                        "disables")
+    p.add_argument("--restart_backoff_max_s", type=float, default=30.0,
+                   help="cap on the restart backoff")
+    p.add_argument("--monitor_interval", type=float, default=0.2,
+                   help="seconds between worker liveness polls")
+    p.add_argument("--hang_timeout_s", type=float, default=0.0,
+                   help="kill the ring when no rank's progress beacon "
+                        "advances for this many seconds after the first "
+                        "one; 0 disables")
+    p.add_argument("--hang_startup_timeout_s", type=float, default=0.0,
+                   help="kill an attempt that writes no beacon within this "
+                        "many seconds of its spawn; 0 disables")
+    p.add_argument("--log_dir", default="",
+                   help="capture worker i's stdout and stderr to "
+                        "{log_dir}/worker_{i}.log (restarts append)")
+    p.add_argument("--log_tee", action="store_true",
+                   help="with --log_dir, also echo each worker's output to "
+                        "stderr, '[worker N]'-prefixed")
+    return p
+
+
+def parse_distributed_args(argv: Optional[Sequence[str]] = None
+                           ) -> Tuple[argparse.Namespace, List[str]]:
+    """Split argv into (the launcher's namespace, the script's argv)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return create_distributed_parser().parse_known_args(argv)
+
+
+def get_main_modname() -> Optional[str]:
+    """The running ``__main__``'s module name, for relaunching it with
+    ``-m``; None when it was not run as a module."""
+    spec = getattr(sys.modules.get("__main__"), "__spec__", None)
+    if spec is None or not spec.name:
+        return None
+    name = spec.name
+    return name[:-len(".__main__")] if name.endswith(".__main__") else name
+
+
+def parse_and_autorun(parse: Callable[[List[str]], Any],
+                      argv: Optional[Sequence[str]] = None,
+                      modname: Optional[str] = None) -> Any:
+    """The entry points' launcher: with ``--distributed --nprocs N``, run
+    ``modname`` (default: the running module) as a supervised ring of N
+    workers on the rest of argv and exit with the ring's code; otherwise
+    return ``parse(script_argv)``. A worker (or a plain run) parses its
+    argv with the launcher's flags taken out; ``--distributed`` without
+    ``--nprocs`` joins the process group the environment describes
+    (``parallel/dist.py``), or runs as one process when there is none."""
+    ns, script_argv = parse_distributed_args(argv)
+    if ns.distributed and ns.nprocs >= 1:
+        modname = modname or get_main_modname()
+        if modname is None:
+            raise RuntimeError("--distributed --nprocs relaunches the entry "
+                               "point as a module: run it with python -m")
+        sys.exit(run_argv_as_distributed(
+            modname, script_argv, ns.nprocs, ns.devices_per_proc,
+            max_restarts=ns.max_restarts,
+            monitor_interval=ns.monitor_interval, log_dir=ns.log_dir,
+            log_tee=ns.log_tee, restart_window_s=ns.restart_window_s,
+            restart_backoff_s=ns.restart_backoff_s,
+            restart_backoff_max_s=ns.restart_backoff_max_s,
+            hang_timeout_s=ns.hang_timeout_s,
+            hang_startup_timeout_s=ns.hang_startup_timeout_s))
+    return parse(script_argv)

@@ -1,4 +1,4 @@
-"""Training entry point, one process: the port of
+"""Training entry point: the port of
 ``distributed_pipeline_tpu/run/train.py``.
 
     python -m distributed_pipeline_tpu_torch.run.train --config_json cfg.json
@@ -6,11 +6,25 @@
         --microbatch 64 ... [--device cpu]          # DiffuSeq (the default)
     python -m distributed_pipeline_tpu_torch.run.train --model_family gpt2 \\
         --dataset synthetic-lm --seq_len 1024 --batch_size 8 ...
+    python -m distributed_pipeline_tpu_torch.run.train --distributed \\
+        --nprocs 2 [--max_restarts 1] ...          # data-parallel ranks
 
-Settings -> run dir -> logger -> ``training_args.json`` -> model ->
-``TrainLoop`` (which resumes from the run dir's newest complete checkpoint)
--> data streams fast-forwarded past the samples the checkpoint consumed ->
-``run_loop``. ``--eval_decode true`` adds the decode callback over one
+``--distributed --nprocs N`` relaunches this module as N supervised worker
+processes (``parallel/launcher.py``) that form one ``torch.distributed``
+group (``parallel/dist.py``: NCCL when every rank has a card of its own,
+gloo on the CPU or when ranks share one); ``batch_size`` and
+``microbatch`` are per rank. Settings -> process group -> run dir (made by
+rank 0; every rank resolves the same one, the launcher pinning
+``DPT_RUN_TIMESTAMP``) -> logger (means across ranks at each dump; rank 0
+alone on stdout, rank r > 0 into ``-rank{r:03d}`` files) ->
+``training_args.json`` -> model -> ``TrainLoop`` (which resumes from the
+run dir's newest complete checkpoint) -> each rank's data shard
+fast-forwarded past the global samples the checkpoint consumed ->
+``run_loop`` -> ``train_summary.json`` (``train_summary-rank{r:03d}.json``
+for rank r > 0): the rank's backend, device, kernel launches and plain
+calls, all-reduce seconds, throughput, peak device memory and the SHA-256
+of its final flat parameters (equal on every rank of a healthy ring).
+``--eval_decode true`` adds the decode callback over one
 held-out batch of at most 32 rows, as the JAX entry point does: DiffuSeq
 samples ``--eval_decode_sample_steps`` reverse steps, GPT-2 continues the
 second half of each row greedily (dense KV cache). Runs on
@@ -19,49 +33,126 @@ CUDA unless ``--device cpu`` is given, and raises when CUDA is missing.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from ..config.train import TrainSettings, parse_settings
 from ..data import load_data_from_args, skip_batches_for_samples
 from ..models import create_model_from_config
 from ..models.sampling import make_decode_callback
+from ..ops import flash_attention, fused_update
+from ..parallel import dist
+from ..parallel.launcher import RUN_TIMESTAMP_ENV, parse_and_autorun
 from ..utils.device import resolve_device
-from ..utils.logger import Logger
+from ..utils.logger import Logger, distributed_mean_comm
 from ..utils.trainer import TrainLoop
 
-__all__ = ["main", "train", "resolve_run_dir"]
+__all__ = ["main", "train", "resolve_run_dir", "resume_sample_position"]
 
 
 def resolve_run_dir(args: TrainSettings) -> str:
     """``model_checkpoints/Run_{dataset}_lr{lr}_seed{seed}_{ts}`` unless
-    ``checkpoint_path`` names one, as the JAX package resolves it."""
+    ``checkpoint_path`` names one, as the JAX package resolves it; ``ts``
+    is ``DPT_RUN_TIMESTAMP`` when set (the launcher pins it for every rank
+    and every restart), else now."""
     if args.checkpoint_path:
         return args.checkpoint_path
-    ts = time.strftime("%Y%m%d-%H%M%S")
+    ts = (os.environ.get(RUN_TIMESTAMP_ENV)
+          or time.strftime("%Y%m%d-%H%M%S"))
     return os.path.join("model_checkpoints",
                         f"Run_{args.dataset}_lr{args.lr}_seed{args.seed}_{ts}")
 
 
+def resume_sample_position(resume_step: int, meta: Optional[Dict[str, Any]],
+                           batch_size: int, process_count: int
+                           ) -> Tuple[int, int]:
+    """``(skip_batches, consumed_samples)`` for the train stream's
+    fast-forward, as the JAX entry point computes them: the position that
+    survives a change of world size is the global samples consumed (the
+    checkpoint's meta records the global batch). On the same global batch
+    the skip is ``resume_step`` exactly; a checkpoint without
+    ``global_batch`` counts as the same topology."""
+    gb_now = batch_size * max(process_count, 1)
+    saved_gb = (int(meta["global_batch"])
+                if meta and meta.get("global_batch") else gb_now)
+    consumed = (int(meta["samples"])
+                if meta and meta.get("samples") is not None
+                else resume_step * saved_gb)
+    if saved_gb == gb_now:
+        return resume_step, consumed
+    return skip_batches_for_samples(resume_step * saved_gb, batch_size,
+                                    process_count), consumed
+
+
+def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
+                   ) -> None:
+    """This rank's sidecar (see the module doc), written at a clean
+    exit."""
+    loop.flush_metrics()
+    calls = loop.allreduce_calls
+    out = {"rank": loop.rank, "world_size": loop.world,
+           "backend": dist.backend(), "device": str(device),
+           "devices_in_ring": loop.n_devices, "steps": loop.step,
+           "global_batch": loop.global_batch,
+           "launches": {
+               "flash_forward": flash_attention.forward_launch_count(),
+               "flash_backward": flash_attention.backward_launch_count(),
+               "fused_adamw_ema": fused_update.launch_count()},
+           "plain_calls": {**{f"flash_{k}": v for k, v in
+                              flash_attention.plain_call_counts().items()},
+                           "fused_adamw_ema":
+                               fused_update.plain_call_count()},
+           "allreduce_calls": calls, "allreduce_s": loop.allreduce_s,
+           "allreduce_s_per_step": loop.allreduce_s / calls if calls else 0.0,
+           **loop.throughput,
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else 0),
+           "params_sha256": hashlib.sha256(
+               loop.params.cpu().numpy().tobytes()).hexdigest()}
+    suffix = f"-rank{loop.rank:03d}" if loop.rank > 0 else ""
+    path = os.path.join(run_dir, f"train_summary{suffix}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f, indent=1)
+    os.replace(path + ".tmp", path)
+
+
 def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
-    """Train with ``args`` to ``learning_steps``; returns the loop."""
+    """Train with ``args`` to ``learning_steps``; returns the loop. Joins
+    the process group the environment describes first (one process when
+    there is none)."""
     device = resolve_device(args.device)
+    dist.setup_dist(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
     run_dir = resolve_run_dir(args)
-    os.makedirs(run_dir, exist_ok=True)
-    logger = Logger(run_dir, stdout=stdout)
+    if rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+    dist.barrier("mkdir")
+    logger = Logger(run_dir, stdout=stdout and rank == 0,
+                    comm=distributed_mean_comm(), rank=rank)
     settings = args.to_dict()
     settings.pop("device")  # where a run trained is not part of its config
-    with open(os.path.join(run_dir, "training_args.json"), "w") as f:
-        json.dump(settings, f, indent=2)
+    if rank == 0:
+        with open(os.path.join(run_dir, "training_args.json"), "w") as f:
+            json.dump(settings, f, indent=2)
+        handshake = os.environ.get("DPT_RUN_DIR_FILE")
+        if handshake:
+            # the launcher appends its attempt records to this run dir
+            with open(handshake, "w") as f:
+                f.write(os.path.abspath(run_dir))
     model = create_model_from_config(**settings, device=device)
     eval_callbacks = []
     if args.eval_decode:
+        # every rank decodes the same batch, so the logged key sets agree
         decode_data = load_data_from_args(
             "valid", **{**settings, "deterministic": True,
                         "batch_size": min(args.batch_size, 32),
-                        "num_loader_proc": 0, "data_loader_workers": 0})
+                        "num_loader_proc": 0, "data_loader_workers": 0,
+                        "host_sharded": False})
         eval_callbacks.append(make_decode_callback(
             decode_data, sample_steps=args.eval_decode_sample_steps))
     loop = TrainLoop(
@@ -77,11 +168,16 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         fused_update=args.fused_update, eval_callbacks=eval_callbacks,
         keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
         prefetch_depth=args.prefetch_depth, logger=logger)
-    # exact-order resume: skip the samples the restored step consumed
+    # exact-order resume: skip the global samples the restored step
+    # consumed (by this rank's shard)
     meta = loop.resume_meta or {}
-    consumed = int(meta.get("samples", loop.step * args.batch_size))
-    train_skip = skip_batches_for_samples(consumed, args.batch_size)
+    train_skip, consumed = resume_sample_position(
+        loop.step, meta, args.batch_size, world)
     eval_skip = int(meta.get("eval_batches_consumed", 0))
+    if loop.step:
+        logger.info(f"resume at step {loop.step}: {consumed} global samples "
+                    f"consumed; each rank skips {train_skip} batches of "
+                    f"{args.batch_size}")
     data_args = {k: v for k, v in settings.items() if k != "batch_size"}
     loop.set_data(
         load_data_from_args("train", batch_size=args.batch_size,
@@ -93,16 +189,22 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         samples_consumed=consumed if loop.step else None)
     logger.info(f"the parameter count is {loop.n_params} "
                 f"({loop.n_params / 1e6:.1f}M); device {device}; "
-                f"fused update {loop.fused_update}")
+                f"fused update {loop.fused_update}; rank {rank} of {world}, "
+                f"backend {dist.backend()}, global batch "
+                f"{loop.global_batch}")
     try:
         loop.run_loop()
+        _write_summary(loop, run_dir, device)
     finally:
         logger.close()
     return loop
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainLoop:
-    return train(parse_settings(argv))
+    """Train from argv; ``--distributed --nprocs N`` runs this module as a
+    supervised ring of N workers instead and exits with its code."""
+    return train(parse_and_autorun(parse_settings, argv,
+                                   "distributed_pipeline_tpu_torch.run.train"))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,12 @@ package writes them) and, per saved step, the JAX package's file names:
   path (``convert.py``);
 * ``ema_{rate}_NNNNNN.pt`` - one parameter-shaped state dict per EMA rate;
 * ``opt_NNNNNN.pt`` - the AdamW state ``{"mu": ..., "nu": ..., "count"}``;
-* ``meta_NNNNNN.json`` - the samples consumed and the batch size, for the
-  data fast-forward on resume.
+* ``meta_NNNNNN.json`` - the global samples consumed, the batch size (a
+  rank's) and the global batch (the JAX meta's ``global_batch``), for the
+  data fast-forward on resume, at the same or another world size.
+
+Under several processes rank 0 alone writes and prunes, and every rank
+passes a barrier after it (``TrainLoop.save``).
 
 Every file is written to a temporary name and renamed, and the meta file
 last, so a step is complete when its meta file exists with all the others:

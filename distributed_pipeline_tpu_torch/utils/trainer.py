@@ -1,5 +1,6 @@
-"""TrainLoop: the port of ``distributed_pipeline_tpu/utils/trainer.py`` for
-one GPU (or the CPU, when asked).
+"""TrainLoop: the port of ``distributed_pipeline_tpu/utils/trainer.py``, on
+one GPU (or the CPU, when asked) per process, data-parallel across the
+processes of a ``torch.distributed`` group (``parallel/dist.py``).
 
 The step is the JAX trainer's, written out eagerly:
 
@@ -37,8 +38,35 @@ feeds the step from ``data/device_prefetch.py`` (batches copied to the
 device ahead of the step that reads them); ``debug_nans`` checks each
 step's metrics, gradients and parameters on the host and raises
 ``FloatingPointError`` at the first non-finite one. Chaos, goodput, the
-sanitizer, the cost ledger, profiling and meshes are later work (ROADMAP
-A.8-A.10).
+sanitizer, the cost ledger, profiling and sharded state are later work
+(ROADMAP A.8b-A.10).
+
+Data parallelism. Under a process group of P ranks each rank trains on its
+shard (``batch_size`` rows a step; ``global_batch = batch_size * P``) and
+the step is the JAX dp mesh's over the global batch, whose microbatch i is
+rank 0's microbatch i, then rank 1's, and so on:
+
+* the masked means of both losses take GLOBAL denominators: the
+  microbatches' mask counts are summed over the ranks before the forward
+  (one small all-reduce a step), and each rank's loss is its share
+  ``sum(x * mask) / global_count``, so the gradients SUMMED over the ranks
+  are those of the global mean;
+* after the microbatch loop, ONE all-reduce of the flat gradient buffer
+  (every ``.grad`` is a view into it, so it covers the whole model; no
+  ``DistributedDataParallel`` buckets), before ``grad_norm`` and the clip;
+  the metric shares are summed the same way (a [microbatches, metrics]
+  all-reduce), so every rank logs the global values;
+* DiffuSeq's draws for microbatch i are drawn once for the global
+  microbatch from the same seeded generator on every rank, and rank r
+  takes rows ``r * microbatch : (r + 1) * microbatch`` (a ``draws`` hook
+  returns the global microbatch's draws likewise);
+* every rank starts from rank 0's parameters and EMA (``sync_params``);
+  rank 0 alone writes and prunes checkpoints, then every rank passes a
+  barrier; ``samples`` and ``tokens_per_sec`` count the global batch, and
+  ``tokens_per_sec_per_chip`` divides by the distinct devices of the ring.
+
+A process group of one rank runs the same path, and gives the losses of
+no group at all bit for bit (a one-rank all-reduce is the identity).
 """
 
 from __future__ import annotations
@@ -46,6 +74,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import time
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence)
 
@@ -54,10 +83,11 @@ import torch
 
 from ..convert import init_params as random_params
 from ..data.device_prefetch import prefetch_to_device
-from ..models import Model, compute_losses
-from ..models.diffuseq import Draws, seeded_generator
+from ..models import Model, compute_losses, finish_losses, loss_count
+from ..models.diffuseq import Draws, rank_draws, seeded_generator
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
+from ..parallel import dist
 from . import checkpoint as ckpt
 from .logger import Logger
 from .perf import StepTimer, mfu, transformer_train_flops_per_token
@@ -73,8 +103,9 @@ class TrainLoop:
     or :class:`GPT2Model` on the device to train on; its weights come from
     ``init_params`` (a state dict), else from ``convert.init_params`` at
     ``seed``, unless a checkpoint is resumed. ``draws(step, i)``, when
-    given, returns microbatch i's DiffuSeq draws at ``step`` (a generator
-    or ``{"t", "noise"}``) in place of the seeded generator."""
+    given, returns the (global) microbatch i's DiffuSeq draws at ``step``
+    (a generator or ``{"t", "noise"}``) in place of the seeded generator.
+    ``batch_size`` and ``microbatch`` are per rank."""
 
     def __init__(self, *, model: Model,
                  data: Optional[Iterator[Dict[str, np.ndarray]]],
@@ -103,6 +134,11 @@ class TrainLoop:
         self.seed = seed
         self._draws = draws or self._seeded_draws
         self.batch_size = batch_size
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        # a group of one rank takes the collective path too
+        self.distributed = dist.is_initialized()
+        self.global_batch = batch_size * self.world
         self.microbatch = microbatch if microbatch > 0 else batch_size
         if batch_size % self.microbatch:
             raise ValueError(f"batch_size {batch_size} not divisible by "
@@ -135,9 +171,22 @@ class TrainLoop:
         self.resumed_from = ""
         self.resume_meta: Optional[Dict[str, Any]] = None
         self._resume(resume_checkpoint)
-        self._samples = self.step * batch_size
+        if self.world > 1:
+            # every rank starts from rank 0's weights (a resumed run loaded
+            # the same files everywhere; a fresh one may have been seeded
+            # apart)
+            dist.sync_params(self.params)
+            dist.broadcast(self.ema)
+        self._samples = self.step * self.global_batch
         self.n_params = self.params.numel()
-        tokens_per_step = batch_size * model.seq_len
+        self.n_devices = dist.device_count()
+        # the gradient all-reduce's time: seconds and calls, with the CUDA
+        # event pairs not read yet
+        self.allreduce_s = 0.0
+        self.allreduce_calls = 0
+        self._allreduce_events: List[tuple] = []
+        self.throughput: Dict[str, float] = {}
+        tokens_per_step = self.global_batch * model.seq_len
         self._timer = StepTimer(tokens_per_step)
         self._flops_per_token = transformer_train_flops_per_token(
             self.n_params, model.num_layers, model.hidden_size, model.seq_len)
@@ -297,21 +346,82 @@ class TrainLoop:
     def _seeded_draws(self, step: int, i: int) -> torch.Generator:
         return seeded_generator(self.device, self.seed, step, i)
 
+    def _rank_draws(self, step: int, i: int, mb: Mapping[str, torch.Tensor]
+                    ) -> Draws:
+        """Microbatch i's draws for this rank: the global microbatch's,
+        sliced to this rank's rows under several ranks."""
+        draws = self._draws(step, i)
+        if self.world == 1 or self.model.family != "diffuseq":
+            return draws
+        shape = tuple(mb["input_ids"].shape) + (self.model.emb_dim,)
+        return rank_draws(self.model.schedule, draws, shape, self.rank,
+                          self.world)
+
+    def _global_denoms(self, mbs: List[Dict]) -> List[Optional[torch.Tensor]]:
+        """Each microbatch's masked-mean denominator summed over the ranks
+        (one all-reduce), clamped to >= 1; Nones without a process group
+        (each loss then takes its own)."""
+        if not self.distributed:
+            return [None] * len(mbs)
+        counts = torch.stack([loss_count(self.model, mb) for mb in mbs])
+        dist.all_reduce(counts)
+        return list(torch.clamp(counts, min=1.0).unbind(0))
+
+    def _summed_metrics(self, per_micro: List[Dict[str, torch.Tensor]]
+                        ) -> Dict[str, torch.Tensor]:
+        """The metrics summed over the microbatches; under a process group
+        each microbatch's shares are first summed over the ranks (one
+        all-reduce) and finished (``finish_losses``)."""
+        if self.distributed:
+            keys = sorted(per_micro[0])
+            shares = torch.stack([torch.stack([d[k] for k in keys])
+                                  for d in per_micro])
+            dist.all_reduce(shares)
+            per_micro = [finish_losses(self.model, dict(zip(keys, row)))
+                         for row in shares]
+        sums: Dict[str, torch.Tensor] = {}
+        for d in per_micro:
+            for k, v in d.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        return sums
+
+    def _all_reduce_grads(self) -> None:
+        """Sum ``self.grads`` over the ranks in place, timed: CUDA events
+        around the collective on the current stream (read at the next
+        flush), or the host's clock on the CPU."""
+        if self.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            dist.all_reduce(self.grads)
+            end.record()
+            self._allreduce_events.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            dist.all_reduce(self.grads)
+            self.allreduce_s += time.perf_counter() - t0
+        self.allreduce_calls += 1
+
     def forward_backward(self, batch: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
         """Gradients of the batch's loss into ``self.grads``, summed over the
-        microbatches and then averaged; returns the averaged metrics."""
+        microbatches and then averaged (and summed over the ranks); returns
+        the averaged metrics."""
         self.grads.zero_()
-        sums: Dict[str, torch.Tensor] = {}
-        for i, mb in enumerate(self._micro(batch)):
-            d = compute_losses(self.model, mb, self._draws(self.step, i))
+        mbs = self._micro(batch)
+        denoms = self._global_denoms(mbs)
+        per_micro = []
+        for i, mb in enumerate(mbs):
+            d = compute_losses(self.model, mb,
+                               self._rank_draws(self.step, i, mb), denoms[i])
             d["loss"].backward()
-            for k, v in d.items():
-                v = v.detach()
-                sums[k] = v if k not in sums else sums[k] + v
+            per_micro.append({k: v.detach() for k, v in d.items()})
         scale = 1.0 / self.n_micro
         self.grads.mul_(scale)
-        return {k: v * scale for k, v in sums.items()}
+        if self.distributed:
+            self._all_reduce_grads()
+        return {k: v * scale
+                for k, v in self._summed_metrics(per_micro).items()}
 
     def run_step(self, batch: Dict[str, np.ndarray]
                  ) -> Dict[str, torch.Tensor]:
@@ -332,7 +442,7 @@ class TrainLoop:
             self._check_finite(metrics)
         self.count += 1
         self.step += 1
-        self._samples += self.batch_size
+        self._samples += self.global_batch
         self._timer.tick()
         self._inflight.append((self.step, metrics))
         while len(self._inflight) > self.dispatch_lag:
@@ -372,20 +482,28 @@ class TrainLoop:
         self.history.append({"step": step, **row})
 
     def flush_metrics(self) -> None:
-        """Fetch every in-flight step's metrics."""
+        """Fetch every in-flight step's metrics, and the all-reduce times
+        recorded so far."""
         while self._inflight:
             self._emit_lagged()
+        for start, end in self._allreduce_events:
+            end.synchronize()
+            self.allreduce_s += start.elapsed_time(end) / 1e3
+        self._allreduce_events.clear()
 
     @torch.no_grad()
     def forward_only(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, float]:
-        """Eval pass without gradients; metrics logged as ``eval_*``."""
-        sums: Dict[str, torch.Tensor] = {}
+        """Eval pass without gradients (global denominators and summed
+        shares under a process group, as the step); metrics logged as
+        ``eval_*``."""
         step = 0x7FFF0000 + self.step
-        for i, mb in enumerate(self._micro(batch)):
-            for k, v in compute_losses(self.model, mb,
-                                       self._draws(step, i)).items():
-                sums[k] = v if k not in sums else sums[k] + v
+        mbs = self._micro(batch)
+        denoms = self._global_denoms(mbs)
+        per_micro = [compute_losses(self.model, mb,
+                                    self._rank_draws(step, i, mb), denoms[i])
+                     for i, mb in enumerate(mbs)]
+        sums = self._summed_metrics(per_micro)
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}
         self.logger.logkvs_mean(out)
         return out
@@ -393,17 +511,22 @@ class TrainLoop:
     # -------------------------------------------------------------- loop
 
     def _log_throughput(self) -> None:
+        if self.allreduce_calls:
+            self.logger.logkv("allreduce_s_per_step",
+                              self.allreduce_s / self.allreduce_calls)
         sps, tps = self._timer.lap()
         if tps <= 0:
             return
-        self.logger.logkv("steps_per_sec", sps)
-        self.logger.logkv("step_time_s", 1.0 / sps)
-        self.logger.logkv("tokens_per_sec", tps)
-        self.logger.logkv("tokens_per_sec_per_chip", tps)  # one device
+        # tokens of the global batch; per chip over the ring's distinct
+        # devices (ranks sharing a card count it once)
+        per_chip = tps / self.n_devices
+        row = {"steps_per_sec": sps, "step_time_s": 1.0 / sps,
+               "tokens_per_sec": tps, "tokens_per_sec_per_chip": per_chip}
         if self.device.type == "cuda":
-            self.logger.logkv("mfu", mfu(
-                tps, self._flops_per_token,
-                torch.cuda.get_device_name(self.device)))
+            row["mfu"] = mfu(per_chip, self._flops_per_token,
+                             torch.cuda.get_device_name(self.device))
+        self.throughput = row
+        self.logger.logkvs(row)
 
     def run_loop(self) -> None:
         """Interval-driven outer loop: log, eval and save at their
@@ -433,17 +556,24 @@ class TrainLoop:
     __call__ = run_loop
 
     def save(self) -> None:
-        """``model_/ema_{rate}_/opt_/meta_{step:06d}`` in the run dir."""
+        """``model_/ema_{rate}_/opt_/meta_{step:06d}`` in the run dir,
+        written and pruned by rank 0; then every rank passes a barrier."""
         if not self.checkpoint_dir:
             self.logger.info("no checkpoint_dir configured; skipping save")
             return
         self.flush_metrics()
+        if self.rank == 0:
+            self._write_checkpoint()
+        dist.barrier("save")
+
+    def _write_checkpoint(self) -> None:
         ckpt.save_checkpoint(
             self.checkpoint_dir, self.step, self.state_dict_of(self.params),
             self.ema_state_dicts(),
             {"mu": self.state_dict_of(self.mu),
              "nu": self.state_dict_of(self.nu), "count": int(self.count)},
             {"samples": self._samples, "batch_size": self.batch_size,
+             "global_batch": self.global_batch,
              "eval_batches_consumed": self.eval_batches_consumed})
         self.logger.info(f"saved checkpoint at step {self.step} -> "
                          f"{self.checkpoint_dir}")

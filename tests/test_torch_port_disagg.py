@@ -146,7 +146,8 @@ def test_ingest_then_submit_prefilled_continues_colocated(models):
 
 
 @pytest.mark.parametrize("slots", [2, 1])
-def test_serve_disagg_inprocess_matches_jax_and_colocated(models, slots):
+def test_serve_disagg_inprocess_matches_jax_and_colocated(models, slots,
+                                                         tmp_path):
     """Both roles in one process over a MemStageLink: token-identical to
     the JAX package's ``serve_disagg_inprocess`` on the same weights and
     to the port's colocated server, including under admission
@@ -156,9 +157,18 @@ def test_serve_disagg_inprocess_matches_jax_and_colocated(models, slots):
     got = serve_disagg_inprocess(model, pairs, decode_slots=slots,
                                  device="cpu", **KW)
     want = jax_serve_disagg(wl, params, pairs, decode_slots=slots, **KW)
+    streams = {"port_disagg": [list(map(int, g["tokens"])) for g in got],
+               "jax_disagg": [list(map(int, w["tokens"])) for w in want],
+               "port_colocated": _colocated(model, pairs)}
+    if len(set(map(json.dumps, streams.values()))) > 1:
+        # the three stream sets, for telling which side moved
+        dump = tmp_path / f"disagg_streams_slots{slots}.json"
+        dump.write_text(json.dumps(streams))
+        print(f"stream sets differ; written to {dump}: "
+              f"{json.dumps(streams)}")
     assert [g["id"] for g in got] == list(range(len(pairs)))
-    assert [g["tokens"] for g in got] == [w["tokens"] for w in want]
-    assert [g["tokens"] for g in got] == _colocated(model, pairs)
+    assert streams["port_disagg"] == streams["jax_disagg"]
+    assert streams["port_disagg"] == streams["port_colocated"]
     assert [g["prompt_len"] for g in got] == [len(p) for p, _ in pairs]
 
 

@@ -417,8 +417,16 @@ def test_fleet_parent_imports_no_torch():
 
 
 def test_launcher_refuses_several_processes():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        launcher.run_argv_as_distributed("x", [], nprocs=2)
+    """A ring of several processes is served now (``run.train
+    --distributed --nprocs N``, tests/test_torch_port_dist.py); what the
+    launcher still refuses is a ring of no process, and each worker of a
+    ring gets its own rank of the same rendezvous."""
+    with pytest.raises(ValueError, match="nprocs must be >= 1"):
+        launcher.run_argv_as_distributed("x", [], nprocs=0)
+    envs = [launcher._worker_env(r, 2, 1234) for r in range(2)]
+    assert [(e["RANK"], e["LOCAL_RANK"], e["WORLD_SIZE"], e["MASTER_PORT"])
+            for e in envs] == [("0", "0", "2", "1234"),
+                               ("1", "1", "2", "1234")]
 
 
 # ===================================================== the fleet, end to end

@@ -120,8 +120,9 @@ def test_keep_checkpoints_prunes_every_file_kind(tmp_path):
                            "--save_interval", "1", "--keep_checkpoints", "2"])
     kinds = ("model_{:06d}.pt", "opt_{:06d}.pt", "meta_{:06d}.json",
              "ema_0.9_{:06d}.pt", "ema_0.99_{:06d}.pt")
+    # the run's settings and its clean-exit sidecar are not checkpoints
     names = {n for n in os.listdir(run) if n[-3:] in (".pt", "son")
-             and n != "training_args.json"}
+             and n not in ("training_args.json", "train_summary.json")}
     assert names == {k.format(s) for k in kinds for s in (3, 4)}
 
 
