@@ -82,7 +82,8 @@ Phases (any failure raises, and the script exits non-zero):
    stream identical token for token, every launch counter equal (the
    graph's counted through its replays), tokens/s and TTFT p50/p95 of
    both, and the device idle share of both from a ``torch.profiler``
-   window; ``--sanitize true`` on the bf16 workload (``recompile_count``
+   window (over all 64 requests for the bf16 pool, the first 16 for the
+   int8 pool and the spec run); ``--sanitize true`` on the bf16 workload (``recompile_count``
    0, one capture per phase, no violation in ``sanitize_report.json``,
    then a sync injected into a dispatch through the engine's test hook
    raises and is recorded); whether a prefill's K/V rows are bitwise
@@ -158,7 +159,7 @@ Phases (any failure raises, and the script exits non-zero):
    requests; the decode worker's decode kernel launched, plain never).
    Tokens/s and TTFT p50/p95 beside the single run's; its line is
    ``{"serving_fleet": {...}}``;
-12. data-parallel training, last: GPT-2 base at full width (seq 1024,
+12. data-parallel training: GPT-2 base at full width (seq 1024,
    synthetic-lm, global batch 8 in global microbatches of 4, 5 steps from
    seed 0) through ``python -m distributed_pipeline_tpu_torch.run.train``
    as subprocesses, three times: without ``--distributed``; with
@@ -174,7 +175,30 @@ Phases (any failure raises, and the script exits non-zero):
    fused update 5 times, and call no plain version; each rank's backend,
    device, launches, all-reduce seconds a step, step time, tokens/s and
    peak memory are printed from its sidecar. Its line is
-   ``{"data_parallel": {...}}``.
+   ``{"data_parallel": {...}}``;
+13. mixture of experts and remat, last: GPT-2 base moe8 (8 experts,
+   top-2, every 2nd block, capacity factor 1.25; 322,574,592 parameters,
+   152,705,280 active a token) through ``run.train`` (synthetic-lm,
+   global batch 8 in microbatches of 4, seed 0, 5 steps), without and with
+   ``--remat true``: losses, ``moe_aux``, grad norms and the final
+   parameters' SHA-256 bitwise equal, peak memory lower with remat, the
+   flash forward launched 120 times without remat and 240 with it, the
+   backward 120, the update 5, the plain versions never; tokens/s,
+   ``mfu``, ``mfu_active``, step time and peak memory of each; one step
+   from the saved state with the kernels (twice, bitwise) and with the
+   plain versions (the train phase's bars); ``run.serve`` on that run dir
+   (bf16 pool, 32 slots, 16 requests of 256 tokens, 64 new each, greedy)
+   through the graph engine under ``--sanitize`` (0 recompiles) and the
+   eager engine, streams equal, the decode kernel launched, the first 4
+   streams against ``gpt2_decode`` (equal or parting at a near-tie);
+   DiffuSeq-base moe8 (289,257,600 parameters, 119,388,288 active; batch
+   256 in microbatches of 64) 20 steps, the update 20 times, no flash
+   launch (the dense arm at 128), then ``run.sample`` (2 x 32 rows, 20
+   steps); DiffuSeq-large at seq 512 (batch 128 in microbatches of 8) 3
+   steps without and with remat, bitwise equal, peak lower with remat.
+   The fused update is also held against its plain version and timed at
+   GPT-2 base moe8's parameter count. Its line is ``{"moe_remat":
+   {...}}``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -184,6 +208,7 @@ before the last is ``{"kernels": [...]}`` and the last is
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -740,7 +765,8 @@ def divergence_gaps(torch, model, reqs, refs) -> tuple:
         i = next(i for i, (a, b) in enumerate(zip(r.tokens, ref)) if a != b)
         ids = torch.tensor(list(r.prompt) + ref[:i], device="cuda")
         with torch.inference_mode():
-            logits = model(ids[None])[0, -1].float()
+            # no-drop routing, as the servers and decoders route
+            logits = model(ids[None], moe_no_drop=True)[0, -1].float()
         top = logits.topk(2).values
         gaps.append({"request": r.id, "position": i,
                      "gap": float(top[0] - top[1]),
@@ -899,10 +925,15 @@ def options_phase(torch, fd, run, runs, spec) -> dict:
     sanitizer, the prefix cache under wall-clock traffic, and
     ``--serve_quant int8`` with the cost ledger."""
     out = {"card": CARD}
-    for key, base in (("fp", runs["fp"]), ("int8", runs["int8"]),
-                      ("spec_ngram_fp", spec["ngram_fp"])):
+    # the profiled passes over the int8 pool and the spec run serve 16 of
+    # their 64 requests (a depth cut for the script's wall: the fp
+    # pool's pair, which PERF.md reads, keeps all 64)
+    for key, base, prof in (("fp", runs["fp"], 0),
+                            ("int8", runs["int8"], 16),
+                            ("spec_ngram_fp", spec["ngram_fp"], 16)):
         out[f"graph_vs_eager_{key}"] = clocked(
-            f"graph vs eager {key}", graph_vs_eager, torch, fd, key, base)
+            f"graph vs eager {key}", graph_vs_eager, torch, fd, key, base,
+            profile_requests=prof)
     out["sanitize"] = clocked("sanitize", sanitize_run, torch, fd, run)
     out["prefill_rows_bitwise"] = prefill_rows_bitwise(torch, run)
     out["prefix_cache"] = clocked("prefix cache", prefix_run, torch, fd, run)
@@ -932,11 +963,13 @@ def serve_profiled(torch, argv: list, cuda_graphs: bool) -> dict:
             "tokens_per_s": summary["decode_tokens_per_s_per_chip"]}
 
 
-def graph_vs_eager(torch, fd, key: str, base: dict) -> dict:
+def graph_vs_eager(torch, fd, key: str, base: dict,
+                   profile_requests: int = 0) -> dict:
     """The run of ``base`` (graph engine: its argv, streams, launch
     counters and summary) served again through the eager engine: streams
     identical token for token, every launch counter equal; then a
-    profiled pass of each engine for its device idle share."""
+    profiled pass of each engine for its device idle share, over the
+    first ``profile_requests`` requests when > 0 (else all of them)."""
     from distributed_pipeline_tpu_torch.config.serve import parse_settings
     from distributed_pipeline_tpu_torch.run.serve import serve
     fd.reset_launch_count()
@@ -966,8 +999,13 @@ def graph_vs_eager(torch, fd, key: str, base: dict) -> dict:
                                        "compile_time_s")}}
     out["speedup"] = (g["decode_tokens_per_s_per_chip"]
                       / e["decode_tokens_per_s_per_chip"])
-    out["graph_profiled"] = serve_profiled(torch, base["argv"], True)
-    out["eager_profiled"] = serve_profiled(torch, base["argv"], False)
+    argv = list(base["argv"])
+    if profile_requests:
+        argv[argv.index("--synthetic_requests") + 1] = str(profile_requests)
+    out["profiled_requests"] = int(
+        argv[argv.index("--synthetic_requests") + 1])
+    out["graph_profiled"] = serve_profiled(torch, argv, True)
+    out["eager_profiled"] = serve_profiled(torch, argv, False)
     print(f"# graph vs eager {key} ({CARD}): {json.dumps(out)}", flush=True)
     return out
 
@@ -1711,9 +1749,11 @@ def train_phase(torch, fa, fu, run: str) -> dict:
             **gauges, **twice}
 
 
-def one_step_twice(torch, fa, fu, run, argv) -> dict:
-    """One step from the run dir's saved state with the kernels, and one
-    with ``attention_impl torch`` and ``fused_update false``."""
+def one_step_twice(torch, fa, fu, run, argv, cfg=None, step: int = 20
+                   ) -> dict:
+    """One step from the run dir's saved state (GPT-2 ``cfg``, default
+    base, at ``step``) with the kernels, twice, and one with
+    ``attention_impl torch`` and ``fused_update false``."""
     from distributed_pipeline_tpu_torch.config.train import parse_settings
     from distributed_pipeline_tpu_torch.data import load_data_from_args
     from distributed_pipeline_tpu_torch.models import \
@@ -1721,27 +1761,28 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
     from distributed_pipeline_tpu_torch.utils.logger import Logger
     from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
 
+    cfg = cfg or GPT2_BASE
     args = parse_settings(argv)
     batch = next(load_data_from_args(
         "train", batch_size=8, dataset="synthetic-lm", seq_len=1024,
-        vocab_size=50257, seed=0, skip_batches=20))
+        vocab_size=50257, seed=0, skip_batches=step))
     out, grads = {}, {}
     # the saved parameters as the loops' initial ones (the resume loads
     # them again with the rest of the state): no random init per arm
-    saved = torch.load(os.path.join(run, "model_000020.pt"),
+    saved = torch.load(os.path.join(run, f"model_{step:06d}.pt"),
                        map_location="cuda", weights_only=True)
+    per_step = 2 * cfg["num_layers"]
     for arm, (attn, fused) in (("kernels", ("auto", "auto")),
                                ("kernels_again", ("auto", "auto")),
                                ("plain", ("torch", "false"))):
-        model = create_model_from_config(**{**GPT2_BASE,
-                                            "attention_impl": attn},
+        model = create_model_from_config(**{**cfg, "attention_impl": attn},
                                          device="cuda")
         loop = TrainLoop(
             model=model, data=None, batch_size=8, microbatch=4, lr=args.lr,
             ema_rate=args.ema_rate, learning_steps=args.learning_steps,
             checkpoint_dir=run, fused_update=fused, init_params=saved,
             logger=Logger(""))
-        check(loop.step == 20, f"resumed at step {loop.step}, not 20")
+        check(loop.step == step, f"resumed at step {loop.step}, not {step}")
         fa.reset_launch_counts()
         fu.reset_launch_count()
         m = loop.run_step(batch)
@@ -1750,7 +1791,8 @@ def one_step_twice(torch, fa, fu, run, argv) -> dict:
         grads[arm] = loop.grads.clone()
         n = (fa.forward_launch_count(), fa.backward_launch_count(),
              fu.launch_count())
-        check(n == ((0, 0, 0) if arm == "plain" else (24, 24, 1)),
+        check(n == ((0, 0, 0) if arm == "plain"
+                    else (per_step, per_step, 1)),
               f"{arm} arm launches {n}")
         del loop, model
         torch.cuda.empty_cache()
@@ -2079,7 +2121,8 @@ def row_gaps(torch, model, preds, refs, plen: int) -> tuple:
         check(i >= plen, f"row {r}: a prompt token differs at {i}")
         ids = torch.tensor(list(ref[:i]), device="cuda")
         with torch.inference_mode():
-            logits = model(ids[None])[0, -1].float()
+            # no-drop routing, as the servers and decoders route
+            logits = model(ids[None], moe_no_drop=True)[0, -1].float()
         top = logits.topk(2).values
         gaps.append({"row": r, "position": i,
                      "gap": float(top[0] - top[1]),
@@ -2837,6 +2880,263 @@ def dp_phase(torch) -> dict:
     return out
 
 
+# ------------------------------------------------- MoE and remat (phase 13)
+
+MOE8 = dict(moe_experts=8, moe_top_k=2, moe_every=2,
+            moe_capacity_factor=1.25)
+GPT2_MOE8 = dict(GPT2_BASE, **MOE8)
+DIFFUSEQ_MOE8 = dict(DIFFUSEQ_BASE, **MOE8)
+DIFFUSEQ_LARGE_512 = dict(DIFFUSEQ_BASE, model_size="large", seq_len=512,
+                          hidden_size=1024, num_layers=24, num_heads=16)
+MOE_STEPS = 5
+# the phase's wall budget: 5 run.train calls (two of GPT-2 base moe8, one
+# of DiffuSeq-base moe8, two of DiffuSeq-large at seq 512), the one-step
+# arms, two run.serve passes and run.sample
+MOE_BUDGET_S = 240.0
+
+
+def cfg_argv(cfg: dict) -> list:
+    """run.train's model flags for a configuration dict."""
+    argv = []
+    for key in ("model_family", "model_size", "vocab_size", "seq_len",
+                "hidden_size", "num_layers", "num_heads", "dtype",
+                "moe_experts", "moe_top_k", "moe_every",
+                "moe_capacity_factor", "diffusion_steps", "noise_schedule"):
+        if key in cfg:
+            argv += [f"--{key}", str(cfg[key])]
+    return argv
+
+
+def moe_train(torch, fa, fu, run: str, cfg: dict, extra: list, *,
+              steps: int, batch: int, micro: int, what: str) -> dict:
+    """``run.train`` in this process into ``run``: the step metrics, the
+    kernels' launches and the plain versions' calls, the last log
+    window's gauges with ``mfu_active`` (the JAX bench's convention: the
+    FLOPs of the parameters a token runs through), the run's peak device
+    memory above what was allocated when it began, and the final
+    parameters' SHA-256."""
+    import hashlib
+    from distributed_pipeline_tpu_torch.run.train import main as train_main
+    from distributed_pipeline_tpu_torch.utils.perf import (
+        card_rates, transformer_train_flops_per_token)
+
+    dataset = ("synthetic-lm" if cfg["model_family"] == "gpt2"
+               else "synthetic-seq2seq")
+    argv = (["--checkpoint_path", run, "--dataset", dataset]
+            + cfg_argv(cfg)
+            + ["--batch_size", str(batch), "--microbatch", str(micro),
+               "--learning_steps", str(steps), "--lr", "3e-4",
+               "--ema_rate", "0.9999", "--attention_impl", "auto",
+               "--fused_update", "auto", "--log_interval", str(steps),
+               "--save_interval", "0", "--seed", "0"] + extra)
+    fa.reset_launch_counts()
+    fu.reset_launch_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loop = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the run's own peak: above what earlier phases still hold
+    peak = torch.cuda.max_memory_allocated() - start
+    launches = {"flash_forward": fa.forward_launch_count(),
+                "flash_backward": fa.backward_launch_count(),
+                "fused_adamw_ema": fu.launch_count()}
+    plain = {**{f"flash_{k}": v for k, v in fa.plain_call_counts().items()},
+             "fused_adamw_ema": fu.plain_call_count()}
+    hist = loop.history
+    check(len(hist) == steps, f"{what}: {len(hist)} logged steps")
+    for key in ("loss", "grad_norm") + (("moe_aux",) if cfg.get(
+            "moe_experts") else ()):
+        vals = [h[key] for h in hist]
+        check(all(math.isfinite(v) for v in vals),
+              f"{what}: {key} not finite: {vals}")
+    with open(os.path.join(run, "progress.csv")) as f:
+        rows = f.read().splitlines()
+    last = dict(zip(rows[0].split(","), rows[-1].split(",")))
+    gauges = {k: float(last[k]) for k in
+              ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
+    peak_flops = card_rates(torch.cuda.get_device_name(0))[1]
+    gauges["mfu_active"] = (gauges["tokens_per_sec_per_chip"]
+                            * transformer_train_flops_per_token(
+                                loop.n_active_params, cfg["num_layers"],
+                                cfg["hidden_size"], cfg["seq_len"])
+                            / peak_flops)
+    out = {"steps": steps, "batch": batch, "microbatch": micro,
+           "remat": bool(loop.model.remat),
+           "n_params": loop.n_params,
+           "n_active_params": loop.n_active_params,
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "moe_aux": [h.get("moe_aux") for h in hist],
+           "launches": launches, "plain_calls": plain, **gauges,
+           "peak_memory_bytes": peak, "memory_at_start_bytes": start,
+           "wall_s": wall,
+           "params_sha256": hashlib.sha256(
+               loop.params.cpu().numpy().tobytes()).hexdigest()}
+    print(f"# moe/remat {what} ({CARD}): " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("grad_norms",)}),
+        flush=True)
+    check(not any(plain.values()), f"{what}: plain versions called {plain}")
+    del loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_pair(a: dict, b: dict, what: str) -> dict:
+    """The run with remat ``b`` against the run without ``a``: losses, grad
+    norms, aux and final parameters bitwise equal, peak memory lower."""
+    for key in ("losses", "grad_norms", "moe_aux", "params_sha256"):
+        check(a[key] == b[key], f"{what}: remat {key} {b[key]} differ "
+                                f"from no remat {a[key]}")
+    check(b["peak_memory_bytes"] < a["peak_memory_bytes"],
+          f"{what}: peak memory with remat {b['peak_memory_bytes']} not "
+          f"below {a['peak_memory_bytes']}")
+    out = {"bitwise_equal": True,
+           "peak_memory_bytes": [a["peak_memory_bytes"],
+                                 b["peak_memory_bytes"]],
+           "step_time_s": [a["step_time_s"], b["step_time_s"]],
+           "remat_step_overhead": b["step_time_s"] / a["step_time_s"] - 1}
+    print(f"# moe/remat {what}: remat bitwise the run without, "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def moe_serve(torch, fd, run: str) -> dict:
+    """``run.serve`` on the GPT-2 moe8 run dir (bf16 pool, 32 slots, 16
+    requests of 256 tokens, 64 new each, greedy) through the graph engine
+    under ``--sanitize`` and through the eager engine: streams equal,
+    0 recompiles, the decode kernel launched; the first 4 requests'
+    streams against ``gpt2_decode`` on the same prompts (equal, or parting
+    at a near-tie)."""
+    from distributed_pipeline_tpu_torch.config.serve import parse_settings
+    from distributed_pipeline_tpu_torch.models.sampling import gpt2_decode
+    from distributed_pipeline_tpu_torch.run.serve import serve
+
+    requests, new, plen = 16, 64, 256
+    argv = ["--checkpoint_path", run, "--decode_slots", "32",
+            "--page_size", "16", "--max_prompt_len", "512",
+            "--synthetic_requests", str(requests),
+            "--synthetic_prompt_len", str(plen),
+            "--max_new_tokens", str(new), "--temperature", "0",
+            "--decode_impl", "auto", "--kv_quant", "fp"]
+    out = {}
+    streams = {}
+    for engine, graphs, extra in (("graph", True, ["--sanitize", "true"]),
+                                  ("eager", False, [])):
+        fd.reset_launch_count()
+        summary, server, reqs = serve(parse_settings(argv + extra),
+                                      cuda_graphs=graphs)
+        check(len(reqs) == requests and all(
+            len(r.tokens) == new for r in reqs),
+            f"moe serve {engine}: a request lacks tokens")
+        streams[engine] = [list(r.tokens) for r in reqs]
+        out[engine] = {"decode_kernel_launches": fd.launch_count(),
+                       **{k: summary.get(k) for k in (
+                           "decode_tokens_per_s_per_chip", "ttft_p50_s",
+                           "ttft_p95_s", "wall_s", "compile_time_s",
+                           "recompile_count")}}
+        check(fd.launch_count() > 0,
+              f"moe serve {engine}: the decode kernel never launched")
+        if engine == "graph":
+            check(summary["recompile_count"] == 0,
+                  f"moe serve: {summary['recompile_count']} recompiles")
+            model = server.engine.model
+            prompts = [list(r.prompt) for r in reqs[:4]]
+        del server
+        torch.cuda.empty_cache()
+    differ = sum(a != b for a, b in zip(streams["graph"], streams["eager"]))
+    check(differ == 0, f"moe serve: {differ} graph streams differ from "
+                       f"the eager engine's")
+    ids = torch.tensor([p + [0] * new for p in prompts], device="cuda")
+    dec = gpt2_decode(model, ids, plen).tolist()
+    refs = [p + s for p, s in zip(prompts, streams["graph"][:4])]
+    same, gaps = row_gaps(torch, model, dec, refs, plen)
+    check_near_ties(gaps, "moe serve vs gpt2_decode")
+    out.update(identical_graph_eager=True, gpt2_decode_identical=same,
+               gpt2_decode_rows=len(refs), gpt2_decode_gaps=gaps)
+    print(f"# moe/remat serve ({CARD}): {json.dumps(out)}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_remat_phase(torch, fa, fd, fu) -> dict:
+    """Phase 13 (see the module doc)."""
+    from distributed_pipeline_tpu_torch.run import sample as sample_mod
+
+    t0 = time.perf_counter()
+    layers = GPT2_MOE8["num_layers"]
+    per_run = layers * 2 * MOE_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        gpt2 = {}
+        for key, extra in (("no_remat", []), ("remat", ["--remat", "true"])):
+            run = os.path.join(work, f"gpt2_moe8_{key}")
+            gpt2[key] = moe_train(torch, fa, fu, run, GPT2_MOE8, extra,
+                                  steps=MOE_STEPS, batch=8, micro=4,
+                                  what=f"gpt2 moe8 {key}")
+            want = {"flash_forward": per_run * (2 if key == "remat" else 1),
+                    "flash_backward": per_run,
+                    "fused_adamw_ema": MOE_STEPS}
+            check(gpt2[key]["launches"] == want,
+                  f"gpt2 moe8 {key}: launches {gpt2[key]['launches']}, "
+                  f"expected {want}")
+        check(gpt2["no_remat"]["n_params"] == 322_574_592
+              and gpt2["no_remat"]["n_active_params"] == 152_705_280,
+              f"gpt2 moe8 parameters {gpt2['no_remat']['n_params']}, "
+              f"active {gpt2['no_remat']['n_active_params']}")
+        out["gpt2_moe8"] = {**gpt2, "remat_vs_no_remat": remat_pair(
+            gpt2["no_remat"], gpt2["remat"], "gpt2 moe8")}
+        run = os.path.join(work, "gpt2_moe8_no_remat")
+        argv = (["--checkpoint_path", run] + cfg_argv(GPT2_MOE8)
+                + ["--learning_steps", str(MOE_STEPS), "--lr", "3e-4",
+                   "--ema_rate", "0.9999"])
+        out["gpt2_moe8"]["one_step"] = one_step_twice(
+            torch, fa, fu, run, argv, cfg=GPT2_MOE8, step=MOE_STEPS)[
+                "one_step"]
+        out["serve"] = moe_serve(torch, fd, run)
+
+        run = os.path.join(work, "diffuseq_moe8")
+        dq = moe_train(torch, fa, fu, run, DIFFUSEQ_MOE8, [], steps=20,
+                       batch=256, micro=64, what="diffuseq-base moe8")
+        check(dq["launches"] == {"flash_forward": 0, "flash_backward": 0,
+                                 "fused_adamw_ema": 20},
+              f"diffuseq moe8 launches {dq['launches']}")
+        check(dq["n_params"] == 289_257_600
+              and dq["n_active_params"] == 119_388_288,
+              f"diffuseq moe8 parameters {dq['n_params']}, active "
+              f"{dq['n_active_params']}")
+        t1 = time.perf_counter()
+        sampled = sample_mod.main(["--checkpoint_path", run,
+                                   "--batch_size", "32", "--num_batches",
+                                   "2", "--sample_steps", "20"])
+        check(sampled["step"] == 20 and 0.0 <= sampled["decode_acc"] <= 1.0
+              and math.isfinite(sampled["eval_loss"]),
+              f"run.sample on the diffuseq moe8 run dir: {sampled}")
+        out["diffuseq_moe8"] = {**dq, "sample": {
+            **sampled, "wall_s": time.perf_counter() - t1}}
+
+        large = {}
+        for key, extra in (("no_remat", []), ("remat", ["--remat", "true"])):
+            large[key] = moe_train(
+                torch, fa, fu, os.path.join(work, f"dq_large_{key}"),
+                DIFFUSEQ_LARGE_512, extra, steps=3, batch=128, micro=8,
+                what=f"diffuseq-large seq512 {key}")
+        out["diffuseq_large_seq512"] = {**large, "remat_vs_no_remat":
+                                        remat_pair(large["no_remat"],
+                                                   large["remat"],
+                                                   "diffuseq-large seq512")}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# moe/remat: phase {out['phase_s']:.1f} s of its "
+          f"{MOE_BUDGET_S:.0f} s budget", flush=True)
+    check(out["phase_s"] <= MOE_BUDGET_S,
+          f"phase 13 took {out['phase_s']:.1f} s, over {MOE_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2880,6 +3180,9 @@ def main() -> int:
     update_dq = clocked("fused update diffuseq", update_phase, torch, bw,
                         f32_peak, DIFFUSEQ_BASE,
                         name="fused_adamw_ema_diffuseq")
+    update_moe = clocked("fused update gpt2 moe8", update_phase, torch, bw,
+                         f32_peak, GPT2_MOE8,
+                         name="fused_adamw_ema_gpt2_moe8")
     small_model_phase(torch)
     t0 = time.perf_counter()
     serve, spec, options = serve_phase(torch, fd, bw, bf16_peak)
@@ -2921,6 +3224,22 @@ def main() -> int:
         for key in ("nprocs1", "nprocs2"):
             row[f"launches_dp_{key}"] = [r["launches"][row["name"]]
                                          for r in dp[key]["ranks"]]
+    moe = clocked("moe and remat", moe_remat_phase, torch, fa, fd, fu)
+    # phase 13: GPT-2 base moe8 without and with remat, and the launches
+    # of serving its run dir
+    for row in (*flash, update):
+        for key in ("no_remat", "remat"):
+            row[f"launches_moe_gpt2_{key}"] = moe["gpt2_moe8"][key][
+                "launches"][row["name"]]
+    update_moe["launches_by_run"] = {
+        key: moe["gpt2_moe8"][key]["launches"]["fused_adamw_ema"]
+        for key in ("no_remat", "remat")}
+    update_moe["launches"] = sum(update_moe["launches_by_run"].values())
+    update_dq["launches_moe"] = moe["diffuseq_moe8"]["launches"][
+        "fused_adamw_ema"]
+    decode[0]["launches_moe_serve"] = {
+        k: moe["serve"][k]["decode_kernel_launches"]
+        for k in ("graph", "eager")}
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"serve_options": options}), flush=True)
@@ -2929,10 +3248,11 @@ def main() -> int:
     print(json.dumps({"gpt2_decoding": gpt2}), flush=True)
     print(json.dumps({"serving_fleet": fleet}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
+    print(json.dumps({"moe_remat": moe}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, update,
-                                  update_dq]}), flush=True)
+                                  update_dq, update_moe]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,8 +26,6 @@ __all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "remat": (False, "ROADMAP A.8b (activation rematerialization)"),
-    "moe_experts": (0, "ROADMAP A.8b (mixture of experts)"),
     "scan_layers": (False, "ROADMAP A.9 (stacked layers, pipeline)"),
     "pp_chunks": (4, "ROADMAP A.9 (pipeline parallelism)"),
     "pp_schedule": ("1f1b", "ROADMAP A.9 (pipeline parallelism)"),
@@ -49,9 +47,6 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "profile_steps": ("", "ROADMAP A.10 (profiler window)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
     "scan_unroll": (0, "ROADMAP A.9 (stacked layers, pipeline)"),
-    "moe_top_k": (2, "ROADMAP A.8b (mixture of experts)"),
-    "moe_every": (2, "ROADMAP A.8b (mixture of experts)"),
-    "moe_capacity_factor": (1.25, "ROADMAP A.8b (mixture of experts)"),
     "mpmd_stages": (2, "ROADMAP A.9 (MPMD pipeline)"),
     "mpmd_link_capacity": (8, "ROADMAP A.9 (MPMD pipeline)"),
     "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9 (MPMD pipeline)"),
@@ -157,10 +152,17 @@ class TrainSettings:
                 "the kernel for CUDA tensors", ("auto", "true", "false"))
     device: str = _f("", "torch device; empty = cuda (the run fails "
                          "without CUDA unless 'cpu' is asked for)")
+    remat: bool = _f(False, "rematerialize (torch.utils.checkpoint) each "
+                            "block: recompute it in the backward")
+    moe_experts: int = _f(0, "mixture-of-experts: expert count (0 = dense "
+                             "MLPs)")
+    moe_top_k: int = _f(2, "MoE router top-k")
+    moe_every: int = _f(2, "MoE replaces the MLP in every k-th block")
+    moe_capacity_factor: float = _f(
+        1.25, "MoE expert capacity = ceil(L/E * factor * top_k) slots; "
+              "tokens over capacity fall through on the residual path")
 
     # options of the JAX trainer that later slices bring (DEFERRED)
-    remat: bool = _f(False, "rematerialize each block")
-    moe_experts: int = _f(0, "mixture-of-experts expert count")
     scan_layers: bool = _f(False, "stacked layer weights")
     pp_chunks: int = _f(4, "pipeline microchunks")
     pp_schedule: str = _f("1f1b", "pipeline schedule",
@@ -185,9 +187,6 @@ class TrainSettings:
     profile_steps: str = _f("", "profiler capture window 'A:B'")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
     scan_unroll: int = _f(0, "scan_layers unroll factor")
-    moe_top_k: int = _f(2, "MoE router top-k")
-    moe_every: int = _f(2, "MoE replaces the MLP in every k-th block")
-    moe_capacity_factor: float = _f(1.25, "MoE expert capacity factor")
     mpmd_stages: int = _f(2, "MPMD stage count")
     mpmd_link_capacity: int = _f(8, "MPMD StageLink in-flight frame cap")
     mpmd_hang_timeout_s: float = _f(0.0, "MPMD per-stage hang watchdog")
@@ -210,6 +209,9 @@ class TrainSettings:
         if self.prefetch_depth < 0:
             raise ValueError(f"--prefetch_depth must be >= 0, got "
                              f"{self.prefetch_depth}")
+        if self.moe_experts > 0 and self.moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got "
+                             f"{self.moe_every}")
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if self.dp not in (-1, world):
             raise ValueError(f"--dp {self.dp}: the data-parallel axis spans "

@@ -3,8 +3,9 @@ port's ``state_dict``.
 
 The port names every parameter by its flax path (``word_emb.embedding``,
 ``backbone.block_0.attn.qkv``, ``backbone.ln_f.scale``, ...), so the bridge
-is a flatten/unflatten of nested dicts of numpy arrays; no array is
-reshaped or transposed. Trees shaped like the parameters (the Adam moments,
+is a flatten/unflatten of nested dicts of numpy arrays (an MoE block's
+``backbone.block_i.moe.{router,wi,wo}`` included); no array is reshaped or
+transposed. Trees shaped like the parameters (the Adam moments,
 each EMA copy) convert with the same mapping. :func:`init_params` draws the
 JAX initializers' distributions with numpy, for either family, which gives
 full-width weights without JAX.
@@ -67,8 +68,11 @@ def init_params(cfg: Mapping[str, Any], seed: int) -> Dict[str, torch.Tensor]:
     MLP flax's default ``lecun_normal`` (a normal truncated at two standard
     deviations, rescaled to variance ``1/fan_in``), biases zero, LayerNorm
     scales one. ``cfg`` holds ``vocab_size``, ``seq_len``, ``hidden_size``,
-    ``num_layers`` and ``num_heads``; the result is an f32 state dict for
-    the model's ``load_state_dict``."""
+    ``num_layers`` and ``num_heads``, and for a mixture of experts
+    ``moe_experts`` and ``moe_every`` (an MoE block draws ``router`` and
+    ``wi`` ``normal(D**-0.5)``, ``wo`` ``normal((4D)**-0.5)``, the JAX
+    ``_dense_init``); the result is an f32 state dict for the model's
+    ``load_state_dict``."""
     rng = np.random.default_rng(seed)
     V, L = cfg["vocab_size"], cfg["seq_len"]
     D, H = cfg["hidden_size"], cfg["num_heads"]
@@ -106,14 +110,21 @@ def init_params(cfg: Mapping[str, Any], seed: int) -> Dict[str, torch.Tensor]:
     else:
         sd = {"word_emb.embedding": normal(0.02, V, D),
               "pos_emb": normal(0.02, L, D)}
+    n_exp = cfg.get("moe_experts", 0)
+    every = cfg.get("moe_every", 2)
     for i in range(cfg["num_layers"]):
         p = f"backbone.block_{i}"
         sd.update(layer_norm(f"{p}.ln1"))
         sd[f"{p}.attn.qkv"] = normal(D ** -0.5, D, 3, H, dh)
         sd[f"{p}.attn.out"] = normal(D ** -0.5, H, dh, D)
         sd.update(layer_norm(f"{p}.ln2"))
-        sd[f"{p}.mlp.wi"] = normal(D ** -0.5, D, 4 * D)
-        sd[f"{p}.mlp.wo"] = normal((4 * D) ** -0.5, 4 * D, D)
+        if n_exp > 0 and i % every == every - 1:
+            sd[f"{p}.moe.router"] = normal(D ** -0.5, D, n_exp)
+            sd[f"{p}.moe.wi"] = normal(D ** -0.5, n_exp, D, 4 * D)
+            sd[f"{p}.moe.wo"] = normal((4 * D) ** -0.5, n_exp, 4 * D, D)
+        else:
+            sd[f"{p}.mlp.wi"] = normal(D ** -0.5, D, 4 * D)
+            sd[f"{p}.mlp.wo"] = normal((4 * D) ** -0.5, 4 * D, D)
     sd.update(layer_norm("backbone.ln_f"))
     return sd
 

@@ -9,6 +9,9 @@ seam the trainer calls for either family, in place of the JAX ``Workload``'s
 microbatch's denominator (the ranks' ``loss_count`` summed) so each rank's
 terms are its share of the global masked means, and ``finish_losses``
 adds the metrics that are not sums of shares once the shares are summed.
+An MoE model's load-balance aux is formed the same way from the global
+microbatch's counts (``moe_global``: the ranks' ``moe_live_count`` summed
+and the expert counts all-reduced; ``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ from .diffuseq import (DIFFUSEQ_EMB_DIM, DiffuSeqModel, Draws,
                        diffuseq_loss_count, diffuseq_losses)
 from .diffusion import make_schedule
 from .gpt2 import GPT2Model, gpt2_loss_count, gpt2_losses, gpt2_ppl
+from .moe import GlobalMoEStats, moe_live_count
 
 __all__ = ["PRESETS", "create_model_from_config", "compute_losses",
            "loss_count", "finish_losses", "GPT2Model", "DiffuSeqModel",
-           "gpt2_losses", "diffuseq_losses", "torch_dtype", "Model"]
+           "gpt2_losses", "diffuseq_losses", "torch_dtype", "Model",
+           "GlobalMoEStats", "moe_live_count"]
 
 Model = Union[DiffuSeqModel, GPT2Model]
 
@@ -60,13 +65,20 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                              noise_schedule: str = "sqrt",
                              dtype: str = "bfloat16",
                              attention_impl: str = "auto", device=None,
+                             remat: bool = False, moe_experts: int = 0,
+                             moe_top_k: int = 2, moe_every: int = 2,
+                             moe_capacity_factor: float = 1.25,
                              **_unused: Any) -> Model:
     """The model for (a superset of) the JAX package's ``TrainSettings``
-    fields; preset dims are overridden by nonzero hidden/layers/heads. The
-    parameters are zeros until a state dict is loaded."""
+    fields; preset dims are overridden by nonzero hidden/layers/heads, and
+    ``moe_experts`` > 0 builds the mixture-of-experts model a run dir's
+    ``training_args.json`` names. The parameters are zeros until a state
+    dict is loaded."""
     if model_family not in PRESETS:
         raise ValueError(f"unknown model family: {model_family!r}; "
                          f"available: {sorted(PRESETS)}")
+    if moe_experts > 0 and moe_every < 1:
+        raise ValueError(f"moe_every must be >= 1, got {moe_every}")
     preset = PRESETS[model_family].get(model_size)
     if preset is None:
         raise ValueError(f"no preset {model_size!r} for family "
@@ -77,7 +89,9 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                 num_layers=num_layers or preset[1],
                 num_heads=num_heads or preset[2],
                 dtype=torch_dtype(dtype), device=device,
-                attention_impl=attention_impl)
+                attention_impl=attention_impl, remat=bool(remat),
+                moe_experts=moe_experts, moe_top_k=moe_top_k,
+                moe_every=moe_every, moe_capacity_factor=moe_capacity_factor)
     if model_family == "diffuseq":
         return DiffuSeqModel(**dims, emb_dim=DIFFUSEQ_EMB_DIM,
                              schedule=make_schedule(noise_schedule,
@@ -87,20 +101,22 @@ def create_model_from_config(*, model_family: str = "diffuseq",
 
 def compute_losses(model: Model, batch: Dict[str, torch.Tensor],
                    draws: Optional[Draws] = None,
-                   denom: Optional[torch.Tensor] = None
+                   denom: Optional[torch.Tensor] = None,
+                   moe_global: Optional[GlobalMoEStats] = None
                    ) -> Dict[str, torch.Tensor]:
     """The training loss of the model's family on one (micro)batch: a dict
     whose ``"loss"`` is optimized and whose other entries are logged.
     ``draws`` (a generator, or ``{"t", "noise"}``) feeds DiffuSeq's random
     draws; GPT-2's loss takes none. ``denom``, when given, is the masked
     means' denominator (a global microbatch's ``loss_count``, clamped to
-    >= 1), and the result is this batch's share of them."""
+    >= 1), and the result is this batch's share of them; ``moe_global``
+    does the same for an MoE model's aux."""
     if model.family == "diffuseq":
         if draws is None:
             raise ValueError("the diffuseq loss needs draws: a "
                              "torch.Generator or {'t', 'noise'} tensors")
-        return diffuseq_losses(model, batch, draws, denom)
-    return gpt2_losses(model, batch, denom)
+        return diffuseq_losses(model, batch, draws, denom, moe_global)
+    return gpt2_losses(model, batch, denom, moe_global)
 
 
 def loss_count(model: Model, batch: Dict[str, torch.Tensor]
@@ -115,7 +131,8 @@ def loss_count(model: Model, batch: Dict[str, torch.Tensor]
 def finish_losses(model: Model, shares: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """The metrics of a global microbatch from its summed shares: the
-    shares themselves, plus GPT-2's ``ppl`` of the summed loss."""
+    shares themselves, plus GPT-2's ``ppl`` of the summed NLL (the loss
+    less an MoE model's aux term)."""
     if model.family == "gpt2":
-        return {**shares, "ppl": gpt2_ppl(shares["loss"])}
+        return {**shares, "ppl": gpt2_ppl(shares["nll"])}
     return dict(shares)

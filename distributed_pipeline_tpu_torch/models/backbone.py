@@ -38,8 +38,22 @@ name does: ``"fp"`` pools hold the compute dtype and a layer's KV entry is
 by the ``_q8`` writers and dequantized by both decode arms. The prefill's own
 attention runs on the local fp k/v either way.
 
-MoE and stacked (``scan_layers``) weights are later work (ROADMAP A.8,
-A.9).
+A block whose ``moe_experts`` > 0 swaps its MLP for a top-k routed
+mixture of experts (``models/moe.py``, submodule ``moe``): the backbone
+puts one in every ``moe_every``-th block (``i % moe_every == moe_every -
+1``, as the JAX backbone). A block returns ``(x, stats)``, ``stats`` its
+MoE load-balance sums or None, and the backbone appends each MoE block's
+to the caller's ``moe_stats`` list: the statistics are outputs, never
+state kept on a module, so a block recomputed under ``remat`` cannot
+overwrite or double them. ``moe_no_drop=True`` routes every token to its
+exact top-k experts (inference), in place of the JAX
+``clone(moe_no_drop=True)``: one module serves both routings.
+
+``remat=True`` runs each block under ``torch.utils.checkpoint`` (the JAX
+``nn.remat(Block)``) when gradients are enabled: only the block's input
+is kept, and the block runs again in the backward. Without gradients
+(sampling, serving, eval) it runs plainly. Stacked (``scan_layers``)
+weights are later work (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention
@@ -55,6 +70,7 @@ from ..ops.flash_decode import paged_decode_attention, paged_span_attention
 from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
                                 write_span_kv, write_span_kv_q8,
                                 write_token_kv, write_token_kv_q8)
+from .moe import MoEMlp, MoEStats
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
            "LayerNorm", "Embed", "DenseKV"]
@@ -260,42 +276,65 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block (LN in f32)."""
+    """Pre-LN transformer block (LN in f32); ``moe_experts`` > 0 swaps the
+    dense MLP for a routed mixture of experts (submodule ``moe``).
+    ``forward`` returns ``(x, stats)``: the MoE block's load-balance sums,
+    or None for a dense block."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
                  device=None, attention_impl: str = "auto",
-                 causal: bool = False) -> None:
+                 causal: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25) -> None:
         super().__init__()
         self.dtype = dtype
+        self.moe_experts = moe_experts
         self.ln1 = LayerNorm(hidden, device)
         self.attn = SelfAttention(hidden, num_heads, dtype, device,
                                   attention_impl, causal)
         self.ln2 = LayerNorm(hidden, device)
-        self.mlp = Mlp(hidden, dtype, device=device)
+        if moe_experts > 0:
+            self.moe = MoEMlp(hidden, moe_experts, moe_top_k,
+                              moe_capacity_factor, dtype, device=device)
+        else:
+            self.mlp = Mlp(hidden, dtype, device=device)
 
     def forward(self, x, pad_mask, cache_index=None, block_table=None,
-                kv=None, decode_impl="auto", kv_quant="fp"):
+                kv=None, decode_impl="auto", kv_quant="fp",
+                moe_no_drop=False
+                ) -> Tuple[torch.Tensor, Optional[MoEStats]]:
         h = self.ln1(x).to(self.dtype)
         x = x + self.attn(h, pad_mask, cache_index, block_table, kv,
                           decode_impl, kv_quant)
         h = self.ln2(x).to(self.dtype)
-        return x + self.mlp(h)
+        if self.moe_experts > 0:
+            y, stats = self.moe(h, pad_mask, no_drop=moe_no_drop)
+            return x + y, stats
+        return x + self.mlp(h), None
 
 
 class TransformerBackbone(nn.Module):
     """Stack of pre-LN blocks over embedded inputs [B, L, D], then ``ln_f``.
-    Blocks are named ``block_0 .. block_{n-1}`` as in flax."""
+    Blocks are named ``block_0 .. block_{n-1}`` as in flax; with
+    ``moe_experts`` > 0 every ``moe_every``-th block is an MoE block."""
 
     def __init__(self, num_layers: int, hidden: int, num_heads: int,
                  dtype: torch.dtype, device=None,
-                 attention_impl: str = "auto", causal: bool = False) -> None:
+                 attention_impl: str = "auto", causal: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25,
+                 remat: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
+            is_moe = moe_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(f"block_{i}",
                             Block(hidden, num_heads, dtype, device,
-                                  attention_impl, causal))
+                                  attention_impl, causal,
+                                  moe_experts if is_moe else 0, moe_top_k,
+                                  moe_capacity_factor))
         self.ln_f = LayerNorm(hidden, device)
 
     def forward(self, x: torch.Tensor,
@@ -304,10 +343,22 @@ class TransformerBackbone(nn.Module):
                 block_table: Optional[torch.Tensor] = None,
                 kv_cache: Optional[List[LayerKV]] = None,
                 decode_impl: str = "auto",
-                kv_quant: str = "fp") -> torch.Tensor:
+                kv_quant: str = "fp", moe_no_drop: bool = False,
+                moe_stats: Optional[List[MoEStats]] = None
+                ) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled() and kv_cache is None
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(
-                x, pad_mask, cache_index, block_table,
-                None if kv_cache is None else kv_cache[i], decode_impl,
-                kv_quant)
+            block = getattr(self, f"block_{i}")
+            args = (x, pad_mask, cache_index, block_table,
+                    None if kv_cache is None else kv_cache[i], decode_impl,
+                    kv_quant, moe_no_drop)
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x, stats = torch.utils.checkpoint.checkpoint(
+                    block, *args, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x, stats = block(*args)
+            if stats is not None and moe_stats is not None:
+                moe_stats.append(stats)
         return self.ln_f(x).to(self.dtype)

@@ -19,13 +19,15 @@ model dtype.
 The loss's random draws (timesteps ``t`` and ``noise``) come from an
 explicit ``torch.Generator``, or are handed in by the caller
 (``{"t": [B], "noise": [B, L, E]}``), so a test can feed the reference's
-draws. MoE and the pipeline (1F1B) losses are ROADMAP A.8 and A.9.
+draws. An MoE model (``moe_experts`` > 0) adds the load-balance aux to
+the loss, as ``gpt2_losses`` does. The pipeline (1F1B) losses are ROADMAP
+A.9.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +37,7 @@ from torch import nn
 from ..ops.xent import token_cross_entropy
 from .backbone import Embed, TransformerBackbone, _param
 from .diffusion import DiffusionSchedule
+from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
 
 __all__ = ["DiffuSeqModel", "diffuseq_losses", "diffuseq_loss_count",
            "timestep_embedding", "Draws", "DIFFUSEQ_EMB_DIM",
@@ -107,6 +110,7 @@ class DiffuSeqModel(nn.Module):
     [B, L, E]`` (f32), over a bidirectional, pad-masked backbone. The word
     embedding doubles as the rounding head (``logits``). ``schedule`` is the
     run's diffusion schedule, which the loss and the samplers read.
+    ``moe_*`` and ``remat`` are the backbone's (``GPT2Model``'s fields).
     Parameters start at zero; load weights with ``load_state_dict``."""
 
     family = "diffuseq"
@@ -115,7 +119,10 @@ class DiffuSeqModel(nn.Module):
                  num_layers: int = 12, num_heads: int = 12,
                  emb_dim: int = 128, dtype: torch.dtype = torch.bfloat16,
                  device=None, attention_impl: str = "auto",
-                 schedule: Optional[DiffusionSchedule] = None) -> None:
+                 schedule: Optional[DiffusionSchedule] = None,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25,
+                 remat: bool = False) -> None:
         super().__init__()
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -126,13 +133,20 @@ class DiffuSeqModel(nn.Module):
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.schedule = schedule
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_every = moe_every
+        self.moe_capacity_factor = moe_capacity_factor
+        self.remat = remat
         self.word_emb = Embed(vocab_size, emb_dim, device)
         self.in_proj = Dense(emb_dim, hidden_size, dtype, device)
         self.time_mlp = TimeMlp(hidden_size, device)
         self.pos_emb = _param((seq_len, hidden_size), device)
-        self.backbone = TransformerBackbone(num_layers, hidden_size,
-                                            num_heads, dtype, device,
-                                            attention_impl, causal=False)
+        self.backbone = TransformerBackbone(
+            num_layers, hidden_size, num_heads, dtype, device,
+            attention_impl, causal=False, moe_experts=moe_experts,
+            moe_top_k=moe_top_k, moe_every=moe_every,
+            moe_capacity_factor=moe_capacity_factor, remat=remat)
         self.out_proj = Dense(hidden_size, emb_dim, dtype, device)
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
@@ -147,13 +161,16 @@ class DiffuSeqModel(nn.Module):
                             self.word_emb.embedding.to(self.dtype))
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                moe_no_drop: bool = False,
+                moe_stats: Optional[List[MoEStats]] = None) -> torch.Tensor:
         L = x_t.shape[1]
         h = self.in_proj(x_t.to(self.dtype))
         temb = self.time_mlp(timestep_embedding(t, self.hidden_size))
         h = h + temb[:, None, :].to(self.dtype)
         h = h + self.pos_emb[None, :L].to(self.dtype)
-        h = self.backbone(h, pad_mask)          # bidirectional, pad-masked
+        h = self.backbone(h, pad_mask,          # bidirectional, pad-masked
+                          moe_no_drop=moe_no_drop, moe_stats=moe_stats)
         return self.out_proj(h).float()
 
 
@@ -207,14 +224,17 @@ def draw(schedule: DiffusionSchedule, draws: Draws, x_start: torch.Tensor
 
 
 def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
-                    draws: Draws, denom: Optional[torch.Tensor] = None
+                    draws: Draws, denom: Optional[torch.Tensor] = None,
+                    moe_global: Optional[GlobalMoEStats] = None
                     ) -> Dict[str, torch.Tensor]:
     """The DiffuSeq objective, as the JAX package's ``diffuseq_losses``:
     ``loss = mse + tT + decoder_nll``, each a 0-d f32 tensor, over a batch
     of ``input_ids``, ``input_mask`` (the diffused target span) and
     ``pad_mask`` [B, L]. ``denom`` (a global microbatch's target count,
     clamped to >= 1) replaces the batch's own in every masked mean: a
-    rank's terms then sum over the ranks to the global ones."""
+    rank's terms then sum over the ranks to the global ones. An MoE model
+    adds ``moe_aux`` and ``MOE_AUX_WEIGHT * moe_aux`` to ``loss``, the aux
+    from the global counts under ``moe_global`` (``gpt2_losses``)."""
     ids = batch["input_ids"]
     tgt_mask = batch["input_mask"].float()
     pad_mask = batch["pad_mask"]
@@ -224,12 +244,18 @@ def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     x_noisy = schedule.q_sample(x_start, t, noise)
     # partial noising: the target span diffuses, the source span anchors
     x_t = torch.where(tgt_mask[..., None] > 0, x_noisy, x_start)
-    x0_hat = model(x_t, t, pad_mask)
+    stats: List[MoEStats] = []
+    x0_hat = model(x_t, t, pad_mask, moe_stats=stats)
     mse = _masked_mean(torch.mean((x0_hat - x_start) ** 2, dim=-1), tgt_mask,
                        denom)
     tT = _masked_mean(schedule.mean_flat_tT(x_start), tgt_mask, denom)
     logits = model.logits(x_start)
     decoder_nll = _masked_mean(token_cross_entropy(logits, ids), tgt_mask,
                                denom)
-    return {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
-            "decoder_nll": decoder_nll}
+    out = {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
+           "decoder_nll": decoder_nll}
+    if stats:  # an MoE model
+        aux = moe_aux(stats, model.moe_experts, moe_global)
+        out["moe_aux"] = aux
+        out["loss"] = out["loss"] + MOE_AUX_WEIGHT * aux
+    return out

@@ -3,7 +3,8 @@
 loss ``gpt2_losses``.
 
 Parameter names follow the flax tree (``word_emb.embedding``, ``pos_emb``,
-``backbone.block_i...``), so ``state_dict()`` keys are the flax paths.
+``backbone.block_i...``, an MoE block's ``backbone.block_i.moe.{router,wi,
+wo}``), so ``state_dict()`` keys are the flax paths.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from ..ops.xent import token_cross_entropy
 from .backbone import Embed, LayerKV, TransformerBackbone
+from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
 
 __all__ = ["GPT2Model", "gpt2_losses", "gpt2_loss_count", "gpt2_ppl"]
 
@@ -31,7 +33,11 @@ class GPT2Model(nn.Module):
     speculative-verify span when ``ids`` is [B, L] with ``cache_index``.
     With ``kv_cache`` a list of :class:`DenseKV` (one a layer) it is the
     dense decode: a prefill over the full length, then one token at a time
-    at the 0-d position ``cache_index``. Parameters start at zero; load
+    at the 0-d position ``cache_index``. ``moe_experts`` > 0 puts a routed
+    mixture of experts in every ``moe_every``-th block; ``forward``'s
+    ``moe_no_drop`` routes without capacity (inference) and ``moe_stats``
+    (a list) collects the MoE blocks' load-balance sums. ``remat``
+    recomputes each block in the backward. Parameters start at zero; load
     weights with ``load_state_dict``."""
 
     family = "gpt2"
@@ -39,7 +45,10 @@ class GPT2Model(nn.Module):
     def __init__(self, vocab_size: int, seq_len: int, hidden_size: int = 1024,
                  num_layers: int = 24, num_heads: int = 16,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 attention_impl: str = "auto") -> None:
+                 attention_impl: str = "auto", moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 remat: bool = False) -> None:
         super().__init__()
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -48,12 +57,19 @@ class GPT2Model(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_every = moe_every
+        self.moe_capacity_factor = moe_capacity_factor
+        self.remat = remat
         self.word_emb = Embed(vocab_size, hidden_size, device)
         self.pos_emb = nn.Parameter(torch.zeros(
             (seq_len, hidden_size), dtype=torch.float32, device=device))
-        self.backbone = TransformerBackbone(num_layers, hidden_size,
-                                            num_heads, dtype, device,
-                                            attention_impl, causal=True)
+        self.backbone = TransformerBackbone(
+            num_layers, hidden_size, num_heads, dtype, device,
+            attention_impl, causal=True, moe_experts=moe_experts,
+            moe_top_k=moe_top_k, moe_every=moe_every,
+            moe_capacity_factor=moe_capacity_factor, remat=remat)
 
     def forward(self, ids: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
@@ -61,7 +77,9 @@ class GPT2Model(nn.Module):
                 block_table: Optional[torch.Tensor] = None,
                 kv_cache: Optional[List[LayerKV]] = None,
                 decode_impl: str = "auto",
-                kv_quant: str = "fp") -> torch.Tensor:
+                kv_quant: str = "fp", moe_no_drop: bool = False,
+                moe_stats: Optional[List[MoEStats]] = None
+                ) -> torch.Tensor:
         B, L = ids.shape
         if cache_index is not None:
             # per-slot positions (continuous-batching decode): each slot
@@ -82,7 +100,7 @@ class GPT2Model(nn.Module):
         if pad_mask is None:
             pad_mask = torch.ones_like(ids)
         h = self.backbone(h, pad_mask, cache_index, block_table, kv_cache,
-                          decode_impl, kv_quant)
+                          decode_impl, kv_quant, moe_no_drop, moe_stats)
         # tied LM head in the compute dtype
         return torch.einsum("bld,vd->blv", h,
                             self.word_emb.embedding.to(self.dtype))
@@ -104,7 +122,8 @@ def gpt2_ppl(loss: torch.Tensor) -> torch.Tensor:
 
 
 def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
-                denom: Optional[torch.Tensor] = None
+                denom: Optional[torch.Tensor] = None,
+                moe_global: Optional[GlobalMoEStats] = None
                 ) -> Dict[str, torch.Tensor]:
     """Next-token cross-entropy over the loss span, as the JAX package's
     ``gpt2_losses``: ``loss`` (= ``nll``), teacher-forced ``acc`` and
@@ -113,12 +132,16 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     microbatch's count, clamped to >= 1) replaces the batch's own: the
     result is then a rank's share, ``loss``, ``nll`` and ``acc`` only,
     which sum over the ranks to the global means (``gpt2_ppl`` of the
-    summed loss gives ``ppl``). Pipeline (1F1B) and MoE training are
-    ROADMAP A.9 and A.8b."""
+    summed loss gives ``ppl``). An MoE model adds ``moe_aux`` (summed
+    over its MoE blocks) and ``MOE_AUX_WEIGHT * moe_aux`` to ``loss``;
+    ``moe_global`` forms the aux from the global microbatch's counts
+    (this rank's share, ``moe.moe_aux``). Pipeline (1F1B) training is
+    ROADMAP A.9."""
     ids = batch["input_ids"]
     pad_mask = batch["pad_mask"]
     loss_mask = _loss_mask(batch)
-    logits = model(ids, pad_mask)[:, :-1]        # predict ids[:, 1:]
+    stats: List[MoEStats] = []
+    logits = model(ids, pad_mask, moe_stats=stats)[:, :-1]  # ids[:, 1:]
     targets = ids[:, 1:]
     nll = token_cross_entropy(logits, targets)
     share = denom is not None
@@ -130,4 +153,8 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     out = {"loss": loss, "nll": loss, "acc": acc}
     if not share:
         out["ppl"] = gpt2_ppl(loss)
+    if stats:  # an MoE model
+        aux = moe_aux(stats, model.moe_experts, moe_global)
+        out["moe_aux"] = aux
+        out["loss"] = loss + MOE_AUX_WEIGHT * aux
     return out

@@ -22,8 +22,11 @@ handed in (one tensor a candidate for MBR), so a test can feed the
 reference's. GPT-2's sampling noise cannot be JAX's threefry: it is keyed
 on the device by (seed, row, position, vocab index) (:func:`keyed_gumbel`,
 which the serving engine keys by slot the same way), so the cached and
-uncached paths draw the same noise. The step loops run eagerly in Python;
-stacked (``scan_layers``) and MoE models are ROADMAP A.9 and A.8.
+uncached paths draw the same noise. The step loops run eagerly in Python.
+Every decoder routes an MoE model without drops (``moe_no_drop=True``, the
+JAX ``clone(moe_no_drop=True)``): each token takes its exact top-k
+experts, so cached and uncached decoding agree. Stacked (``scan_layers``)
+models are ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -174,7 +177,7 @@ def diffuseq_sample(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     x0 = x_src
     for t, tp in zip(ts.tolist(), t_prev.tolist()):
         t_full = torch.full((B,), t, dtype=torch.int32, device=ids.device)
-        x0 = model(x, t_full, pad_mask)
+        x0 = model(x, t_full, pad_mask, moe_no_drop=True)
         if clamp:
             x0 = model.embed(torch.argmax(model.logits(x0), dim=-1))
         x0 = torch.where(tgt, x0, x_src)
@@ -245,12 +248,13 @@ def gpt2_decode(model: GPT2Model, ids: torch.Tensor, prompt_len: int,
     pad = torch.ones_like(ids)
     if not use_cache:
         for i in range(prompt_len, L):
-            logits = model(ids, pad)                        # [B, L, V]
+            logits = model(ids, pad, moe_no_drop=True)      # [B, L, V]
             ids[:, i] = pick(logits[:, i - 1],
                              torch.full((B,), i, device=dev), rows)
         return ids
     cache = [DenseKV() for _ in range(model.num_layers)]
-    logits = model(ids, pad, kv_cache=cache)                # the prefill
+    logits = model(ids, pad, kv_cache=cache,
+                   moe_no_drop=True)                        # the prefill
     pos = torch.full((), prompt_len, dtype=torch.int64, device=dev)
     if prompt_len < L:
         ids[:, prompt_len] = pick(logits[:, prompt_len - 1], pos.expand(B),
@@ -259,7 +263,7 @@ def gpt2_decode(model: GPT2Model, ids: torch.Tensor, prompt_len: int,
         # the token at position i (pos holds i) writes its K/V there and
         # attends over cache[0..i]; its pick lands at i + 1
         logits = model(ids[:, i:i + 1], None, cache_index=pos,
-                       kv_cache=cache)
+                       kv_cache=cache, moe_no_drop=True)
         pos += 1
         ids[:, i + 1] = pick(logits[:, 0], pos.expand(B), rows)
     return ids

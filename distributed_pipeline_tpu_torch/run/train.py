@@ -188,7 +188,9 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         eval_batches_consumed=eval_skip,
         samples_consumed=consumed if loop.step else None)
     logger.info(f"the parameter count is {loop.n_params} "
-                f"({loop.n_params / 1e6:.1f}M); device {device}; "
+                f"({loop.n_params / 1e6:.1f}M), {loop.n_active_params} "
+                f"active a token ({loop.n_active_params / 1e6:.1f}M); "
+                f"device {device}; "
                 f"fused update {loop.fused_update}; rank {rank} of {world}, "
                 f"backend {dist.backend()}, global batch "
                 f"{loop.global_batch}")

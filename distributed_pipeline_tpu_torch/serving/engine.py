@@ -32,7 +32,10 @@ replay cannot overwrite what a caller holds. State (the paged KV pool,
 the token/position vectors, block tables, the active mask) stays on the
 device; the pool is updated in place. ``kv_quant="int8"`` keeps int8
 pages with a ``[P]`` f32 scale sidecar for K and for V per layer (about
-half the bytes of a bf16 pool).
+half the bytes of a bf16 pool). An MoE model routes every token to its
+exact top-k experts in every phase (``moe_no_drop=True``, the JAX
+engine's ``clone(moe_no_drop=True)``), with no host sync, so the phases
+capture as they do for a dense model.
 
 Sampling keys its noise on the device as a pure function of (seed, slot,
 position, vocab index) (``models.sampling.keyed_gumbel``), the JAX
@@ -417,7 +420,7 @@ class DecodeEngine:
         logits = self.model(ids, pad, block_table=self._pf_tables,
                             kv_cache=self.kv_cache,
                             decode_impl=self.decode_impl,
-                            kv_quant=self.kv_quant)
+                            kv_quant=self.kv_quant, moe_no_drop=True)
         rows = torch.arange(ids.shape[0], device=self.device)
         last = logits[rows, torch.clamp(lens - 1, min=0).long()]  # [Bp, V]
         # the first token sits at position prompt_len of its target slot
@@ -437,7 +440,7 @@ class DecodeEngine:
                                 block_table=self.block_table,
                                 kv_cache=self.kv_cache,
                                 decode_impl=self.decode_impl,
-                                kv_quant=self.kv_quant)
+                                kv_quant=self.kv_quant, moe_no_drop=True)
             nxt = self._pick(logits[:, 0], self.positions + 1,
                              self._slot_ids)
             self.tokens.copy_(torch.where(live, nxt, self.tokens))
@@ -453,7 +456,8 @@ class DecodeEngine:
                             block_table=self.block_table,
                             kv_cache=self.kv_cache,
                             decode_impl=self.decode_impl,
-                            kv_quant=self.kv_quant)            # [S, K+1, V]
+                            kv_quant=self.kv_quant,
+                            moe_no_drop=True)                  # [S, K+1, V]
         # one flattened pick over all S*(K+1) rows, keyed per (slot,
         # position): row j of slot s picks what decode would there
         pos_f = pos[:, None] + 1 + torch.arange(

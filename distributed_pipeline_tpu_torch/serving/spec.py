@@ -72,7 +72,10 @@ def truncated_draft(model: GPT2Model, draft_layers: int) -> GPT2Model:
                          f" got {n}")
     draft = GPT2Model(model.vocab_size, model.seq_len, model.hidden_size,
                       n, model.num_heads, model.dtype, device="meta",
-                      attention_impl=model.attention_impl)
+                      attention_impl=model.attention_impl,
+                      moe_experts=model.moe_experts,
+                      moe_top_k=model.moe_top_k, moe_every=model.moe_every,
+                      moe_capacity_factor=model.moe_capacity_factor)
     draft.word_emb = model.word_emb
     draft.pos_emb = model.pos_emb
     for i in range(n):

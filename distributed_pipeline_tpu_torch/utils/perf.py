@@ -1,7 +1,8 @@
 """Performance gauges: the port's part of
 ``distributed_pipeline_tpu/utils/perf.py`` - ``EventStats`` (serving TTFT
 percentiles), ``StepTimer``, the training and decode FLOP counts and
-``mfu``, and the serving sanitizer's ``RecompileMonitor`` and
+``mfu``, ``active_param_count`` (the parameters a token runs through
+under top-k MoE routing), and the serving sanitizer's ``RecompileMonitor`` and
 ``SanitizeReport`` - plus the published rates of the cards the port
 targets (``CARDS``). No TPU peak is carried over: MFU here is always
 against a card's own data sheet."""
@@ -13,11 +14,12 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 __all__ = ["EventStats", "StepTimer", "CARDS", "card_rates",
            "transformer_train_flops_per_token",
-           "transformer_decode_flops_per_token", "mfu", "RecompileMonitor",
+           "transformer_decode_flops_per_token", "mfu",
+           "active_param_count", "RecompileMonitor",
            "SanitizeReport", "SANITIZE_REPORT_NAME"]
 
 # Published rates of the cards this port targets (NVIDIA data sheets; dense,
@@ -62,6 +64,27 @@ def mfu(tokens_per_sec: float, flops_per_token: float, device_name: str,
     peak (``card_rates``; raises for an unknown card)."""
     peak = card_rates(device_name)[1]
     return tokens_per_sec * flops_per_token / (peak * n_devices)
+
+
+def active_param_count(params: Mapping[str, Any], n_params: int, *,
+                       moe_experts: int = 0, moe_top_k: int = 2) -> int:
+    """The parameters active per token: a top-k routed MoE block runs
+    ``moe_top_k`` of its ``moe_experts`` expert MLPs, so the inactive
+    experts' share of the expert weights (a tensor under a ``moe`` module
+    whose leading dim, or second dim when it has 3 or more, is
+    ``moe_experts``) comes off ``n_params``, as the JAX function counts.
+    ``params`` maps names to tensors (a ``state_dict``, or
+    ``named_parameters``). Dense models, and ``top_k >= experts``, return
+    ``n_params``."""
+    if moe_experts <= moe_top_k:
+        return n_params
+    expert = sum(
+        int(p.numel()) for name, p in params.items()
+        if "moe" in name.split(".") and p.dim() >= 2
+        and (p.shape[0] == moe_experts
+             or (p.dim() >= 3 and p.shape[1] == moe_experts)))
+    return n_params - round(expert * (moe_experts - moe_top_k)
+                            / moe_experts)
 
 
 class StepTimer:

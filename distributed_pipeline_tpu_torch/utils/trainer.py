@@ -39,7 +39,7 @@ device ahead of the step that reads them); ``debug_nans`` checks each
 step's metrics, gradients and parameters on the host and raises
 ``FloatingPointError`` at the first non-finite one. Chaos, goodput, the
 sanitizer, the cost ledger, profiling and sharded state are later work
-(ROADMAP A.8b-A.10).
+(ROADMAP A.8c-A.10).
 
 Data parallelism. Under a process group of P ranks each rank trains on its
 shard (``batch_size`` rows a step; ``global_batch = batch_size * P``) and
@@ -51,6 +51,13 @@ rank 0's microbatch i, then rank 1's, and so on:
   (one small all-reduce a step), and each rank's loss is its share
   ``sum(x * mask) / global_count``, so the gradients SUMMED over the ranks
   are those of the global mean;
+* an MoE model's load-balance aux ``E * sum_e (F_e/n)(P_e/n)`` is not a
+  sum of per-rank terms: the live-token counts ``n`` join that
+  all-reduce, and after each microbatch's forward (before its
+  ``backward()``) one all-reduce sums its ``[MoE blocks, E]`` expert
+  counts ``F``; rank r's share is ``E * sum_e F_g,e * P_r,e / n_g**2``,
+  which sums over the ranks to the global aux and has its gradient in
+  ``P_r`` (``models/moe.py`` ``moe_aux``);
 * after the microbatch loop, ONE all-reduce of the flat gradient buffer
   (every ``.grad`` is a view into it, so it covers the whole model; no
   ``DistributedDataParallel`` buckets), before ``grad_norm`` and the clip;
@@ -83,14 +90,16 @@ import torch
 
 from ..convert import init_params as random_params
 from ..data.device_prefetch import prefetch_to_device
-from ..models import Model, compute_losses, finish_losses, loss_count
+from ..models import (GlobalMoEStats, Model, compute_losses, finish_losses,
+                      loss_count, moe_live_count)
 from ..models.diffuseq import Draws, rank_draws, seeded_generator
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
 from ..parallel import dist
 from . import checkpoint as ckpt
 from .logger import Logger
-from .perf import StepTimer, mfu, transformer_train_flops_per_token
+from .perf import (StepTimer, active_param_count, mfu,
+                   transformer_train_flops_per_token)
 
 __all__ = ["TrainLoop"]
 
@@ -132,7 +141,10 @@ class TrainLoop:
         self.eval_data = eval_data
         self.eval_callbacks = tuple(eval_callbacks)
         self.seed = seed
-        self._draws = draws or self._seeded_draws
+        # the hook, or None for the seeded generator (a bound method kept
+        # here would tie the loop into a reference cycle, and a deleted
+        # loop would hold its device state until the cyclic collector ran)
+        self._draws = draws
         self.batch_size = batch_size
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
@@ -179,6 +191,11 @@ class TrainLoop:
             dist.broadcast(self.ema)
         self._samples = self.step * self.global_batch
         self.n_params = self.params.numel()
+        # the parameters a token runs through (top-k of an MoE block's
+        # experts); mfu counts them all, as the JAX trainer does
+        self.n_active_params = active_param_count(
+            dict(model.named_parameters()), self.n_params,
+            moe_experts=model.moe_experts, moe_top_k=model.moe_top_k)
         self.n_devices = dist.device_count()
         # the gradient all-reduce's time: seconds and calls, with the CUDA
         # event pairs not read yet
@@ -212,7 +229,8 @@ class TrainLoop:
             init_params = random_params(dict(
                 model_family=m.family, vocab_size=m.vocab_size,
                 seq_len=m.seq_len, hidden_size=m.hidden_size,
-                num_layers=m.num_layers, num_heads=m.num_heads), seed)
+                num_layers=m.num_layers, num_heads=m.num_heads,
+                moe_experts=m.moe_experts, moe_every=m.moe_every), seed)
         self._load_flat(self.params, init_params)
         for name, p in named:
             p.data = self._view(self.params, name)
@@ -350,22 +368,32 @@ class TrainLoop:
                     ) -> Draws:
         """Microbatch i's draws for this rank: the global microbatch's,
         sliced to this rank's rows under several ranks."""
-        draws = self._draws(step, i)
+        draws = (self._draws or self._seeded_draws)(step, i)
         if self.world == 1 or self.model.family != "diffuseq":
             return draws
         shape = tuple(mb["input_ids"].shape) + (self.model.emb_dim,)
         return rank_draws(self.model.schedule, draws, shape, self.rank,
                           self.world)
 
-    def _global_denoms(self, mbs: List[Dict]) -> List[Optional[torch.Tensor]]:
-        """Each microbatch's masked-mean denominator summed over the ranks
-        (one all-reduce), clamped to >= 1; Nones without a process group
-        (each loss then takes its own)."""
+    def _global_denoms(self, mbs: List[Dict]) -> List[tuple]:
+        """Each microbatch's ``(denom, moe_global)``: the masked means'
+        denominator summed over the ranks, clamped to >= 1, and for an MoE
+        model the global live-token count with the expert counts'
+        all-reduce (one all-reduce for every microbatch's counts); Nones
+        without a process group (each loss then takes its own)."""
         if not self.distributed:
-            return [None] * len(mbs)
-        counts = torch.stack([loss_count(self.model, mb) for mb in mbs])
+            return [(None, None)] * len(mbs)
+        moe = self.model.moe_experts > 0
+        counts = torch.stack([
+            torch.stack([loss_count(self.model, mb)]
+                        + ([moe_live_count(mb)] if moe else []))
+            for mb in mbs])                         # [micro, 1 or 2]
         dist.all_reduce(counts)
-        return list(torch.clamp(counts, min=1.0).unbind(0))
+        denoms = torch.clamp(counts[:, 0], min=1.0).unbind(0)
+        if not moe:
+            return [(d, None) for d in denoms]
+        return [(d, GlobalMoEStats(n, dist.all_reduce))
+                for d, n in zip(denoms, counts[:, 1].unbind(0))]
 
     def _summed_metrics(self, per_micro: List[Dict[str, torch.Tensor]]
                         ) -> Dict[str, torch.Tensor]:
@@ -413,7 +441,8 @@ class TrainLoop:
         per_micro = []
         for i, mb in enumerate(mbs):
             d = compute_losses(self.model, mb,
-                               self._rank_draws(self.step, i, mb), denoms[i])
+                               self._rank_draws(self.step, i, mb),
+                               *denoms[i])
             d["loss"].backward()
             per_micro.append({k: v.detach() for k, v in d.items()})
         scale = 1.0 / self.n_micro
@@ -501,7 +530,7 @@ class TrainLoop:
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
         per_micro = [compute_losses(self.model, mb,
-                                    self._rank_draws(step, i, mb), denoms[i])
+                                    self._rank_draws(step, i, mb), *denoms[i])
                      for i, mb in enumerate(mbs)]
         sums = self._summed_metrics(per_micro)
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}

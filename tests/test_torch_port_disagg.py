@@ -1,8 +1,11 @@
 """The port's disaggregated prefill/decode serving on the CPU: the page
 transfer (``DecodeEngine.extract_pages`` rows against the JAX engine's,
 ``ingest_pages`` + ``DecodeServer.submit_prefilled`` against the colocated
-server), ``serve_disagg_inprocess`` token-identical to the JAX one and to
-the port's colocated server, the StageLink frames (the port's link reads
+server), ``serve_disagg_inprocess`` token-identical to the port's
+colocated server and held against the JAX dense greedy decoder (each
+token the JAX dense forward's argmax after the same prefix, or within
+1e-4 of its max: the near-tie rule of the port's other decode tests), the
+StageLink frames (the port's link reads
 frames the JAX link wrote), and ``run.serve --replicas 1 --disagg 1
 --device cpu`` against the colocated streams. The ``cuda`` case
 (``ingest_pages`` into a graph-captured pool) runs on the card through
@@ -16,13 +19,12 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 from flax.core import meta  # noqa: E402
 
 from distributed_pipeline_tpu.models import \
     create_model_from_config as jax_create  # noqa: E402
 from distributed_pipeline_tpu.mpmd import link as jax_link  # noqa: E402
-from distributed_pipeline_tpu.mpmd.disagg import \
-    serve_disagg_inprocess as jax_serve_disagg  # noqa: E402
 from distributed_pipeline_tpu.serving.engine import \
     DecodeEngine as JaxDecodeEngine  # noqa: E402
 from distributed_pipeline_tpu_torch.convert import \
@@ -145,20 +147,43 @@ def test_ingest_then_submit_prefilled_continues_colocated(models):
     assert srv.mgr.free_pages == srv.mgr.capacity
 
 
+def _jax_dense_picks(wl, params, pairs, streams):
+    """Per request, the JAX dense forward over its prompt and ``streams``'
+    tokens (one causal forward): at each generated position, the argmax
+    and the top logit's lead over the stream's token."""
+    fwd = jax.jit(lambda p, x: wl.model.apply(p, x, jnp.ones_like(x)))
+    out = []
+    for (prompt, _), toks in zip(pairs, streams):
+        row = np.zeros((1, CFG["seq_len"]), np.int32)
+        seq = list(map(int, prompt)) + list(toks)
+        row[0, :len(seq)] = seq
+        logits = np.asarray(fwd(params, jnp.asarray(row)))[0].astype(
+            np.float64)
+        at = range(len(prompt) - 1, len(seq) - 1)
+        out.append([(int(np.argmax(logits[i])),
+                     float(logits[i].max() - logits[i][seq[i + 1]]))
+                    for i in at])
+    return out
+
+
 @pytest.mark.parametrize("slots", [2, 1])
 def test_serve_disagg_inprocess_matches_jax_and_colocated(models, slots,
                                                          tmp_path):
     """Both roles in one process over a MemStageLink: token-identical to
-    the JAX package's ``serve_disagg_inprocess`` on the same weights and
-    to the port's colocated server, including under admission
-    backpressure (one slot for six requests)."""
+    the port's colocated server, including under admission backpressure
+    (one slot for six requests), and every token the JAX dense greedy
+    decoder's pick after the same prefix (or a near-tie: the JAX top
+    logit within 1e-4 of the token's). The JAX serving loop is not the
+    reference here: under a loaded test run it moved by a 0.0118 top-2
+    gap where the port did not (ROADMAP C.10)."""
     wl, params, model = models
     pairs = _pairs()
     got = serve_disagg_inprocess(model, pairs, decode_slots=slots,
                                  device="cpu", **KW)
-    want = jax_serve_disagg(wl, params, pairs, decode_slots=slots, **KW)
-    streams = {"port_disagg": [list(map(int, g["tokens"])) for g in got],
-               "jax_disagg": [list(map(int, w["tokens"])) for w in want],
+    port = [list(map(int, g["tokens"])) for g in got]
+    picks = _jax_dense_picks(wl, params, pairs, port)
+    streams = {"port_disagg": port,
+               "jax_dense_picks": [[a for a, _ in p] for p in picks],
                "port_colocated": _colocated(model, pairs)}
     if len(set(map(json.dumps, streams.values()))) > 1:
         # the three stream sets, for telling which side moved
@@ -167,8 +192,13 @@ def test_serve_disagg_inprocess_matches_jax_and_colocated(models, slots,
         print(f"stream sets differ; written to {dump}: "
               f"{json.dumps(streams)}")
     assert [g["id"] for g in got] == list(range(len(pairs)))
-    assert streams["port_disagg"] == streams["jax_disagg"]
     assert streams["port_disagg"] == streams["port_colocated"]
+    for rid, (toks, p) in enumerate(zip(port, picks)):
+        assert len(toks) == pairs[rid][1]
+        for j, (tok, (best, lead)) in enumerate(zip(toks, p)):
+            assert tok == best or lead < 1e-4, (
+                f"request {rid} token {j}: {tok}, the JAX dense pick is "
+                f"{best} by {lead}")
     assert [g["prompt_len"] for g in got] == [len(p) for p, _ in pairs]
 
 

@@ -439,6 +439,149 @@ def test_two_ranks_seeded_draws_match_one_process(tmp_path):
                                rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------------------ MoE aux, global stats
+
+MOE_CFG = dict(model_family="gpt2", vocab_size=V, seq_len=L, hidden_size=D,
+               num_layers=LAYERS, num_heads=H, dtype="float32",
+               attention_impl="xla", moe_experts=4, moe_top_k=2,
+               moe_every=1)
+MOE_LOOP = dict(LOOP, gradient_clipping=-1.0)
+
+RANK_MOE = """
+import sys
+import torch
+from distributed_pipeline_tpu_torch.models import create_model_from_config
+from distributed_pipeline_tpu_torch.parallel import dist
+from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
+tmp = sys.argv[1]
+dist.setup_dist(torch.device("cpu"))
+r = dist.get_rank()
+spec = torch.load(f"{tmp}/spec.pt", weights_only=False)
+loop = TrainLoop(model=create_model_from_config(**spec["cfg"],
+                                                device="cpu"),
+                 data=None, init_params=spec["params"], fused_update="false",
+                 checkpoint_dir="", batch_size=spec["batch_size"],
+                 microbatch=spec["microbatch"], **spec["loop"])
+if spec["per_rank_aux"]:
+    # each rank forms the aux from its own rows' counts
+    denoms = loop._global_denoms
+    loop._global_denoms = lambda mbs: [(d, None) for d, _ in denoms(mbs)]
+metrics, grads = [], []
+for b in spec["batches"][r]:
+    metrics.append({k: float(v) for k, v in loop.run_step(b).items()})
+    grads.append(loop.grads.clone())
+torch.save({"metrics": metrics, "grads": grads, "params": loop.params},
+           f"{tmp}/rank{r}.pt")
+"""
+
+
+@pytest.fixture(scope="module")
+def moe_reference(tmp_path_factory):
+    """The JAX side of the MoE case: 2 steps of the JAX TrainLoop on a
+    dp=2 mesh over 2 global batches whose ranks' rows differ in pad
+    count, with each step's mean gradient over its global microbatches."""
+    tmp = tmp_path_factory.mktemp("moe_jax")
+    jloop = JaxTrainLoop(
+        model=jax_create(**MOE_CFG), data=None,
+        mesh=make_mesh(dp=2, devices=jax.devices()[:2]), seed=4,
+        checkpoint_dir=str(tmp), fused_update=False, batch_size=GB,
+        microbatch=GMB, **MOE_LOOP)
+    params = params_from_flax(_np(jloop.state.params))
+    batches = []
+    for s in range(2):
+        b = next(jax_data.load_data_from_args(
+            "train", batch_size=GB, dataset="synthetic-lm", seq_len=L,
+            vocab_size=V, seed=s, skip_batches=s))
+        pad = np.ones_like(b["pad_mask"])
+        for row in range(GB):
+            # rank 0's rows (0-1 and 4-5) end in long pad runs, rank 1's in
+            # short ones
+            pad[row, L - (6 + row + s if row % 4 < 2 else row % 3):] = 0
+        batches.append({**b, "pad_mask": pad})
+    wl = jloop.workload
+
+    def micro_loss(p, mb):
+        return wl.compute_losses(p, mb, jax.random.PRNGKey(0))["loss"]
+
+    grad_fn = jax.jit(jax.grad(micro_loss))
+    grads, metrics = [], []
+    for batch in batches:
+        gs = [grad_fn(jloop.state.params,
+                      {k: jnp.asarray(v[i * GMB:(i + 1) * GMB])
+                       for k, v in batch.items()}) for i in range(GB // GMB)]
+        mean = jax.tree_util.tree_map(lambda a, b: (a + b) * 0.5, *gs)
+        grads.append(params_from_flax(_np(mean)))
+        metrics.append({k: float(v) for k, v in jloop.run_step(batch).items()})
+    return {"params": params, "batches": batches, "grads": grads,
+            "metrics": metrics,
+            "final": params_from_flax(_np(jloop.state.params))}
+
+
+@pytest.mark.parametrize("per_rank_aux", [False, True],
+                         ids=["global-stats", "per-rank-aux"])
+def test_two_ranks_moe_aux_matches_jax_dp2_mesh(tmp_path, moe_reference,
+                                               per_rank_aux):
+    """2 MoE GPT-2 steps on two gloo ranks against the JAX TrainLoop on a
+    dp=2 mesh: loss, ``moe_aux``, each step's gradients and the final
+    parameters. The ranks' pad counts and expert counts differ, so the
+    aux formed from each rank's own counts (``per-rank-aux``) misses: that
+    case asserts the mismatch."""
+    ref = moe_reference
+    rank_rows = [[_rank_rows(b, r) for b in ref["batches"]] for r in range(P)]
+    # the ranks' live-token and first-choice expert counts differ
+    model = create_model_from_config(**MOE_CFG, device="cpu")
+    model.load_state_dict(ref["params"])
+    for i in range(GB // GMB):
+        counts = []
+        for r in range(P):
+            mb = {k: torch.from_numpy(v[i * 2:(i + 1) * 2])
+                  for k, v in rank_rows[r][0].items()}
+            stats = []
+            with torch.no_grad():
+                model(mb["input_ids"], mb["pad_mask"], moe_stats=stats)
+            counts.append((float(stats[0][2]), stats[0][0].tolist()))
+        assert counts[0][0] != counts[1][0]
+        assert counts[0][1] != counts[1][1]
+    torch.save({"cfg": MOE_CFG, "params": ref["params"],
+                "batch_size": GB // P, "microbatch": GMB // P,
+                "loop": MOE_LOOP, "per_rank_aux": per_rank_aux,
+                "batches": rank_rows}, tmp_path / "spec.pt")
+    _spawn_ranks(tmp_path, RANK_MOE, P)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(P)]
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    assert torch.equal(ranks[0]["params"], ranks[1]["params"])
+    layout = TrainLoop(model=model, data=None, init_params=ref["params"],
+                       fused_update="false", checkpoint_dir="",
+                       batch_size=GB, microbatch=GMB, **MOE_LOOP)
+
+    def matches() -> bool:
+        try:
+            for s in range(2):
+                got, want = ranks[0]["metrics"][s], ref["metrics"][s]
+                for k in ("loss", "nll", "moe_aux"):
+                    np.testing.assert_allclose(got[k], want[k], rtol=2e-5,
+                                               err_msg=k)
+                np.testing.assert_allclose(got["grad_norm"],
+                                           want["grad_norm"], rtol=1e-4)
+                mine = layout.state_dict_of(ranks[0]["grads"][s])
+                for key, g in ref["grads"][s].items():
+                    np.testing.assert_allclose(
+                        mine[key].numpy(), g.numpy(), rtol=5e-4, atol=1e-6,
+                        err_msg=key)
+            final = layout.state_dict_of(ranks[0]["params"])
+            for key, p in ref["final"].items():
+                np.testing.assert_allclose(final[key].numpy(), p.numpy(),
+                                           rtol=1e-4, atol=1e-5,
+                                           err_msg=key)
+        except AssertionError as e:
+            print(f"differs from the JAX dp=2 mesh: {e}")
+            return False
+        return True
+
+    assert matches() != per_rank_aux
+
+
 # ----------------------------------------------------- the entry point
 
 TINY = ["--device", "cpu", "--model_family", "gpt2", "--dataset",

@@ -3,8 +3,13 @@
 Mirrors tests/test_spec_decode.py on a tiny GPT-2 (vocab 64, hidden 32, 2
 layers, 2 heads, seq_len 16, f32; 2 slots, page 4):
 
-* greedy spec streams equal the port's non-spec streams and the JAX XLA-arm
-  server's, with ngram and model drafts, over fp and int8 pools; sampled
+* greedy spec streams equal the port's non-spec streams, with ngram and
+  model drafts, over fp and int8 pools, and the JAX XLA-arm server's over
+  fp pools; over int8 pools each token is the JAX dense greedy decoder's
+  pick after the same prefix, or within 1e-4 of its top logit (the JAX
+  int8 server moved under load where the port did not; the port's int8
+  server is held against the JAX one in ``test_torch_port_serve.py``);
+  sampled
   (temperature, top-k) spec streams equal the port's sampled non-spec
   streams (the picks are keyed per (slot, position));
 * rejection bookkeeping at exact positions, EOS inside an accepted prefix,
@@ -99,6 +104,25 @@ def serve(server, eos_id=None):
 _BASE = {}
 
 
+def hold_against_jax_dense(jax_and_port, streams) -> None:
+    """Each greedy token of ``streams`` (the mixed workload's) is the JAX
+    dense forward's argmax after the same prefix, or within 1e-4 of its
+    top logit (a near-tie)."""
+    wl, params, _ = jax_and_port
+    fwd = jax.jit(lambda p, x: wl.model.apply(p, x, jnp.ones_like(x)))
+    prompts, _ = mixed_workload()
+    for prompt, toks in zip(prompts, streams):
+        seq = list(map(int, prompt)) + list(toks)
+        row = np.zeros((1, SEQ), np.int32)
+        row[0, :len(seq)] = seq
+        logits = np.asarray(fwd(params, jnp.asarray(row)))[0].astype(
+            np.float64)
+        for i in range(len(prompt) - 1, len(seq) - 1):
+            lead = logits[i].max() - logits[i][seq[i + 1]]
+            assert seq[i + 1] == int(np.argmax(logits[i])) or lead < 1e-4, \
+                (seq, i, lead)
+
+
 def base(jax_and_port, side: str, kv_quant: str):
     """The non-speculative greedy streams: the JAX server's XLA arm, or
     the port's own, per pool (computed once)."""
@@ -120,14 +144,18 @@ def base(jax_and_port, side: str, kv_quant: str):
     ("model", "fp", 2), ("model", "int8", 3)])
 def test_spec_greedy_token_identical(jax_and_port, draft, kv_quant, k):
     """Greedy speculative streams are the non-speculative streams of the
-    port and of the JAX XLA-arm server, token for token."""
+    port, token for token, and of the JAX XLA-arm server over fp pools;
+    over int8 pools they are held against the JAX dense greedy decoder."""
     _, _, model = jax_and_port
     srv = DecodeServer(model, device="cpu", kv_quant=kv_quant,
                        spec_tokens=k, spec_draft=draft, draft_layers=1,
                        **SERVE)
     got = serve(srv)
     assert got == base(jax_and_port, "port", kv_quant)
-    assert got == base(jax_and_port, "jax", kv_quant)
+    if kv_quant == "int8":
+        hold_against_jax_dense(jax_and_port, got)
+    else:
+        assert got == base(jax_and_port, "jax", kv_quant)
     assert srv.spec_rounds == srv.decode_steps > 0
     assert srv.draft_proposed > 0 and srv.draft_proposed % k == 0
     assert 0.0 <= srv.accept_rate <= 1.0

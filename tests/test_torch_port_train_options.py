@@ -86,9 +86,9 @@ def test_jax_config_json_trains(tmp_path):
     ("profile_steps", "3:8", "ROADMAP A.10"),
     ("auto_tune_budget_s", "30", "ROADMAP A.10"),
     ("scan_unroll", "2", "ROADMAP A.9"),
-    ("moe_top_k", "1", "ROADMAP A.8"),
-    ("moe_every", "1", "ROADMAP A.8"),
-    ("moe_capacity_factor", "2.0", "ROADMAP A.8"),
+    ("pp_schedule", "gpipe", "ROADMAP A.9"),
+    ("pp_virtual", "4", "ROADMAP A.9"),
+    ("tensor", "2", "ROADMAP A.8c"),
     ("mpmd_stages", "4", "ROADMAP A.9"),
     ("mpmd_link_capacity", "4", "ROADMAP A.9"),
     ("mpmd_hang_timeout_s", "5", "ROADMAP A.9"),
