@@ -176,7 +176,7 @@ Phases (any failure raises, and the script exits non-zero):
    device, launches, all-reduce seconds a step, step time, tokens/s and
    peak memory are printed from its sidecar. Its line is
    ``{"data_parallel": {...}}``;
-13. mixture of experts and remat, last: GPT-2 base moe8 (8 experts,
+13. mixture of experts and remat: GPT-2 base moe8 (8 experts,
    top-2, every 2nd block, capacity factor 1.25; 322,574,592 parameters,
    152,705,280 active a token) through ``run.train`` (synthetic-lm,
    global batch 8 in microbatches of 4, seed 0, 5 steps), without and with
@@ -198,7 +198,30 @@ Phases (any failure raises, and the script exits non-zero):
    steps without and with remat, bitwise equal, peak lower with remat.
    The fused update is also held against its plain version and timed at
    GPT-2 base moe8's parameter count. Its line is ``{"moe_remat":
-   {...}}``.
+   {...}}``;
+14. sequence parallelism, last: ``flash_attention_lse`` on the kernels
+   (forward ``(out, lse)``, and the backward of a random ``(g_out,
+   g_lse)``: the kernel backward's ``g_lse`` arm) against the plain
+   versions, bf16 and f32, Dh 64 and 128, causal and not, at GPT-2's hop
+   shape [4, 12, 512, 64] and with fully masked rows (out 0, a finite lse
+   below NEG_INF / 2, zero gradients; the bars must fail a backward that
+   drops ``g_lse``), at ``flash_check``'s bars; the bf16 backward timed
+   with and without ``g_lse`` at [4, 12, 512, 64] and [4, 12, 1024, 64]
+   (causal, in turns, each by CUDA-graph replays behind an L2 flush);
+   then ``run.train --distributed --nprocs 2 --sequence 2`` (two gloo
+   ranks on ``cuda:0``, one data group, 512 tokens a rank) on phase 12's
+   GPT-2 base workload (batch 8 in microbatches of 4, 5 steps, seed 0):
+   losses and grad norms held to phase 12's run without a group (phase
+   12's bars), the ranks' final
+   parameters bitwise equal, rank 0 launching the flash forward and
+   backward 120 times (its diagonal hops) and rank 1 240, every backward
+   on the ``g_lse`` arm, the update 5 times, no plain call; each rank's
+   ring-shift seconds a step, step time and peak memory; and DiffuSeq-base
+   at seq 1024 (bidirectional and pad-masked: both ranks launch on both
+   hops and the mask rotates; batch 8 in microbatches of 4, 3 steps) with
+   ``--sequence 2`` held to the same run in one process. Its line is
+   ``{"sequence_parallel": {...}}``, and the kernels line gains the
+   ``flash_attention_lse`` row (the ``g_lse`` arm).
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -3137,6 +3160,311 @@ def moe_remat_phase(torch, fa, fd, fu) -> dict:
     return out
 
 
+# ------------------------------------- sequence parallelism (phase 14)
+
+SP_DIFFUSEQ_STEPS = 3
+DIFFUSEQ_BASE_1024 = dict(DIFFUSEQ_BASE, seq_len=1024)
+# the phase's wall budget: the kernel checks and timings, one GPT-2 base
+# run.train of two sequence ranks, two DiffuSeq-base seq-1024 runs
+SP_BUDGET_S = 150.0
+SP_FLAGS = ["--distributed", "--nprocs", "2", "--sequence", "2"]
+
+
+def lse_check(torch, fa, B, H, L, Dh, dtype, causal, lens, seed) -> dict:
+    """``flash_attention_lse`` on the kernels against the plain versions:
+    ``(out, lse)``, and the backward of a random ``(g_out, g_lse)``
+    through the autograd seam (the kernel backward's ``g_lse`` arm)
+    against ``torch_flash_backward(..., g_lse)`` from the kernel's own out
+    and lse, at the bars of ``flash_check``; a fully masked row must give
+    out 0, a finite lse below NEG_INF / 2 and zero gradients, and the bars
+    must fail a backward that drops ``g_lse``. Returns the errors."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    g_lse = torch.randn((B, H, L), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = fa.flash_attention_lse(*t, mask, causal, impl="cuda")
+    torch.autograd.backward((out, lse), (dout, g_lse))
+    torch.cuda.synchronize()
+    out, lse = out.detach(), lse.detach()
+    f = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = fa.torch_flash_forward(*f, mask, causal)
+    refs = fa.torch_flash_backward(*f, mask, causal, out.float(), lse,
+                                   dout.float(), g_lse)
+    if dtype == torch.float32:
+        tol, tol_b = dict(rtol=1e-4, atol=1e-5), dict(rtol=1e-4, atol=1e-4)
+    else:
+        tol = dict(rtol=8e-3, atol=1e-3 * float(ref_out.abs().max()))
+        tol_b = None
+    errs = {"out": close_enough(out, ref_out, **tol),
+            "lse": close_enough(lse, ref_lse, rtol=1e-5, atol=1e-4)}
+    for name, x, ref in zip(("dq", "dk", "dv"), t, refs):
+        got, ref = x.grad.float(), ref.float()
+        rel = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+        errs[name + "_rel_fro"] = rel
+        if tol_b is None:
+            check(rel <= 1e-2 or float(ref.norm()) < 1e-3,
+                  f"{name} with g_lse: relative Frobenius error {rel}")
+        errs[name] = close_enough(got, ref, **(tol_b or dict(
+            rtol=1e-2, atol=max(1e-2 * float(ref.abs().max()), 1e-4))))
+    dropped = fa.flash_backward(q, k, v, mask, causal, out, lse, dout)
+    errs["dq_rel_fro_if_g_lse_dropped"] = float(
+        (dropped[0].float() - refs[0]).norm() / refs[0].norm())
+    check(errs["dq_rel_fro_if_g_lse_dropped"] > 1e-2,
+          f"the bars cannot tell a dropped g_lse: {errs}")
+    for b in [b for b, n in enumerate(lens) if n == 0]:
+        check(bool(torch.all(out[b] == 0))
+              and bool(torch.all(torch.isfinite(lse[b])))
+              and float(lse[b].max()) < fa.NEG_INF / 2
+              and all(bool(torch.all(x.grad[b] == 0)) for x in t),
+              "flash_attention_lse: a fully masked row is not out 0, a "
+              "finite lse near NEG_INF and zero gradients")
+    return errs
+
+
+def graph_ms(fn, torch, flush, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()`` call with a cold L2: CUDA events around
+    replays of a CUDA graph of ``reps`` (flush, call) pairs, less a graph
+    of the flushes alone. No host enqueue falls inside the window, and no
+    profiler session is involved."""
+    def per_body(body) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        graph.replay()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (replays * reps)
+
+    def both():
+        flush.zero_()
+        fn()
+
+    return per_body(both) - per_body(flush.zero_)
+
+
+def lse_timing(torch, fa, B, H, L, Dh) -> dict:
+    """The bf16 backward with and without ``g_lse`` (causal, all-ones
+    mask), device time (``graph_ms``) in turns (without, with, with,
+    without)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(B + L)
+    q, k, v, dout = (torch.randn((B, H, L, Dh), generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn((B, H, L), generator=g, device=dev)
+    mask = torch.ones((B, L), dtype=torch.int32, device=dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    out, lse = fa.flash_forward(q, k, v, mask, True)
+    fns = {"without": lambda: fa.flash_backward(q, k, v, mask, True, out,
+                                                lse, dout),
+           "with": lambda: fa.flash_backward(q, k, v, mask, True, out, lse,
+                                             dout, g_lse)}
+    runs = {name: [] for name in fns}
+    for name in ("without", "with", "with", "without"):
+        runs[name].append(graph_ms(fns[name], torch, flush))
+    plain = time_ms(lambda: fa.torch_flash_backward(
+        q, k, v, mask, True, out, lse, dout, g_lse), torch, flush, reps=10)
+    return {"shape": [B, H, L, Dh], "ms_runs": runs,
+            "ms": statistics.median(runs["with"]),
+            "ms_without_g_lse": statistics.median(runs["without"]),
+            "plain_ms": plain}
+
+
+def sp_diffuseq_argv(run: str) -> list:
+    return (["--checkpoint_path", run, "--dataset", "synthetic-seq2seq"]
+            + cfg_argv(DIFFUSEQ_BASE_1024)
+            + ["--batch_size", "8", "--microbatch", "4",
+               "--learning_steps", str(SP_DIFFUSEQ_STEPS), "--lr", "3e-4",
+               "--ema_rate", "0.9999", "--attention_impl", "auto",
+               "--fused_update", "auto", "--log_interval", "1",
+               "--save_interval", "0", "--seed", "0"])
+
+
+def sp_ranks(r: dict, what: str, want: list) -> list:
+    """Each rank's sidecar of a ``--sequence 2`` run, checked: gloo on
+    ``cuda:0``, sequence index = rank, the launches ``want[rank]`` (the g_lse
+    arm on every backward), no plain call; the two ranks' final
+    parameters bitwise equal."""
+    ranks = r["ranks"]
+    check(len(ranks) == 2, f"{what}: {len(ranks)} sidecars")
+    for side in ranks:
+        i = side["rank"]
+        check(side["backend"] == "gloo" and side["device"] == "cuda:0"
+              and (side["data_index"], side["sequence_index"],
+                   side["sequence"]) == (0, i, 2),
+              f"{what} rank {i}: {side['backend']} {side['device']} "
+              f"{side['data_index']}/{side['sequence_index']}")
+        check(side["launches"] == want[i]
+              and side["lse_backward_launches"]
+              == want[i]["flash_backward"],
+              f"{what} rank {i}: launches {side['launches']}, g_lse arm "
+              f"{side['lse_backward_launches']}, expected {want[i]}")
+        check(not any(side["plain_calls"].values()),
+              f"{what} rank {i}: plain calls {side['plain_calls']}")
+        print(f"# sequence parallel {what} rank {i} ({CARD}): launches "
+              f"{side['launches']}, g_lse arm "
+              f"{side['lse_backward_launches']}, ring shift "
+              f"{side['ring_shift_s_per_step']:.6f} s a step over "
+              f"{side['ring_shift_calls']} shifts, all-reduce "
+              f"{side['allreduce_s_per_step']:.6f} s a step, step "
+              f"{side.get('step_time_s', 0.0):.6f} s, "
+              f"{side.get('tokens_per_sec', 0.0):.1f} tokens/s, peak "
+              f"memory {side['peak_memory_bytes']} B", flush=True)
+    check(ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+          f"{what}: the two ranks' final parameters differ")
+    return [{k: side.get(k) for k in (
+        "rank", "backend", "device", "sequence_index", "launches",
+        "lse_backward_launches", "ring_shift_s_per_step", "ring_shift_calls",
+        "allreduce_s_per_step", "step_time_s", "tokens_per_sec",
+        "tokens_per_sec_per_chip", "mfu", "peak_memory_bytes",
+        "params_sha256")} for side in ranks]
+
+
+def held_to(rows: list, ref: dict, what: str) -> dict:
+    """Losses and grad norms of ``rows`` against ``ref``'s within bf16
+    rounding (loss 5e-3, grad norm 3e-2 relative: phase 12's bars)."""
+    rel = {}
+    for col, key, bar in (("loss", "losses", 5e-3),
+                          ("grad_norm", "grad_norms", 3e-2)):
+        a = ref[key]
+        b = [float(row[col]) for row in rows]
+        check(len(a) == len(b), f"{what}: {len(b)} rows, {len(a)} in ref")
+        rel[col] = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+        check(rel[col] <= bar, f"{what} {col} {b} vs {a}: relative "
+                               f"{rel[col]} > {bar}")
+    return rel
+
+
+def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
+    """Phase 14 (see the module doc). ``single`` is phase 12's run of
+    GPT-2 base without a group. Returns the phase's line and the g_lse
+    arm's kernel row."""
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "gpt2_hop_diag_bf16": (4, 12, 512, 64, bf16, True, [512] * 4),
+        "gpt2_hop_past_bf16": (4, 12, 512, 64, bf16, False, [512] * 4),
+        "dh128_dead_bf16": (2, 4, 512, 128, bf16, True, [512, 0]),
+        "dh64_noncausal_dead_bf16": (2, 4, 300, 64, bf16, False, [300, 0]),
+        "diffuseq_hop_bf16": (4, 12, 512, 64, bf16, False,
+                              [512, 431, 97, 0]),
+        "f32_dh64_causal": (2, 3, 200, 64, f32, True, [200, 77]),
+        "f32_dh128_noncausal_dead": (2, 3, 130, 128, f32, False, [130, 0]),
+    }
+    errs = {name: lse_check(torch, fa, *c, seed=40 + i)
+            for i, (name, c) in enumerate(cases.items())}
+    print(f"# sequence parallel: flash_attention_lse kernels vs plain "
+          f"(max abs err, relative Frobenius) {json.dumps(errs)}",
+          flush=True)
+    timing = {f"L{L}": lse_timing(torch, fa, 4, 12, L, 64)
+              for L in (512, 1024)}
+    for key, tm in timing.items():
+        tm["g_lse_over_without"] = tm["ms"] / tm["ms_without_g_lse"]
+        print(f"# sequence parallel ({CARD}): bf16 backward {tm['shape']} "
+              f"causal: {tm['ms']:.5f} ms with g_lse, "
+              f"{tm['ms_without_g_lse']:.5f} ms without "
+              f"({tm['g_lse_over_without']:.4f}x; runs {tm['ms_runs']}); "
+              f"plain with g_lse {tm['plain_ms']:.3f} ms", flush=True)
+
+    layers, micro = GPT2_BASE["num_layers"], 2
+    per = layers * micro * DP_STEPS
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        run = os.path.join(work, "gpt2_sp2")
+        runs["gpt2"] = dp_run(run, SP_FLAGS + dp_argv(run, 8, 4),
+                              "gpt2 sp2")
+        torch.cuda.empty_cache()
+        for key, extra in (("diffuseq_one", []),
+                           ("diffuseq_sp2", SP_FLAGS)):
+            run = os.path.join(work, key)
+            runs[key] = dp_run(run, extra + sp_diffuseq_argv(run), key)
+            torch.cuda.empty_cache()
+    out = {"kernel_checks": errs, "timing": timing,
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+    gpt2_want = [{"flash_forward": per * n, "flash_backward": per * n,
+                  "fused_adamw_ema": DP_STEPS} for n in (1, 2)]
+    out["gpt2_base_sp2"] = {
+        "losses": [float(row["loss"]) for row in runs["gpt2"]["rows"]],
+        "grad_norms": [float(row["grad_norm"])
+                       for row in runs["gpt2"]["rows"]],
+        "ranks": sp_ranks(runs["gpt2"], "gpt2 base sp2", gpt2_want),
+        "vs_no_group_max_rel": held_to(runs["gpt2"]["rows"], single,
+                                       "gpt2 base sp2 vs no group")}
+    dq_per = layers * micro * SP_DIFFUSEQ_STEPS
+    one = runs["diffuseq_one"]
+    check(one["ranks"][0]["launches"] == {
+        "flash_forward": dq_per, "flash_backward": dq_per,
+        "fused_adamw_ema": SP_DIFFUSEQ_STEPS},
+        f"diffuseq seq1024 one process: launches "
+        f"{one['ranks'][0]['launches']}")
+    one_ref = {"losses": [float(row["loss"]) for row in one["rows"]],
+               "grad_norms": [float(row["grad_norm"])
+                              for row in one["rows"]]}
+    out["diffuseq_base_seq1024"] = {
+        "one_process": {**one_ref, "step_time_s": one["ranks"][0].get(
+            "step_time_s"), "peak_memory_bytes": one["ranks"][0][
+            "peak_memory_bytes"]},
+        "sp2": {"losses": [float(row["loss"])
+                           for row in runs["diffuseq_sp2"]["rows"]],
+                "ranks": sp_ranks(runs["diffuseq_sp2"], "diffuseq seq1024 "
+                                  "sp2", [{"flash_forward": 2 * dq_per,
+                                           "flash_backward": 2 * dq_per,
+                                           "fused_adamw_ema":
+                                               SP_DIFFUSEQ_STEPS}] * 2)},
+        "sp2_vs_one_max_rel": held_to(runs["diffuseq_sp2"]["rows"], one_ref,
+                                      "diffuseq seq1024 sp2 vs one")}
+    hop = errs["gpt2_hop_diag_bf16"]
+    tm = timing["L512"]
+    ranks = out["gpt2_base_sp2"]["ranks"]
+    row = {"name": "flash_attention_lse", "route": "cuda",
+           "source": "distributed_pipeline_tpu_torch/ops/csrc/"
+                     "flash_attention.cu",
+           "replaces": "distributed_pipeline_tpu/ops/flash_attention.py:653",
+           "arm": "dpt_flash_bwd with g_lse (delta = rowsum(dO * O) - "
+                  "g_lse), behind the ring's flash_attention_lse",
+           "launches": sum(r["lse_backward_launches"] for r in ranks),
+           "launches_by_rank": [r["lse_backward_launches"] for r in ranks],
+           "launches_diffuseq_sp2": [
+               r["lse_backward_launches"] for r in
+               out["diffuseq_base_seq1024"]["sp2"]["ranks"]],
+           "max_abs_err": max(hop["dq"], hop["dk"], hop["dv"]),
+           "ms": tm["ms"], "ms_runs": tm["ms_runs"],
+           "ms_without_g_lse": tm["ms_without_g_lse"],
+           "ms_L1024": timing["L1024"]["ms"],
+           "ms_L1024_without_g_lse": timing["L1024"]["ms_without_g_lse"],
+           "plain_ms": tm["plain_ms"],
+           **bound(fa.flash_hbm_bytes(4, 12, 512, 64, 2, True,
+                                      backward=True, g_lse=True),
+                   fa.flash_flops(4, 12, 512, 64, True, backward=True), bw,
+                   bf16_peak),
+           "library_ms": None,
+           "library_call": "none: no PyTorch call takes an lse cotangent"}
+    out["phase_s"] = time.perf_counter() - t0
+    dq_rel = out["diffuseq_base_seq1024"]["sp2_vs_one_max_rel"]
+    print(f"# sequence parallel ({CARD}): gpt2 base sp2 vs no group "
+          f"{out['gpt2_base_sp2']['vs_no_group_max_rel']}, diffuseq seq1024 "
+          f"sp2 vs one process {dq_rel}; walls {out['wall_s']}; phase "
+          f"{out['phase_s']:.1f} s of its {SP_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= SP_BUDGET_S,
+          f"phase 14 took {out['phase_s']:.1f} s, over {SP_BUDGET_S} s")
+    return out, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3225,6 +3553,15 @@ def main() -> int:
             row[f"launches_dp_{key}"] = [r["launches"][row["name"]]
                                          for r in dp[key]["ranks"]]
     moe = clocked("moe and remat", moe_remat_phase, torch, fa, fd, fu)
+    sp, lse_row = clocked("sequence parallel", sequence_phase, torch, fa, bw,
+                          bf16_peak, dp["single"])
+    # phase 14: each rank's launches of the GPT-2 and DiffuSeq rings
+    for row in flash:
+        row["launches_sp2_gpt2"] = [r["launches"][row["name"]] for r in
+                                    sp["gpt2_base_sp2"]["ranks"]]
+        row["launches_sp2_diffuseq"] = [
+            r["launches"][row["name"]] for r in
+            sp["diffuseq_base_seq1024"]["sp2"]["ranks"]]
     # phase 13: GPT-2 base moe8 without and with remat, and the launches
     # of serving its run dir
     for row in (*flash, update):
@@ -3249,9 +3586,10 @@ def main() -> int:
     print(json.dumps({"serving_fleet": fleet}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"moe_remat": moe}), flush=True)
+    print(json.dumps({"sequence_parallel": sp}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
-    print(json.dumps({"kernels": [*decode, *span, *flash, update,
+    print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,
                                   update_dq, update_moe]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

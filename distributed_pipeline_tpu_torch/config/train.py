@@ -1,8 +1,10 @@
 """Training settings: the fields of the JAX package's ``TrainSettings``
 (``distributed_pipeline_tpu/config/train.py``) that this port trains, as a
 dataclass with an argparse bridge and a mutually exclusive
-``--config_json``. ``--dp`` is the data-parallel world size (-1: all the
-ranks; any other value must equal ``WORLD_SIZE``, 1 for one process).
+``--config_json``. ``--sequence`` is the sequence-parallel group size
+(ring attention over L/sequence slices) and ``--dp`` the data-parallel
+axis (-1: ``WORLD_SIZE / sequence``; any other value must satisfy ``dp *
+sequence == WORLD_SIZE``, 1 for one process).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
@@ -32,7 +34,6 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "pp_virtual": (2, "ROADMAP A.9 (pipeline parallelism)"),
     "fsdp": (1, "ROADMAP A.8c (sharded state)"),
     "tensor": (1, "ROADMAP A.8c (sharded state)"),
-    "sequence": (1, "ROADMAP A.8d (ring attention)"),
     "expert": (1, "ROADMAP A.8c (sharded state)"),
     "pipe": (1, "ROADMAP A.9 (pipeline parallelism)"),
     "shard_optimizer": (False, "ROADMAP A.8c (ZeRO-1)"),
@@ -168,11 +169,14 @@ class TrainSettings:
     pp_schedule: str = _f("1f1b", "pipeline schedule",
                           ("1f1b", "gpipe", "interleaved"))
     pp_virtual: int = _f(2, "virtual pipeline stages per device")
-    dp: int = _f(-1, "data-parallel axis size: -1 = every rank, else the "
-                     "world size (WORLD_SIZE; 1 for one process)")
+    dp: int = _f(-1, "data-parallel axis size: -1 = WORLD_SIZE / "
+                     "sequence, else dp * sequence must equal WORLD_SIZE "
+                     "(1 for one process)")
     fsdp: int = _f(1, "FSDP axis size")
     tensor: int = _f(1, "tensor-parallel axis size")
-    sequence: int = _f(1, "sequence-parallel axis size")
+    sequence: int = _f(1, "sequence-parallel axis size: each group of "
+                          "this many ranks splits L and rings its "
+                          "attention")
     expert: int = _f(1, "expert-parallel axis size")
     pipe: int = _f(1, "pipeline-parallel axis size")
     shard_optimizer: bool = _f(False, "ZeRO-1 optimizer-state sharding")
@@ -212,15 +216,33 @@ class TrainSettings:
         if self.moe_experts > 0 and self.moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got "
                              f"{self.moe_every}")
+        if self.sequence > 1 and self.moe_experts > 0:
+            raise ValueError("--moe_experts with --sequence > 1 is not "
+                             "trained by this port yet: an expert's "
+                             "capacity claims are positional over the "
+                             "global sequence (ROADMAP A.8e)")
+        if self.sequence > 1 and self.attention_impl not in ("auto", "ring"):
+            raise ValueError(f"--attention_impl {self.attention_impl} with "
+                             f"--sequence > 1: each rank holds an "
+                             f"L/sequence slice, and only the ring ('auto' "
+                             f"or 'ring') attends across the slices")
+        if self.sequence > 1 and self.eval_decode:
+            raise ValueError("--eval_decode with --sequence > 1 is not "
+                             "trained by this port yet: the decode "
+                             "callback runs the whole sequence on one rank "
+                             "(ROADMAP A.8f)")
         world = int(os.environ.get("WORLD_SIZE", "1"))
-        if self.dp not in (-1, world):
-            raise ValueError(f"--dp {self.dp}: the data-parallel axis spans "
-                             f"every rank (-1 or the world size, {world}); "
-                             f"other meshes come with ROADMAP A.8c")
-        if self.attention_impl == "ring":
-            raise ValueError("--attention_impl ring is not trained by this "
-                             "port yet; it comes with ROADMAP A.8d (ring "
-                             "attention)")
+        if self.sequence < 1 or world % self.sequence:
+            raise ValueError(f"--sequence {self.sequence} must divide the "
+                             f"world size ({world})")
+        if self.dp not in (-1, world // self.sequence):
+            raise ValueError(f"--dp {self.dp}: dp * sequence must equal the "
+                             f"world size ({self.dp} * {self.sequence} != "
+                             f"{world}); other meshes come with ROADMAP "
+                             f"A.8c")
+        if self.seq_len % self.sequence:
+            raise ValueError(f"--seq_len {self.seq_len} not divisible by "
+                             f"--sequence {self.sequence}")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

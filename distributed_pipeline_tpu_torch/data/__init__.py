@@ -11,15 +11,15 @@ fast-forwarded in O(1) by ``skip_batches`` so a resumed run sees exactly
 the batches an uninterrupted one would have. Under several processes each
 rank streams its own shard: rank r takes ``order[r::P]`` of every epoch's
 order, trimmed so every rank gets the same count (``load_data_from_args``
-reads the rank from ``parallel/dist.py``; ``host_sharded=False`` gives
-every rank the same stream).
+reads the rank from ``parallel/dist.py``, or takes a data group's
+``shard``; ``host_sharded=False`` gives every rank the same stream).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -196,20 +196,26 @@ def load_data_from_args(split: str = "train", data_dir: str = "",
                         seq_len: int = 128, vocab_size: int = 8192,
                         seed: int = 0, data_loader_workers: int = 0,
                         host_sharded: bool = True, skip_batches: int = 0,
+                        shard: Optional[Tuple[int, int]] = None,
                         **_unused: Any) -> Iterator[Dict[str, np.ndarray]]:
     """The JAX package's loader entry point: the batches of ``split``
     (``_build_dataset``), shuffled unless ``deterministic``, looped unless
     ``loop`` is false, assembled by ``num_loader_proc`` (or
     ``data_loader_workers``) threads, fast-forwarded by ``skip_batches``.
     ``batch_size`` is per rank, and each rank streams its shard
-    (``parallel/dist.py``'s rank and world size); ``host_sharded=False``
-    gives every rank the same stream (the eval-decode callback's batch)."""
+    (``parallel/dist.py``'s rank and world size, or ``shard`` =
+    ``(index, count)``: under sequence parallelism the data group's, so
+    the sequence ranks of a group read the same rows);
+    ``host_sharded=False`` gives every rank the same stream (the
+    eval-decode callback's batch)."""
     from ..parallel import dist
     ds = _build_dataset(dataset, data_dir, split, seq_len=seq_len,
                         vocab_size=vocab_size, seed=seed)
+    if shard is None:
+        shard = (dist.get_rank(), dist.get_world_size())
     return batch_iterator(
         ds, batch_size, shuffle=not deterministic, seed=seed, loop=loop,
-        process_index=dist.get_rank() if host_sharded else 0,
-        process_count=dist.get_world_size() if host_sharded else 1,
+        process_index=shard[0] if host_sharded else 0,
+        process_count=shard[1] if host_sharded else 1,
         num_workers=max(num_loader_proc, data_loader_workers),
         skip_batches=skip_batches)

@@ -11,7 +11,11 @@ terms are its share of the global masked means, and ``finish_losses``
 adds the metrics that are not sums of shares once the shares are summed.
 An MoE model's load-balance aux is formed the same way from the global
 microbatch's counts (``moe_global``: the ranks' ``moe_live_count`` summed
-and the expert counts all-reduced; ``models/moe.py``).
+and the expert counts all-reduced; ``models/moe.py``). Under sequence
+parallelism ``sequence_slice`` gives a rank its L slice of a microbatch
+(GPT-2's with the next slice's first token for its last target); the
+same global denominators hold, every term being a per-token masked
+mean.
 """
 
 from __future__ import annotations
@@ -23,13 +27,14 @@ import torch
 from .diffuseq import (DIFFUSEQ_EMB_DIM, DiffuSeqModel, Draws,
                        diffuseq_loss_count, diffuseq_losses)
 from .diffusion import make_schedule
-from .gpt2 import GPT2Model, gpt2_loss_count, gpt2_losses, gpt2_ppl
+from .gpt2 import (GPT2Model, gpt2_loss_count, gpt2_losses, gpt2_ppl,
+                   gpt2_sequence_slice)
 from .moe import GlobalMoEStats, moe_live_count
 
 __all__ = ["PRESETS", "create_model_from_config", "compute_losses",
            "loss_count", "finish_losses", "GPT2Model", "DiffuSeqModel",
            "gpt2_losses", "diffuseq_losses", "torch_dtype", "Model",
-           "GlobalMoEStats", "moe_live_count"]
+           "GlobalMoEStats", "moe_live_count", "sequence_slice"]
 
 Model = Union[DiffuSeqModel, GPT2Model]
 
@@ -126,6 +131,18 @@ def loss_count(model: Model, batch: Dict[str, torch.Tensor]
     if model.family == "diffuseq":
         return diffuseq_loss_count(batch)
     return gpt2_loss_count(batch)
+
+
+def sequence_slice(model: Model, batch: Dict[str, torch.Tensor],
+                   index: int, size: int) -> Dict[str, torch.Tensor]:
+    """Sequence slice ``index`` of ``size`` of a [B, L] microbatch: each
+    key's L/size columns at the slice's offset; GPT-2's also carries the
+    next slice's first token and its loss mask (``gpt2_sequence_slice``),
+    so no target is lost at a slice boundary."""
+    if model.family == "gpt2":
+        return gpt2_sequence_slice(batch, index, size)
+    n = batch["input_ids"].shape[1] // size
+    return {k: v[:, index * n:(index + 1) * n] for k, v in batch.items()}
 
 
 def finish_losses(model: Model, shares: Dict[str, torch.Tensor]

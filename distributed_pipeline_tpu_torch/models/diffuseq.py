@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.xent import token_cross_entropy
+from ..parallel.ring import sequence_offset
 from .backbone import Embed, TransformerBackbone, _param
 from .diffusion import DiffusionSchedule
 from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
@@ -168,7 +169,8 @@ class DiffuSeqModel(nn.Module):
         h = self.in_proj(x_t.to(self.dtype))
         temb = self.time_mlp(timestep_embedding(t, self.hidden_size))
         h = h + temb[:, None, :].to(self.dtype)
-        h = h + self.pos_emb[None, :L].to(self.dtype)
+        off = sequence_offset(L)   # a sequence-parallel rank's slice
+        h = h + self.pos_emb[None, off:off + L].to(self.dtype)
         h = self.backbone(h, pad_mask,          # bidirectional, pad-masked
                           moe_no_drop=moe_no_drop, moe_stats=moe_stats)
         return self.out_proj(h).float()
@@ -191,22 +193,27 @@ def diffuseq_loss_count(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 def rank_draws(schedule: DiffusionSchedule, draws: Draws,
-               shape: Tuple[int, ...], rank: int, world: int
+               shape: Tuple[int, ...], rank: int, world: int,
+               seq_index: int = 0, seq_size: int = 1
                ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global microbatch's draws. ``draws`` is the
-    global microbatch's (``world * shape[0]`` rows): a generator, drawn
-    as one process would draw that many rows (t first, then the noise),
-    or ``{"t", "noise"}`` tensors; rank r takes rows ``r * B : (r + 1) *
-    B`` of each, ``shape`` being its x_start's ``[B, L, E]``."""
-    rows = shape[0]
+    """This rank's share of a global microbatch's draws. ``draws`` is the
+    global microbatch's (``world * shape[0]`` rows of ``seq_size *
+    shape[1]`` positions): a generator, drawn as one process would draw
+    that many rows (t first, then the noise), or ``{"t", "noise"}``
+    tensors; data rank r of ``world`` takes rows ``r * B : (r + 1) * B``
+    of each, and sequence index i of ``seq_size`` the noise's positions
+    ``i * L : (i + 1) * L``, ``shape`` being its x_start's ``[B, L, E]``
+    (``t`` is one a row: every sequence rank of a row takes the same)."""
+    rows, length = shape[0], shape[1]
     if isinstance(draws, torch.Generator):
         t = schedule.sample_t(draws, rows * world)
-        noise = torch.randn((rows * world, *shape[1:]), generator=draws,
-                            device=draws.device, dtype=torch.float32)
+        noise = torch.randn((rows * world, length * seq_size, *shape[2:]),
+                            generator=draws, device=draws.device,
+                            dtype=torch.float32)
         draws = {"t": t, "noise": noise}
-    lo = rank * rows
+    lo, pos = rank * rows, seq_index * length
     return {"t": draws["t"][lo:lo + rows],
-            "noise": draws["noise"][lo:lo + rows]}
+            "noise": draws["noise"][lo:lo + rows, pos:pos + length]}
 
 
 def draw(schedule: DiffusionSchedule, draws: Draws, x_start: torch.Tensor

@@ -9,16 +9,18 @@ wo}``), so ``state_dict()`` keys are the flax paths.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.xent import token_cross_entropy
+from ..parallel.ring import sequence_offset
 from .backbone import Embed, LayerKV, TransformerBackbone
 from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
 
-__all__ = ["GPT2Model", "gpt2_losses", "gpt2_loss_count", "gpt2_ppl"]
+__all__ = ["GPT2Model", "gpt2_losses", "gpt2_loss_count", "gpt2_ppl",
+           "gpt2_sequence_slice"]
 
 
 class GPT2Model(nn.Module):
@@ -95,7 +97,9 @@ class GPT2Model(nn.Module):
             span = start + torch.arange(L, device=ids.device)[None, :]
             pos = self.pos_emb[torch.clamp(span, max=self.seq_len - 1)]
         else:
-            pos = self.pos_emb[None, :L]
+            # a sequence-parallel rank holds the slice at its offset
+            off = sequence_offset(L)
+            pos = self.pos_emb[None, off:off + L]
         h = (self.word_emb.embedding[ids.long()] + pos).to(self.dtype)
         if pad_mask is None:
             pad_mask = torch.ones_like(ids)
@@ -106,8 +110,43 @@ class GPT2Model(nn.Module):
                             self.word_emb.embedding.to(self.dtype))
 
 
+def _targets(batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(targets, loss mask)`` [B, L - 1], or [B, L] for a sequence
+    slice: a slice's last position predicts the next slice's first token,
+    which ``next_ids`` / ``next_mask`` [B, 1] carry (mask 0 on the last
+    slice, whose final position predicts nothing)."""
+    ids = batch["input_ids"]
+    mask = batch["input_mask"] * batch["pad_mask"]
+    if "next_ids" in batch:
+        return (torch.cat([ids[:, 1:], batch["next_ids"]], dim=1),
+                torch.cat([mask[:, 1:], batch["next_mask"]], dim=1).float())
+    return ids[:, 1:], mask[:, 1:].float()
+
+
 def _loss_mask(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return (batch["input_mask"] * batch["pad_mask"])[:, 1:].float()
+    return _targets(batch)[1]
+
+
+def gpt2_sequence_slice(batch: Dict[str, torch.Tensor], index: int,
+                        size: int) -> Dict[str, torch.Tensor]:
+    """Sequence slice ``index`` of ``size`` of a [B, L] batch: every key's
+    columns ``[index * L/size, (index + 1) * L/size)``, and ``next_ids`` /
+    ``next_mask``, the token after the slice and its loss mask (zeros
+    past the end), so the targets come from the global row."""
+    L = batch["input_ids"].shape[1]
+    n = L // size
+    lo, hi = index * n, (index + 1) * n
+    out = {k: v[:, lo:hi] for k, v in batch.items()}
+    ids = batch["input_ids"]
+    if hi < L:
+        out["next_ids"] = ids[:, hi:hi + 1]
+        out["next_mask"] = (batch["input_mask"]
+                            * batch["pad_mask"])[:, hi:hi + 1]
+    else:
+        out["next_ids"] = torch.zeros_like(ids[:, :1])
+        out["next_mask"] = torch.zeros_like(ids[:, :1])
+    return out
 
 
 def gpt2_loss_count(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -128,7 +167,8 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     """Next-token cross-entropy over the loss span, as the JAX package's
     ``gpt2_losses``: ``loss`` (= ``nll``), teacher-forced ``acc`` and
     ``ppl``, each a 0-d f32 tensor. ``batch`` holds ``input_ids``,
-    ``input_mask`` and ``pad_mask`` [B, L]. ``denom`` (a global
+    ``input_mask`` and ``pad_mask`` [B, L], and for a sequence slice
+    (``gpt2_sequence_slice``) ``next_ids`` / ``next_mask``. ``denom`` (a global
     microbatch's count, clamped to >= 1) replaces the batch's own: the
     result is then a rank's share, ``loss``, ``nll`` and ``acc`` only,
     which sum over the ranks to the global means (``gpt2_ppl`` of the
@@ -139,10 +179,11 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     ROADMAP A.9."""
     ids = batch["input_ids"]
     pad_mask = batch["pad_mask"]
-    loss_mask = _loss_mask(batch)
+    targets, loss_mask = _targets(batch)
     stats: List[MoEStats] = []
-    logits = model(ids, pad_mask, moe_stats=stats)[:, :-1]  # ids[:, 1:]
-    targets = ids[:, 1:]
+    # position j predicts token j + 1: a sequence slice's last position
+    # predicts the next slice's first token, the row's last nothing
+    logits = model(ids, pad_mask, moe_stats=stats)[:, :targets.shape[1]]
     nll = token_cross_entropy(logits, targets)
     share = denom is not None
     if not share:

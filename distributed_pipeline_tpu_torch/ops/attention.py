@@ -1,6 +1,6 @@
 """Attention: the port of ``distributed_pipeline_tpu/ops/attention.py``.
 
-One entry point, ``dot_product_attention``, over three arms:
+One entry point, ``dot_product_attention``, over four arms:
 
 * ``impl="xla"``  - dense einsum attention with the semantics of the JAX
   package's ``_xla_attention``: logits in the activation dtype scaled by
@@ -9,11 +9,18 @@ One entry point, ``dot_product_attention``, over three arms:
 * ``impl="cuda"`` - the flash kernels (``ops/flash_attention.py``), forward
   and backward; CUDA tensors only. ``"pallas"`` is accepted as the JAX name
   of this arm;
-* ``impl="torch"`` - the flash kernels' plain version, with gradients.
+* ``impl="torch"`` - the flash kernels' plain version, with gradients;
+* ``impl="ring"`` - ring attention over the ``sequence_parallel`` context's
+  group (``parallel/ring.py``): q, k, v and the mask are this rank's L
+  slices. Outside a context it raises, as the JAX ring does without a
+  mesh; inside a context of more than one rank every other arm raises
+  (it would see this rank's slice alone, where the JAX arms see global
+  arrays).
 
-``impl="auto"`` is the JAX rule with the TPU read as the card: the flash
-kernel for CUDA tensors with ``L >= 1024``, dense otherwise. ``"ring"``
-(sequence parallelism) waits for ROADMAP A.8 and raises.
+``impl="auto"`` is the JAX rule with the TPU read as the card: the ring
+inside a sequence context of more than one rank (the JAX rule under a
+mesh whose sequence axis is larger than 1), else the flash kernel for
+CUDA tensors with ``L >= 1024``, dense otherwise.
 """
 
 from __future__ import annotations
@@ -70,11 +77,22 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           impl: str = "auto") -> torch.Tensor:
     """Multi-head attention on [B, H, L, Dh] tensors; ``pad_mask`` is [B, L]
     (1 = real token)."""
+    from ..parallel.ring import current_sequence
+    seq = current_sequence()
+    split = seq is not None and seq.size > 1
     if impl == "auto":
-        # flash from ~1k context up, where the JAX package measured it
-        # ahead of dense and its memory is O(L) in both directions
-        impl = ("cuda" if q.device.type == "cuda" and q.shape[-2] >= 1024
-                else "xla")
+        if split:
+            impl = "ring"  # sequence-parallel ranks: attention must ring
+        else:
+            # flash from ~1k context up, where the JAX package measured it
+            # ahead of dense and its memory is O(L) in both directions
+            impl = ("cuda" if q.device.type == "cuda"
+                    and q.shape[-2] >= 1024 else "xla")
+    if split and impl != "ring":
+        # the other arms would attend to this rank's L slice alone
+        raise ValueError(f"attention impl {impl!r} inside a sequence "
+                         f"context of {seq.size} ranks: only the ring "
+                         f"attends across the L slices")
     if impl == "xla":
         return _dense_attention(q, k, v, pad_mask, causal)
     if impl in ("cuda", "pallas", "torch"):
@@ -82,7 +100,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention(q, k, v, pad_mask, causal,
                                impl="torch" if impl == "torch" else "cuda")
     if impl == "ring":
-        raise NotImplementedError(
-            "attention impl 'ring' (sequence-parallel ring attention) is "
-            "not ported yet: ROADMAP A.8")
+        from ..parallel.ring import ring_attention
+        return ring_attention(q, k, v, pad_mask, causal)
     raise ValueError(f"unknown attention impl: {impl!r}")

@@ -50,11 +50,11 @@
 // s * log2(e), and uses exp2.)
 //
 // Layouts (all contiguous): q, k, v, out, dout, dq, dk, dv [B, H, L, Dh] T;
-// pad_mask [B, L] int32 or null; lse, delta [B, H, L] f32; bf16 backward
-// only: dq_part [planes, B, H, L, Dh] f32, one plane per key tile of a
-// launch, and dq_accum [B, H, L, Dh] f32 (the running sum when the key
-// tiles take more than one launch; null otherwise). T is float or
-// __nv_bfloat16; Dh is 64 or 128.
+// pad_mask [B, L] int32 or null; lse, g_lse, delta [B, H, L] f32 (g_lse
+// may be null); bf16 backward only: dq_part [planes, B, H, L, Dh] f32, one
+// plane per key tile of a launch, and dq_accum [B, H, L, Dh] f32 (the
+// running sum when the key tiles take more than one launch; null
+// otherwise). T is float or __nv_bfloat16; Dh is 64 or 128.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1272,11 +1272,17 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// delta = rowsum(dO * O) in f32, 16 bytes of each a thread.
+// delta = rowsum(dO * O) - g_lse in f32, 16 bytes of each a thread.
+// g_lse (null for none) is the cotangent of the forward's lse, as ring
+// attention's cross-hop fold gives it: d lse_i / d s_ij = p_ij, so it joins
+// the softmax-Jacobian term, ds = p (dp - (delta - g_lse)), and the main
+// kernels run unchanged on the adjusted delta (the JAX fold before its
+// Pallas backward).
 template <typename T, int DH>
 __global__ void __launch_bounds__(256)
 flash_bwd_preprocess_kernel(const T* __restrict__ dout,
                             const T* __restrict__ out,
+                            const float* __restrict__ g_lse,
                             float* __restrict__ delta, long long rows) {
   constexpr int E = 16 / sizeof(T);   // elements a thread
   constexpr int TPR = DH / E;         // threads a row (8 to 32: one warp's
@@ -1298,7 +1304,8 @@ flash_bwd_preprocess_kernel(const T* __restrict__ dout,
 #pragma unroll
   for (int o = TPR / 2; o > 0; o >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (valid && part == 0) delta[row] = acc;
+  if (valid && part == 0)
+    delta[row] = g_lse == nullptr ? acc : acc - g_lse[row];
 }
 
 // Sums one launch's dq planes, four elements a thread, in a fixed order:
@@ -1403,12 +1410,14 @@ cudaError_t launch_fwd_sm90(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int DH>
-cudaError_t launch_preprocess(const void* dout, const void* out, float* delta,
+cudaError_t launch_preprocess(const void* dout, const void* out,
+                              const float* g_lse, float* delta,
                               long long rows, cudaStream_t stream) {
   constexpr int tpr = DH * (int)sizeof(T) / 16;   // threads a row
   flash_bwd_preprocess_kernel<T, DH><<<(unsigned)((rows * tpr + 255) / 256),
                                        256, 0, stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(out), delta, rows);
+      static_cast<const T*>(dout), static_cast<const T*>(out), g_lse, delta,
+      rows);
   return cudaGetLastError();
 }
 
@@ -1418,7 +1427,8 @@ cudaError_t launch_preprocess(const void* dout, const void* out, float* delta,
 template <int DH>
 cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v,
                             const int* pad_mask, const void* dout,
-                            const void* out, const float* lse, float* delta,
+                            const void* out, const float* lse,
+                            const float* g_lse, float* delta,
                             float* dq_part, float* dq_accum, void* dq,
                             void* dk, void* dv, int B, int H, int L,
                             int causal, int kt_per_launch,
@@ -1430,7 +1440,8 @@ cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const long long rows = (long long)B * H * L;
   cudaError_t err =
-      launch_preprocess<__nv_bfloat16, DH>(dout, out, delta, rows, stream);
+      launch_preprocess<__nv_bfloat16, DH>(dout, out, g_lse, delta, rows,
+                                           stream);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, tdo;
   if ((err = make_tile_map(&tq, q, B * H, L, DH, kSm90BwdQ)) != cudaSuccess ||
@@ -1499,7 +1510,8 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward: delta = rowsum(dO * O) into `delta` ([B, H, L] f32), then
+// The backward: delta = rowsum(dO * O) - g_lse into `delta` ([B, H, L]
+// f32; g_lse, the lse cotangent [B, H, L] f32, may be null for none), then
 // for float32 the dk/dv and dq kernels, for bfloat16 the one-pass kernel in
 // launches of `kt_per_launch` key tiles, each followed by the fixed-order
 // sum of its dq planes (`dq_part`, one [B, H, L, Dh] f32 plane a key tile
@@ -1507,8 +1519,9 @@ int dpt_flash_fwd(const void* q, const void* k, const void* v,
 // launch). All on one stream.
 int dpt_flash_bwd(const void* q, const void* k, const void* v,
                   const int* pad_mask, const void* dout, const void* out,
-                  const float* lse, float* delta, float* dq_part,
-                  float* dq_accum, void* dq, void* dk, void* dv, int B, int H,
+                  const float* lse, const float* g_lse, float* delta,
+                  float* dq_part, float* dq_accum, void* dq, void* dk,
+                  void* dv, int B, int H,
                   int L, int head_dim, int causal, int dtype,
                   int kt_per_launch, void* stream) {
   if (B == 0 || H == 0 || L == 0) return (int)cudaSuccess;
@@ -1517,8 +1530,9 @@ int dpt_flash_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && (head_dim == 64 || head_dim == 128)) {
     cudaError_t err =
         head_dim == 64
-            ? launch_preprocess<float, 64>(dout, out, delta, rows, s)
-            : launch_preprocess<float, 128>(dout, out, delta, rows, s);
+            ? launch_preprocess<float, 64>(dout, out, g_lse, delta, rows, s)
+            : launch_preprocess<float, 128>(dout, out, g_lse, delta, rows,
+                                            s);
     if (err != cudaSuccess) return (int)err;
     return head_dim == 64
                ? (int)launch_bwd<float, 64>(q, k, v, pad_mask, dout, lse,
@@ -1529,13 +1543,13 @@ int dpt_flash_bwd(const void* q, const void* k, const void* v,
                                              causal, s);
   }
   if (dtype == 1 && head_dim == 64)
-    return (int)launch_bwd_sm90<64>(q, k, v, pad_mask, dout, out, lse, delta,
-                                    dq_part, dq_accum, dq, dk, dv, B, H, L,
-                                    causal, kt_per_launch, s);
+    return (int)launch_bwd_sm90<64>(q, k, v, pad_mask, dout, out, lse, g_lse,
+                                    delta, dq_part, dq_accum, dq, dk, dv, B,
+                                    H, L, causal, kt_per_launch, s);
   if (dtype == 1 && head_dim == 128)
-    return (int)launch_bwd_sm90<128>(q, k, v, pad_mask, dout, out, lse, delta,
-                                     dq_part, dq_accum, dq, dk, dv, B, H, L,
-                                     causal, kt_per_launch, s);
+    return (int)launch_bwd_sm90<128>(q, k, v, pad_mask, dout, out, lse,
+                                     g_lse, delta, dq_part, dq_accum, dq, dk,
+                                     dv, B, H, L, causal, kt_per_launch, s);
   return (int)cudaErrorInvalidValue;
 }
 

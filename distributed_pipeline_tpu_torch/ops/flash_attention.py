@@ -6,7 +6,8 @@ scores never reach device memory. Two arms compute it:
 
 * the CUDA kernels (``ops/csrc/flash_attention.cu``), wrapped by
   :func:`flash_forward` (``(out, lse)``) and :func:`flash_backward`
-  (``(dq, dk, dv)``); each takes CUDA tensors only and counts its launches.
+  (``(dq, dk, dv)``, with an optional lse cotangent ``g_lse``); each takes
+  CUDA tensors only and counts its launches.
   bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles; a one-pass
   backward whose dq parts go to f32 planes, one per key tile, summed in a
   fixed order, so dq is the same bits on every run), f32 the FMA kernels;
@@ -15,16 +16,23 @@ scores never reach device memory. Two arms compute it:
   ``lse = m + log(max(l, 1e-20))``, zeros on fully masked rows) and
   :func:`torch_flash_backward` (the FlashAttention-2 backward from
   ``(q, k, v, o, lse, dO)``: recompute ``p = exp(s - lse)`` under the same
-  mask, ``delta = rowsum(dO * O)``, ``dv = p^T dO``,
+  mask, ``delta = rowsum(dO * O) - g_lse``, ``dv = p^T dO``,
   ``ds = p * (dO v^T - delta)``, ``dq = ds k * scale``,
   ``dk = ds^T q * scale``).
 
-:func:`flash_attention` is the ``torch.autograd.Function`` over either arm:
-its forward saves ``(q, k, v, pad_mask, out, lse)`` and its backward runs
-the backward of the same arm, as the JAX ``custom_vjp`` does. The kernel
-arm computes ``delta`` in a small kernel before the main backward (the JAX
-package computes it in XLA outside its Pallas kernel). ``flash_attention_lse`` and the ``g_lse``
-cotangent wait for ring attention (ROADMAP A.8).
+:func:`flash_attention_lse` is the ``torch.autograd.Function`` over either
+arm, returning ``(out, lse [B, H, L] f32)`` as the JAX function of that
+name: its forward saves ``(q, k, v, pad_mask, out, lse)`` and its backward
+runs the backward of the same arm on ``(g_out, g_lse)``, as the JAX
+``custom_vjp`` does. The lse cotangent is what ring attention's cross-hop
+fold (``parallel/ring.py``) hands back: ``d lse_i / d s_ij = p_ij``, so it
+folds into the softmax-Jacobian term, ``delta = rowsum(dO * O) - g_lse``,
+and the main kernels run unchanged on that delta. No cotangent (``None``)
+is zeros, and then nothing is subtracted: :func:`flash_attention`, which
+returns ``out`` alone, is that case. The kernel arm computes ``delta`` in a
+small kernel before the main backward (the JAX package computes it in XLA
+outside its Pallas kernel). A fully masked query row gives ``out = 0`` and
+a finite ``lse = NEG_INF + log(1e-20)``, which the ring's fold weighs 0.
 
 The kernels take bf16 and f32 at Dh 64 and 128 and raise on anything else;
 the plain versions take any shape.
@@ -36,9 +44,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "flash_forward", "flash_backward",
-           "torch_flash_forward", "torch_flash_backward", "NEG_INF",
-           "forward_launch_count", "backward_launch_count",
+__all__ = ["flash_attention", "flash_attention_lse", "flash_forward",
+           "flash_backward", "torch_flash_forward", "torch_flash_backward",
+           "NEG_INF", "forward_launch_count", "backward_launch_count",
+           "lse_backward_launch_count",
            "reset_launch_counts", "launch_counters", "add_launches",
            "plain_call_counts",
            "flash_flops", "flash_hbm_bytes",
@@ -48,8 +57,10 @@ NEG_INF = -1e9
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
-# Launches of each kernel since the last reset: one per wrapper call.
-_launches = {"forward": 0, "backward": 0}
+# Launches of each kernel since the last reset: one per wrapper call;
+# "lse_backward" counts the backward's calls with an lse cotangent (its
+# g_lse arm) once more
+_launches = {"forward": 0, "backward": 0, "lse_backward": 0}
 # Calls the autograd seam routed to the plain versions since the last reset
 _plain_calls = {"forward": 0, "backward": 0}
 # The bf16 backward's dq planes (one f32 [B, H, L, Dh] plane per key tile)
@@ -66,10 +77,16 @@ def backward_launch_count() -> int:
     return _launches["backward"]
 
 
+def lse_backward_launch_count() -> int:
+    """Backward launches that folded an lse cotangent into delta."""
+    return _launches["lse_backward"]
+
+
 def reset_launch_counts() -> None:
     """Zero the launch counts and the plain-call counts."""
     for key in _launches:
         _launches[key] = 0
+    for key in _plain_calls:
         _plain_calls[key] = 0
 
 
@@ -133,16 +150,21 @@ def torch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def torch_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pad_mask: Optional[torch.Tensor], causal: bool,
                          out: torch.Tensor, lse: torch.Tensor,
-                         dout: torch.Tensor
+                         dout: torch.Tensor,
+                         g_lse: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain FlashAttention-2 backward, in f32: ``(dq, dk, dv)`` in the
-    inputs' dtypes. Masked entries (and so fully masked rows) give zero."""
+    inputs' dtypes. ``g_lse`` ([B, H, L], or None for none) is the lse
+    cotangent, subtracted from delta. Masked entries (and so fully masked
+    rows) give zero."""
     scale = q.shape[-1] ** -0.5
     s = _masked_scores(q, k, pad_mask, causal)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - lse[..., None]),
                     torch.zeros((), device=s.device))
     do, o = dout.float(), out.float()
     delta = (do * o).sum(dim=-1, keepdim=True)
+    if g_lse is not None:
+        delta = delta - g_lse.float()[..., None]
     dv = torch.einsum("bhlm,bhld->bhmd", p, do)
     dp = torch.einsum("bhld,bhmd->bhlm", do, v.float())
     ds = p * (dp - delta) * scale
@@ -223,17 +245,21 @@ def dq_launch_plan(B: int, H: int, L: int, Dh: int,
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    pad_mask: Optional[torch.Tensor], causal: bool,
-                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   g_lse: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels (one count per call): ``(dq, dk, dv)`` in q's
-    dtype. A first kernel computes ``delta = rowsum(dO * O)`` in f32. bf16
+    dtype. A first kernel computes ``delta = rowsum(dO * O) - g_lse`` in
+    f32 (``g_lse``: the lse cotangent, contiguous f32 [B, H, L], or None
+    for none; a call with one also counts as an ``lse_backward``). bf16
     then runs the one-pass kernel, whose CTAs store their key tile's dq
     part in an f32 plane of their own (:func:`dq_launch_plan`), and a
     kernel that sums the planes in ascending key order and casts: no
     atomics, so two calls on the same inputs give the same bits. f32 runs
     the dk/dv kernel and the dq kernel."""
     _check_kernel_args("flash_backward", (q, k, v, out, dout), pad_mask)
-    _stats_ok("flash_backward", q, lse)
+    _stats_ok("flash_backward", q, lse,
+              *(() if g_lse is None else (g_lse,)))
     from ._build import check, load_library
     lib = load_library()
     B, H, L, Dh = q.shape
@@ -255,19 +281,25 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.dpt_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(pad_mask),
-            dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), out.data_ptr(), lse.data_ptr(), ptr(g_lse),
             delta.data_ptr(), ptr(dq_part), ptr(dq_accum),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, L, Dh,
             int(causal), _DTYPE_CODES[q.dtype], kt_per_launch,
             torch.cuda.current_stream().cuda_stream)
     check(lib, err, "flash_backward")
     _launches["backward"] += 1
+    if g_lse is not None:
+        _launches["lse_backward"] += 1
     return dq, dk, dv
 
 
 # --------------------------------------------------------- autograd seam
 
 class _FlashAttention(torch.autograd.Function):
+    """``(out, lse)`` with the backward of the same arm on ``(g_out,
+    g_lse)``; a ``None`` cotangent is zeros (the grads are not
+    materialized, so an unused lse subtracts nothing)."""
+
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, causal: bool, use_kernel: bool):
         if use_kernel:
@@ -278,28 +310,34 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, pad_mask, out, lse)
         ctx.causal = causal
         ctx.use_kernel = use_kernel
-        return out
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, g_lse):
         q, k, v, pad_mask, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
         if ctx.use_kernel:
-            dq, dk, dv = flash_backward(q, k, v, pad_mask, ctx.causal, out,
-                                        lse, dout.contiguous())
+            dq, dk, dv = flash_backward(
+                q, k, v, pad_mask, ctx.causal, out, lse, dout.contiguous(),
+                None if g_lse is None else g_lse.float().contiguous())
         else:
             dq, dk, dv = torch_flash_backward(q, k, v, pad_mask, ctx.causal,
-                                              out, lse, dout)
+                                              out, lse, dout, g_lse)
             _plain_calls["backward"] += 1
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pad_mask: Optional[torch.Tensor] = None,
-                    causal: bool = False, impl: str = "torch"
-                    ) -> torch.Tensor:
-    """Blocked attention on ``[B, H, L, Dh]`` with gradients; ``pad_mask``
-    is [B, L] (1 = real token). ``impl="cuda"`` runs the kernels (CUDA
-    tensors only), ``impl="torch"`` the plain versions."""
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pad_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False, impl: str = "torch"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked attention on ``[B, H, L, Dh]`` returning ``(out, lse [B, H,
+    L] f32)``, both differentiable: the lse's cotangent folds into the
+    backward's delta. ``pad_mask`` is [B, L] (1 = real token).
+    ``impl="cuda"`` runs the kernels (CUDA tensors only), ``impl="torch"``
+    the plain versions."""
     if impl not in ("cuda", "torch"):
         raise ValueError(f"flash impl must be cuda|torch, got {impl!r}")
     use_kernel = impl == "cuda"
@@ -308,6 +346,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if pad_mask is not None:
             pad_mask = pad_mask.to(torch.int32).contiguous()
     return _FlashAttention.apply(q, k, v, pad_mask, causal, use_kernel)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None,
+                    causal: bool = False, impl: str = "torch"
+                    ) -> torch.Tensor:
+    """Blocked attention on ``[B, H, L, Dh]`` with gradients: the ``out`` of
+    :func:`flash_attention_lse` (its lse unused, so its backward folds no
+    cotangent)."""
+    return flash_attention_lse(q, k, v, pad_mask, causal, impl)[0]
 
 
 def flash_flops(B: int, H: int, L: int, Dh: int, causal: bool,
@@ -321,14 +369,15 @@ def flash_flops(B: int, H: int, L: int, Dh: int, causal: bool,
 
 
 def flash_hbm_bytes(B: int, H: int, L: int, Dh: int, dtype_bytes: int,
-                    has_mask: bool, backward: bool = False) -> int:
+                    has_mask: bool, backward: bool = False,
+                    g_lse: bool = False) -> int:
     """Device-memory bytes one call must move, each input read once and
     each output written once: forward q, k, v (+ mask) in, out and the f32
-    lse out; backward q, k, v, out, dO, lse and delta (+ mask) in, dq, dk,
-    dv out."""
+    lse out; backward q, k, v, out, dO, lse and delta (+ mask, + the lse
+    cotangent ``g_lse``) in, dq, dk, dv out."""
     act = B * H * L * Dh * dtype_bytes
     stat = B * H * L * 4
     mask = B * L * 4 if has_mask else 0
     if backward:
-        return 8 * act + 2 * stat + mask
+        return 8 * act + (3 if g_lse else 2) * stat + mask
     return 4 * act + stat + mask

@@ -9,7 +9,8 @@ from .launcher import (AUTORUN_ENV_FLAG, find_free_port, parse_and_autorun,
 _DIST_NAMES = ("barrier", "broadcast", "dev", "device_count", "get_rank",
                "get_world_size", "is_available", "is_initialized",
                "setup_dist", "sync_params", "all_reduce",
-               "all_gather_object", "backend")
+               "all_gather_object", "backend", "SequenceGroups",
+               "sequence_groups", "ring_shift")
 
 __all__ = ["AUTORUN_ENV_FLAG", "find_free_port", "parse_and_autorun",
            "parse_distributed_args", "run_argv_as_distributed",

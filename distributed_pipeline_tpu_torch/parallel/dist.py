@@ -18,6 +18,16 @@ logged once at start:
   memory inside the collective), so the ranks run the same kernels on the
   same card either way.
 
+Sequence parallelism (``--sequence N``) splits the ranks as the JAX mesh
+orders its devices, data before sequence: rank r is data index ``r // N``
+and sequence index ``r % N`` of ``world // N`` data groups.
+``sequence_groups`` forms one process group per data index (every rank
+forms every group, in the same order, as ``new_group`` requires), and
+``ring_shift`` hands tensors one step round a group's ring with paired
+point-to-point sends (``ppermute`` of the JAX ring). Gloo has no
+point-to-point operations for CUDA tensors, so ranks that share a card
+stage them through host memory; NCCL sends them directly.
+
 Divergence from the JAX shim: when the environment describes a launch and
 the process group fails to form, ``setup_dist`` RAISES. The JAX shim
 degrades to one process there; a rank that trained alone on its shard
@@ -26,11 +36,12 @@ would log a wrong loss and nobody would see it (ROADMAP C.11).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import functools
 import os
 import sys
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -41,7 +52,8 @@ from .launcher import AUTORUN_ENV_FLAG, find_free_port
 __all__ = ["is_available", "is_initialized", "setup_dist", "get_rank",
            "get_world_size", "barrier", "dev", "device_count", "broadcast",
            "sync_params", "all_reduce", "all_gather_object", "backend",
-           "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG"]
+           "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG",
+           "SequenceGroups", "sequence_groups", "ring_shift"]
 
 _ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 # distinct devices of the ring, learned once at setup
@@ -171,3 +183,65 @@ def all_gather_object(obj: Any) -> List[Any]:
     out: List[Any] = [None] * get_world_size()
     tdist.all_gather_object(out, obj)
     return out
+
+
+# --------------------------------------------------- sequence parallelism
+
+@dataclasses.dataclass(frozen=True)
+class SequenceGroups:
+    """This rank's place in a data x sequence split of the ranks: its
+    sequence group (None for a ring of one) and that group's global ranks
+    by sequence index."""
+
+    group: Any
+    ranks: Tuple[int, ...]
+    index: int          # sequence index: the L slice this rank holds
+    size: int           # sequence ranks a data group (sp)
+    data_index: int     # the data group: the rows this rank reads
+    dp: int             # data groups
+
+
+def sequence_groups(sp: int) -> SequenceGroups:
+    """Split the ranks into ``world // sp`` data groups of ``sp`` sequence
+    ranks each (rank ``d * sp + i`` is sequence index i of data group d)
+    and form one process group a data group, every rank forming all of
+    them in order. ``sp`` = 1 forms none."""
+    world, rank = get_world_size(), get_rank()
+    if sp < 1 or world % sp:
+        raise ValueError(f"the sequence axis ({sp}) must divide the world "
+                         f"size ({world})")
+    dp = world // sp
+    data_index = rank // sp
+    ranks = tuple(range(data_index * sp, (data_index + 1) * sp))
+    group = None
+    if sp > 1:
+        for d in range(dp):
+            g = tdist.new_group(list(range(d * sp, (d + 1) * sp)))
+            if d == data_index:
+                group = g
+    return SequenceGroups(group, ranks, rank % sp, sp, data_index, dp)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], seq: SequenceGroups,
+               reverse: bool = False) -> List[torch.Tensor]:
+    """Send ``tensors`` to the next sequence index (``(i + 1) % n``) and
+    return those received from the previous one (``(i - 1) % n``), one
+    batch of paired sends and receives; ``reverse`` turns the ring the
+    other way (the transpose, for cotangents). Under gloo, CUDA tensors go
+    through host buffers (the copies wait for the stream)."""
+    n, i = seq.size, seq.index
+    step = -1 if reverse else 1
+    dst, src = seq.ranks[(i + step) % n], seq.ranks[(i - step) % n]
+    stage = backend() == "gloo"
+    send = [(t.detach().cpu() if stage else t.detach()).contiguous()
+            for t in tensors]
+    recv = [torch.empty_like(t) for t in send]
+    ops = []
+    for tag, (s, r) in enumerate(zip(send, recv)):
+        ops.append(tdist.P2POp(tdist.isend, s, dst, seq.group, tag))
+        ops.append(tdist.P2POp(tdist.irecv, r, src, seq.group, tag))
+    for req in tdist.batch_isend_irecv(ops):
+        req.wait()
+    if stage:
+        recv = [r.to(t.device) for r, t in zip(recv, tensors)]
+    return recv

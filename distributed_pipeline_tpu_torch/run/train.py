@@ -8,12 +8,17 @@
         --dataset synthetic-lm --seq_len 1024 --batch_size 8 ...
     python -m distributed_pipeline_tpu_torch.run.train --distributed \\
         --nprocs 2 [--max_restarts 1] ...          # data-parallel ranks
+    python -m distributed_pipeline_tpu_torch.run.train --distributed \\
+        --nprocs 2 --sequence 2 ...                # one ring over L
 
 ``--distributed --nprocs N`` relaunches this module as N supervised worker
 processes (``parallel/launcher.py``) that form one ``torch.distributed``
 group (``parallel/dist.py``: NCCL when every rank has a card of its own,
 gloo on the CPU or when ranks share one); ``batch_size`` and
-``microbatch`` are per rank. Settings -> process group -> run dir (made by
+``microbatch`` are per rank. ``--sequence N`` makes each N consecutive
+ranks one sequence group that reads the same rows, splits L N ways and
+rings its attention (``parallel/ring.py``); the loader shards over the
+``world / N`` data groups. Settings -> process group -> run dir (made by
 rank 0; every rank resolves the same one, the launcher pinning
 ``DPT_RUN_TIMESTAMP``) -> logger (means across ranks at each dump; rank 0
 alone on stdout, rank r > 0 into ``-rank{r:03d}`` files) ->
@@ -22,8 +27,9 @@ run dir's newest complete checkpoint) -> each rank's data shard
 fast-forwarded past the global samples the checkpoint consumed ->
 ``run_loop`` -> ``train_summary.json`` (``train_summary-rank{r:03d}.json``
 for rank r > 0): the rank's backend, device, kernel launches and plain
-calls, all-reduce seconds, throughput, peak device memory and the SHA-256
-of its final flat parameters (equal on every rank of a healthy ring).
+calls, all-reduce and ring-shift seconds, its (data index, sequence
+index, sequence size), throughput, peak device memory and the SHA-256 of
+its final flat parameters (equal on every rank of a healthy ring).
 ``--eval_decode true`` adds the decode callback over one
 held-out batch of at most 32 rows, as the JAX entry point does: DiffuSeq
 samples ``--eval_decode_sample_steps`` reverse steps, GPT-2 continues the
@@ -94,21 +100,27 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
     """This rank's sidecar (see the module doc), written at a clean
     exit."""
     loop.flush_metrics()
-    calls = loop.allreduce_calls
     out = {"rank": loop.rank, "world_size": loop.world,
            "backend": dist.backend(), "device": str(device),
            "devices_in_ring": loop.n_devices, "steps": loop.step,
            "global_batch": loop.global_batch,
+           "data_index": loop.seq.data_index,
+           "sequence_index": loop.seq.index, "sequence": loop.seq.size,
            "launches": {
                "flash_forward": flash_attention.forward_launch_count(),
                "flash_backward": flash_attention.backward_launch_count(),
                "fused_adamw_ema": fused_update.launch_count()},
+           "lse_backward_launches":
+               flash_attention.lse_backward_launch_count(),
            "plain_calls": {**{f"flash_{k}": v for k, v in
                               flash_attention.plain_call_counts().items()},
                            "fused_adamw_ema":
                                fused_update.plain_call_count()},
-           "allreduce_calls": calls, "allreduce_s": loop.allreduce_s,
-           "allreduce_s_per_step": loop.allreduce_s / calls if calls else 0.0,
+           "allreduce_calls": loop.allreduce_time.calls,
+           "allreduce_s": loop.allreduce_time.seconds,
+           "allreduce_s_per_step": loop.allreduce_s_per_step,
+           "ring_shift_calls": loop.shift_time.calls,
+           "ring_shift_s_per_step": loop.ring_shift_s_per_step,
            **loop.throughput,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else 0),
@@ -167,12 +179,14 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         seed=args.seed, dispatch_lag=args.dispatch_lag,
         fused_update=args.fused_update, eval_callbacks=eval_callbacks,
         keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
-        prefetch_depth=args.prefetch_depth, logger=logger)
+        prefetch_depth=args.prefetch_depth, sequence=args.sequence,
+        logger=logger)
     # exact-order resume: skip the global samples the restored step
-    # consumed (by this rank's shard)
+    # consumed (by this data group's shard)
     meta = loop.resume_meta or {}
+    shard = (loop.seq.data_index, loop.seq.dp)
     train_skip, consumed = resume_sample_position(
-        loop.step, meta, args.batch_size, world)
+        loop.step, meta, args.batch_size, loop.seq.dp)
     eval_skip = int(meta.get("eval_batches_consumed", 0))
     if loop.step:
         logger.info(f"resume at step {loop.step}: {consumed} global samples "
@@ -181,10 +195,11 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     data_args = {k: v for k, v in settings.items() if k != "batch_size"}
     loop.set_data(
         load_data_from_args("train", batch_size=args.batch_size,
-                            skip_batches=train_skip, **data_args),
+                            skip_batches=train_skip, shard=shard,
+                            **data_args),
         eval_data=load_data_from_args(
             "valid", batch_size=args.batch_size, skip_batches=eval_skip,
-            **{**data_args, "deterministic": True}),
+            shard=shard, **{**data_args, "deterministic": True}),
         eval_batches_consumed=eval_skip,
         samples_consumed=consumed if loop.step else None)
     logger.info(f"the parameter count is {loop.n_params} "
@@ -192,7 +207,9 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
                 f"active a token ({loop.n_active_params / 1e6:.1f}M); "
                 f"device {device}; "
                 f"fused update {loop.fused_update}; rank {rank} of {world}, "
-                f"backend {dist.backend()}, global batch "
+                f"backend {dist.backend()}, data group "
+                f"{loop.seq.data_index} of {loop.seq.dp}, sequence index "
+                f"{loop.seq.index} of {loop.seq.size}, global batch "
                 f"{loop.global_batch}")
     try:
         loop.run_loop()

@@ -1,6 +1,6 @@
 """Performance gauges: the port's part of
 ``distributed_pipeline_tpu/utils/perf.py`` - ``EventStats`` (serving TTFT
-percentiles), ``StepTimer``, the training and decode FLOP counts and
+percentiles), ``StepTimer``, ``EventTimer``, the training and decode FLOP counts and
 ``mfu``, ``active_param_count`` (the parameters a token runs through
 under top-k MoE routing), and the serving sanitizer's ``RecompileMonitor`` and
 ``SanitizeReport`` - plus the published rates of the cards the port
@@ -14,9 +14,9 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
-__all__ = ["EventStats", "StepTimer", "CARDS", "card_rates",
+__all__ = ["EventStats", "StepTimer", "EventTimer", "CARDS", "card_rates",
            "transformer_train_flops_per_token",
            "transformer_decode_flops_per_token", "mfu",
            "active_param_count", "RecompileMonitor",
@@ -91,21 +91,22 @@ class StepTimer:
     """Wall-clock step timing that skips the first ``warmup`` steps (first
     use of each kernel and allocator path). ``lap()`` returns (steps/s,
     tokens/s) over the window since the last call; call it after the step's
-    work is complete (a synchronize) or accept a step of skew."""
+    work is complete (a synchronize) or accept a step of skew. ``steps``
+    counts every tick."""
 
     def __init__(self, tokens_per_step: float, warmup: int = 2):
         self.tokens_per_step = tokens_per_step
         self.warmup = warmup
-        self._steps = 0
+        self.steps = 0
         self._t0: Optional[float] = None
         self._window_steps = 0
 
     def tick(self) -> None:
-        self._steps += 1
-        if self._steps == self.warmup:
+        self.steps += 1
+        if self.steps == self.warmup:
             self._t0 = time.perf_counter()
             self._window_steps = 0
-        elif self._steps > self.warmup:
+        elif self.steps > self.warmup:
             self._window_steps += 1
 
     def lap(self) -> Tuple[float, float]:
@@ -116,6 +117,40 @@ class StepTimer:
         self._t0 = time.perf_counter()
         self._window_steps = 0
         return sps, sps * self.tokens_per_step
+
+
+class EventTimer:
+    """Seconds and calls of one kind of timed call (a collective): CUDA
+    events around each call on the current stream, read at ``drain()`` so
+    the call waits for nothing, or the host's clock on the CPU."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.calls = 0
+        self._events: List[tuple] = []
+
+    @contextlib.contextmanager
+    def measure(self, device) -> Iterator[None]:
+        if device.type == "cuda":
+            import torch
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            self._events.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.seconds += time.perf_counter() - t0
+        self.calls += 1
+
+    def drain(self) -> None:
+        """Add the recorded event pairs' times into ``seconds``."""
+        for start, end in self._events:
+            end.synchronize()
+            self.seconds += start.elapsed_time(end) / 1e3
+        self._events.clear()
 
 
 class EventStats:

@@ -74,6 +74,22 @@ rank 0's microbatch i, then rank 1's, and so on:
 
 A process group of one rank runs the same path, and gives the losses of
 no group at all bit for bit (a one-rank all-reduce is the identity).
+
+Sequence parallelism (``sequence`` = sp > 1) splits the P ranks into
+``dp = P / sp`` data groups of sp sequence ranks, in the JAX mesh's order
+(``parallel/dist.py`` ``sequence_groups``): the ranks of a data group
+read the same rows (``global_batch = batch_size * dp``), and each takes
+its L/sp slice of every microbatch (``models.sequence_slice``; GPT-2's
+last target of a slice is the next slice's first token). The step runs
+inside ``parallel.ring.sequence_parallel``, so attention rings over the
+group and positions start at the slice's offset. Every term of both
+losses is a per-token masked mean, so the global denominators, the
+metric shares and the one gradient all-reduce stay world-wide: local
+counts and partial gradients summed over all ranks are the global ones.
+DiffuSeq's draws are the global microbatch's, sliced by data index over
+rows and by sequence index over the noise's positions (``t`` is one a
+row). The ring's shifts are timed like the all-reduce
+(``ring_shift_s_per_step``).
 """
 
 from __future__ import annotations
@@ -81,7 +97,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
-import time
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence)
 
@@ -91,14 +106,15 @@ import torch
 from ..convert import init_params as random_params
 from ..data.device_prefetch import prefetch_to_device
 from ..models import (GlobalMoEStats, Model, compute_losses, finish_losses,
-                      loss_count, moe_live_count)
+                      loss_count, moe_live_count, sequence_slice)
 from ..models.diffuseq import Draws, rank_draws, seeded_generator
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
 from ..parallel import dist
+from ..parallel.ring import sequence_parallel
 from . import checkpoint as ckpt
 from .logger import Logger
-from .perf import (StepTimer, active_param_count, mfu,
+from .perf import (EventTimer, StepTimer, active_param_count, mfu,
                    transformer_train_flops_per_token)
 
 __all__ = ["TrainLoop"]
@@ -114,7 +130,8 @@ class TrainLoop:
     ``seed``, unless a checkpoint is resumed. ``draws(step, i)``, when
     given, returns the (global) microbatch i's DiffuSeq draws at ``step``
     (a generator or ``{"t", "noise"}``) in place of the seeded generator.
-    ``batch_size`` and ``microbatch`` are per rank."""
+    ``batch_size`` and ``microbatch`` are per rank (the rows of its data
+    group); ``sequence`` is the sequence-parallel group size."""
 
     def __init__(self, *, model: Model,
                  data: Optional[Iterator[Dict[str, np.ndarray]]],
@@ -132,7 +149,7 @@ class TrainLoop:
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
                  draws: Optional[Callable[[int, int], Draws]] = None,
                  keep_checkpoints: int = 0, debug_nans: bool = False,
-                 prefetch_depth: int = 0,
+                 prefetch_depth: int = 0, sequence: int = 1,
                  logger: Optional[Logger] = None) -> None:
         self.model = model
         self.keep_checkpoints = keep_checkpoints
@@ -150,7 +167,8 @@ class TrainLoop:
         self.world = dist.get_world_size()
         # a group of one rank takes the collective path too
         self.distributed = dist.is_initialized()
-        self.global_batch = batch_size * self.world
+        self.seq = dist.sequence_groups(sequence)
+        self.global_batch = batch_size * self.seq.dp
         self.microbatch = microbatch if microbatch > 0 else batch_size
         if batch_size % self.microbatch:
             raise ValueError(f"batch_size {batch_size} not divisible by "
@@ -197,11 +215,10 @@ class TrainLoop:
             dict(model.named_parameters()), self.n_params,
             moe_experts=model.moe_experts, moe_top_k=model.moe_top_k)
         self.n_devices = dist.device_count()
-        # the gradient all-reduce's time: seconds and calls, with the CUDA
-        # event pairs not read yet
-        self.allreduce_s = 0.0
-        self.allreduce_calls = 0
-        self._allreduce_events: List[tuple] = []
+        # the gradient all-reduce's time and the ring's shifts' (sequence
+        # parallelism), read at each flush
+        self.allreduce_time = EventTimer()
+        self.shift_time = EventTimer()
         self.throughput: Dict[str, float] = {}
         tokens_per_step = self.global_batch * model.seq_len
         self._timer = StepTimer(tokens_per_step)
@@ -350,7 +367,8 @@ class TrainLoop:
 
     def _micro(self, batch: Mapping[str, Any]) -> List[Dict]:
         """Batch [B, ...] (numpy, or tensors from the prefetcher) ->
-        microbatches of device tensors."""
+        microbatches of device tensors; under sequence parallelism each is
+        this rank's L slice (``models.sequence_slice``)."""
         out = [{} for _ in range(self.n_micro)]
         for key, val in batch.items():
             if not isinstance(val, torch.Tensor):
@@ -359,6 +377,9 @@ class TrainLoop:
             for i, part in enumerate(t.reshape(
                     (self.n_micro, self.microbatch) + t.shape[1:])):
                 out[i][key] = part
+        if self.seq.size > 1:
+            out = [sequence_slice(self.model, mb, self.seq.index,
+                                  self.seq.size) for mb in out]
         return out
 
     def _seeded_draws(self, step: int, i: int) -> torch.Generator:
@@ -367,13 +388,15 @@ class TrainLoop:
     def _rank_draws(self, step: int, i: int, mb: Mapping[str, torch.Tensor]
                     ) -> Draws:
         """Microbatch i's draws for this rank: the global microbatch's,
-        sliced to this rank's rows under several ranks."""
+        sliced to its data group's rows and its sequence slice's
+        positions under several ranks."""
         draws = (self._draws or self._seeded_draws)(step, i)
         if self.world == 1 or self.model.family != "diffuseq":
             return draws
+        seq = self.seq
         shape = tuple(mb["input_ids"].shape) + (self.model.emb_dim,)
-        return rank_draws(self.model.schedule, draws, shape, self.rank,
-                          self.world)
+        return rank_draws(self.model.schedule, draws, shape, seq.data_index,
+                          seq.dp, seq.index, seq.size)
 
     def _global_denoms(self, mbs: List[Dict]) -> List[tuple]:
         """Each microbatch's ``(denom, moe_global)``: the masked means'
@@ -414,21 +437,10 @@ class TrainLoop:
         return sums
 
     def _all_reduce_grads(self) -> None:
-        """Sum ``self.grads`` over the ranks in place, timed: CUDA events
-        around the collective on the current stream (read at the next
-        flush), or the host's clock on the CPU."""
-        if self.device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
+        """Sum ``self.grads`` over the ranks in place, timed into
+        ``allreduce_time``."""
+        with self.allreduce_time.measure(self.device):
             dist.all_reduce(self.grads)
-            end.record()
-            self._allreduce_events.append((start, end))
-        else:
-            t0 = time.perf_counter()
-            dist.all_reduce(self.grads)
-            self.allreduce_s += time.perf_counter() - t0
-        self.allreduce_calls += 1
 
     def forward_backward(self, batch: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
@@ -439,12 +451,13 @@ class TrainLoop:
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
         per_micro = []
-        for i, mb in enumerate(mbs):
-            d = compute_losses(self.model, mb,
-                               self._rank_draws(self.step, i, mb),
-                               *denoms[i])
-            d["loss"].backward()
-            per_micro.append({k: v.detach() for k, v in d.items()})
+        with sequence_parallel(self.seq, self.shift_time):
+            for i, mb in enumerate(mbs):
+                d = compute_losses(self.model, mb,
+                                   self._rank_draws(self.step, i, mb),
+                                   *denoms[i])
+                d["loss"].backward()
+                per_micro.append({k: v.detach() for k, v in d.items()})
         scale = 1.0 / self.n_micro
         self.grads.mul_(scale)
         if self.distributed:
@@ -511,14 +524,12 @@ class TrainLoop:
         self.history.append({"step": step, **row})
 
     def flush_metrics(self) -> None:
-        """Fetch every in-flight step's metrics, and the all-reduce times
-        recorded so far."""
+        """Fetch every in-flight step's metrics, and the all-reduce and
+        ring-shift times recorded so far."""
         while self._inflight:
             self._emit_lagged()
-        for start, end in self._allreduce_events:
-            end.synchronize()
-            self.allreduce_s += start.elapsed_time(end) / 1e3
-        self._allreduce_events.clear()
+        self.allreduce_time.drain()
+        self.shift_time.drain()
 
     @torch.no_grad()
     def forward_only(self, batch: Dict[str, np.ndarray]
@@ -529,20 +540,37 @@ class TrainLoop:
         step = 0x7FFF0000 + self.step
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
-        per_micro = [compute_losses(self.model, mb,
-                                    self._rank_draws(step, i, mb), *denoms[i])
-                     for i, mb in enumerate(mbs)]
+        with sequence_parallel(self.seq, self.shift_time):
+            per_micro = [compute_losses(self.model, mb,
+                                        self._rank_draws(step, i, mb),
+                                        *denoms[i])
+                         for i, mb in enumerate(mbs)]
         sums = self._summed_metrics(per_micro)
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}
         self.logger.logkvs_mean(out)
         return out
 
+    @property
+    def allreduce_s_per_step(self) -> float:
+        """The all-reduce's seconds over its calls (one a step)."""
+        t = self.allreduce_time
+        return t.seconds / t.calls if t.calls else 0.0
+
+    @property
+    def ring_shift_s_per_step(self) -> float:
+        """The ring's shift seconds (forward and backward, eval passes
+        included) over the steps this process ran."""
+        return self.shift_time.seconds / max(self._timer.steps, 1)
+
     # -------------------------------------------------------------- loop
 
     def _log_throughput(self) -> None:
-        if self.allreduce_calls:
+        if self.allreduce_time.calls:
             self.logger.logkv("allreduce_s_per_step",
-                              self.allreduce_s / self.allreduce_calls)
+                              self.allreduce_s_per_step)
+        if self.shift_time.calls:
+            self.logger.logkv("ring_shift_s_per_step",
+                              self.ring_shift_s_per_step)
         sps, tps = self._timer.lap()
         if tps <= 0:
             return

@@ -64,3 +64,15 @@ def test_parameters_match_one_by_one(name):
             f"{src}:{name} parameter {i} `{param}` is declared as "
             f"{declared.__name__}")
     assert restype is _ctype(ret)
+
+
+def test_flash_backward_takes_the_lse_cotangent():
+    """``dpt_flash_bwd`` takes ``g_lse`` (the lse cotangent ring attention
+    folds into delta) right after ``lse``: 14 pointers, then the ints."""
+    src, _, params = _c_functions()["dpt_flash_bwd"]
+    names = [re.sub(r".*[\s\*]", "", p) for p in params]
+    assert names[6:9] == ["lse", "g_lse", "delta"], (src, names)
+    assert params[7].replace(" ", "") == "constfloat*g_lse"
+    argtypes, _ = _build._SIGNATURES["dpt_flash_bwd"]
+    assert argtypes[:14] == [ctypes.c_void_p] * 14
+    assert ctypes.c_void_p not in argtypes[14:-1]

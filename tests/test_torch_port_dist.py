@@ -309,7 +309,7 @@ loop.flush_metrics()
 torch.save({"metrics": metrics, "params": loop.params,
             "ema": loop.ema_state_dicts(), "mu": loop.mu, "nu": loop.nu,
             "count": int(loop.count), "samples": loop._samples,
-            "world": loop.world, "allreduce_calls": loop.allreduce_calls,
+            "world": loop.world, "allreduce_calls": loop.allreduce_time.calls,
             "state": loop.state_dict_of(loop.params)},
            f"{tmp}/rank{r}.pt")
 """

@@ -133,7 +133,7 @@ def test_seam_routes_and_cuda_on_cpu_raises():
             att.dot_product_attention(q, k, v, None, True, impl=impl)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_forward(q, k, v)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="needs a sequence group"):
         att.dot_product_attention(q, k, v, impl="ring")
     with pytest.raises(ValueError, match="unknown"):
         att.dot_product_attention(q, k, v, impl="bogus")
@@ -266,3 +266,66 @@ def test_cuda_bf16_backward_is_bitwise_reproducible(cuda_device, Dh, causal,
     split = fa.flash_backward(q, k, v, mask, causal, out, lse, do)
     for a, b, c in zip(first, again, split):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh,L,causal,lens", [
+    (torch.float32, 64, 200, True, [200, 77]),
+    (torch.float32, 128, 130, False, [130, 0]),
+    (torch.bfloat16, 64, 512, True, None),        # GPT-2's diagonal hop
+    (torch.bfloat16, 64, 512, False, None),       # and its earlier slice
+    (torch.bfloat16, 128, 300, True, [300, 0]),
+    (torch.bfloat16, 64, 129, False, [129, 0]),
+])
+def test_cuda_lse_cotangent_matches_plain_version(cuda_device, dtype, Dh, L,
+                                                  causal, lens):
+    """``flash_attention_lse`` on the kernels: ``(out, lse)`` and the
+    backward of a random ``(g_out, g_lse)`` against the plain versions
+    (the bars of the tests above for each dtype); the lse is the natural
+    log the plain version writes (the bf16 kernel keeps its statistics in
+    the log2 domain); a fully masked row has out 0, a finite lse below
+    NEG_INF / 2 and zero gradients; the call counts one ``lse_backward``;
+    and the bars cannot pass a backward that drops ``g_lse``."""
+    B, H = 2, 4
+    rng = np.random.default_rng(L + Dh + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, L, Dh)).astype(
+        np.float32)).to(cuda_device).to(dtype) for _ in range(4))
+    g_lse = torch.from_numpy(rng.standard_normal((B, H, L)).astype(
+        np.float32)).to(cuda_device)
+    mask = (None if lens is None else
+            torch.from_numpy(lens_mask(B, L, lens)).to(cuda_device))
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.lse_backward_launch_count()
+    out, lse = fa.flash_attention_lse(*t, mask, causal, impl="cuda")
+    torch.autograd.backward((out, lse), (do, g_lse))
+    assert fa.lse_backward_launch_count() == before + 1
+    f = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = fa.torch_flash_forward(*f, mask, causal)
+    want = fa.torch_flash_backward(*f, mask, causal, out.detach().float(),
+                                   lse.detach(), do.float(), g_lse)
+    torch.testing.assert_close(lse.detach(), ref_lse, rtol=1e-5, atol=1e-4)
+    got = [x.grad for x in t]
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.detach(), ref_out, rtol=1e-5,
+                                   atol=1e-5)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(out.detach().float(), ref_out, rtol=8e-3,
+                                   atol=1e-3 * float(ref_out.abs().max()))
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a.float(), b, rtol=1e-2,
+                                       atol=max(1e-2 * scale, 1e-4))
+            assert float((a.float() - b).norm()) <= (
+                1e-2 * float(b.norm()) + 1e-4 * b.numel() ** 0.5)
+    dropped = fa.flash_backward(q, k, v, mask, causal, out.detach(),
+                                lse.detach(), do)
+    assert float((dropped[0].float() - want[0]).norm()) > \
+        1e-2 * float(want[0].norm())
+    if lens is not None and 0 in lens:
+        dead = lens.index(0)
+        assert torch.all(out[dead] == 0)
+        assert torch.all(torch.isfinite(lse[dead]))
+        assert float(lse[dead].max()) < fa.NEG_INF / 2
+        assert all(torch.all(x[dead] == 0) for x in got)

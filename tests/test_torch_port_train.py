@@ -220,7 +220,7 @@ def test_run_train_without_device_needs_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("entry,argv,expect", [
     ("train", ["--expert", "2"], "ROADMAP A.8c"),
-    ("train", ["--sequence", "2"], "ROADMAP A.8d"),
+    ("train", ["--sequence", "2"], "must divide the world size"),
     ("train", ["--scan_layers", "true"], "ROADMAP A.9"),
     ("train", ["--pp_chunks", "8"], "ROADMAP A.9"),
     ("train", ["--fsdp", "2"], "ROADMAP A.8"),
@@ -234,7 +234,7 @@ def test_run_train_without_device_needs_cuda(tmp_path, monkeypatch):
     ("train", ["--chaos_plan", "x"], "ROADMAP A.10"),
     ("train", ["--profile_dir", "x"], "ROADMAP A.10"),
     ("train", ["--mpmd", "true"], "ROADMAP A.9"),
-    ("train", ["--attention_impl", "ring"], "ROADMAP A.8"),
+    ("train", ["--moe_experts", "4", "--sequence", "2"], "ROADMAP A.8e"),
     ("train", ["--scan_unroll", "2"], "ROADMAP A.9"),
     ("train", ["--noise_schedule", "quadratic"], "invalid choice"),
     ("sample", ["--top_k", "5"], "Pass --temperature > 0"),
