@@ -199,7 +199,7 @@ Phases (any failure raises, and the script exits non-zero):
    The fused update is also held against its plain version and timed at
    GPT-2 base moe8's parameter count. Its line is ``{"moe_remat":
    {...}}``;
-14. sequence parallelism, last: ``flash_attention_lse`` on the kernels
+14. sequence parallelism: ``flash_attention_lse`` on the kernels
    (forward ``(out, lse)``, and the backward of a random ``(g_out,
    g_lse)``: the kernel backward's ``g_lse`` arm) against the plain
    versions, bf16 and f32, Dh 64 and 128, causal and not, at GPT-2's hop
@@ -221,7 +221,29 @@ Phases (any failure raises, and the script exits non-zero):
    hops and the mask rotates; batch 8 in microbatches of 4, 3 steps) with
    ``--sequence 2`` held to the same run in one process. Its line is
    ``{"sequence_parallel": {...}}``, and the kernels line gains the
-   ``flash_attention_lse`` row (the ``g_lse`` arm).
+   ``flash_attention_lse`` row (the ``g_lse`` arm);
+15. training tooling, last: DiffuSeq-base at full width (phase 5's batch,
+   256 in microbatches of 64, seed 0, 6 steps, a save every 2, keeping
+   2) through ``run.train --distributed --nprocs 1 --max_restarts 3``,
+   three rings: (a) ``corrupt_checkpoint`` + ``kill`` at step 4 in
+   ``DPT_CHAOS_PLAN``: attempts ``(-9, end 4)`` and ``(0, end 6)``, both
+   ``.chaos_fired_*`` markers, the walk-back to step 2 in the log,
+   ``aggregate_run`` with ``recompute_s > 0`` and ``accounted_frac``
+   within 0.05 of 1; (b) the uninterrupted twin with ``--trace
+   --cost_ledger --sanitize --profile_dir D --profile_steps 2:4``: step-6
+   parameters bitwise (a)'s, the fused update launched once a step in
+   each finished attempt and its plain version never, the profiler trace
+   naming the fused update kernel exactly twice, an empty
+   ``sanitize_report.json``, a ``train_step`` ledger row whose gaps sum
+   to 1 and whose ``mfu`` is the logged one, the step spans within 2% of
+   the goodput step time (useful + recompute + data stall), one compile
+   span of ``compile_s``; (c) ``stall_step`` at step 3 for 600 s under
+   ``--hang_timeout_s 20 --hang_startup_timeout_s 120``: the watchdog
+   kills attempt 0 (``hung``, ``hang_s`` in [20, 25]), attempt 1
+   finishes, the fold books ``hang_s``. Its line is
+   ``{"training_tooling": {...}}`` (each attempt's seconds, the goodput
+   folds, the beacon's cost a step, the twin's step times and peak
+   memory), and the DiffuSeq update row gains ``launches_tooling``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -3465,6 +3487,251 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
     return out, row
 
 
+# ------------------------------------------- training tooling (phase 15)
+
+TOOL_STEPS = 6
+# the phase's wall budget: five run.train processes of DiffuSeq-base (start,
+# the kernel library's load, up to 6 steps) and nine 2.2 GB saves
+TOOL_BUDGET_S = 300.0
+TOOL_HANG_S = 20.0
+FUSED_KERNEL = "fused_update_kernel"
+
+
+def tool_argv(run: str, extra=()) -> list:
+    """Phase 5's DiffuSeq-base batch under a supervised one-rank ring."""
+    return ["--distributed", "--nprocs", "1", "--max_restarts", "3",
+            "--restart_backoff_s", "0.1", "--checkpoint_path", run,
+            "--batch_size", "256", "--microbatch", "64",
+            "--learning_steps", str(TOOL_STEPS), "--save_interval", "2",
+            "--keep_checkpoints", "2", "--ema_rate", "0.5,0.9,0.99",
+            "--attention_impl", "auto", "--fused_update", "auto",
+            "--log_interval", "1", "--seed", "0", *extra]
+
+
+def tool_run(run: str, argv: list, what: str, plan=None) -> dict:
+    """``run.train`` as a supervised ring in a subprocess (``plan``: the
+    chaos plan in ``DPT_CHAOS_PLAN``); returns its attempt records, the
+    goodput fold, the sidecar and the progress rows."""
+    from distributed_pipeline_tpu_torch.chaos import (aggregate_run,
+                                                      read_attempts)
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+        "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP",
+        "DPT_CHAOS_PLAN", "DPT_TRACE", "DPT_ATTEMPT")}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo
+    if plan is not None:
+        env["DPT_CHAOS_PLAN"] = json.dumps({"faults": plan})
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_pipeline_tpu_torch.run.train",
+         *argv], cwd=repo, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stdout[-4000:], out.stderr[-8000:], file=sys.stderr)
+    check(out.returncode == 0, f"{what}: run.train exited {out.returncode}")
+    with open(os.path.join(run, "train_summary.json")) as f:
+        side = json.load(f)
+    with open(os.path.join(run, "progress.csv")) as f:
+        lines = f.read().splitlines()
+    head = lines[0].split(",")
+    rows = [dict(zip(head, line.split(","))) for line in lines[1:]]
+    agg = aggregate_run(run)
+    check(agg["accounted_frac"] == agg["accounted_frac"]
+          and abs(agg["accounted_frac"] - 1.0) <= 0.05,
+          f"{what}: accounted_frac {agg['accounted_frac']}")
+    return {"attempts": read_attempts(run), "goodput": agg, "side": side,
+            "rows": rows, "stderr": out.stderr, "wall_s": wall}
+
+
+def params_of(torch, run: str) -> dict:
+    return torch.load(os.path.join(run, f"model_{TOOL_STEPS:06d}.pt"),
+                      weights_only=True)
+
+
+def attempt_summary(rec: dict) -> dict:
+    """An attempt record's seconds: its wall, downtime, hang window and
+    the goodput snapshot's categories."""
+    gp = rec.get("goodput") or {}
+    return {"rc": rec["rc"], "start_step": rec["start_step"],
+            "end_step": rec["end_step"], "duration_s": rec["duration_s"],
+            "downtime_s": rec["downtime_s"],
+            "resume_overhead_s": rec["resume_overhead_s"],
+            "hang_s": rec.get("hang_s"),
+            **{k: gp.get(k) for k in (
+                "startup_s", "setup_s", "restore_s", "compile_s", "save_s",
+                "data_stall_s", "recompute_s", "useful_step_s", "goodput")}}
+
+
+def fold_summary(agg: dict) -> dict:
+    return {k: v for k, v in agg.items() if k != "per_attempt"}
+
+
+def check_side(side: dict, launches: int, what: str) -> None:
+    check(side["launches"] == {"flash_forward": 0, "flash_backward": 0,
+                               "fused_adamw_ema": launches},
+          f"{what}: launches {side['launches']}, expected the update "
+          f"{launches} times and no flash kernel (dense arm at 128)")
+    check(not any(side["plain_calls"].values()),
+          f"{what}: plain calls {side['plain_calls']}")
+    check(side["device"].startswith("cuda"), f"{what} on {side['device']}")
+
+
+def profiler_kernel_events(prof_dir: str) -> list:
+    """The device kernels the profiler window's Chrome trace names."""
+    names = []
+    files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir)
+             for f in fs if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profiler window wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    for e in events:
+        if e.get("cat") == "kernel":
+            names.append(e.get("name", ""))
+    return names
+
+
+def tooling_phase(torch) -> dict:
+    """Phase 15 (see the module doc)."""
+    from distributed_pipeline_tpu_torch.obs import ledger as ledger_lib
+    from distributed_pipeline_tpu_torch.obs import trace as trace_lib
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"steps": TOOL_STEPS}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) corrupt + kill at step 4: walk back to step 2, finish
+        chaos = os.path.join(work, "chaos")
+        a = tool_run(chaos, tool_argv(chaos), "chaos ring", plan=[
+            {"kind": "corrupt_checkpoint", "step": 4, "rank": 0},
+            {"kind": "kill", "step": 4, "rank": 0}])
+        recs = a["attempts"]
+        check([(r["rc"], r["end_step"]) for r in recs] == [(-9, 4), (0, 6)],
+              f"chaos ring attempts {[(r['rc'], r['end_step']) for r in recs]}")
+        check(recs[1]["start_step"] == 2, f"chaos ring resumed at "
+                                          f"{recs[1]['start_step']}, not 2")
+        check(all(os.path.exists(os.path.join(chaos, f".chaos_fired_0{i}"))
+                  for i in (0, 1)), "chaos markers missing")
+        with open(os.path.join(chaos, "log.txt")) as f:
+            log = f.read()
+        check("walking back" in log and "resumed from step 2" in log,
+              "the chaos ring's log shows no walk-back to step 2")
+        check(a["goodput"]["recompute_s"] > 0,
+              f"chaos ring recompute_s {a['goodput']['recompute_s']}")
+        check_side(a["side"], TOOL_STEPS - 2, "chaos ring attempt 1")
+
+        # (b) the uninterrupted twin with every tool armed
+        twin = os.path.join(work, "twin")
+        prof = os.path.join(work, "prof")
+        b = tool_run(twin, tool_argv(twin, (
+            "--trace", "true", "--cost_ledger", "true", "--sanitize", "true",
+            "--profile_dir", prof, "--profile_steps", "2:4")), "twin")
+        check([(r["rc"], r["end_step"]) for r in b["attempts"]] == [(0, 6)],
+              f"twin attempts {b['attempts']}")
+        check_side(b["side"], TOOL_STEPS, "twin")
+        pa, pb = params_of(torch, chaos), params_of(torch, twin)
+        differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+        check(not differ, f"chaos ring's step-6 parameters differ from the "
+                          f"twin's: {differ[:5]}")
+        del pa, pb
+        kernels = profiler_kernel_events(prof)
+        fused = [n for n in kernels if FUSED_KERNEL in n]
+        check(len(fused) == 2, f"the profiler window (steps 2:4) names "
+                               f"{FUSED_KERNEL} {len(fused)} times")
+        with open(os.path.join(twin, "sanitize_report.json")) as f:
+            report = json.load(f)
+        check(report["violations"] == [],
+              f"sanitizer violations: {report['violations'][:3]}")
+        row = ledger_lib.read_ledger(twin)["programs"]["train_step"]
+        gap_sum = ledger_lib.gap_sum_identity(row)
+        check(abs(gap_sum - 1.0) <= 1e-9, f"ledger gaps sum to {gap_sum}")
+        logged = float(b["rows"][-1]["mfu"])
+        check(abs(row["mfu"] - logged) <= 1e-9 * logged,
+              f"ledger mfu {row['mfu']} vs logged {logged}")
+        events = trace_lib.read_trace(trace_lib.trace_path(twin, 0))
+        spans = sum(e["dur"] for e in events if e["name"] == "step")
+        with open(os.path.join(twin, "goodput_attempt000.json")) as f:
+            rec = json.load(f)
+        step_s = (rec["useful_step_s"] + rec["recompute_s"]
+                  + rec["data_stall_s"])
+        check(abs(spans - step_s) <= 0.02 * step_s,
+              f"step spans {spans} s vs goodput step time {step_s} s")
+        check([e["args"]["step"] for e in events if e["name"] == "step"]
+              == list(range(1, TOOL_STEPS + 1)), "twin's step spans")
+        compile_spans = [e["dur"] for e in events if e["name"] == "compile"]
+        check(len(compile_spans) == 1
+              and abs(compile_spans[0] - rec["compile_s"]) <= 1e-6,
+              f"compile spans {compile_spans} vs compile_s "
+              f"{rec['compile_s']}")
+
+        # (c) the watchdog kills a wedged attempt
+        hang = os.path.join(work, "hang")
+        c = tool_run(hang, tool_argv(hang, (
+            "--hang_timeout_s", str(TOOL_HANG_S),
+            "--hang_startup_timeout_s", "120")), "watchdog ring", plan=[
+            {"kind": "stall_step", "step": 3, "seconds": 600, "rank": 0}])
+        hrecs = c["attempts"]
+        check(len(hrecs) == 2 and hrecs[0].get("hung") is True
+              and hrecs[0]["end_step"] == 3 and hrecs[1]["rc"] == 0
+              and hrecs[1]["end_step"] == TOOL_STEPS,
+              f"watchdog ring attempts {hrecs}")
+        check(TOOL_HANG_S <= hrecs[0]["hang_s"] <= TOOL_HANG_S + 5,
+              f"hang_s {hrecs[0]['hang_s']}, timeout {TOOL_HANG_S}")
+        check(c["goodput"]["hang_s"] == hrecs[0]["hang_s"],
+              f"the fold's hang_s {c['goodput']['hang_s']}")
+        check_side(c["side"], TOOL_STEPS - 2, "watchdog ring attempt 1")
+
+    def step_times_of(r: dict) -> list:
+        return [float(row["step_time_s"]) for row in r["rows"]
+                if row.get("step_time_s")]
+
+    step_times = step_times_of(b)
+    out.update({
+        "chaos": {"attempts": [attempt_summary(r) for r in recs],
+                  "goodput": fold_summary(a["goodput"]),
+                  "launches": a["side"]["launches"],
+                  # the same flags without the tools: the twin's yardstick
+                  "step_time_s": step_times_of(a), "wall_s": a["wall_s"]},
+        "twin": {"attempts": [attempt_summary(r) for r in b["attempts"]],
+                 "goodput": fold_summary(b["goodput"]),
+                 "launches": b["side"]["launches"],
+                 "step_time_s": step_times,
+                 "beacon_s_per_step": b["side"]["beacon_s_per_step"],
+                 "stall_means": b["side"]["stall_means"],
+                 "peak_memory_bytes": b["side"]["peak_memory_bytes"],
+                 "tokens_per_sec_per_chip": float(
+                     b["rows"][-1]["tokens_per_sec_per_chip"]),
+                 "mfu": logged, "ledger": {k: row[k] for k in (
+                     "mfu", *ledger_lib.GAP_TERMS, "bytes_accessed",
+                     "flops_per_execution", "host_stall_s_per_step",
+                     "device_step_s", "padding_waste_frac")},
+                 "step_spans_s": spans, "goodput_step_s": step_s,
+                 "profiler_fused_events": len(fused),
+                 "profiler_kernel_events": len(kernels),
+                 "sanitize_violations": 0, "wall_s": b["wall_s"]},
+        "watchdog": {"attempts": [attempt_summary(r) for r in hrecs],
+                     "goodput": fold_summary(c["goodput"]),
+                     "launches": c["side"]["launches"],
+                     "step_time_s": step_times_of(c),
+                     "wall_s": c["wall_s"]},
+        "chaos_bitwise_twin": True})
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# training tooling ({CARD}): chaos ring walked back to step 2 "
+          f"and ended bitwise the twin's; goodput with the fault "
+          f"{a['goodput']['goodput']:.4f}, twin {b['goodput']['goodput']:.4f}"
+          f", watchdog ring {c['goodput']['goodput']:.4f} (hang_s "
+          f"{hrecs[0]['hang_s']}); twin step times {step_times}, the chaos "
+          f"ring's (no tool armed) {out['chaos']['step_time_s']}, beacon "
+          f"{b['side']['beacon_s_per_step']:.6f} s a step, peak "
+          f"{b['side']['peak_memory_bytes']} B; walls "
+          f"{a['wall_s']:.1f} / {b['wall_s']:.1f} / {c['wall_s']:.1f} s; "
+          f"phase {out['phase_s']:.1f} s of its {TOOL_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= TOOL_BUDGET_S,
+          f"phase 15 took {out['phase_s']:.1f} s, over {TOOL_BUDGET_S} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3568,6 +3835,11 @@ def main() -> int:
         for key in ("no_remat", "remat"):
             row[f"launches_moe_gpt2_{key}"] = moe["gpt2_moe8"][key][
                 "launches"][row["name"]]
+    tools = clocked("training tooling", tooling_phase, torch)
+    # phase 15: the finished attempts' launches, read from their sidecars
+    update_dq["launches_tooling"] = {
+        key: tools[key]["launches"]["fused_adamw_ema"]
+        for key in ("chaos", "twin", "watchdog")}
     update_moe["launches_by_run"] = {
         key: moe["gpt2_moe8"][key]["launches"]["fused_adamw_ema"]
         for key in ("no_remat", "remat")}
@@ -3587,6 +3859,7 @@ def main() -> int:
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"moe_remat": moe}), flush=True)
     print(json.dumps({"sequence_parallel": sp}), flush=True)
+    print(json.dumps({"training_tooling": tools}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,

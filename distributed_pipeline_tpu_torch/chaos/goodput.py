@@ -1,18 +1,30 @@
-"""The serving fleet's run-dir artifacts and its goodput ledger: every
-second of a (possibly much-restarted) fleet accounted for.
+"""Run-dir artifacts and the goodput ledgers of training runs and of the
+serving fleet: every second of a (possibly much-restarted) run accounted
+for. The port's copy of ``distributed_pipeline_tpu/chaos/goodput.py``.
 
-The port's copy of the fleet's half of ``distributed_pipeline_tpu/chaos/
-goodput.py``. A fleet dir holds one ``replica_{i}`` run dir per replica,
-each supervised by its own launcher ring (``parallel/launcher.py``), plus
-the router's durable request ``journal.jsonl``. In a replica dir:
+In a training run dir:
 
-* ``.progress_rank0.json`` — the worker's BEACON, replaced every tick: the
-  hang watchdog's liveness signal and, with its ``serving`` snapshot, a
-  killed attempt's flight recorder;
+* ``.progress_rank{k}.json`` — per-rank BEACON, replaced every optimizer
+  step by the trainer: current step, wall clock, and the in-attempt
+  ``utils/perf.GoodputTracker`` summary so far. A SIGKILLed attempt's last
+  beacon is its flight recorder, and the launcher's hang watchdog reads
+  the beacons' mtimes as its liveness signal;
+* ``goodput_attempt{A:03d}.json`` — rank 0's final goodput record for a
+  CLEANLY exited attempt (written at ``run_loop`` exit);
 * ``attempts.jsonl`` — the LAUNCHER's per-attempt records (exit code,
-  spawn/exit wall clock, downtime, progress, the post-mortem snapshot);
-* ``serving_attempt{A:03d}.json`` — the worker's clean-exit sidecar.
+  spawn/exit wall clock, step progress from the beacons, downtime,
+  resume overhead, hang window, the post-mortem beacon snapshot).
 
+:func:`aggregate_run` folds all three into::
+
+    wall ≈ useful + startup + restore + compile + save + data_stall
+           + recompute + hang + lost + downtime
+
+with ``goodput = useful / wall``. A fleet dir holds one ``replica_{i}``
+run dir per replica, each supervised by its own launcher ring
+(``parallel/launcher.py``), plus the router's durable request
+``journal.jsonl``; a replica worker beacons a ``serving`` snapshot and
+writes ``serving_attempt{A:03d}.json`` at a clean exit.
 :func:`aggregate_serving` folds a fleet dir into::
 
     serving wall == serving + drain + replay + paid_idle + swap
@@ -25,9 +37,9 @@ into the journal), ``drain``/``swap`` are the hot-swap windows, and
 ``lost`` is attempt wall covered by no snapshot.
 
 Import-light (no torch): the fleet parent and the launcher read and write
-these artifacts without torch. The training fold (``aggregate_run``) and
-the pipeline stages' helpers come with the training side's tooling and
-the pipeline (ROADMAP A.10, A.9).
+these artifacts without torch. The pipeline stages' fold (``stage_{k}``
+dirs, the JAX ``_aggregate_pipeline``) comes with the pipeline (ROADMAP
+A.9).
 """
 
 from __future__ import annotations
@@ -39,14 +51,22 @@ import re
 from typing import Any, Dict, List, Optional
 
 __all__ = [
-    "beacon_path", "read_beacons", "beacon_mtimes",
+    "beacon_path", "read_beacons", "beacon_max_step", "beacon_mtimes",
     "attempts_path", "append_attempt", "read_attempts",
+    "goodput_record_path", "read_goodput_records", "aggregate_run",
     "replica_dir", "replica_id", "list_replica_dirs",
     "serving_journal_path", "read_journal", "serving_record_path",
     "read_serving_records", "aggregate_serving",
 ]
 
 _BEACON_RE = re.compile(r"\.progress_rank(\d+)\.json$")
+
+# Goodput categories summed across attempts (the JAX tuple:
+# utils/perf.GoodputTracker.CATEGORIES, the data stall merged at summary
+# time, and the pipeline stages' link_wait_s, which stays 0 until the
+# pipeline is ported)
+_CATEGORIES = ("startup_s", "setup_s", "restore_s", "compile_s", "save_s",
+               "data_stall_s", "recompute_s", "link_wait_s")
 
 
 def beacon_path(run_dir: str, rank: int) -> str:
@@ -86,6 +106,14 @@ def beacon_mtimes(run_dir: str) -> Dict[str, float]:
     return out
 
 
+def beacon_max_step(run_dir: str) -> int:
+    """Highest step ANY rank's beacon ever reported — the resume boundary
+    for recompute accounting (steps at or below it were already paid for
+    by an earlier attempt)."""
+    return max((int(b.get("step", 0)) for b in read_beacons(run_dir).values()),
+               default=0)
+
+
 def attempts_path(run_dir: str) -> str:
     return os.path.join(run_dir, "attempts.jsonl")
 
@@ -108,6 +136,19 @@ def read_attempts(run_dir: str) -> List[dict]:
                     out.append(json.loads(line))
                 except ValueError:
                     pass  # torn tail line from a killed writer
+    return out
+
+
+def goodput_record_path(run_dir: str, attempt: int) -> str:
+    return os.path.join(run_dir, f"goodput_attempt{attempt:03d}.json")
+
+
+def read_goodput_records(run_dir: str) -> Dict[int, dict]:
+    out: Dict[int, dict] = {}
+    for path in glob.glob(os.path.join(run_dir, "goodput_attempt*.json")):
+        payload = _read_json(path)
+        if isinstance(payload, dict):
+            out[int(payload.get("attempt", 0))] = payload
     return out
 
 
@@ -193,6 +234,108 @@ def _fnum(x: Any, default: float = 0.0) -> float:
         return float(x)
     except (TypeError, ValueError):
         return default
+
+
+def aggregate_run(run_dir: str) -> Dict[str, Any]:
+    """Fold a training run's attempts into one goodput decomposition.
+
+    Per attempt, the in-attempt record is the clean-exit sidecar when one
+    exists, else the launcher's post-mortem beacon snapshot (a killed
+    attempt's flight recorder). Attempt wall not covered by either —
+    including whole attempts that died before their first beacon — lands
+    in ``lost_s``: genuinely thrown-away time, EXCEPT the watchdog-
+    measured ``hang_s`` window, which gets its own category (a wedge the
+    watchdog bounded is a different failure than unaccounted loss).
+    ``downtime_s`` is the launcher-observed gap between attempts
+    (teardown + backoff + spawn).
+
+    Degrades, never raises: a hard-killed attempt with a missing or
+    zero-byte sidecar/beacon, or one whose snapshot carries nulls, folds
+    as ``lost`` time — ``accounted_frac`` stays 1.0 by construction.
+    SERVING attempts in a mixed run dir (a replica dir fed to the
+    training fold, or a dir where both halves ran) degrade the same way:
+    their artifacts carry a ``serving`` snapshot / ``serving_attempt*``
+    sidecar and NO training goodput, so their wall folds to ``lost`` and
+    they are counted in ``serving_attempts`` — use
+    :func:`aggregate_serving` for the serving-side decomposition. A
+    pipeline run dir (``stage_{k}`` dirs and no attempts of its own) is
+    folded by the JAX package only until the pipeline is ported (ROADMAP
+    A.9); here it folds as an empty run.
+    """
+    attempts = read_attempts(run_dir)
+    sidecars = read_goodput_records(run_dir)
+    serving_recs = read_serving_records(run_dir)
+    cats = {c: 0.0 for c in _CATEGORIES}
+    useful = lost = downtime = hang = 0.0
+    serving_attempts = 0
+    per_attempt: List[dict] = []
+
+    def _fold(duration_s: Optional[float], gp: Optional[dict],
+              hang_s: float = 0.0):
+        nonlocal useful, lost, hang
+        hang += hang_s
+        if not isinstance(gp, dict):
+            gp = None  # a non-dict snapshot (torn write) is no snapshot
+        if gp:
+            for c in _CATEGORIES:
+                cats[c] += _fnum(gp.get(c))
+            useful += _fnum(gp.get("useful_step_s"))
+            if duration_s is not None:
+                lost += max(0.0, duration_s - _fnum(gp.get("wall_s"))
+                            - hang_s)
+        elif duration_s is not None:
+            lost += max(0.0, duration_s - hang_s)
+
+    if attempts:
+        for rec in attempts:
+            idx = int(_fnum(rec.get("attempt")))
+            gp = sidecars.get(idx) or rec.get("goodput") or None
+            # a serving attempt (a replica worker under the same launcher)
+            # has serving artifacts and no training goodput: its wall
+            # degrades to lost here instead of raising or misparsing
+            is_serving = (idx in serving_recs
+                          or isinstance(rec.get("serving"), dict))
+            if is_serving and not isinstance(gp, dict):
+                serving_attempts += 1
+            downtime += _fnum(rec.get("downtime_s"))
+            dur = rec.get("duration_s")
+            if isinstance(dur, bool) or not isinstance(dur, (int, float)):
+                # null/garbled duration (torn record): re-derive from the
+                # spawn/exit stamps so the attempt's wall degrades to
+                # lost instead of silently vanishing from the fold
+                dur = max(0.0, _fnum(rec.get("t_exit"))
+                          - _fnum(rec.get("t_spawn")))
+            _fold(float(dur), gp, hang_s=_fnum(rec.get("hang_s")))
+            per_attempt.append({**rec,
+                                "goodput_source": ("sidecar" if idx in sidecars
+                                                   else "beacon"
+                                                   if isinstance(gp, dict)
+                                                   else "serving"
+                                                   if is_serving else None)})
+        wall = (_fnum(attempts[-1].get("t_exit"))
+                - _fnum(attempts[0].get("t_spawn")))
+    else:
+        # a launcher-less run (one process): the sidecars are all there is
+        for idx in sorted(sidecars):
+            _fold(None, sidecars[idx])
+            per_attempt.append({"attempt": idx, "goodput_source": "sidecar"})
+        wall = sum(_fnum(s.get("wall_s")) for s in sidecars.values())
+    wall = max(wall, 1e-9)
+    accounted = useful + sum(cats.values()) + hang + lost + downtime
+    return {
+        "wall_s": wall,
+        "useful_step_s": useful,
+        "goodput": useful / wall,
+        **cats,
+        "hang_s": hang,
+        "lost_s": lost,
+        "downtime_s": downtime,
+        "accounted_s": accounted,
+        "accounted_frac": accounted / wall,
+        "attempts": len(per_attempt),
+        "serving_attempts": serving_attempts,
+        "per_attempt": per_attempt,
+    }
 
 
 def aggregate_serving(fleet_dir: str) -> Dict[str, Any]:

@@ -22,7 +22,9 @@ import json
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
+from ..chaos.plan import ChaosPlan
 from ..models.diffusion import NOISE_SCHEDULES
+from ..utils.perf import parse_profile_steps
 
 __all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
 
@@ -39,13 +41,7 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "shard_optimizer": (False, "ROADMAP A.8c (ZeRO-1)"),
     "partition_rules": ("", "ROADMAP A.8c (partition rules)"),
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
-    "trace": (False, "ROADMAP A.10 (span tracing)"),
-    "cost_ledger": (False, "ROADMAP A.10 (cost ledger)"),
-    "sanitize": (False, "ROADMAP A.10 (sanitizer)"),
-    "chaos_plan": ("", "ROADMAP A.10 (chaos harness)"),
-    "profile_dir": ("", "ROADMAP A.10 (profiler window)"),
     "mpmd": (False, "ROADMAP A.9 (MPMD pipeline)"),
-    "profile_steps": ("", "ROADMAP A.10 (profiler window)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
     "scan_unroll": (0, "ROADMAP A.9 (stacked layers, pipeline)"),
     "mpmd_stages": (2, "ROADMAP A.9 (MPMD pipeline)"),
@@ -162,6 +158,30 @@ class TrainSettings:
     moe_capacity_factor: float = _f(
         1.25, "MoE expert capacity = ceil(L/E * factor * top_k) slots; "
               "tokens over capacity fall through on the residual path")
+    # the training tooling (utils/trainer.py)
+    trace: bool = _f(False, "span tracing: restore/compile/step/eval/save "
+                            "spans into trace_rank{r}.jsonl in the run dir "
+                            "(DPT_TRACE=1 arms it too)")
+    cost_ledger: bool = _f(False, "the train_step cost-ledger row (roofline "
+                                  "MFU-gap terms) each log window, and "
+                                  "perf_ledger.json in the run dir")
+    sanitize: bool = _f(False, "run each step's dispatch and the eval "
+                               "callbacks under "
+                               "torch.cuda.set_sync_debug_mode('error'); a "
+                               "host sync there raises and lands in "
+                               "sanitize_report.json")
+    chaos_plan: str = _f("", "fault-injection schedule: inline JSON, "
+                             "@/path/to/plan.json or a bare path (kill, "
+                             "crash_in_save, stall_data, stall_step, "
+                             "slow_rank, corrupt_checkpoint); the "
+                             "DPT_CHAOS_PLAN env var overrides; empty "
+                             "disables")
+    profile_dir: str = _f("", "capture a torch.profiler trace (CPU and CUDA "
+                              "activity) of a few steps into this directory "
+                              "(TensorBoard/Chrome format)")
+    profile_steps: str = _f("", "profiler window 'A:B' of loop steps from "
+                                "loop entry (with --profile_dir; empty = "
+                                "3:8)")
 
     # options of the JAX trainer that later slices bring (DEFERRED)
     scan_layers: bool = _f(False, "stacked layer weights")
@@ -182,13 +202,7 @@ class TrainSettings:
     shard_optimizer: bool = _f(False, "ZeRO-1 optimizer-state sharding")
     partition_rules: str = _f("", "parameter partition-rule override")
     auto_tune: bool = _f(False, "inline sharding auto-tuner")
-    trace: bool = _f(False, "span tracing")
-    cost_ledger: bool = _f(False, "per-program cost ledger")
-    sanitize: bool = _f(False, "runtime sanitizer")
-    chaos_plan: str = _f("", "fault-injection schedule")
-    profile_dir: str = _f("", "profiler trace directory")
     mpmd: bool = _f(False, "MPMD pipeline training")
-    profile_steps: str = _f("", "profiler capture window 'A:B'")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
     scan_unroll: int = _f(0, "scan_layers unroll factor")
     mpmd_stages: int = _f(2, "MPMD stage count")
@@ -202,6 +216,9 @@ class TrainSettings:
                 raise ValueError(
                     f"--{name} {getattr(self, name)} is not trained by this "
                     f"port yet (only {served!r}); it comes with {item}")
+        if self.chaos_plan:
+            ChaosPlan.parse(self.chaos_plan)
+        parse_profile_steps(self.profile_steps)
         if self.compilation_cache_dir not in COMPILATION_CACHE_DIRS:
             raise ValueError(
                 f"--compilation_cache_dir {self.compilation_cache_dir!r}: "

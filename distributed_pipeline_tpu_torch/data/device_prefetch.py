@@ -9,12 +9,16 @@ before it reads the batch. On the CPU the batches are only turned into
 tensors ``depth`` ahead. Prefetching changes WHEN a batch is transferred,
 never WHICH batch the underlying iterator yields next, so the data order,
 and the resume fast-forward of ``run/train.py``, are the same at any depth.
+``stats`` (a ``utils/perf.StallBreakdown``) receives ``data_wait_s``
+(blocked on the host iterator) and ``h2d_wait_s`` (pinning the batch and
+enqueueing its copy) for every batch read, as the JAX hook books them.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Deque, Dict, Iterator, Optional, Tuple
+import time
+from typing import Any, Deque, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +34,8 @@ def _to_tensors(batch: Dict[str, np.ndarray]) -> Batch:
 
 
 def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]],
-                       device: torch.device, depth: int
-                       ) -> Iterator[Batch]:
+                       device: torch.device, depth: int,
+                       stats: Optional[Any] = None) -> Iterator[Batch]:
     """Yield the iterator's batches as tensors on ``device``, ``depth``
     (>= 1) of them read and in transfer ahead of the one yielded."""
     if depth < 1:
@@ -57,10 +61,16 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]],
 
     def fill() -> None:
         while len(ring) < depth:
+            t0 = time.perf_counter()
             try:
-                put(next(iterator))
+                host = next(iterator)
             except StopIteration:
                 return
+            t1 = time.perf_counter()
+            put(host)
+            if stats is not None:
+                stats.add("data_wait_s", t1 - t0)
+                stats.add("h2d_wait_s", time.perf_counter() - t1)
 
     fill()
     while ring:

@@ -63,8 +63,11 @@ class DiffusionSchedule:
         """The f32 table ``name`` as a tensor on ``device`` (cached)."""
         key = (name, str(device))
         if key not in self._on_device:
+            # non-blocking: the copy from pageable memory is staged before
+            # the call returns, and no stream synchronization follows (a
+            # first training step under --sanitize may make it)
             self._on_device[key] = torch.from_numpy(
-                getattr(self, name)).to(device)
+                getattr(self, name)).to(device, non_blocking=True)
         return self._on_device[key]
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,

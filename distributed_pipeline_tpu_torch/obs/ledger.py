@@ -17,9 +17,12 @@ names and arithmetic:
   ``perf_ledger.json`` per run dir (atomic replace).
 
 The third, **extraction**, cannot be copied: the JAX module reads XLA's
-``cost_analysis()`` off a compiled executable, and a CUDA graph has no
-such accounting. :class:`ServeCensus` counts the serving phases instead,
-per execution, from the model's shapes and the kernels' own byte counts:
+``cost_analysis()`` off a compiled executable, and neither a CUDA graph
+nor an eager step has such accounting. :class:`ServeCensus` and
+:class:`TrainCensus` count the phases instead, from the model's shapes
+and the kernels' own byte counts. :class:`PaddingMeter` is the JAX class
+(the ``padding_waste_frac`` of a training row). The serving census, per
+execution:
 
 * FLOPs: every matmul's ``2 * m * n * k`` — per token the 12 D^2 weights
   of each layer's QKV, output and MLP products and the D x V tied head —
@@ -37,6 +40,21 @@ per execution, from the model's shapes and the kernels' own byte counts:
   once); the logits written once. Activations between kernels are not
   counted, so the figure is a floor.
 
+The training census, per optimizer step (:class:`TrainCensus`):
+
+* FLOPs: ``transformer_train_flops_per_token`` times the step's tokens,
+  the analytic number the JAX ``train_step`` row carries;
+* bytes: the fused update's ``update_hbm_bytes``; the weights as each
+  microbatch's forward and its backward read them (the f32 masters, and
+  in a 16-bit compute dtype the cast's copy written and read: 8 bytes a
+  weight a pass in bf16, 4 in f32); ``flash_hbm_bytes`` for each flash
+  launch the step makes. Activations are not counted, so the figure is a
+  floor;
+* ``collective_bytes_per_step``: the flat gradient's all-reduce payload
+  (4 bytes a parameter) under several ranks, plus the bytes the ring's
+  shifts sent under sequence parallelism (``parallel/dist.py``
+  ``ring_shift_bytes``); 0 for one process.
+
 The bandwidth table keeps the port's cards (``utils/perf.CARDS``) and the
 CPU row that keeps CPU test attributions finite; no TPU rate is carried
 over.
@@ -46,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -53,7 +72,8 @@ import numpy as np
 from ..utils.perf import CARDS
 
 __all__ = [
-    "LEDGER_FILENAME", "GAP_TERMS", "ServeCensus", "attribution_columns",
+    "LEDGER_FILENAME", "GAP_TERMS", "ServeCensus", "TrainCensus",
+    "PaddingMeter", "attribution_columns",
     "device_bandwidths", "device_peak_flops", "gap_sum_identity",
     "ledger_path", "read_ledger", "roofline_attribution", "write_ledger",
 ]
@@ -258,6 +278,77 @@ class ServeCensus:
 
     def reset(self) -> None:
         self._sums.clear()
+
+
+class TrainCensus:
+    """FLOPs and bytes of one optimizer step, counted from the model's
+    shapes and the kernels' byte counts (module docstring).
+    ``flash_shape`` is ``(B, H, L, Dh, has_mask)`` of the step's flash
+    launches (a microbatch's attention on this rank); :meth:`cost` takes
+    the launches and ring-shift bytes the step made, as the trainer
+    counts them."""
+
+    def __init__(self, *, n_params: int, num_layers: int, hidden: int,
+                 seq_len: int, tokens_per_step: int, n_micro: int,
+                 compute_bytes: int, n_ema_rates: int, world: int,
+                 flash_shape: tuple) -> None:
+        from ..ops.fused_update import update_hbm_bytes
+        from ..utils.perf import transformer_train_flops_per_token
+        self.flops_per_token = transformer_train_flops_per_token(
+            n_params, num_layers, hidden, seq_len)
+        self.tokens_per_step = tokens_per_step
+        self.compute_bytes = compute_bytes
+        self.flash_shape = flash_shape
+        weight_pass = n_params * (4 if compute_bytes >= 4
+                                  else 4 + 2 * compute_bytes)
+        self.base_bytes = (update_hbm_bytes([n_params], n_ema_rates,
+                                            per_leaf_scalars=False)
+                           + 2 * n_micro * weight_pass)
+        self.allreduce_bytes = 4.0 * n_params if world > 1 else 0.0
+
+    def cost(self, flash_forward: float = 0.0, flash_backward: float = 0.0,
+             ring_shift_bytes: float = 0.0) -> Dict[str, float]:
+        """``flops_per_execution``, ``bytes_accessed`` and
+        ``collective_bytes_per_step`` (the JAX keys) of a step that made
+        ``flash_forward`` / ``flash_backward`` launches and sent
+        ``ring_shift_bytes`` over the sequence ring."""
+        from ..ops.flash_attention import flash_hbm_bytes
+        B, H, L, Dh, has_mask = self.flash_shape
+        nbytes = (self.base_bytes
+                  + flash_forward * flash_hbm_bytes(
+                      B, H, L, Dh, self.compute_bytes, has_mask)
+                  + flash_backward * flash_hbm_bytes(
+                      B, H, L, Dh, self.compute_bytes, has_mask,
+                      backward=True))
+        return {"flops_per_execution":
+                    self.flops_per_token * self.tokens_per_step,
+                "bytes_accessed": float(nbytes),
+                "collective_bytes_per_step":
+                    self.allreduce_bytes + ring_shift_bytes}
+
+
+class PaddingMeter:
+    """Active-vs-padded token accounting off the masks the data path
+    already carries (``pad_mask``: 1 for real tokens; the JAX class).
+    Thread-safe; ``frac`` is the cumulative padding-waste fraction — the
+    share of step FLOPs spent on tokens that are pure padding."""
+
+    def __init__(self) -> None:
+        self._active = 0
+        self._total = 0
+        self._lock = threading.Lock()
+
+    def add(self, active: int, total: int) -> None:
+        with self._lock:
+            self._active += int(active)
+            self._total += int(total)
+
+    @property
+    def frac(self) -> float:
+        with self._lock:
+            if self._total <= 0:
+                return 0.0
+            return 1.0 - self._active / self._total
 
 
 # ------------------------------------------------------------ persistence

@@ -89,10 +89,12 @@ def update_scalars(count: torch.Tensor,
     scalar tensor, the pre-increment count): ``bc = 1 - beta**(count+1)``
     and ``-lr_fn(count)``, the expressions optax evaluates."""
     inc = (count + 1).to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                     device=count.device), inc)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                     device=count.device), inc)
+    # torch.full fills on the device: torch.tensor(b1, device=...) would
+    # copy from the host and synchronize (refused under --sanitize)
+    bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                   device=count.device), inc)
+    bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                   device=count.device), inc)
     step_size = -lr_fn(count).to(torch.float32)
     return torch.stack([step_size, bc1, bc2])
 

@@ -27,6 +27,14 @@ forms every group, in the same order, as ``new_group`` requires), and
 point-to-point sends (``ppermute`` of the JAX ring). Gloo has no
 point-to-point operations for CUDA tensors, so ranks that share a card
 stage them through host memory; NCCL sends them directly.
+``ring_shift_bytes`` counts the bytes this rank has sent round its ring
+(the training ledger's collective term).
+
+Under the trainer's ``--sanitize`` guard (``set_sync_debug_mode("error")``)
+the collectives that gloo stages through host memory are intended
+host<->device transfers: ``all_reduce`` and ``ring_shift`` lift the guard
+around them (``utils/perf.sync_allowed``), as the JAX guard keeps
+explicit transfers legal; NCCL's collectives stay under it.
 
 Divergence from the JAX shim: when the environment describes a launch and
 the process group fails to form, ``setup_dist`` RAISES. The JAX shim
@@ -36,6 +44,7 @@ would log a wrong loss and nobody would see it (ROADMAP C.11).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -47,17 +56,20 @@ import torch
 import torch.distributed as tdist
 
 from ..utils.device import ranks_share_card, resolve_device
+from ..utils.perf import sync_allowed
 from .launcher import AUTORUN_ENV_FLAG, find_free_port
 
 __all__ = ["is_available", "is_initialized", "setup_dist", "get_rank",
            "get_world_size", "barrier", "dev", "device_count", "broadcast",
            "sync_params", "all_reduce", "all_gather_object", "backend",
            "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG",
-           "SequenceGroups", "sequence_groups", "ring_shift"]
+           "SequenceGroups", "sequence_groups", "ring_shift",
+           "ring_shift_bytes"]
 
 _ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
-# distinct devices of the ring, learned once at setup
-_state = {"device_count": 1}
+# distinct devices of the ring, learned once at setup; bytes this rank has
+# sent round its sequence ring
+_state = {"device_count": 1, "shift_bytes": 0}
 
 
 def is_available() -> bool:
@@ -153,11 +165,20 @@ def device_count() -> int:
     return _state["device_count"] if is_initialized() else 1
 
 
+def _host_staged(device: torch.device):
+    """Around a collective: gloo stages CUDA tensors through host memory
+    (an intended transfer), so the sanitizer's guard is lifted there;
+    NCCL's collectives stay under it."""
+    return (sync_allowed(device) if backend() == "gloo"
+            else contextlib.nullcontext())
+
+
 def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
     """Sum ``tensor`` over the ranks in place (the identity
     single-process); returns it."""
     if is_initialized():
-        tdist.all_reduce(tensor)
+        with _host_staged(tensor.device):
+            tdist.all_reduce(tensor)
     return tensor
 
 
@@ -233,15 +254,22 @@ def ring_shift(tensors: Sequence[torch.Tensor], seq: SequenceGroups,
     step = -1 if reverse else 1
     dst, src = seq.ranks[(i + step) % n], seq.ranks[(i - step) % n]
     stage = backend() == "gloo"
-    send = [(t.detach().cpu() if stage else t.detach()).contiguous()
-            for t in tensors]
-    recv = [torch.empty_like(t) for t in send]
-    ops = []
-    for tag, (s, r) in enumerate(zip(send, recv)):
-        ops.append(tdist.P2POp(tdist.isend, s, dst, seq.group, tag))
-        ops.append(tdist.P2POp(tdist.irecv, r, src, seq.group, tag))
-    for req in tdist.batch_isend_irecv(ops):
-        req.wait()
-    if stage:
-        recv = [r.to(t.device) for r, t in zip(recv, tensors)]
+    with _host_staged(tensors[0].device):
+        send = [(t.detach().cpu() if stage else t.detach()).contiguous()
+                for t in tensors]
+        recv = [torch.empty_like(t) for t in send]
+        ops = []
+        for tag, (s, r) in enumerate(zip(send, recv)):
+            ops.append(tdist.P2POp(tdist.isend, s, dst, seq.group, tag))
+            ops.append(tdist.P2POp(tdist.irecv, r, src, seq.group, tag))
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        if stage:
+            recv = [r.to(t.device) for r, t in zip(recv, tensors)]
+    _state["shift_bytes"] += sum(t.numel() * t.element_size() for t in send)
     return recv
+
+
+def ring_shift_bytes() -> int:
+    """Bytes this process has sent through ``ring_shift``."""
+    return _state["shift_bytes"]

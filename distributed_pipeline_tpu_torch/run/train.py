@@ -28,8 +28,16 @@ fast-forwarded past the global samples the checkpoint consumed ->
 ``run_loop`` -> ``train_summary.json`` (``train_summary-rank{r:03d}.json``
 for rank r > 0): the rank's backend, device, kernel launches and plain
 calls, all-reduce and ring-shift seconds, its (data index, sequence
-index, sequence size), throughput, peak device memory and the SHA-256 of
-its final flat parameters (equal on every rank of a healthy ring).
+index, sequence size), throughput, peak device memory, the beacon's
+seconds a step, the stall gauges' means and the SHA-256 of its final flat
+parameters (equal on every rank of a healthy ring).
+
+The training tooling rides the same path, as in the JAX entry point: a
+chaos plan from ``DPT_CHAOS_PLAN`` or ``--chaos_plan`` (every rank's
+injector anchored in the run dir), ``recompute_until_step`` from the run
+dir's beacons (``beacon_max_step``), and ``--trace`` (else
+``DPT_TRACE``), ``--cost_ledger``, ``--sanitize``, ``--profile_dir`` and
+``--profile_steps`` into ``TrainLoop``.
 ``--eval_decode true`` adds the decode callback over one
 held-out batch of at most 32 rows, as the JAX entry point does: DiffuSeq
 samples ``--eval_decode_sample_steps`` reverse steps, GPT-2 continues the
@@ -47,6 +55,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..chaos import CHAOS_PLAN_ENV, ChaosInjector, ChaosPlan
+from ..chaos.goodput import beacon_max_step
 from ..config.train import TrainSettings, parse_settings
 from ..data import load_data_from_args, skip_batches_for_samples
 from ..models import create_model_from_config
@@ -124,6 +134,9 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            **loop.throughput,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else 0),
+           "beacon_s_per_step": loop.beacon_s / max(
+               loop.step - loop.start_step, 1),
+           "stall_means": loop.stalls.totals(),
            "params_sha256": hashlib.sha256(
                loop.params.cpu().numpy().tobytes()).hexdigest()}
     suffix = f"-rank{loop.rank:03d}" if loop.rank > 0 else ""
@@ -156,6 +169,12 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
             # the launcher appends its attempt records to this run dir
             with open(handshake, "w") as f:
                 f.write(os.path.abspath(run_dir))
+    chaos = None
+    chaos_src = os.environ.get(CHAOS_PLAN_ENV) or args.chaos_plan
+    if chaos_src:
+        chaos = ChaosInjector(ChaosPlan.parse(chaos_src), rank=rank,
+                              run_dir=run_dir)
+        logger.info(f"chaos plan armed: {chaos.plan.describe()}")
     model = create_model_from_config(**settings, device=device)
     eval_callbacks = []
     if args.eval_decode:
@@ -180,7 +199,13 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         fused_update=args.fused_update, eval_callbacks=eval_callbacks,
         keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
         prefetch_depth=args.prefetch_depth, sequence=args.sequence,
-        logger=logger)
+        chaos=chaos,
+        # steps an earlier attempt reached (its beacons) book as recompute
+        recompute_until_step=beacon_max_step(run_dir),
+        # None defers to DPT_TRACE, which the launcher passes to every rank
+        trace=True if args.trace else None, cost_ledger=args.cost_ledger,
+        sanitize=args.sanitize, profile_dir=args.profile_dir,
+        profile_steps=args.profile_steps, logger=logger)
     # exact-order resume: skip the global samples the restored step
     # consumed (by this data group's shard)
     meta = loop.resume_meta or {}

@@ -16,10 +16,14 @@ Under several processes rank 0 alone writes and prunes, and every rank
 passes a barrier after it (``TrainLoop.save``).
 
 Every file is written to a temporary name and renamed, and the meta file
-last, so a step is complete when its meta file exists with all the others:
-resume takes the newest complete step. Run directories the JAX package
-wrote hold orbax checkpoints instead; importing them needs orbax, which the
-GPU machines lack, and waits for ROADMAP A.5.
+last, so a step is finalized when its meta file exists (the meta plays
+the JAX package's commit marker). Resume (:func:`restore_resume_state`,
+the JAX function's walk-back) tries the finalized steps newest first and
+walks back past any whose model file fails to load; a missing or corrupt
+EMA companion degrades to a copy of the parameters, a missing or corrupt
+optimizer companion to fresh moments. Run directories the JAX package
+wrote hold orbax checkpoints instead; importing them needs orbax, which
+the GPU machines lack, and waits for ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 __all__ = ["parse_step_from_name", "find_resume_checkpoint", "save_run",
-           "save_checkpoint", "find_complete_step", "load_checkpoint",
+           "save_checkpoint", "finalized_steps", "restore_resume_state",
            "prune_checkpoints"]
 
 _STEP_RE = re.compile(r"model_(\d+)\.pt$")
@@ -105,37 +109,106 @@ def save_checkpoint(run_dir: str, step: int,
     os.replace(tmp, p["meta"])
 
 
-def find_complete_step(run_dir: str, ema_rates: Sequence[str]
-                       ) -> Optional[int]:
-    """The newest step whose model, optimizer, meta and every EMA file
-    exist, or None."""
+def finalized_steps(run_dir: str) -> List[int]:
+    """The steps whose meta file (written last) and model file exist,
+    newest first: the resume walk-back's ladder."""
     if not os.path.isdir(run_dir):
-        return None
-    steps = sorted((int(m.group(1)) for m in
-                    map(_META_RE.search, os.listdir(run_dir)) if m),
-                   reverse=True)
-    for step in steps:
+        return []
+    names = os.listdir(run_dir)
+    steps = sorted((int(m.group(1)) for m in map(_META_RE.search, names)
+                    if m), reverse=True)
+    return [s for s in steps if f"model_{s:06d}.pt" in names]
+
+
+def _load(path: str, device: Optional[torch.device]) -> Any:
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def restore_resume_state(run_dir: str, ema_rates: Sequence[str], *,
+                         device: Optional[torch.device] = None,
+                         explicit_model_path: str = "",
+                         check: Optional[Callable[[Mapping[str, Any]],
+                                                  None]] = None,
+                         warn: Callable[[str], None] = print
+                         ) -> Optional[dict]:
+    """The resume state ``{"step", "params", "ema": {rate: ...}, "opt"
+    (or None), "meta", "path"}``, tensors on ``device``; None when the run
+    dir holds no finalized step (the JAX ``restore_resume_state``).
+
+    The finalized steps are tried newest first: a model file that fails to
+    load, or that ``check`` (given the loaded state dict) refuses, is
+    reported through ``warn`` and the next older step is tried. When every
+    step fails this raises ``RuntimeError``: a silent fresh start in a run
+    dir full of checkpoints would overwrite its history. An explicit
+    ``model_NNNNNN.pt`` never walks back: its failure raises. The chosen
+    step's EMA companions that are missing or fail to load (or ``check``)
+    come back as the parameters (the caller copies them), and a missing or
+    failed optimizer companion as None (fresh moments); a companion that
+    exists but fails to load is reported through ``warn``."""
+    if explicit_model_path:
+        step = parse_step_from_name(explicit_model_path)
+        if step is None:
+            raise ValueError(f"resume_checkpoint must name a "
+                             f"model_NNNNNN.pt, got {explicit_model_path!r}")
+        run_dir = os.path.dirname(os.path.abspath(explicit_model_path))
+        candidates = [step]
+    else:
+        candidates = finalized_steps(run_dir)
+        if not candidates:
+            return None
+
+    def load_checked(path: str) -> Any:
+        state = _load(path, device)
+        if check is not None:
+            check(state)
+        return state
+
+    last_err: Optional[Exception] = None
+    for step in candidates:
         p = _paths(run_dir, step, ema_rates)
-        if all(os.path.exists(x) for x in
-               (p["model"], p["opt"], *p["ema"].values())):
-            return step
-    return None
-
-
-def load_checkpoint(run_dir: str, step: int, ema_rates: Sequence[str],
-                    device: Optional[torch.device] = None) -> dict:
-    """``{"params", "ema": {rate: ...}, "opt": {"mu", "nu", "count"},
-    "meta"}`` of one saved step, tensors on ``device``."""
-    p = _paths(run_dir, step, ema_rates)
-
-    def load(path):
-        return torch.load(path, map_location=device, weights_only=True)
-
-    with open(p["meta"]) as f:
-        meta = json.load(f)
-    return {"params": load(p["model"]),
-            "ema": {r: load(path) for r, path in p["ema"].items()},
-            "opt": load(p["opt"]), "meta": meta}
+        try:
+            params = load_checked(p["model"])
+            with open(p["meta"]) as f:
+                meta = json.load(f)
+        except Exception as e:  # torch.load surfaces corruption as
+            # UnpicklingError/RuntimeError/EOFError/...; any of them means
+            # "this step cannot feed a resume"
+            if explicit_model_path:
+                raise
+            warn(f"resume: restoring {p['model']} failed "
+                 f"({type(e).__name__}: {str(e)[:200]}); walking back to "
+                 f"the next older checkpoint")
+            last_err = e
+            continue
+        break
+    else:
+        raise RuntimeError(
+            f"resume: all {len(candidates)} checkpoint(s) in {run_dir} "
+            f"failed to restore; newest error: {last_err}") from last_err
+    # a missing companion degrades silently, a corrupt one with a warning
+    ema: Dict[str, Any] = {rate: params for rate in ema_rates}
+    for rate, path in p["ema"].items():
+        if not os.path.exists(path):
+            continue
+        try:
+            ema[rate] = load_checked(path)
+        except Exception as e:  # seed from the params
+            warn(f"resume: EMA companion {path} failed to restore "
+                 f"({type(e).__name__}); seeding from params")
+    opt = None
+    if os.path.exists(p["opt"]):
+        try:
+            state = _load(p["opt"], device)
+            if check is not None:
+                check(state["mu"])
+                check(state["nu"])
+            opt = {"mu": state["mu"], "nu": state["nu"],
+                   "count": int(state["count"])}
+        except Exception as e:  # fresh moments beat a dead resume
+            warn(f"resume: optimizer companion {p['opt']} failed to "
+                 f"restore ({type(e).__name__}); reinitializing")
+    return {"step": step, "params": params, "ema": ema, "opt": opt,
+            "meta": meta, "path": p["model"]}
 
 
 def prune_checkpoints(run_dir: str, keep: int) -> List[int]:

@@ -2,10 +2,12 @@
 ``distributed_pipeline_tpu/utils/perf.py`` - ``EventStats`` (serving TTFT
 percentiles), ``StepTimer``, ``EventTimer``, the training and decode FLOP counts and
 ``mfu``, ``active_param_count`` (the parameters a token runs through
-under top-k MoE routing), and the serving sanitizer's ``RecompileMonitor`` and
-``SanitizeReport`` - plus the published rates of the cards the port
-targets (``CARDS``). No TPU peak is carried over: MFU here is always
-against a card's own data sheet."""
+under top-k MoE routing), the sanitizer's ``RecompileMonitor``,
+``SanitizeReport`` and ``sync_allowed``, the training loop's
+``StallBreakdown`` and ``GoodputTracker`` (the JAX classes, same
+categories and arithmetic) and ``peak_live_bytes`` - plus the published
+rates of the cards the port targets (``CARDS``). No TPU peak is carried
+over: MFU here is always against a card's own data sheet."""
 
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ __all__ = ["EventStats", "StepTimer", "EventTimer", "CARDS", "card_rates",
            "transformer_train_flops_per_token",
            "transformer_decode_flops_per_token", "mfu",
            "active_param_count", "RecompileMonitor",
-           "SanitizeReport", "SANITIZE_REPORT_NAME"]
+           "SanitizeReport", "SANITIZE_REPORT_NAME", "sync_allowed",
+           "StallBreakdown", "GoodputTracker", "peak_live_bytes",
+           "PROFILE_WINDOW", "parse_profile_steps"]
 
 # Published rates of the cards this port targets (NVIDIA data sheets; dense,
 # no sparsity): HBM bytes/s, bf16 tensor-core flop/s and f32 flop/s outside
@@ -307,3 +311,175 @@ class SanitizeReport:
             return path
         except OSError:
             return ""
+
+
+@contextlib.contextmanager
+def sync_allowed(device) -> Iterator[None]:
+    """Lift the sanitizer's guard (``torch.cuda.set_sync_debug_mode``) for
+    an intended host<->device transfer inside a guarded region - a
+    collective that gloo stages through host memory, say - and restore it
+    after; nothing happens off CUDA or when no guard is set. The JAX guard
+    likewise keeps explicit transfers legal."""
+    if getattr(device, "type", device) != "cuda":
+        yield
+        return
+    import torch
+    prev = torch.cuda.get_sync_debug_mode()
+    if prev == 0:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def peak_live_bytes(device=None) -> int:
+    """Peak device allocation of this process on ``device`` (a CUDA
+    device; default the current one), ``torch.cuda.max_memory_allocated``;
+    0 on the CPU or without CUDA - the gauge is then "unavailable", not
+    "empty"."""
+    if device is not None and getattr(device, "type", device) != "cuda":
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        return 0
+    return int(torch.cuda.max_memory_allocated(device))
+
+
+class StallBreakdown:
+    """Per-step stall accounting: WHERE the host loop's wall time goes
+    (the JAX class). Four gauges, attributed by the trainer and the
+    device-prefetch wrapper:
+
+    * ``data_wait_s``   - blocked on the host iterator;
+    * ``h2d_wait_s``    - placing the batch on the device (the prefetch
+      wrapper's pinned copy, or the step's own copy without prefetch);
+    * ``dispatch_s``    - issuing the step: the eager forward, backward
+      and update launches (the host's share of the step; with
+      ``dispatch_lag`` >= 1 it overlaps the previous step's device work);
+    * ``device_step_s`` - trailing: from a step's dispatch returning to its
+      metrics being fetched ``dispatch_lag`` steps later (an upper bound
+      on device execution; it includes queue wait).
+
+    ``add`` accumulates; ``lap`` returns the window's per-step means and
+    resets it; ``totals`` is cumulative; ``sums`` the cumulative seconds.
+    Gauges with no samples report 0.0."""
+
+    GAUGES = ("data_wait_s", "h2d_wait_s", "dispatch_s", "device_step_s")
+
+    def __init__(self) -> None:
+        self._win = {g: [0.0, 0] for g in self.GAUGES}   # [sum, count]
+        self._tot = {g: [0.0, 0] for g in self.GAUGES}
+
+    def add(self, gauge: str, seconds: float) -> None:
+        for acc in (self._win[gauge], self._tot[gauge]):
+            acc[0] += seconds
+            acc[1] += 1
+
+    @staticmethod
+    def _means(accs) -> dict:
+        return {g: (s / n if n else 0.0) for g, (s, n) in accs.items()}
+
+    def lap(self) -> dict:
+        """Per-step means since the last lap; resets the window."""
+        out = self._means(self._win)
+        self._win = {g: [0.0, 0] for g in self.GAUGES}
+        return out
+
+    def totals(self) -> dict:
+        """Cumulative per-step means since construction."""
+        return self._means(self._tot)
+
+    def sums(self) -> dict:
+        """Cumulative SECONDS per gauge since construction (not means) -
+        the goodput decomposition needs absolute time, not rates."""
+        return {g: s for g, (s, _) in self._tot.items()}
+
+
+class GoodputTracker:
+    """A training attempt's wall time decomposed into where it went (the
+    JAX class): ``goodput`` = useful-step time / wall time.
+
+    Categories are EXCLUSIVE overheads, attributed by the trainer:
+
+    * ``startup_s``   - process spawn -> ``TrainLoop`` construction
+      (interpreter, torch import, process-group init; known only under
+      the launcher, which stamps the spawn wall clock into ``DPT_SPAWN_T``);
+    * ``setup_s``     - construction minus restore and compile (state
+      init, the model);
+    * ``restore_s``   - checkpoint discovery and restore, the walk-back
+      over corrupt checkpoints included;
+    * ``compile_s``   - the first use of the kernel library
+      (``ops/_build.py``: the nvcc build on a cold tree, the load on a
+      warm one);
+    * ``save_s``      - blocking checkpoint-save time;
+    * ``data_stall_s``- blocked on the input pipeline (attributed at
+      summary time from the ``StallBreakdown`` sums);
+    * ``recompute_s`` - re-running steps a previous attempt had already
+      passed.
+
+    ``hang_s`` - the window a wedged attempt burned before the launcher's
+    watchdog killed it - is not here: a hung process cannot attribute its
+    own waste, so the launcher books it into the attempt record, and
+    ``chaos.goodput.aggregate_run`` folds it. ``useful_step_s`` is the
+    residual, wall minus the overheads, so every second is accounted by
+    construction. ``base_s`` moves the wall origin before construction
+    (the startup share, measured on another clock)."""
+
+    CATEGORIES = ("startup_s", "setup_s", "restore_s", "compile_s",
+                  "save_s", "data_stall_s", "recompute_s")
+
+    def __init__(self, t0: Optional[float] = None) -> None:
+        self._t0 = time.perf_counter() if t0 is None else t0
+        self.base_s = 0.0
+        self._acc = {c: 0.0 for c in self.CATEGORIES}
+
+    def add(self, category: str, seconds: float) -> None:
+        self._acc[category] += max(0.0, seconds)
+
+    def get(self, category: str) -> float:
+        return self._acc[category]
+
+    def wall_s(self) -> float:
+        return self.base_s + (time.perf_counter() - self._t0)
+
+    def summary(self, extra: Optional[dict] = None) -> dict:
+        """Point-in-time decomposition. ``extra`` merges categories whose
+        running total lives elsewhere (the trainer passes the
+        StallBreakdown's ``data_stall_s`` sum here)."""
+        acc = dict(self._acc)
+        for k, v in (extra or {}).items():
+            acc[k] = acc.get(k, 0.0) + max(0.0, v)
+        wall = self.wall_s()
+        overhead = sum(acc.values())
+        useful = max(0.0, wall - overhead)
+        return {
+            "wall_s": wall,
+            "useful_step_s": useful,
+            "goodput": (useful / wall) if wall > 0 else 0.0,
+            **acc,
+        }
+
+
+# the profiler's default window: loop steps [3, 8), past the first use of
+# each kernel and allocator path
+PROFILE_WINDOW = (3, 8)
+
+
+def parse_profile_steps(profile_steps: str) -> Tuple[int, int]:
+    """``"A:B"`` -> the profiler window ``(A, B)`` of loop steps counted
+    from loop entry, ``[A, B)``; empty -> ``PROFILE_WINDOW``. Raises
+    ``ValueError`` with the JAX trainer's messages."""
+    if not profile_steps:
+        return PROFILE_WINDOW
+    try:
+        a, b = (int(x) for x in profile_steps.split(":"))
+    except ValueError:
+        raise ValueError(f"profile_steps must be 'A:B' loop-step ints, got "
+                         f"{profile_steps!r}") from None
+    if not 0 <= a < b:
+        raise ValueError(f"profile_steps window must satisfy 0 <= A < B, "
+                         f"got {profile_steps!r}")
+    return a, b

@@ -30,16 +30,59 @@ exit.
 
 ``run_loop`` logs every ``log_interval`` steps (the step's metrics plus
 ``steps_per_sec``, ``tokens_per_sec``, ``tokens_per_sec_per_chip``,
-``step_time_s`` and, on a GPU, ``mfu``), evaluates every ``eval_interval``
-(then runs each of ``eval_callbacks`` with the loop, as the JAX trainer
-does), saves every ``save_interval`` and once more at the end, keeping the
-newest ``keep_checkpoints`` steps when that is > 0. ``prefetch_depth`` > 0
-feeds the step from ``data/device_prefetch.py`` (batches copied to the
-device ahead of the step that reads them); ``debug_nans`` checks each
-step's metrics, gradients and parameters on the host and raises
-``FloatingPointError`` at the first non-finite one. Chaos, goodput, the
-sanitizer, the cost ledger, profiling and sharded state are later work
-(ROADMAP A.8c-A.10).
+``step_time_s`` and, on a GPU, ``mfu``; the stall gauges, ``goodput`` and
+the footprint gauges), evaluates every ``eval_interval`` (then runs each
+of ``eval_callbacks`` with the loop, as the JAX trainer does), saves every
+``save_interval`` and once more at the end, keeping the newest
+``keep_checkpoints`` steps when that is > 0. ``prefetch_depth`` > 0 feeds
+the step from ``data/device_prefetch.py`` (batches copied to the device
+ahead of the step that reads them); ``debug_nans`` checks each step's
+metrics, gradients and parameters on the host and raises
+``FloatingPointError`` at the first non-finite one. Sharded state is later
+work (ROADMAP A.8c).
+
+The training tooling (the JAX trainer's):
+
+* **goodput** (``utils/perf.GoodputTracker``): ``DPT_SPAWN_T`` (the
+  launcher's spawn stamp) gives ``startup_s``; construction minus restore
+  and compile is ``setup_s``; the resume, walk-back included, is
+  ``restore_s``; ``compile_s`` is the first use of the kernel library on
+  a GPU (``ops/_build.py``: the nvcc build on a cold tree, the load on a
+  warm one); saves are ``save_s``; the ``StallBreakdown``'s data and
+  copy waits are ``data_stall_s``; steps up to ``recompute_until_step``
+  (an earlier attempt's, from the beacons) are ``recompute_s``. A step's
+  slice is the wall time from the previous step's end to its own, less
+  the saves between them;
+* **beacons**: every rank atomically replaces ``progress_file`` every
+  step (the JAX keys; by default ``.progress_rank{r}.json`` in the run
+  dir whenever ``DPT_ATTEMPT`` is set): the launcher's hang watchdog and
+  crash-loop probe, and a killed attempt's flight recorder. Rank 0
+  writes ``goodput_attempt{A:03d}.json`` at a clean exit;
+* **chaos** (``chaos/inject.py``): ``on_step`` at the top of
+  ``run_step``, ``on_data`` before each batch pull (its seconds are
+  ``data_wait_s``), ``on_save`` right after a save;
+* **spans** (``obs/trace.py``, armed by ``trace`` or ``DPT_TRACE``):
+  ``restore``, ``compile``, ``step``, ``eval`` and ``save``, booked from
+  the seconds the goodput tracker gets, so the step spans sum to the
+  step slices;
+* **cost ledger** (``cost_ledger``): each log window computes the
+  ``train_step`` row (``obs/ledger.TrainCensus`` through
+  ``roofline_attribution``, over the window's rate and stall means), logs
+  its gap terms and replaces ``perf_ledger.json``; once more at exit;
+* **profiler window** (``profile_dir``): ``torch.profiler`` (CPU and
+  CUDA activity) over loop steps ``[3, 8)`` or ``profile_steps`` "A:B",
+  written by ``tensorboard_trace_handler`` into ``profile_dir``, flushed
+  also when the run ends inside the window;
+* **sanitizer** (``sanitize``): each step's dispatch (forward, backward,
+  update) and the eval callbacks run under
+  ``torch.cuda.set_sync_debug_mode("error")``; the intended transfers
+  (the batch's placement, the lagged metric fetch, saves, gloo's
+  host-staged collectives) stay outside it. A trip is recorded
+  (``SanitizeReport.watch``) and re-raised; ``sanitize_report.json``
+  (rank r > 0: ``rank{r:03d}/sanitize_report.json``) is written at exit
+  and on the way down. The training step captures no CUDA graph, so
+  ``recompile_count`` and ``steady_recompile_count`` are 0 by
+  construction.
 
 Data parallelism. Under a process group of P ranks each rank trains on its
 shard (``batch_size`` rows a step; ``global_batch = batch_size * P``) and
@@ -96,31 +139,37 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
+import time
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
-                    Sequence)
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
+from ..chaos.goodput import beacon_path, goodput_record_path
 from ..convert import init_params as random_params
 from ..data.device_prefetch import prefetch_to_device
 from ..models import (GlobalMoEStats, Model, compute_losses, finish_losses,
                       loss_count, moe_live_count, sequence_slice)
 from ..models.diffuseq import Draws, rank_draws, seeded_generator
+from ..obs import ledger as ledger_lib
+from ..obs import trace as trace_lib
+from ..ops import flash_attention
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
 from ..parallel import dist
 from ..parallel.ring import sequence_parallel
 from . import checkpoint as ckpt
 from .logger import Logger
-from .perf import (EventTimer, StepTimer, active_param_count, mfu,
-                   transformer_train_flops_per_token)
+from .perf import (EventTimer, GoodputTracker, SanitizeReport,
+                   StallBreakdown, StepTimer, active_param_count, mfu,
+                   parse_profile_steps, peak_live_bytes)
 
 __all__ = ["TrainLoop"]
 
 StateDict = Dict[str, torch.Tensor]
-
 
 class TrainLoop:
     """``TrainLoop(model=..., data=..., ...)`` then ``run_loop()`` (or
@@ -131,7 +180,11 @@ class TrainLoop:
     given, returns the (global) microbatch i's DiffuSeq draws at ``step``
     (a generator or ``{"t", "noise"}``) in place of the seeded generator.
     ``batch_size`` and ``microbatch`` are per rank (the rows of its data
-    group); ``sequence`` is the sequence-parallel group size."""
+    group); ``sequence`` is the sequence-parallel group size. ``chaos``
+    (a ``ChaosInjector``), ``progress_file``, ``recompute_until_step``,
+    ``trace`` (None defers to ``DPT_TRACE``), ``cost_ledger``,
+    ``sanitize``, ``profile_dir`` and ``profile_steps`` are the tooling of
+    the module docstring."""
 
     def __init__(self, *, model: Model,
                  data: Optional[Iterator[Dict[str, np.ndarray]]],
@@ -150,7 +203,16 @@ class TrainLoop:
                  draws: Optional[Callable[[int, int], Draws]] = None,
                  keep_checkpoints: int = 0, debug_nans: bool = False,
                  prefetch_depth: int = 0, sequence: int = 1,
+                 chaos: Optional[Any] = None, progress_file: str = "",
+                 recompute_until_step: int = 0,
+                 trace: Optional[bool] = None, cost_ledger: bool = False,
+                 sanitize: bool = False, profile_dir: str = "",
+                 profile_steps: str = "",
                  logger: Optional[Logger] = None) -> None:
+        # time-to-signal accounting starts here: everything up to the
+        # first step (state init, restore, the kernels' first use) is
+        # setup the user waits through
+        self._construct_t0 = time.perf_counter()
         self.model = model
         self.keep_checkpoints = keep_checkpoints
         self.debug_nans = debug_nans
@@ -194,13 +256,41 @@ class TrainLoop:
         # per-step metrics as fetched (step, loss, grad_norm, lr, ...)
         self.history: List[Dict[str, float]] = []
         self._inflight: "collections.deque" = collections.deque()
+        self.profile_dir = profile_dir
+        self._profile_window = parse_profile_steps(profile_steps)
+        self._profiler: Optional[Any] = None
+        self.chaos = chaos
+        self.recompute_until_step = recompute_until_step
+        self.cost_ledger = cost_ledger
+        self.sanitize = sanitize
+        self.sanitize_report = SanitizeReport()
+        self.stalls = StallBreakdown()
+        self.padding = ledger_lib.PaddingMeter() if cost_ledger else None
+        self.goodput = GoodputTracker(t0=self._construct_t0)
+        spawn_t = os.environ.get("DPT_SPAWN_T", "")
+        if spawn_t:
+            # the launcher's spawn stamp: the interpreter, torch import and
+            # process-group init before this constructor are attempt time
+            startup = max(0.0, time.time() - float(spawn_t))
+            self.goodput.base_s = startup
+            self.goodput.add("startup_s", startup)
+        if (not progress_file and checkpoint_dir
+                and os.environ.get("DPT_ATTEMPT") is not None):
+            # under the launcher every loop beacons by default
+            progress_file = beacon_path(checkpoint_dir, self.rank)
+        self.progress_file = progress_file
+        self.beacon_s = 0.0     # seconds spent writing beacons
+        self.tracer = trace_lib.tracer_for(checkpoint_dir, self.rank,
+                                           armed=trace)
 
         self.data = self._wrap_prefetch(data)
         self._build_state(init_params, seed)
         self.step = 0
         self.resumed_from = ""
         self.resume_meta: Optional[Dict[str, Any]] = None
+        self._load_kernels()
         self._resume(resume_checkpoint)
+        self.start_step = self.step
         if self.world > 1:
             # every rank starts from rank 0's weights (a resumed run loaded
             # the same files everywhere; a fresh one may have been seeded
@@ -222,8 +312,29 @@ class TrainLoop:
         self.throughput: Dict[str, float] = {}
         tokens_per_step = self.global_batch * model.seq_len
         self._timer = StepTimer(tokens_per_step)
-        self._flops_per_token = transformer_train_flops_per_token(
-            self.n_params, model.num_layers, model.hidden_size, model.seq_len)
+        seq_rank_len = model.seq_len // self.seq.size
+        self.census = ledger_lib.TrainCensus(
+            n_params=self.n_params, num_layers=model.num_layers,
+            hidden=model.hidden_size, seq_len=model.seq_len,
+            tokens_per_step=tokens_per_step, n_micro=self.n_micro,
+            compute_bytes=torch.finfo(model.dtype).bits // 8,
+            n_ema_rates=len(self.ema_rates), world=self.world,
+            flash_shape=(self.microbatch, model.num_heads, seq_rank_len,
+                         model.hidden_size // model.num_heads,
+                         model.family == "diffuseq"))
+        self._flops_per_token = self.census.flops_per_token
+        self._ledger_row: Optional[Dict[str, Any]] = None
+        self._ledger_mark = self._ledger_counts()
+        # construction minus the restore and the kernels' first use: the
+        # state and model setup a restart pays even warm
+        self.goodput.add("setup_s", time.perf_counter() - self._construct_t0
+                         - self.goodput.get("restore_s")
+                         - self.goodput.get("compile_s"))
+        # the goodput step-slice anchors
+        self._g_prev_t = time.perf_counter()
+        self._g_prev_wall = time.time()
+        self._g_prev_stall = self._stall_sum()
+        self._g_prev_compile = self.goodput.get("compile_s")
 
     # ------------------------------------------------------------- state
 
@@ -310,27 +421,56 @@ class TrainLoop:
         return {r: self.state_dict_of(self.ema[i])
                 for i, r in enumerate(self.ema_rates)}
 
+    def _check_state(self, state: Mapping[str, Any]) -> None:
+        """Raise unless ``state`` is a state dict of this model's
+        parameter names and shapes (the resume walks back past one that
+        is not)."""
+        if not isinstance(state, Mapping) or set(state) != set(self._layout):
+            raise KeyError("checkpoint keys differ from the model's")
+        for name, (_off, _n, shape) in self._layout.items():
+            if tuple(state[name].shape) != shape:
+                raise ValueError(f"checkpoint {name} has shape "
+                                 f"{tuple(state[name].shape)}, the model "
+                                 f"{shape}")
+
     def _resume(self, resume_checkpoint: str) -> None:
-        if resume_checkpoint:
-            step = ckpt.parse_step_from_name(resume_checkpoint)
-            if step is None:
-                raise ValueError(f"resume_checkpoint must name a "
-                                 f"model_NNNNNN.pt, got {resume_checkpoint!r}")
-            run_dir = os.path.dirname(os.path.abspath(resume_checkpoint))
-        elif self.checkpoint_dir:
-            run_dir = self.checkpoint_dir
-            step = ckpt.find_complete_step(run_dir, self.ema_rates)
-        else:
-            step = None
-        if step is None:
+        """Restore the newest finalized step of the run dir, walking back
+        past unloadable ones (or exactly ``resume_checkpoint``), booked as
+        ``restore_s`` and a ``restore`` span."""
+        t0, t0_wall = time.perf_counter(), time.time()
+        state = ckpt.restore_resume_state(
+            self.checkpoint_dir, self.ema_rates, device=self.device,
+            explicit_model_path=resume_checkpoint, check=self._check_state,
+            warn=self.logger.info)
+        if state is not None:
+            self.load_state(state["params"], state["ema"], state["opt"])
+            self.step = state["step"]
+            self.resume_meta = state["meta"]
+            self.resumed_from = os.path.dirname(state["path"])
+            self.logger.info(f"resumed from step {self.step} "
+                             f"({self.resumed_from})")
+        dt = time.perf_counter() - t0
+        self.goodput.add("restore_s", dt)
+        if self.tracer.enabled:
+            self.tracer.complete("restore", "ckpt", t0_wall, dt,
+                                 args={"step": self.step,
+                                       "resumed": state is not None})
+
+    def _load_kernels(self) -> None:
+        """The kernel library's first use on a GPU (``ops/_build.py``: the
+        nvcc build on a cold tree, the load on a warm one), booked once as
+        ``compile_s`` and a ``compile`` span; nothing on the CPU."""
+        if self.device.type != "cuda":
             return
-        state = ckpt.load_checkpoint(run_dir, step, self.ema_rates,
-                                     self.device)
-        self.load_state(state["params"], state["ema"], state["opt"])
-        self.step = step
-        self.resume_meta = state["meta"]
-        self.resumed_from = run_dir
-        self.logger.info(f"resumed from step {step} ({run_dir})")
+        from ..ops import _build
+        t0, t0_wall = time.perf_counter(), time.time()
+        _build.load_library()
+        dt = time.perf_counter() - t0
+        self.goodput.add("compile_s", dt)
+        if self.tracer.enabled:
+            self.tracer.complete("compile", "compile", t0_wall, dt,
+                                 args={"fn": "ops/_build.load_library"})
+        self.logger.info(f"kernel library ready in {dt:.2f}s")
 
     def set_data(self, data: Iterator, *,
                  eval_data: Optional[Iterator] = None,
@@ -347,17 +487,46 @@ class TrainLoop:
             self._samples = int(samples_consumed)
 
     def _wrap_prefetch(self, data: Optional[Iterator]) -> Optional[Iterator]:
-        if data is None or self.prefetch_depth <= 0:
+        if data is None:
             return data
-        return prefetch_to_device(data, self.device, self.prefetch_depth)
+        if self.padding is not None:
+            data = self._metered(data)
+        if self.prefetch_depth <= 0:
+            return data
+        return prefetch_to_device(data, self.device, self.prefetch_depth,
+                                  stats=self.stalls)
+
+    def _metered(self, data: Iterator) -> Iterator:
+        """The host batches as they are, their ``pad_mask`` counted into
+        the padding meter (the cost ledger's ``padding_waste_frac``)."""
+        for batch in data:
+            pm = batch.get("pad_mask")
+            if pm is not None:
+                self.padding.add(int(np.sum(pm)), int(np.size(pm)))
+            yield batch
+
+    def next_batch(self) -> Dict[str, Any]:
+        """Pull the next training batch: a chaos ``stall_data`` fault
+        first, then the iterator, its wait booked as ``data_wait_s`` (the
+        prefetch wrapper books its own waits)."""
+        if self.chaos is not None:
+            stalled = self.chaos.on_data(self)
+            if stalled:
+                self.stalls.add("data_wait_s", stalled)
+        if self.prefetch_depth > 0:
+            return next(self.data)
+        t0 = time.perf_counter()
+        batch = next(self.data)
+        self.stalls.add("data_wait_s", time.perf_counter() - t0)
+        return batch
 
     # -------------------------------------------------------------- step
 
     def _lr_at(self, step: torch.Tensor) -> torch.Tensor:
         """The reference's linear anneal ``lr * (1 - step/total)``, after a
         linear warmup from 0 over ``warmup_steps`` when set; f32, on the
-        step's device."""
-        lr = torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+        step's device (filled there: no host copy)."""
+        lr = torch.full((), self.lr, dtype=torch.float32, device=step.device)
         s = step.to(torch.float32)
         if self.learning_steps > 0:
             lr = lr * torch.clamp(1.0 - s / self.learning_steps, min=0.0)
@@ -447,8 +616,10 @@ class TrainLoop:
         """Gradients of the batch's loss into ``self.grads``, summed over the
         microbatches and then averaged (and summed over the ranks); returns
         the averaged metrics."""
+        return self._forward_backward(self._micro(batch))
+
+    def _forward_backward(self, mbs: List[Dict]) -> Dict[str, torch.Tensor]:
         self.grads.zero_()
-        mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
         per_micro = []
         with sequence_parallel(self.seq, self.shift_time):
@@ -465,11 +636,25 @@ class TrainLoop:
         return {k: v * scale
                 for k, v in self._summed_metrics(per_micro).items()}
 
-    def run_step(self, batch: Dict[str, np.ndarray]
-                 ) -> Dict[str, torch.Tensor]:
-        """One optimizer step. Returns the step's metrics as device scalars;
-        they are fetched and logged ``dispatch_lag`` steps later."""
-        metrics = self.forward_backward(batch)
+    @contextlib.contextmanager
+    def _guard(self) -> Iterator[None]:
+        """The sanitizer's guard: ``set_sync_debug_mode("error")`` on a
+        GPU under ``sanitize``, a trip recorded and re-raised; nothing
+        otherwise."""
+        if not (self.sanitize and self.device.type == "cuda"):
+            yield
+            return
+        with self.sanitize_report.watch():
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+    def _dispatch(self, mbs: List[Dict]) -> Dict[str, torch.Tensor]:
+        """The step's device work: forward, backward, clip and update."""
+        metrics = self._forward_backward(mbs)
         gnorm = torch.linalg.vector_norm(self.grads)
         if self.gradient_clipping > 0:
             self.grads.mul_(torch.clamp(
@@ -480,18 +665,67 @@ class TrainLoop:
                self._rate_values, weight_decay=self.weight_decay)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = self._lr_at(self.count)
+        return metrics
+
+    def run_step(self, batch: Dict[str, np.ndarray]
+                 ) -> Dict[str, torch.Tensor]:
+        """One optimizer step. Returns the step's metrics as device scalars;
+        they are fetched and logged ``dispatch_lag`` steps later."""
+        if self.chaos is not None:
+            # faults scheduled for the step about to run: self.step counts
+            # the completed ones
+            self.chaos.on_step(self)
+        t0 = time.perf_counter()
+        mbs = self._micro(batch)
+        t1 = time.perf_counter()
+        if self.prefetch_depth <= 0:
+            self.stalls.add("h2d_wait_s", t1 - t0)
+        with self._guard():
+            metrics = self._dispatch(mbs)
+        dispatched = time.perf_counter()
+        self.stalls.add("dispatch_s", dispatched - t1)
         if self.debug_nans:
             self._check_finite(metrics)
         self.count += 1
         self.step += 1
         self._samples += self.global_batch
         self._timer.tick()
-        self._inflight.append((self.step, metrics))
+        self._book_step()
+        self._inflight.append((self.step, dispatched, metrics))
         while len(self._inflight) > self.dispatch_lag:
             self._emit_lagged()
         self.logger.logkv("step", self.step)
         self.logger.logkv("samples", self._samples)
         return metrics
+
+    def _stall_sum(self) -> float:
+        s = self.stalls.sums()
+        return s["data_wait_s"] + s["h2d_wait_s"]
+
+    def _book_step(self) -> None:
+        """The goodput step slice (previous step's end to this one's, the
+        saves between them excluded): ``recompute_s`` up to
+        ``recompute_until_step`` (less the compile and data-stall time
+        inside it, booked to their own categories), the ``step`` span over
+        the same seconds, and the beacon."""
+        now = time.perf_counter()
+        replay = self.step <= self.recompute_until_step
+        if replay:
+            booked = ((self.goodput.get("compile_s") - self._g_prev_compile)
+                      + (self._stall_sum() - self._g_prev_stall))
+            self.goodput.add("recompute_s",
+                             max(0.0, (now - self._g_prev_t) - booked))
+        if self.tracer.enabled:
+            self.tracer.complete("step", "train", self._g_prev_wall,
+                                 now - self._g_prev_t,
+                                 args={"step": self.step,
+                                       "recompute": replay})
+        self._g_prev_t = now
+        self._g_prev_wall = time.time()
+        self._g_prev_stall = self._stall_sum()
+        self._g_prev_compile = self.goodput.get("compile_s")
+        if self.progress_file:
+            self._write_beacon()
 
     def _check_finite(self, metrics: Dict[str, torch.Tensor]) -> None:
         """Raise ``FloatingPointError`` naming the step and the first
@@ -515,10 +749,11 @@ class TrainLoop:
 
     def _emit_lagged(self) -> None:
         """Fetch the oldest in-flight step's metrics (one device->host copy)
-        and log them."""
-        step, metrics = self._inflight.popleft()
+        and log them; the wait from its dispatch is ``device_step_s``."""
+        step, dispatched, metrics = self._inflight.popleft()
         keys = sorted(metrics)
         vals = torch.stack([metrics[k].float() for k in keys]).tolist()
+        self.stalls.add("device_step_s", time.perf_counter() - dispatched)
         row = dict(zip(keys, vals))
         self.logger.logkvs_mean(row)
         self.history.append({"step": step, **row})
@@ -537,6 +772,7 @@ class TrainLoop:
         """Eval pass without gradients (global denominators and summed
         shares under a process group, as the step); metrics logged as
         ``eval_*``."""
+        t0, t0_wall = time.perf_counter(), time.time()
         step = 0x7FFF0000 + self.step
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
@@ -547,6 +783,10 @@ class TrainLoop:
                          for i, mb in enumerate(mbs)]
         sums = self._summed_metrics(per_micro)
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}
+        if self.tracer.enabled:
+            self.tracer.complete("eval", "eval", t0_wall,
+                                 time.perf_counter() - t0,
+                                 args={"step": self.step})
         self.logger.logkvs_mean(out)
         return out
 
@@ -562,6 +802,134 @@ class TrainLoop:
         included) over the steps this process ran."""
         return self.shift_time.seconds / max(self._timer.steps, 1)
 
+    # ---------------------------------------------------- goodput, beacon
+
+    @property
+    def recompile_count(self) -> int:
+        """CUDA-graph captures of the loop: the training step captures
+        none, so 0 by construction (the serving engines count theirs)."""
+        return 0
+
+    steady_recompile_count = recompile_count
+
+    def goodput_summary(self) -> Dict[str, float]:
+        """This attempt's wall (spawn to now under the launcher, else
+        construction to now) split into useful / startup / setup / restore
+        / compile / save / data stall / recompute."""
+        return self.goodput.summary(extra={"data_stall_s": self._stall_sum()})
+
+    def _write_json(self, path: str, payload: Dict[str, Any]) -> None:
+        """Atomic replace; an OSError is logged, never raised (telemetry
+        must not fail a step)."""
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write(json.dumps(payload))
+            os.replace(tmp, path)
+        except OSError as e:
+            self.logger.info(f"warning: writing {path} failed: {e}")
+
+    def _write_beacon(self) -> None:
+        """Atomically replace this rank's progress beacon (the JAX keys):
+        the launcher's liveness and progress probe, a killed attempt's
+        flight recorder, the next attempt's recompute boundary."""
+        t0 = time.perf_counter()
+        self._write_json(self.progress_file, {
+            "step": self.step,
+            # the step THIS attempt restored from: progress is judged
+            # against it (a walk-back restarts below the old maximum)
+            "start_step": self.start_step,
+            "t": time.time(),
+            "attempt": int(os.environ.get("DPT_ATTEMPT") or 0),
+            "rank": self.rank,
+            "recompile_count": self.recompile_count,
+            "steady_recompile_count": self.steady_recompile_count,
+            "goodput": {k: round(v, 6)
+                        for k, v in self.goodput_summary().items()}})
+        self.beacon_s += time.perf_counter() - t0
+
+    def _write_goodput_record(self) -> None:
+        """Rank 0, at a clean exit: ``goodput_attempt{A:03d}.json`` beside
+        the checkpoints, which ``aggregate_run`` prefers to the beacon."""
+        if not self.checkpoint_dir or self.rank != 0:
+            return
+        attempt = int(os.environ.get("DPT_ATTEMPT") or 0)
+        self._write_json(goodput_record_path(self.checkpoint_dir, attempt), {
+            "attempt": attempt,
+            "steps": [self.start_step, self.step],
+            "recompile_count": self.recompile_count,
+            "steady_recompile_count": self.steady_recompile_count,
+            "compile_time_s": self.goodput.get("compile_s"),
+            **{k: round(v, 6) for k, v in self.goodput_summary().items()}})
+
+    def footprint(self) -> Dict[str, int]:
+        """State bytes (the JAX gauges; nothing is sharded, so per replica
+        = whole) and this process's peak device allocation (0 on the
+        CPU)."""
+        n = self.n_params * 4
+        return {"params_bytes": n, "params_bytes_per_replica": n,
+                "opt_state_bytes": 2 * n + 4,
+                "opt_state_bytes_per_replica": 2 * n + 4,
+                "ema_bytes_per_replica": len(self.ema_rates) * n,
+                "peak_live_bytes": peak_live_bytes(self.device)}
+
+    # --------------------------------------------------------- cost ledger
+
+    def _ledger_counts(self) -> Tuple[int, int, int, int]:
+        return (self.step, flash_attention.forward_launch_count(),
+                flash_attention.backward_launch_count(),
+                dist.ring_shift_bytes())
+
+    def _device_kind(self) -> str:
+        return (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+
+    def _train_row(self, steps_per_s: float, stall: Dict[str, float]
+                   ) -> Dict[str, Any]:
+        """The ``train_step`` ledger row over a log window: the census's
+        FLOPs and bytes at the window's launches a step, the window's
+        rate and stall means, folded by ``roofline_attribution``."""
+        mark, self._ledger_mark = self._ledger_mark, self._ledger_counts()
+        steps = max(self._ledger_mark[0] - mark[0], 1)
+        fwd, bwd, shift = ((b - a) / steps
+                           for a, b in zip(mark[1:], self._ledger_mark[1:]))
+        tokens = self.census.tokens_per_step
+        host_stall = (stall["data_wait_s"] + stall["h2d_wait_s"]
+                      + stall["dispatch_s"])
+        kind = self._device_kind()
+        row: Dict[str, Any] = {
+            "program": "train_step",
+            **self.census.cost(fwd, bwd, shift),
+            "tokens_per_step": tokens,
+            "flops_per_token": self._flops_per_token,
+            "analytic_flops_per_step": self._flops_per_token * tokens,
+            "steps_per_s": steps_per_s,
+            "tokens_per_s": steps_per_s * tokens,
+            "device_step_s": stall["device_step_s"],
+            "host_stall_s_per_step": host_stall,
+            "data_stall_s_total": self._stall_sum()}
+        row.update(ledger_lib.roofline_attribution(
+            tokens_per_s=row["tokens_per_s"],
+            flops_per_token=self._flops_per_token,
+            peak_flops=ledger_lib.device_peak_flops(kind),
+            n_devices=self.n_devices, steps_per_s=steps_per_s,
+            collective_bytes_per_step=row["collective_bytes_per_step"],
+            bytes_accessed=row["bytes_accessed"],
+            host_stall_s_per_step=host_stall, device_kind=kind,
+            padding_waste_frac=(self.padding.frac
+                                if self.padding is not None else 0.0)))
+        return row
+
+    def _write_ledger(self) -> None:
+        if self.rank != 0 or not self.checkpoint_dir or \
+                self._ledger_row is None:
+            return
+        ledger_lib.write_ledger(
+            self.checkpoint_dir, {"train_step": self._ledger_row},
+            t=time.time(), extra={"step": self.step,
+                                  "n_devices": self.n_devices,
+                                  "device_kind": self._device_kind()})
+
     # -------------------------------------------------------------- loop
 
     def _log_throughput(self) -> None:
@@ -572,6 +940,21 @@ class TrainLoop:
             self.logger.logkv("ring_shift_s_per_step",
                               self.ring_shift_s_per_step)
         sps, tps = self._timer.lap()
+        stall = self.stalls.lap()
+        # the stall gauges' window means, the attempt's goodput so far and
+        # the footprint ride every window, as in the JAX trainer
+        self.logger.logkvs(stall)
+        self.logger.logkv("goodput", self.goodput_summary()["goodput"])
+        self.logger.logkvs(self.footprint())
+        if self.cost_ledger:
+            self._ledger_row = self._train_row(sps, stall)
+            for gauge in ledger_lib.GAP_TERMS:
+                self.logger.logkv(gauge, self._ledger_row[gauge])
+            self.logger.logkv("collective_bytes_per_step",
+                              self._ledger_row["collective_bytes_per_step"])
+            self.logger.logkv("padding_waste_frac",
+                              self._ledger_row["padding_waste_frac"])
+            self._write_ledger()
         if tps <= 0:
             return
         # tokens of the global batch; per chip over the ring's distinct
@@ -581,16 +964,59 @@ class TrainLoop:
                "tokens_per_sec": tps, "tokens_per_sec_per_chip": per_chip}
         if self.device.type == "cuda":
             row["mfu"] = mfu(per_chip, self._flops_per_token,
-                             torch.cuda.get_device_name(self.device))
+                             self._device_kind())
         self.throughput = row
         self.logger.logkvs(row)
 
+    def _maybe_profile(self, loop_step: int) -> None:
+        """Open the ``torch.profiler`` window at its first loop step and
+        close it (the trace written into ``profile_dir``) at its end;
+        steps count from loop entry, so a resumed run still captures a
+        window past its first steps."""
+        start, stop = self._profile_window
+        if loop_step == start and self._profiler is None:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(
+                activities=acts, on_trace_ready=tensorboard_trace_handler(
+                    self.profile_dir, worker_name=f"rank{self.rank}"))
+            self._profiler.start()
+            self.logger.info(f"profiler: tracing steps {start}..{stop} -> "
+                             f"{self.profile_dir}")
+        elif loop_step == stop and self._profiler is not None:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        """Close the window: the device's queue drained into it first,
+        then the trace written."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+
+    def _write_sanitize_report(self) -> None:
+        if not self.sanitize or not self.checkpoint_dir:
+            return
+        out = (self.checkpoint_dir if self.rank == 0 else
+               os.path.join(self.checkpoint_dir, f"rank{self.rank:03d}"))
+        self.sanitize_report.write(out)
+
     def run_loop(self) -> None:
         """Interval-driven outer loop: log, eval and save at their
-        intervals (<= 0 disables one), and a final save."""
+        intervals (<= 0 disables one), and a final save; then the
+        attempt's goodput record, the ledger's last snapshot and the
+        sanitizer's report. The profiler window is flushed, and the
+        report written, also when the loop raises."""
+        loop_step = 0
         try:
             while self.learning_steps <= 0 or self.step < self.learning_steps:
-                self.run_step(next(self.data))
+                if self.profile_dir:
+                    self._maybe_profile(loop_step)
+                self.run_step(self.next_batch())
+                loop_step += 1
                 if self.log_interval > 0 and self.step % self.log_interval == 0:
                     self.flush_metrics()
                     self._log_throughput()
@@ -600,28 +1026,57 @@ class TrainLoop:
                     self.flush_metrics()
                     self.forward_only(next(self.eval_data))
                     self.eval_batches_consumed += 1
-                    for cb in self.eval_callbacks:
-                        cb(self)
+                    with self._guard():
+                        for cb in self.eval_callbacks:
+                            cb(self)
                 if (self.save_interval > 0
                         and self.step % self.save_interval == 0):
                     self.save()
+        except BaseException:
+            self._write_sanitize_report()
+            raise
         finally:
+            if self._profiler is not None:
+                # the run ended (or raised) inside the window: flush it
+                self._stop_profiler()
             self.flush_metrics()
         if self.save_interval <= 0 or self.step % self.save_interval != 0:
             self.save()
+        summary = self.goodput_summary()
+        self.logger.info("goodput: " + json.dumps(
+            {k: round(v, 4) for k, v in summary.items()}))
+        self._write_goodput_record()
+        if self.cost_ledger:
+            if self._ledger_row is None:
+                self._ledger_row = self._train_row(0.0, self.stalls.lap())
+            self._write_ledger()
+        self.tracer.close()
+        self._write_sanitize_report()
 
     __call__ = run_loop
 
     def save(self) -> None:
         """``model_/ema_{rate}_/opt_/meta_{step:06d}`` in the run dir,
-        written and pruned by rank 0; then every rank passes a barrier."""
+        written and pruned by rank 0; then every rank passes a barrier.
+        The seconds are ``save_s`` (and a ``save`` span), taken out of the
+        next step's slice; a chaos ``crash_in_save`` fires after."""
         if not self.checkpoint_dir:
             self.logger.info("no checkpoint_dir configured; skipping save")
             return
         self.flush_metrics()
+        t0, t0_wall = time.perf_counter(), time.time()
         if self.rank == 0:
             self._write_checkpoint()
         dist.barrier("save")
+        dt = time.perf_counter() - t0
+        self.goodput.add("save_s", dt)
+        self._g_prev_t += dt
+        self._g_prev_wall += dt
+        if self.tracer.enabled:
+            self.tracer.complete("save", "ckpt", t0_wall, dt,
+                                 args={"step": self.step})
+        if self.chaos is not None:
+            self.chaos.on_save(self)
 
     def _write_checkpoint(self) -> None:
         ckpt.save_checkpoint(

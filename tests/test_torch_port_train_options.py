@@ -83,7 +83,7 @@ def test_jax_config_json_trains(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("profile_steps", "3:8", "ROADMAP A.10"),
+    ("profile_steps", "8:3", "profile_steps window must satisfy 0 <= A < B"),
     ("auto_tune_budget_s", "30", "ROADMAP A.10"),
     ("scan_unroll", "2", "ROADMAP A.9"),
     ("pp_schedule", "gpipe", "ROADMAP A.9"),
@@ -120,9 +120,10 @@ def test_keep_checkpoints_prunes_every_file_kind(tmp_path):
                            "--save_interval", "1", "--keep_checkpoints", "2"])
     kinds = ("model_{:06d}.pt", "opt_{:06d}.pt", "meta_{:06d}.json",
              "ema_0.9_{:06d}.pt", "ema_0.99_{:06d}.pt")
-    # the run's settings and its clean-exit sidecar are not checkpoints
+    # the run's settings and its clean-exit sidecars are not checkpoints
     names = {n for n in os.listdir(run) if n[-3:] in (".pt", "son")
-             and n not in ("training_args.json", "train_summary.json")}
+             and n not in ("training_args.json", "train_summary.json",
+                           "goodput_attempt000.json")}
     assert names == {k.format(s) for k in kinds for s in (3, 4)}
 
 
