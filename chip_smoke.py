@@ -81,9 +81,9 @@ Phases (any failure raises, and the script exits non-zero):
    eager engine (bf16 pool, int8 pool, ``--spec_tokens 4`` ngram): every
    stream identical token for token, every launch counter equal (the
    graph's counted through its replays), tokens/s and TTFT p50/p95 of
-   both, and the device idle share of both from a ``torch.profiler``
-   window (over all 64 requests for the bf16 pool, the first 16 for the
-   int8 pool and the spec run); ``--sanitize true`` on the bf16 workload (``recompile_count``
+   both (no profiled pass, for the script's wall:
+   ``scripts/profile_torch_serve.py`` measures the engines' idle shares);
+   ``--sanitize true`` on the bf16 workload (``recompile_count``
    0, one capture per phase, no violation in ``sanitize_report.json``,
    then a sync injected into a dispatch through the engine's test hook
    raises and is recorded); whether a prefill's K/V rows are bitwise
@@ -229,7 +229,8 @@ Phases (any failure raises, and the script exits non-zero):
    ``DPT_CHAOS_PLAN``: attempts ``(-9, end 4)`` and ``(0, end 6)``, both
    ``.chaos_fired_*`` markers, the walk-back to step 2 in the log,
    ``aggregate_run`` with ``recompute_s > 0`` and ``accounted_frac``
-   within 0.05 of 1; (b) the uninterrupted twin with ``--trace
+   within 0.01 of 1 (this ring also arms ``--cost_ledger``, for phase
+   16); (b) the uninterrupted twin with ``--trace
    --cost_ledger --sanitize --profile_dir D --profile_steps 2:4``: step-6
    parameters bitwise (a)'s, the fused update launched once a step in
    each finished attempt and its plain version never, the profiler trace
@@ -237,13 +238,41 @@ Phases (any failure raises, and the script exits non-zero):
    ``sanitize_report.json``, a ``train_step`` ledger row whose gaps sum
    to 1 and whose ``mfu`` is the logged one, the step spans within 2% of
    the goodput step time (useful + recompute + data stall), one compile
-   span of ``compile_s``; (c) ``stall_step`` at step 3 for 600 s under
-   ``--hang_timeout_s 20 --hang_startup_timeout_s 120``: the watchdog
-   kills attempt 0 (``hung``, ``hang_s`` in [20, 25]), attempt 1
-   finishes, the fold books ``hang_s``. Its line is
-   ``{"training_tooling": {...}}`` (each attempt's seconds, the goodput
-   folds, the beacon's cost a step, the twin's step times and peak
-   memory), and the DiffuSeq update row gains ``launches_tooling``.
+   span of ``compile_s``; the twin saves once, at step 6 (its laps
+   overlap no background write), its copy and its wait a span each,
+   summing to ``save_s``; (c) ``stall_step`` at step 3 for 600 s under
+   ``--hang_timeout_s 12 --hang_startup_timeout_s 120 --log_interval
+   0``: the watchdog kills attempt 0 (``hung``, ``hang_s`` in [12, 17]),
+   attempt 1 finishes, the fold books ``hang_s``; the twin's logged
+   losses (each row the step before its own: the metrics stay one step
+   in flight at a log) equal this ring's history at steps 3-5. Its line
+   is ``{"training_tooling": {...}}`` (each attempt's seconds, the goodput
+   folds, the beacon's cost a step, the twin's step times, steady lap,
+   saves (copy and wait seconds each) and peak memory), and the DiffuSeq
+   update row gains ``launches_tooling``;
+16. the run readers: ``obs/export.py`` (the twin's Perfetto timeline
+   loads as JSON with its 6 step and 2 save spans; the Prometheus
+   snapshots of the twin and the fleet dir parse), ``run/status.py`` (each
+   ring's goodput is ``aggregate_run``'s), ``run/perf_report.py`` (the
+   ``train_step`` row renders), ``obs/regress.py`` (``compare_runs`` over
+   the chaos ring's and the twin's ledger rows gives a verdict), the fleet
+   dir of phase 11's kill run (its journal's completed and replayed
+   counts are the fleet summary's), and the three CLIs as subprocesses;
+   no new training. Its line is ``{"run_readers": {...}}``;
+17. MoE and ``--eval_decode`` under ``--sequence 2``: GPT-2 base moe8
+   (phase 13's shapes and flags) 5 steps on two sequence ranks sharing
+   ``cuda:0`` over gloo against phase 13's run in one process without a
+   group (every step's loss and step 1's grad norm within bf16
+   rounding; the later grad norms recorded: a flipped expert choice moves
+   the capacity claims after it; the ranks' parameters bitwise equal;
+   launches a rank: the flash kernels 120 and 240, the update 5); then
+   GPT-2 base at
+   ``--sequence 2 --eval_decode true --eval_interval 2``: the step-2
+   eval's ``decode_acc`` (decoded by the first sequence rank outside the
+   ring) equals the one-process callback's on the saved step-2 weights.
+   Its line is ``{"moe_eval_decode_sequence": {...}}``; the flash,
+   ``flash_attention_lse`` and update rows gain ``launches_moe_sp2`` and
+   (flash and GPT-2 update) ``launches_eval_decode_sp2``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -253,6 +282,7 @@ before the last is ``{"kernels": [...]}`` and the last is
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -970,15 +1000,13 @@ def options_phase(torch, fd, run, runs, spec) -> dict:
     sanitizer, the prefix cache under wall-clock traffic, and
     ``--serve_quant int8`` with the cost ledger."""
     out = {"card": CARD}
-    # the profiled passes over the int8 pool and the spec run serve 16 of
-    # their 64 requests (a depth cut for the script's wall: the fp
-    # pool's pair, which PERF.md reads, keeps all 64)
-    for key, base, prof in (("fp", runs["fp"], 0),
-                            ("int8", runs["int8"], 16),
-                            ("spec_ngram_fp", spec["ngram_fp"], 16)):
+    # no profiled pass (a depth cut for the script's wall: each cost
+    # about 20 s in set-up and trace processing;
+    # scripts/profile_torch_serve.py measures the engines' idle shares)
+    for key, base in (("fp", runs["fp"]), ("int8", runs["int8"]),
+                      ("spec_ngram_fp", spec["ngram_fp"])):
         out[f"graph_vs_eager_{key}"] = clocked(
-            f"graph vs eager {key}", graph_vs_eager, torch, fd, key, base,
-            profile_requests=prof)
+            f"graph vs eager {key}", graph_vs_eager, torch, fd, key, base)
     out["sanitize"] = clocked("sanitize", sanitize_run, torch, fd, run)
     out["prefill_rows_bitwise"] = prefill_rows_bitwise(torch, run)
     out["prefix_cache"] = clocked("prefix cache", prefix_run, torch, fd, run)
@@ -987,34 +1015,10 @@ def options_phase(torch, fd, run, runs, spec) -> dict:
     return out
 
 
-def serve_profiled(torch, argv: list, cuda_graphs: bool) -> dict:
-    """One run.serve pass under ``torch.profiler`` (device activity only):
-    its wall, the kernels' summed device time (one stream: they do not
-    overlap) and the idle share 1 - busy / wall."""
-    from distributed_pipeline_tpu_torch.config.serve import parse_settings
-    from distributed_pipeline_tpu_torch.run.serve import serve
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        summary, server, _ = serve(parse_settings(argv),
-                                   cuda_graphs=cuda_graphs)
-    del server
-    torch.cuda.empty_cache()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy_s = sum(e.self_device_time_total for e in events) / 1e6
-    return {"wall_s": summary["wall_s"], "device_busy_s": busy_s,
-            "idle_share": 1.0 - busy_s / summary["wall_s"],
-            "kernel_launches": sum(e.count for e in events),
-            "tokens_per_s": summary["decode_tokens_per_s_per_chip"]}
-
-
-def graph_vs_eager(torch, fd, key: str, base: dict,
-                   profile_requests: int = 0) -> dict:
+def graph_vs_eager(torch, fd, key: str, base: dict) -> dict:
     """The run of ``base`` (graph engine: its argv, streams, launch
     counters and summary) served again through the eager engine: streams
-    identical token for token, every launch counter equal; then a
-    profiled pass of each engine for its device idle share, over the
-    first ``profile_requests`` requests when > 0 (else all of them)."""
+    identical token for token, every launch counter equal."""
     from distributed_pipeline_tpu_torch.config.serve import parse_settings
     from distributed_pipeline_tpu_torch.run.serve import serve
     fd.reset_launch_count()
@@ -1044,13 +1048,6 @@ def graph_vs_eager(torch, fd, key: str, base: dict,
                                        "compile_time_s")}}
     out["speedup"] = (g["decode_tokens_per_s_per_chip"]
                       / e["decode_tokens_per_s_per_chip"])
-    argv = list(base["argv"])
-    if profile_requests:
-        argv[argv.index("--synthetic_requests") + 1] = str(profile_requests)
-    out["profiled_requests"] = int(
-        argv[argv.index("--synthetic_requests") + 1])
-    out["graph_profiled"] = serve_profiled(torch, argv, True)
-    out["eager_profiled"] = serve_profiled(torch, argv, False)
     print(f"# graph vs eager {key} ({CARD}): {json.dumps(out)}", flush=True)
     return out
 
@@ -2593,12 +2590,13 @@ def perturbed_checkpoint(torch, run: str, step: int, seed: int) -> str:
     return save_run(run, targs, sd, step)
 
 
-def fleet_phase(torch, fd, run: str) -> dict:
+def fleet_phase(torch, fd, run: str, keep: str) -> dict:
     """Phase 11 on the train phase's run dir (GPT-2 base, step 20): the
     serving fleet through ``run.serve --replicas 2`` against the
     single-replica ``run.serve``; a replica killed mid-request; a hot swap
     to a second checkpoint and a corrupted one; the socket transport; and
-    ``--replicas 1 --disagg 1`` against the colocated server."""
+    ``--replicas 1 --disagg 1`` against the colocated server. The kill
+    run's fleet dir is copied into ``keep`` for the readers' phase."""
     import numpy as np
     from distributed_pipeline_tpu_torch.config.serve import parse_settings
     from distributed_pipeline_tpu_torch.run import serve as serve_mod
@@ -2609,14 +2607,14 @@ def fleet_phase(torch, fd, run: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         try:
             return _fleet_checks(torch, fd, np, parse_settings, serve_mod,
-                                 load_run, run, tmp, n, out)
+                                 load_run, run, tmp, n, out, keep)
         except BaseException:
             worker_log_tails(tmp)
             raise
 
 
 def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
-                  tmp, n, out) -> dict:
+                  tmp, n, out, keep) -> dict:
     def paths(tag):
         return os.path.join(tmp, tag), os.path.join(tmp, f"{tag}.jsonl")
 
@@ -2676,6 +2674,10 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
           f"kill: replica 1's attempts.jsonl: {rec['replicas'][1]}")
     rec.update(hold_streams(torch, model, rows, refs, "fleet kill"))
     out["kill"] = rec
+    out["kept_dir"] = os.path.join(keep, "fleet_kill")
+    shutil.copytree(fdir, out["kept_dir"])
+    out["kept_counts"] = {"completed": summary["completed"],
+                          "replayed": summary["replayed"]}
 
     # 3. a hot swap to step 21 after 32 completions; arrivals keep coming
     # after the roll
@@ -2806,7 +2808,9 @@ def dp_argv(run: str, batch: int, micro: int) -> list:
 
 def dp_run(run: str, argv: list, what: str) -> dict:
     """``python -m distributed_pipeline_tpu_torch.run.train argv`` as a
-    subprocess; returns its progress rows and its ranks' sidecars."""
+    subprocess; returns its progress rows, its ranks' sidecars and rank
+    0's per-step metrics (``steps``: the sidecar's history; a progress row
+    holds the step ``dispatch_lag`` before it)."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
         "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP")}
@@ -2831,7 +2835,8 @@ def dp_run(run: str, argv: list, what: str) -> dict:
                        if n.startswith("train_summary")):
         with open(os.path.join(run, name)) as f:
             sides.append(json.load(f))
-    return {"rows": rows, "ranks": sorted(sides, key=lambda d: d["rank"]),
+    sides = sorted(sides, key=lambda d: d["rank"])
+    return {"rows": rows, "ranks": sides, "steps": sides[0]["history"],
             "wall_s": wall}
 
 
@@ -2854,7 +2859,11 @@ def dp_phase(torch) -> dict:
     out = {"steps": DP_STEPS, "wall_s": {k: r["wall_s"]
                                          for k, r in runs.items()}}
     for key, r in runs.items():
-        check(len(r["rows"]) == DP_STEPS, f"{key}: {len(r['rows'])} rows")
+        check(len(r["rows"]) == DP_STEPS
+              and [h["step"] for h in r["steps"]]
+              == list(range(1, DP_STEPS + 1)),
+              f"{key}: {len(r['rows'])} rows, steps "
+              f"{[h['step'] for h in r['steps']]}")
         world = 2 if key == "nprocs2" else 1
         check(len(r["ranks"]) == world, f"{key}: {len(r['ranks'])} "
                                         f"sidecars, expected {world}")
@@ -2878,8 +2887,8 @@ def dp_phase(torch) -> dict:
                   f"(global batch), peak memory "
                   f"{side['peak_memory_bytes']} B", flush=True)
         out[key] = {
-            "losses": [float(row["loss"]) for row in r["rows"]],
-            "grad_norms": [float(row["grad_norm"]) for row in r["rows"]],
+            "losses": [h["loss"] for h in r["steps"]],
+            "grad_norms": [h["grad_norm"] for h in r["steps"]],
             "ranks": [{k: side.get(k) for k in (
                 "rank", "backend", "device", "launches", "plain_calls",
                 "allreduce_s_per_step", "allreduce_calls", "step_time_s",
@@ -2894,10 +2903,10 @@ def dp_phase(torch) -> dict:
           f"--nprocs 2 ranks: {two['ranks']}")
     check(single["ranks"][0]["backend"] == "none",
           "the run without --distributed joined a group")
-    # (a) bitwise: the CSV holds each float's repr
+    # (a) bitwise
     for col in ("loss", "grad_norm"):
-        a = [row[col] for row in one["rows"]]
-        b = [row[col] for row in single["rows"]]
+        a = [h[col] for h in one["steps"]]
+        b = [h[col] for h in single["steps"]]
         check(a == b, f"--nprocs 1 {col} {a} differ from the run without "
                       f"a group {b}")
     check(one["ranks"][0]["params_sha256"]
@@ -2908,8 +2917,8 @@ def dp_phase(torch) -> dict:
           "the two ranks' final parameters differ")
     rel = {}
     for col, bar in (("loss", 5e-3), ("grad_norm", 3e-2)):
-        a = [float(row[col]) for row in one["rows"]]
-        b = [float(row[col]) for row in two["rows"]]
+        a = [h[col] for h in one["steps"]]
+        b = [h[col] for h in two["steps"]]
         rel[col] = max(abs(x - y) / abs(x) for x, y in zip(a, b))
         check(rel[col] <= bar, f"--nprocs 2 {col} {b} vs one rank {a}: "
                                f"relative {rel[col]} > {bar}")
@@ -3357,8 +3366,9 @@ def sp_ranks(r: dict, what: str, want: list) -> list:
 
 
 def held_to(rows: list, ref: dict, what: str) -> dict:
-    """Losses and grad norms of ``rows`` against ``ref``'s within bf16
-    rounding (loss 5e-3, grad norm 3e-2 relative: phase 12's bars)."""
+    """Losses and grad norms of ``rows`` (per-step metrics) against
+    ``ref``'s within bf16 rounding (loss 5e-3, grad norm 3e-2 relative:
+    phase 12's bars)."""
     rel = {}
     for col, key, bar in (("loss", "losses", 5e-3),
                           ("grad_norm", "grad_norms", 3e-2)):
@@ -3420,11 +3430,10 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
     gpt2_want = [{"flash_forward": per * n, "flash_backward": per * n,
                   "fused_adamw_ema": DP_STEPS} for n in (1, 2)]
     out["gpt2_base_sp2"] = {
-        "losses": [float(row["loss"]) for row in runs["gpt2"]["rows"]],
-        "grad_norms": [float(row["grad_norm"])
-                       for row in runs["gpt2"]["rows"]],
+        "losses": [h["loss"] for h in runs["gpt2"]["steps"]],
+        "grad_norms": [h["grad_norm"] for h in runs["gpt2"]["steps"]],
         "ranks": sp_ranks(runs["gpt2"], "gpt2 base sp2", gpt2_want),
-        "vs_no_group_max_rel": held_to(runs["gpt2"]["rows"], single,
+        "vs_no_group_max_rel": held_to(runs["gpt2"]["steps"], single,
                                        "gpt2 base sp2 vs no group")}
     dq_per = layers * micro * SP_DIFFUSEQ_STEPS
     one = runs["diffuseq_one"]
@@ -3433,21 +3442,21 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
         "fused_adamw_ema": SP_DIFFUSEQ_STEPS},
         f"diffuseq seq1024 one process: launches "
         f"{one['ranks'][0]['launches']}")
-    one_ref = {"losses": [float(row["loss"]) for row in one["rows"]],
-               "grad_norms": [float(row["grad_norm"])
-                              for row in one["rows"]]}
+    one_ref = {"losses": [h["loss"] for h in one["steps"]],
+               "grad_norms": [h["grad_norm"] for h in one["steps"]]}
     out["diffuseq_base_seq1024"] = {
         "one_process": {**one_ref, "step_time_s": one["ranks"][0].get(
             "step_time_s"), "peak_memory_bytes": one["ranks"][0][
             "peak_memory_bytes"]},
-        "sp2": {"losses": [float(row["loss"])
-                           for row in runs["diffuseq_sp2"]["rows"]],
+        "sp2": {"losses": [h["loss"]
+                           for h in runs["diffuseq_sp2"]["steps"]],
                 "ranks": sp_ranks(runs["diffuseq_sp2"], "diffuseq seq1024 "
                                   "sp2", [{"flash_forward": 2 * dq_per,
                                            "flash_backward": 2 * dq_per,
                                            "fused_adamw_ema":
                                                SP_DIFFUSEQ_STEPS}] * 2)},
-        "sp2_vs_one_max_rel": held_to(runs["diffuseq_sp2"]["rows"], one_ref,
+        "sp2_vs_one_max_rel": held_to(runs["diffuseq_sp2"]["steps"],
+                                      one_ref,
                                       "diffuseq seq1024 sp2 vs one")}
     hop = errs["gpt2_hop_diag_bf16"]
     tm = timing["L512"]
@@ -3493,7 +3502,7 @@ TOOL_STEPS = 6
 # the phase's wall budget: five run.train processes of DiffuSeq-base (start,
 # the kernel library's load, up to 6 steps) and nine 2.2 GB saves
 TOOL_BUDGET_S = 300.0
-TOOL_HANG_S = 20.0
+TOOL_HANG_S = 12.0
 FUSED_KERNEL = "fused_update_kernel"
 
 
@@ -3534,12 +3543,12 @@ def tool_run(run: str, argv: list, what: str, plan=None) -> dict:
     with open(os.path.join(run, "train_summary.json")) as f:
         side = json.load(f)
     with open(os.path.join(run, "progress.csv")) as f:
-        lines = f.read().splitlines()
+        lines = f.read().splitlines() or [""]
     head = lines[0].split(",")
     rows = [dict(zip(head, line.split(","))) for line in lines[1:]]
     agg = aggregate_run(run)
     check(agg["accounted_frac"] == agg["accounted_frac"]
-          and abs(agg["accounted_frac"] - 1.0) <= 0.05,
+          and abs(agg["accounted_frac"] - 1.0) <= 0.01,
           f"{what}: accounted_frac {agg['accounted_frac']}")
     return {"attempts": read_attempts(run), "goodput": agg, "side": side,
             "rows": rows, "stderr": out.stderr, "wall_s": wall}
@@ -3592,94 +3601,127 @@ def profiler_kernel_events(prof_dir: str) -> list:
     return names
 
 
-def tooling_phase(torch) -> dict:
-    """Phase 15 (see the module doc)."""
+def logged_losses(rows: list) -> dict:
+    """{step: loss} from progress rows: a row holds the loss of the step
+    ``dispatch_lag`` (1) before its own."""
+    return {int(float(row["step"])) - 1: float(row["loss"]) for row in rows
+            if row.get("loss")}
+
+
+def tooling_phase(torch, work: str) -> dict:
+    """Phase 15 (see the module doc). The rings' run dirs stay in
+    ``work`` for the readers' phase."""
     from distributed_pipeline_tpu_torch.obs import ledger as ledger_lib
     from distributed_pipeline_tpu_torch.obs import trace as trace_lib
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     out = {"steps": TOOL_STEPS}
-    with tempfile.TemporaryDirectory() as work:
-        # (a) corrupt + kill at step 4: walk back to step 2, finish
-        chaos = os.path.join(work, "chaos")
-        a = tool_run(chaos, tool_argv(chaos), "chaos ring", plan=[
-            {"kind": "corrupt_checkpoint", "step": 4, "rank": 0},
-            {"kind": "kill", "step": 4, "rank": 0}])
-        recs = a["attempts"]
-        check([(r["rc"], r["end_step"]) for r in recs] == [(-9, 4), (0, 6)],
-              f"chaos ring attempts {[(r['rc'], r['end_step']) for r in recs]}")
-        check(recs[1]["start_step"] == 2, f"chaos ring resumed at "
-                                          f"{recs[1]['start_step']}, not 2")
-        check(all(os.path.exists(os.path.join(chaos, f".chaos_fired_0{i}"))
-                  for i in (0, 1)), "chaos markers missing")
-        with open(os.path.join(chaos, "log.txt")) as f:
-            log = f.read()
-        check("walking back" in log and "resumed from step 2" in log,
-              "the chaos ring's log shows no walk-back to step 2")
-        check(a["goodput"]["recompute_s"] > 0,
-              f"chaos ring recompute_s {a['goodput']['recompute_s']}")
-        check_side(a["side"], TOOL_STEPS - 2, "chaos ring attempt 1")
+    # (a) corrupt + kill at step 4: walk back to step 2, finish
+    chaos = os.path.join(work, "chaos")
+    a = tool_run(chaos, tool_argv(chaos, ("--cost_ledger", "true")),
+                 "chaos ring", plan=[
+                     {"kind": "corrupt_checkpoint", "step": 4, "rank": 0},
+                     {"kind": "kill", "step": 4, "rank": 0}])
+    recs = a["attempts"]
+    check([(r["rc"], r["end_step"]) for r in recs] == [(-9, 4), (0, 6)],
+          f"chaos ring attempts {[(r['rc'], r['end_step']) for r in recs]}")
+    check(recs[1]["start_step"] == 2, f"chaos ring resumed at "
+                                      f"{recs[1]['start_step']}, not 2")
+    check(all(os.path.exists(os.path.join(chaos, f".chaos_fired_0{i}"))
+              for i in (0, 1)), "chaos markers missing")
+    with open(os.path.join(chaos, "log.txt")) as f:
+        log = f.read()
+    check("walking back" in log and "resumed from step 2" in log,
+          "the chaos ring's log shows no walk-back past the corrupt step 4 "
+          "to step 2")
+    check(a["goodput"]["recompute_s"] > 0,
+          f"chaos ring recompute_s {a['goodput']['recompute_s']}")
+    check_side(a["side"], TOOL_STEPS - 2, "chaos ring attempt 1")
 
-        # (b) the uninterrupted twin with every tool armed
-        twin = os.path.join(work, "twin")
-        prof = os.path.join(work, "prof")
-        b = tool_run(twin, tool_argv(twin, (
-            "--trace", "true", "--cost_ledger", "true", "--sanitize", "true",
-            "--profile_dir", prof, "--profile_steps", "2:4")), "twin")
-        check([(r["rc"], r["end_step"]) for r in b["attempts"]] == [(0, 6)],
-              f"twin attempts {b['attempts']}")
-        check_side(b["side"], TOOL_STEPS, "twin")
-        pa, pb = params_of(torch, chaos), params_of(torch, twin)
-        differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
-        check(not differ, f"chaos ring's step-6 parameters differ from the "
-                          f"twin's: {differ[:5]}")
-        del pa, pb
-        kernels = profiler_kernel_events(prof)
-        fused = [n for n in kernels if FUSED_KERNEL in n]
-        check(len(fused) == 2, f"the profiler window (steps 2:4) names "
-                               f"{FUSED_KERNEL} {len(fused)} times")
-        with open(os.path.join(twin, "sanitize_report.json")) as f:
-            report = json.load(f)
-        check(report["violations"] == [],
-              f"sanitizer violations: {report['violations'][:3]}")
-        row = ledger_lib.read_ledger(twin)["programs"]["train_step"]
-        gap_sum = ledger_lib.gap_sum_identity(row)
-        check(abs(gap_sum - 1.0) <= 1e-9, f"ledger gaps sum to {gap_sum}")
-        logged = float(b["rows"][-1]["mfu"])
-        check(abs(row["mfu"] - logged) <= 1e-9 * logged,
-              f"ledger mfu {row['mfu']} vs logged {logged}")
-        events = trace_lib.read_trace(trace_lib.trace_path(twin, 0))
-        spans = sum(e["dur"] for e in events if e["name"] == "step")
-        with open(os.path.join(twin, "goodput_attempt000.json")) as f:
-            rec = json.load(f)
-        step_s = (rec["useful_step_s"] + rec["recompute_s"]
-                  + rec["data_stall_s"])
-        check(abs(spans - step_s) <= 0.02 * step_s,
-              f"step spans {spans} s vs goodput step time {step_s} s")
-        check([e["args"]["step"] for e in events if e["name"] == "step"]
-              == list(range(1, TOOL_STEPS + 1)), "twin's step spans")
-        compile_spans = [e["dur"] for e in events if e["name"] == "compile"]
-        check(len(compile_spans) == 1
-              and abs(compile_spans[0] - rec["compile_s"]) <= 1e-6,
-              f"compile spans {compile_spans} vs compile_s "
-              f"{rec['compile_s']}")
+    # (b) the uninterrupted twin with every tool armed; it saves once, at
+    # the end, so its laps overlap no background write
+    twin = os.path.join(work, "twin")
+    prof = os.path.join(work, "prof")
+    b = tool_run(twin, tool_argv(twin, (
+        "--trace", "true", "--cost_ledger", "true", "--sanitize", "true",
+        "--profile_dir", prof, "--profile_steps", "2:4",
+        "--save_interval", str(TOOL_STEPS))), "twin")
+    check([(r["rc"], r["end_step"]) for r in b["attempts"]] == [(0, 6)],
+          f"twin attempts {b['attempts']}")
+    check_side(b["side"], TOOL_STEPS, "twin")
+    pa, pb = params_of(torch, chaos), params_of(torch, twin)
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    check(not differ, f"chaos ring's step-6 parameters differ from the "
+                      f"twin's: {differ[:5]}")
+    del pa, pb
+    kernels = profiler_kernel_events(prof)
+    fused = [n for n in kernels if FUSED_KERNEL in n]
+    check(len(fused) == 2, f"the profiler window (steps 2:4) names "
+                           f"{FUSED_KERNEL} {len(fused)} times")
+    with open(os.path.join(twin, "sanitize_report.json")) as f:
+        report = json.load(f)
+    check(report["violations"] == [],
+          f"sanitizer violations: {report['violations'][:3]}")
+    row = ledger_lib.read_ledger(twin)["programs"]["train_step"]
+    gap_sum = ledger_lib.gap_sum_identity(row)
+    check(abs(gap_sum - 1.0) <= 1e-9, f"ledger gaps sum to {gap_sum}")
+    logged = float(b["rows"][-1]["mfu"])
+    check(abs(row["mfu"] - logged) <= 1e-9 * logged,
+          f"ledger mfu {row['mfu']} vs logged {logged}")
+    events = trace_lib.read_trace(trace_lib.trace_path(twin, 0))
+    spans = sum(e["dur"] for e in events if e["name"] == "step")
+    with open(os.path.join(twin, "goodput_attempt000.json")) as f:
+        rec = json.load(f)
+    step_s = (rec["useful_step_s"] + rec["recompute_s"]
+              + rec["data_stall_s"])
+    check(abs(spans - step_s) <= 0.02 * step_s,
+          f"step spans {spans} s vs goodput step time {step_s} s")
+    check([e["args"]["step"] for e in events if e["name"] == "step"]
+          == list(range(1, TOOL_STEPS + 1)), "twin's step spans")
+    compile_spans = [e["dur"] for e in events if e["name"] == "compile"]
+    check(len(compile_spans) == 1
+          and abs(compile_spans[0] - rec["compile_s"]) <= 1e-6,
+          f"compile spans {compile_spans} vs compile_s {rec['compile_s']}")
+    # the save in the background: its copy, then its wait at exit, one
+    # span each, summing to save_s
+    saves = b["side"]["saves"]
+    check([sv["step"] for sv in saves] == [TOOL_STEPS],
+          f"twin's saves {saves}")
+    save_spans = [e["dur"] for e in events if e["name"] == "save"]
+    check(len(save_spans) == 2 and abs(sum(save_spans) - rec["save_s"])
+          <= 1e-3 * rec["save_s"] + 1e-6,
+          f"save spans {save_spans} vs save_s {rec['save_s']}")
 
-        # (c) the watchdog kills a wedged attempt
-        hang = os.path.join(work, "hang")
-        c = tool_run(hang, tool_argv(hang, (
-            "--hang_timeout_s", str(TOOL_HANG_S),
-            "--hang_startup_timeout_s", "120")), "watchdog ring", plan=[
+    # (c) the watchdog kills a wedged attempt; this ring logs nothing
+    # (--log_interval 0): its history holds every step it ran
+    hang = os.path.join(work, "hang")
+    c = tool_run(hang, tool_argv(hang, (
+        "--hang_timeout_s", str(TOOL_HANG_S),
+        "--hang_startup_timeout_s", "120", "--log_interval", "0")),
+        "watchdog ring", plan=[
             {"kind": "stall_step", "step": 3, "seconds": 600, "rank": 0}])
-        hrecs = c["attempts"]
-        check(len(hrecs) == 2 and hrecs[0].get("hung") is True
-              and hrecs[0]["end_step"] == 3 and hrecs[1]["rc"] == 0
-              and hrecs[1]["end_step"] == TOOL_STEPS,
-              f"watchdog ring attempts {hrecs}")
-        check(TOOL_HANG_S <= hrecs[0]["hang_s"] <= TOOL_HANG_S + 5,
-              f"hang_s {hrecs[0]['hang_s']}, timeout {TOOL_HANG_S}")
-        check(c["goodput"]["hang_s"] == hrecs[0]["hang_s"],
-              f"the fold's hang_s {c['goodput']['hang_s']}")
-        check_side(c["side"], TOOL_STEPS - 2, "watchdog ring attempt 1")
+    hrecs = c["attempts"]
+    check(len(hrecs) == 2 and hrecs[0].get("hung") is True
+          and hrecs[0]["end_step"] == 3 and hrecs[1]["rc"] == 0
+          and hrecs[1]["end_step"] == TOOL_STEPS,
+          f"watchdog ring attempts {hrecs}")
+    check(TOOL_HANG_S <= hrecs[0]["hang_s"] <= TOOL_HANG_S + 5,
+          f"hang_s {hrecs[0]['hang_s']}, timeout {TOOL_HANG_S}")
+    check(c["goodput"]["hang_s"] == hrecs[0]["hang_s"],
+          f"the fold's hang_s {c['goodput']['hang_s']}")
+    check_side(c["side"], TOOL_STEPS - 2, "watchdog ring attempt 1")
+    # the twin's rows at --log_interval 1, each the step before its own,
+    # against the unlogged ring's history (the same steps from the same
+    # step-2 state: bitwise)
+    twin_logged = logged_losses(b["rows"])
+    hang_hist = {h["step"]: h["loss"] for h in c["side"]["history"]}
+    common = sorted(set(twin_logged) & set(hang_hist))
+    check(common == [3, 4, 5] and all(twin_logged[k] == hang_hist[k]
+                                      for k in common),
+          f"the twin's logged losses {twin_logged} differ from the "
+          f"--log_interval 0 ring's history {hang_hist}")
+    check(sorted(twin_logged) == list(range(1, TOOL_STEPS)),
+          f"the twin logged the losses of steps {sorted(twin_logged)}")
 
     def step_times_of(r: dict) -> list:
         return [float(row["step_time_s"]) for row in r["rows"]
@@ -3691,11 +3733,14 @@ def tooling_phase(torch) -> dict:
                   "goodput": fold_summary(a["goodput"]),
                   "launches": a["side"]["launches"],
                   # the same flags without the tools: the twin's yardstick
-                  "step_time_s": step_times_of(a), "wall_s": a["wall_s"]},
+                  "step_time_s": step_times_of(a),
+                  "saves": a["side"]["saves"], "wall_s": a["wall_s"]},
         "twin": {"attempts": [attempt_summary(r) for r in b["attempts"]],
                  "goodput": fold_summary(b["goodput"]),
                  "launches": b["side"]["launches"],
                  "step_time_s": step_times,
+                 "steady_lap_s": step_times[-1],
+                 "saves": saves,
                  "beacon_s_per_step": b["side"]["beacon_s_per_step"],
                  "stall_means": b["side"]["stall_means"],
                  "peak_memory_bytes": b["side"]["peak_memory_bytes"],
@@ -3706,22 +3751,32 @@ def tooling_phase(torch) -> dict:
                      "flops_per_execution", "host_stall_s_per_step",
                      "device_step_s", "padding_waste_frac")},
                  "step_spans_s": spans, "goodput_step_s": step_s,
+                 "logged_losses": twin_logged,
                  "profiler_fused_events": len(fused),
                  "profiler_kernel_events": len(kernels),
                  "sanitize_violations": 0, "wall_s": b["wall_s"]},
         "watchdog": {"attempts": [attempt_summary(r) for r in hrecs],
                      "goodput": fold_summary(c["goodput"]),
                      "launches": c["side"]["launches"],
-                     "step_time_s": step_times_of(c),
-                     "wall_s": c["wall_s"]},
-        "chaos_bitwise_twin": True})
+                     "history_losses": hang_hist,
+                     "saves": c["side"]["saves"], "wall_s": c["wall_s"]},
+        "chaos_bitwise_twin": True, "dirs": {
+            "chaos": chaos, "twin": twin, "hang": hang}})
     out["phase_s"] = time.perf_counter() - t0
+    for key, r in (("chaos", a), ("twin", b), ("watchdog", c)):
+        print(f"# training tooling {key} ({CARD}): save_s per save "
+              f"(copy + wait) " + ", ".join(
+                  f"step {sv['step']}: {sv['copy_s']:.4f} + "
+                  f"{sv['wait_s']:.4f} s" for sv in r["side"]["saves"]),
+              flush=True)
     print(f"# training tooling ({CARD}): chaos ring walked back to step 2 "
           f"and ended bitwise the twin's; goodput with the fault "
           f"{a['goodput']['goodput']:.4f}, twin {b['goodput']['goodput']:.4f}"
           f", watchdog ring {c['goodput']['goodput']:.4f} (hang_s "
-          f"{hrecs[0]['hang_s']}); twin step times {step_times}, the chaos "
-          f"ring's (no tool armed) {out['chaos']['step_time_s']}, beacon "
+          f"{hrecs[0]['hang_s']}); twin step times {step_times} (steady "
+          f"lap {step_times[-1]:.6f} s at --log_interval 1, the metrics "
+          f"one step in flight), the chaos ring's (no tool but the ledger "
+          f"armed) {out['chaos']['step_time_s']}, beacon "
           f"{b['side']['beacon_s_per_step']:.6f} s a step, peak "
           f"{b['side']['peak_memory_bytes']} B; walls "
           f"{a['wall_s']:.1f} / {b['wall_s']:.1f} / {c['wall_s']:.1f} s; "
@@ -3729,6 +3784,237 @@ def tooling_phase(torch) -> dict:
           flush=True)
     check(out["phase_s"] <= TOOL_BUDGET_S,
           f"phase 15 took {out['phase_s']:.1f} s, over {TOOL_BUDGET_S} s")
+    return out
+
+
+# ------------------------- MoE and --eval_decode under --sequence 2 (17)
+
+# the phase's wall budget: one run.train pair of GPT-2 base moe8 on two
+# sequence ranks and one --eval_decode pair of GPT-2 base, then the
+# one-process callback (98.6-124.2 s measured on the H100)
+SPM_BUDGET_S = 200.0
+
+
+def spm_argv(run: str, cfg: dict, steps: int, extra=()) -> list:
+    """GPT-2 base (or moe8) at seq 1024, batch 8 in microbatches of 4 (a
+    data group's rows), as phase 12."""
+    return (["--checkpoint_path", run, "--dataset", "synthetic-lm"]
+            + cfg_argv(cfg)
+            + ["--batch_size", "8", "--microbatch", "4",
+               "--learning_steps", str(steps), "--lr", "3e-4",
+               "--ema_rate", "0.9999", "--attention_impl", "auto",
+               "--fused_update", "auto", "--log_interval", "1",
+               "--save_interval", "0", "--seed", "0", *extra])
+
+
+def moe_sequence_phase(torch, one: dict) -> dict:
+    """Phase 17: GPT-2 base moe8 on two sequence ranks sharing ``cuda:0``
+    (gloo) against ``one``, phase 13's run of the same flags in one
+    process without a group (its losses and grad norms, 5 steps); then
+    ``--eval_decode``
+    on two sequence ranks, whose ``decode_acc`` (the first sequence rank
+    decodes, outside the ring) must equal the one-process callback's on
+    the step-2 weights."""
+    from distributed_pipeline_tpu_torch.config.train import parse_settings
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.run.train import eval_decode_callback
+    from distributed_pipeline_tpu_torch.utils.logger import Logger
+    from distributed_pipeline_tpu_torch.utils.trainer import TrainLoop
+    t0 = time.perf_counter()
+    layers, micro = GPT2_BASE["num_layers"], 2
+    per = layers * micro * MOE_STEPS
+    out: dict = {"steps": MOE_STEPS}
+    with tempfile.TemporaryDirectory() as work:
+        run = os.path.join(work, "moe8_sp2")
+        sp2 = dp_run(run, SP_FLAGS + spm_argv(run, GPT2_MOE8, MOE_STEPS),
+                     "moe8 sp2")
+        torch.cuda.empty_cache()
+        ranks = sp_ranks(sp2, "gpt2 moe8 sp2", [
+            {"flash_forward": per * n, "flash_backward": per * n,
+             "fused_adamw_ema": MOE_STEPS} for n in (1, 2)])
+        # held to the one process: every step's loss and the first step's
+        # grad norm (the same weights and batch, the arithmetic's rounding
+        # alone) within phase 12's bf16 bars; later grad norms are
+        # recorded, not held: a bf16 rounding difference flips a token's
+        # expert, which moves the capacity claims of the tokens after it
+        # and, over the steps, the gradient by more than rounding
+        held = held_to(sp2["steps"][:1], {k: one[k][:1] for k in (
+            "losses", "grad_norms")}, "gpt2 moe8 sp2 vs one process, step 1")
+        rel_loss = [abs(h["loss"] - x) / abs(x)
+                    for h, x in zip(sp2["steps"], one["losses"])]
+        check(len(rel_loss) == MOE_STEPS and max(rel_loss) <= 5e-3,
+              f"gpt2 moe8 sp2 losses {[h['loss'] for h in sp2['steps']]} "
+              f"vs one process {one['losses']}: relative {rel_loss}")
+        out["moe8"] = {
+            "one_process": {k: one[k] for k in (
+                "losses", "grad_norms", "moe_aux", "step_time_s")},
+            "sp2": {"losses": [h["loss"] for h in sp2["steps"]],
+                    "grad_norms": [h["grad_norm"] for h in sp2["steps"]],
+                    "moe_aux": [h["moe_aux"] for h in sp2["steps"]],
+                    "ranks": ranks},
+            "sp2_vs_one_step1_max_rel": held,
+            "sp2_vs_one_loss_rel": rel_loss,
+            "sp2_vs_one_grad_norm_rel": [
+                abs(h["grad_norm"] - x) / abs(x)
+                for h, x in zip(sp2["steps"], one["grad_norms"])],
+            "wall_s": sp2["wall_s"]}
+        # --eval_decode on two sequence ranks: the eval at step 2 lands in
+        # step 3's row; the step-2 weights are saved
+        run = os.path.join(work, "decode_sp2")
+        extra = ["--eval_decode", "true", "--eval_interval", "2",
+                 "--save_interval", "2"]
+        argv = spm_argv(run, GPT2_BASE, 3, extra)
+        dec = dp_run(run, SP_FLAGS + argv, "eval_decode sp2")
+        got = [float(row["decode_acc"]) for row in dec["rows"]
+               if row.get("decode_acc")]
+        check(len(got) == 1, f"eval_decode sp2 rows carry decode_acc "
+                             f"{got}")
+        args = parse_settings(argv)
+        model = create_model_from_config(
+            **{k: v for k, v in args.to_dict().items() if k != "device"},
+            device=torch.device("cuda"))
+        log = Logger("")
+        loop = TrainLoop(
+            model=model, data=None, batch_size=8, microbatch=4,
+            ema_rate="0.9999", checkpoint_dir="", logger=log,
+            init_params=torch.load(os.path.join(run, "model_000002.pt"),
+                                   weights_only=True))
+        loop.step = 2
+        eval_decode_callback(args)(loop)
+        want = log.dumpkvs()["decode_acc"]
+        del loop, model
+        torch.cuda.empty_cache()
+        check(got[0] == want, f"eval_decode sp2 decode_acc {got[0]} vs the "
+                              f"one-process callback's {want}")
+        out["eval_decode_sp2"] = {
+            "decode_acc": got[0], "one_process_decode_acc": want,
+            "ranks": [{k: side.get(k) for k in (
+                "rank", "sequence_index", "launches", "plain_calls",
+                "step_time_s")} for side in dec["ranks"]],
+            "wall_s": dec["wall_s"]}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# moe and eval_decode under --sequence 2 ({CARD}): moe8 sp2 vs "
+          f"one process: loss {out['moe8']['sp2_vs_one_loss_rel']}, grad "
+          f"norm {out['moe8']['sp2_vs_one_grad_norm_rel']}, moe_aux "
+          f"{out['moe8']['sp2']['moe_aux']}; eval_decode sp2 decode_acc "
+          f"{got[0]} == one process {want}; walls "
+          f"{out['moe8']['wall_s']:.1f} + {dec['wall_s']:.1f} s; phase "
+          f"{out['phase_s']:.1f} s of its {SPM_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= SPM_BUDGET_S,
+          f"phase 17 took {out['phase_s']:.1f} s, over {SPM_BUDGET_S} s")
+    return out
+
+
+# ------------------------------------------------- the run readers (16)
+
+READERS_BUDGET_S = 30.0
+
+
+def readers_phase(fleet: dict, tools: dict) -> dict:
+    """Phase 16: the port's run readers (``obs/export.py``,
+    ``run/status.py``, ``run/perf_report.py``, ``obs/regress.py``) on the
+    fleet dir phase 11 kept (the kill run) and the rings' run dirs of
+    phase 15; no new training."""
+    from distributed_pipeline_tpu_torch.chaos import goodput
+    from distributed_pipeline_tpu_torch.obs import export as export_lib
+    from distributed_pipeline_tpu_torch.obs import ledger as ledger_lib
+    from distributed_pipeline_tpu_torch.obs import regress
+    from distributed_pipeline_tpu_torch.obs.trace import read_trace
+    from distributed_pipeline_tpu_torch.run import perf_report
+    from distributed_pipeline_tpu_torch.run import status as status_lib
+    t0 = time.perf_counter()
+    dirs = tools["dirs"]
+    out: dict = {}
+    # the twin's Perfetto timeline: JSON with its step and save spans
+    trace = json.loads(json.dumps(export_lib.chrome_trace(dirs["twin"])))
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in spans]
+    check(names.count("step") == TOOL_STEPS and names.count("save") == 2,
+          f"the twin's timeline: {names.count('step')} step and "
+          f"{names.count('save')} save spans")
+    out["twin_trace_events"] = len(trace["traceEvents"])
+    # each ring's status gives the goodput fold's
+    out["status"] = {}
+    for key in ("chaos", "twin", "hang"):
+        snap = status_lib.status(dirs[key])
+        want = round(goodput.aggregate_run(dirs[key])["goodput"], 4)
+        check(snap["kind"] == "run" and snap["goodput"] == want
+              and snap["step"] == TOOL_STEPS,
+              f"status of the {key} ring: {snap}, goodput {want}")
+        status_lib.render(snap)
+        out["status"][key] = {k: snap.get(k) for k in (
+            "step", "attempts", "last_rc", "goodput", "accounted_frac",
+            "mfu")}
+    # the Prometheus snapshots parse
+    out["prometheus_lines"] = {}
+    for key, d in (("twin", dirs["twin"]), ("fleet", fleet["kept_dir"])):
+        lines = export_lib.prometheus_lines(d)
+        for line in lines:
+            if not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                float(value)
+                check(name[0].isalpha(), f"prometheus line {line!r}")
+        out["prometheus_lines"][key] = len(lines)
+    # the ledger report renders the train_step row
+    led = ledger_lib.read_ledger(dirs["twin"])
+    text = perf_report.render(led)
+    check("train_step" in text, "perf_report shows no train_step row")
+    # the sentinel over the chaos ring's and the twin's ledgers
+    hist = []
+    for key in ("chaos", "twin"):
+        row = ledger_lib.read_ledger(dirs[key])["programs"]["train_step"]
+        hist.append({"name": "train_step", "run_id": key, "mfu": row["mfu"],
+                     "tokens_per_sec_per_chip": row["tokens_per_s"],
+                     "recompile_count": 0})
+    cmp = regress.compare_runs(regress.group_runs(hist), baseline_runs=1)
+    leg = (cmp.get("legs") or {}).get("train_step") or {}
+    check(cmp["verdict"] in ("ok", "regressed")
+          and leg.get("verdict") in ("improved", "flat", "regressed"),
+          f"compare_runs: {cmp}")
+    regress.render_table(cmp)
+    out["compare_runs"] = {"verdict": cmp["verdict"],
+                           "legs": cmp.get("legs")}
+    # the fleet dir: its journal's counts are the fleet summary's
+    fdir = fleet["kept_dir"]
+    counts = export_lib.journal_counts(
+        read_trace(goodput.serving_journal_path(fdir)))
+    check((counts["completed"], counts["replayed"])
+          == (fleet["kept_counts"]["completed"],
+              fleet["kept_counts"]["replayed"]),
+          f"the fleet journal counts {counts['completed']} completed, "
+          f"{counts['replayed']} replayed; the summary "
+          f"{fleet['kept_counts']}")
+    ftrace = json.loads(json.dumps(export_lib.chrome_trace(fdir)))
+    fsnap = status_lib.status(fdir)
+    check(fsnap["kind"] == "fleet", f"status of the fleet dir: {fsnap}")
+    out["fleet"] = {"completed": counts["completed"],
+                    "replayed": counts["replayed"],
+                    "ttft_p50_s": counts["ttft_p50_s"],
+                    "ttft_p95_s": counts["ttft_p95_s"],
+                    "trace_events": len(ftrace["traceEvents"])}
+    # the CLIs as a user runs them
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    for argv in (["obs.export", dirs["twin"], "--out",
+                  os.path.join(dirs["twin"], "trace.json")],
+                 ["run.status", fdir, "--json"],
+                 ["run.perf_report", dirs["twin"], "--json"]):
+        mod = f"distributed_pipeline_tpu_torch.{argv[0]}"
+        res = subprocess.run([sys.executable, "-m", mod, *argv[1:]],
+                             cwd=repo, env=env, capture_output=True,
+                             text=True, timeout=60)
+        check(res.returncode == 0 and res.stdout.strip(),
+              f"{argv[0]} exited {res.returncode}: {res.stderr[-2000:]}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# run readers ({CARD}): twin timeline {out['twin_trace_events']}"
+          f" events; status goodput {json.dumps(out['status'])}; prometheus "
+          f"lines {out['prometheus_lines']}; compare_runs chaos -> twin "
+          f"{cmp['verdict']}; fleet journal {json.dumps(out['fleet'])}; "
+          f"phase {out['phase_s']:.1f} s", flush=True)
+    check(out["phase_s"] <= READERS_BUDGET_S,
+          f"phase 16 took {out['phase_s']:.1f} s, over {READERS_BUDGET_S} s")
     return out
 
 
@@ -3789,6 +4075,9 @@ def main() -> int:
         row.update({k: v for k, v in run.items() if k.startswith("serve_")})
     for row, key in zip(span, ("ngram_fp", "model_int8")):
         row["launches"] = spec[key]["span_kernel_launches"]
+    # the fleet dir of phase 11 and the rings of phase 15, for phase 16
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    atexit.register(shutil.rmtree, keep, True)
     with tempfile.TemporaryDirectory() as work:
         run = os.path.join(work, "gpt2_base_train")
         train = clocked("train", train_phase, torch, fa, fu, run)
@@ -3796,7 +4085,7 @@ def main() -> int:
             row["launches"] = train["launches"][row["name"]]
         gpt2 = clocked("gpt2 decoding and eval", gpt2_decode_phase, torch,
                        fa, fd, fu, run)
-        fleet = clocked("serving fleet", fleet_phase, torch, fd, run)
+        fleet = clocked("serving fleet", fleet_phase, torch, fd, run, keep)
     decode[0]["launches_gpt2_sample"] = gpt2["sample"][
         "decode_kernel_launches"]
     # phase 11: each replica's launches (read from its sidecar) and the
@@ -3835,7 +4124,24 @@ def main() -> int:
         for key in ("no_remat", "remat"):
             row[f"launches_moe_gpt2_{key}"] = moe["gpt2_moe8"][key][
                 "launches"][row["name"]]
-    tools = clocked("training tooling", tooling_phase, torch)
+    tools = clocked("training tooling", tooling_phase, torch,
+                    os.path.join(keep, "tooling"))
+    readers = clocked("run readers", readers_phase, fleet, tools)
+    shutil.rmtree(keep, ignore_errors=True)
+    spm = clocked("moe and eval_decode under --sequence 2",
+                  moe_sequence_phase, torch, moe["gpt2_moe8"]["no_remat"])
+    # phase 17: each rank's launches of the moe8 sp2 run
+    for row in flash:
+        row["launches_moe_sp2"] = [r["launches"][row["name"]] for r in
+                                   spm["moe8"]["sp2"]["ranks"]]
+    update_moe["launches_moe_sp2"] = [r["launches"]["fused_adamw_ema"]
+                                      for r in spm["moe8"]["sp2"]["ranks"]]
+    lse_row["launches_moe_sp2"] = [r["lse_backward_launches"]
+                                   for r in spm["moe8"]["sp2"]["ranks"]]
+    for row in (*flash, update):
+        row["launches_eval_decode_sp2"] = [
+            r["launches"][row["name"]] for r in
+            spm["eval_decode_sp2"]["ranks"]]
     # phase 15: the finished attempts' launches, read from their sidecars
     update_dq["launches_tooling"] = {
         key: tools[key]["launches"]["fused_adamw_ema"]
@@ -3860,6 +4166,8 @@ def main() -> int:
     print(json.dumps({"moe_remat": moe}), flush=True)
     print(json.dumps({"sequence_parallel": sp}), flush=True)
     print(json.dumps({"training_tooling": tools}), flush=True)
+    print(json.dumps({"run_readers": readers}), flush=True)
+    print(json.dumps({"moe_eval_decode_sequence": spm}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,

@@ -22,6 +22,7 @@ from .goodput import (
     beacon_path,
     goodput_record_path,
     list_replica_dirs,
+    list_stage_dirs,
     read_attempts,
     read_beacons,
     read_goodput_records,
@@ -31,6 +32,8 @@ from .goodput import (
     replica_id,
     serving_journal_path,
     serving_record_path,
+    stage_dir,
+    stage_id,
 )
 from .inject import (ChaosInjector, corrupt_checkpoint_payload,
                      corrupt_newest_checkpoint)
@@ -44,5 +47,6 @@ __all__ = [
     "read_goodput_records", "aggregate_run",
     "aggregate_serving", "list_replica_dirs", "read_journal",
     "read_serving_records", "replica_dir", "replica_id",
-    "serving_journal_path", "serving_record_path",
+    "serving_journal_path", "serving_record_path", "list_stage_dirs",
+    "stage_dir", "stage_id",
 ]

@@ -185,6 +185,32 @@ def replica_id(replica_dir_path: str) -> int:
     return int(m.group(1))
 
 
+_STAGE_RE = re.compile(r"stage_(\d+)$")
+
+
+def stage_dir(run_dir: str, stage: int) -> str:
+    """One MPMD pipeline stage's run dir inside a pipeline run dir (the
+    stage-side twin of :func:`replica_dir`). The port writes none until
+    ROADMAP A.9; the readers (``run/status.py``, ``obs/export.py``) look
+    for them already."""
+    return os.path.join(run_dir, f"stage_{stage}")
+
+
+def list_stage_dirs(run_dir: str) -> List[str]:
+    out = []
+    for path in glob.glob(os.path.join(run_dir, "stage_*")):
+        if _STAGE_RE.search(path) and os.path.isdir(path):
+            out.append(path)
+    return sorted(out, key=stage_id)
+
+
+def stage_id(stage_dir_path: str) -> int:
+    m = _STAGE_RE.search(stage_dir_path)
+    if m is None:
+        raise ValueError(f"not a stage dir: {stage_dir_path!r}")
+    return int(m.group(1))
+
+
 def serving_journal_path(fleet_dir: str) -> str:
     """The router's durable request journal (append-only JSONL)."""
     return os.path.join(fleet_dir, "journal.jsonl")

@@ -165,6 +165,10 @@ class ChaosInjector:
                                      "stall_step")):
             self._mark_fired(idx, fault)
             if fault.kind == "corrupt_checkpoint":
+                # the newest checkpoint is the one the loop last saved:
+                # its background write lands first, so the victim does not
+                # depend on the writer's timing
+                loop.wait_for_saves()
                 victim = corrupt_newest_checkpoint(
                     self.run_dir or loop.checkpoint_dir)
                 print(f"[chaos] rank {self.rank}: corrupted checkpoint "
@@ -202,18 +206,22 @@ class ChaosInjector:
         return stalled
 
     def on_save(self, loop) -> None:
-        """Right after the checkpoint of step ``loop.step`` is written:
-        crash_in_save faults remove that step's meta (its commit marker)
-        and SIGKILL the process, leaving the torn step — payload without
-        meta — that resume must skip."""
+        """Right after the checkpoint of step ``loop.step`` is scheduled:
+        crash_in_save faults leave that step torn — its payload files
+        written, its meta (the commit marker) absent, whatever the writer
+        thread's timing (``loop.tear_save``) — and SIGKILL the process;
+        resume must skip the step."""
         for idx, fault in self._due(loop.step, ("crash_in_save",)):
             self._mark_fired(idx, fault)
-            meta = _meta_path(self.run_dir or loop.checkpoint_dir,
-                              loop.step)
-            try:
-                os.remove(meta)
-            except OSError:
-                pass  # not written by this rank's save: torn already
+            if not loop.tear_save():
+                # no save of this rank's in flight: drop the meta if the
+                # writing rank has committed it
+                meta = _meta_path(self.run_dir or loop.checkpoint_dir,
+                                  loop.step)
+                try:
+                    os.remove(meta)
+                except OSError:
+                    pass  # torn already
             print(f"[chaos] rank {self.rank}: SIGKILL mid-save at step "
                   f"{fault.step}", file=sys.stderr, flush=True)
             os.kill(os.getpid(), signal.SIGKILL)

@@ -233,21 +233,11 @@ class TrainSettings:
         if self.moe_experts > 0 and self.moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got "
                              f"{self.moe_every}")
-        if self.sequence > 1 and self.moe_experts > 0:
-            raise ValueError("--moe_experts with --sequence > 1 is not "
-                             "trained by this port yet: an expert's "
-                             "capacity claims are positional over the "
-                             "global sequence (ROADMAP A.8e)")
         if self.sequence > 1 and self.attention_impl not in ("auto", "ring"):
             raise ValueError(f"--attention_impl {self.attention_impl} with "
                              f"--sequence > 1: each rank holds an "
                              f"L/sequence slice, and only the ring ('auto' "
                              f"or 'ring') attends across the slices")
-        if self.sequence > 1 and self.eval_decode:
-            raise ValueError("--eval_decode with --sequence > 1 is not "
-                             "trained by this port yet: the decode "
-                             "callback runs the whole sequence on one rank "
-                             "(ROADMAP A.8f)")
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if self.sequence < 1 or world % self.sequence:
             raise ValueError(f"--sequence {self.sequence} must divide the "

@@ -18,6 +18,16 @@ The JAX formulation (GShard / Switch Transformer), written with torch ops:
   aux from them (:func:`moe_aux`), from the GLOBAL batch's counts under a
   process group, and add ``MOE_AUX_WEIGHT * aux`` to the objective.
 
+**Under sequence parallelism** (a ``parallel/ring.py`` sequence context
+of S ranks, each holding an L/S slice) the routing is the JAX function's
+over the GLOBAL sequence: the capacity takes the global ``L`` (the slice
+length times S), and the position-major cumsum of a row's claims starts
+from the claims of the slices before this rank, per batch row and
+expert: one ``[B, E]`` all-gather of the slices' claim counts over the
+sequence group a block (no gradient), which every rank of the group
+issues, a slice with no live token too. The load-balance statistics are
+summed over all ranks by the trainer (``GlobalMoEStats``).
+
 ``no_drop=True`` (inference: ``models/sampling.py`` and the serving
 engine pass it) computes the exact per-token top-k mixture over all
 experts, which makes cached and uncached decoding give the same tokens.
@@ -34,6 +44,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import dist
+from ..parallel.ring import current_sequence
 
 __all__ = ["MoEMlp", "moe_mlp_fwd", "moe_aux", "moe_live_count",
            "GlobalMoEStats", "MOE_AUX_WEIGHT", "MoEStats"]
@@ -61,11 +74,15 @@ def moe_mlp_fwd(mp: Dict[str, torch.Tensor], x: torch.Tensor,
     sums ``(F [E], P [E], n)`` in place of the finished aux, so a caller
     can sum them over ranks before forming ``E * sum_e (F/n)(P/n)``; only
     ``P`` is differentiable. ``dispatch`` is the ``[B, L, E, C]`` one-hot
-    routing plan in ``x``'s dtype (None under ``no_drop``)."""
+    routing plan in ``x``'s dtype (None under ``no_drop``); in a sequence
+    context, this rank's L slice of the global plan."""
     B, L, D = x.shape
     E = mp["wi"].shape[0]
     K = min(top_k, E)
-    C = max(1, math.ceil(L / E * capacity_factor * K))
+    seq = None if no_drop else current_sequence()
+    S = seq.size if seq is not None else 1
+    # the capacity is the global sequence's
+    C = max(1, math.ceil(L * S / E * capacity_factor * K))
     router_w, wi, wo = mp["router"], mp["wi"], mp["wo"]
 
     # router in f32 (a small op; the softmax statistics want the precision)
@@ -112,6 +129,12 @@ def moe_mlp_fwd(mp: Dict[str, torch.Tensor], x: torch.Tensor,
     # so slot occupancy at position j counts only claims from positions <= j
     claims = torch.stack(masks, dim=2).reshape(B, L * K, E)
     pos = torch.cumsum(claims, dim=1) - claims           # [B, L*K, E]
+    if S > 1:
+        # the slices before this rank's claim first: each row's claims
+        # per expert from every slice ([S, B, E]), summed over the
+        # earlier ones
+        counts = dist.sequence_all_gather(claims.sum(dim=1), seq)
+        pos = pos + counts[:seq.index].sum(dim=0)[:, None, :]
     keep_flat = claims * (pos < C)
     slot_idx = (pos * keep_flat).sum(-1).long()
     slot_flat = _one_hot(slot_idx, C)

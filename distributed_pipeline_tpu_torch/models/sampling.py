@@ -37,6 +37,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel import dist
+from ..utils.perf import sync_allowed
 from .backbone import DenseKV
 from .diffuseq import DiffuSeqModel, seeded_generator
 from .gpt2 import GPT2Model
@@ -320,10 +322,32 @@ def make_decode_callback(data: Iterator[Dict[str, np.ndarray]],
     EMA row; the training parameters are not touched). DiffuSeq samples
     ``sample_steps`` reverse steps with noise seeded from the step; GPT-2
     decodes greedily after ``prompt_len`` (default seq_len/2). The model
-    is back in its own mode after, and no gradient is taken."""
+    is back in its own mode after, and no gradient is taken.
+
+    Under sequence parallelism (``loop.seq.size`` > 1) the callback runs
+    outside the ring: each data group's first sequence rank decodes the
+    full sequence from its replicated weights, as one process would, while
+    the group's other ranks log the key absent (the logger's mean over the
+    ranks then carries the decoding ranks' value) and every rank meets at
+    a barrier."""
     cache: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def callback(loop) -> None:
+        seq = loop.seq
+        if seq.size > 1:
+            key = (f"decode_acc_ema_{use_ema}"
+                   if use_ema and use_ema in loop.ema_rates
+                   else "decode_acc")
+            if seq.index == 0:
+                decode(loop)
+            else:
+                loop.logger.logkv_absent(key)
+            with sync_allowed(loop.device):
+                dist.barrier("eval_decode")
+            return
+        decode(loop)
+
+    def decode(loop) -> None:
         if "batch" not in cache:
             cache["batch"] = {k: torch.from_numpy(np.asarray(v)).to(
                 loop.device) for k, v in next(data).items()}

@@ -10,7 +10,7 @@ _DIST_NAMES = ("barrier", "broadcast", "dev", "device_count", "get_rank",
                "get_world_size", "is_available", "is_initialized",
                "setup_dist", "sync_params", "all_reduce",
                "all_gather_object", "backend", "SequenceGroups",
-               "sequence_groups", "ring_shift")
+               "sequence_groups", "ring_shift", "sequence_all_gather")
 
 __all__ = ["AUTORUN_ENV_FLAG", "find_free_port", "parse_and_autorun",
            "parse_distributed_args", "run_argv_as_distributed",

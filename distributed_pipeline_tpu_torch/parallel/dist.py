@@ -270,6 +270,23 @@ def ring_shift(tensors: Sequence[torch.Tensor], seq: SequenceGroups,
     return recv
 
 
+def sequence_all_gather(tensor: torch.Tensor, seq: SequenceGroups
+                        ) -> torch.Tensor:
+    """``[size, *tensor.shape]``: every rank of this rank's sequence group's
+    ``tensor``, by sequence index (no gradient). Under gloo a CUDA tensor
+    goes through a host buffer, as ``ring_shift``'s do."""
+    t = tensor.detach().contiguous()
+    stage = backend() == "gloo" and t.device.type == "cuda"
+    with _host_staged(t.device):
+        src = t.cpu() if stage else t
+        parts = [torch.empty_like(src) for _ in range(seq.size)]
+        tdist.all_gather(parts, src, group=seq.group)
+        out = torch.stack(parts)
+        if stage:
+            out = out.to(t.device)
+    return out
+
+
 def ring_shift_bytes() -> int:
     """Bytes this process has sent through ``ring_shift``."""
     return _state["shift_bytes"]

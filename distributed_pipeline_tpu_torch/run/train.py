@@ -29,8 +29,9 @@ fast-forwarded past the global samples the checkpoint consumed ->
 for rank r > 0): the rank's backend, device, kernel launches and plain
 calls, all-reduce and ring-shift seconds, its (data index, sequence
 index, sequence size), throughput, peak device memory, the beacon's
-seconds a step, the stall gauges' means and the SHA-256 of its final flat
-parameters (equal on every rank of a healthy ring).
+seconds a step, the stall gauges' means, each save's copy and wait
+seconds, the metrics of its newest 1000 steps and the SHA-256 of its
+final flat parameters (equal on every rank of a healthy ring).
 
 The training tooling rides the same path, as in the JAX entry point: a
 chaos plan from ``DPT_CHAOS_PLAN`` or ``--chaos_plan`` (every rank's
@@ -51,7 +52,7 @@ import hashlib
 import json
 import os
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,7 +69,11 @@ from ..utils.device import resolve_device
 from ..utils.logger import Logger, distributed_mean_comm
 from ..utils.trainer import TrainLoop
 
-__all__ = ["main", "train", "resolve_run_dir", "resume_sample_position"]
+__all__ = ["main", "train", "resolve_run_dir", "resume_sample_position",
+           "eval_decode_callback"]
+
+# the steps of history a sidecar keeps
+SIDECAR_HISTORY = 1000
 
 
 def resolve_run_dir(args: TrainSettings) -> str:
@@ -137,6 +142,11 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            "beacon_s_per_step": loop.beacon_s / max(
                loop.step - loop.start_step, 1),
            "stall_means": loop.stalls.totals(),
+           # each save's copy and wait seconds, and the metrics of the
+           # newest steps this attempt ran (the rows a log interval dumps
+           # trail them by dispatch_lag)
+           "saves": loop.save_times,
+           "history": loop.history[-SIDECAR_HISTORY:],
            "params_sha256": hashlib.sha256(
                loop.params.cpu().numpy().tobytes()).hexdigest()}
     suffix = f"-rank{loop.rank:03d}" if loop.rank > 0 else ""
@@ -144,6 +154,20 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
     with open(path + ".tmp", "w") as f:
         json.dump(out, f, indent=1)
     os.replace(path + ".tmp", path)
+
+
+def eval_decode_callback(args: TrainSettings) -> Callable[[TrainLoop], None]:
+    """``--eval_decode``'s callback: one held-out batch of at most 32 rows
+    (every rank, and every run with the same data flags, decodes the same
+    one), decoded as ``make_decode_callback`` does."""
+    settings = {k: v for k, v in args.to_dict().items() if k != "device"}
+    decode_data = load_data_from_args(
+        "valid", **{**settings, "deterministic": True,
+                    "batch_size": min(args.batch_size, 32),
+                    "num_loader_proc": 0, "data_loader_workers": 0,
+                    "host_sharded": False})
+    return make_decode_callback(decode_data,
+                                sample_steps=args.eval_decode_sample_steps)
 
 
 def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
@@ -176,16 +200,7 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
                               run_dir=run_dir)
         logger.info(f"chaos plan armed: {chaos.plan.describe()}")
     model = create_model_from_config(**settings, device=device)
-    eval_callbacks = []
-    if args.eval_decode:
-        # every rank decodes the same batch, so the logged key sets agree
-        decode_data = load_data_from_args(
-            "valid", **{**settings, "deterministic": True,
-                        "batch_size": min(args.batch_size, 32),
-                        "num_loader_proc": 0, "data_loader_workers": 0,
-                        "host_sharded": False})
-        eval_callbacks.append(make_decode_callback(
-            decode_data, sample_steps=args.eval_decode_sample_steps))
+    eval_callbacks = [eval_decode_callback(args)] if args.eval_decode else []
     loop = TrainLoop(
         model=model, data=None, batch_size=args.batch_size,
         microbatch=args.microbatch, lr=args.lr, ema_rate=args.ema_rate,

@@ -15,6 +15,14 @@ package writes them) and, per saved step, the JAX package's file names:
 Under several processes rank 0 alone writes and prunes, and every rank
 passes a barrier after it (``TrainLoop.save``).
 
+:class:`AsyncSaver` is the JAX package's saver on this format: the
+device-to-host copy runs in the caller (the next step may overwrite the
+flat buffers), one writer thread runs ``torch.save`` and the rename of
+each file, meta last, and at most one save is in flight. ``wait()`` (before
+the next save, before a prune, at exit) joins it and raises the writer's
+error, if any; until then the step sits in an in-flight registry that
+keeps :func:`prune_checkpoints` off it.
+
 Every file is written to a temporary name and renamed, and the meta file
 last, so a step is finalized when its meta file exists (the meta plays
 the JAX package's commit marker). Resume (:func:`restore_resume_state`,
@@ -31,13 +39,14 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 __all__ = ["parse_step_from_name", "find_resume_checkpoint", "save_run",
-           "save_checkpoint", "finalized_steps", "restore_resume_state",
-           "prune_checkpoints"]
+           "save_checkpoint", "AsyncSaver", "in_flight_steps",
+           "finalized_steps", "restore_resume_state", "prune_checkpoints"]
 
 _STEP_RE = re.compile(r"model_(\d+)\.pt$")
 _META_RE = re.compile(r"meta_(\d+)\.json$")
@@ -91,22 +100,119 @@ def _paths(run_dir: str, step: int, ema_rates: Sequence[str]) -> dict:
                     for r in ema_rates}}
 
 
+# saves scheduled by this process and not yet durable: {(abs dir, step)}
+_IN_FLIGHT: set = set()
+
+
+def in_flight_steps(run_dir: str) -> set:
+    """The steps of ``run_dir`` whose save this process has scheduled and
+    not yet seen finish."""
+    key = os.path.abspath(run_dir)
+    return {s for d, s in _IN_FLIGHT if d == key}
+
+
+class AsyncSaver:
+    """At most one checkpoint save in flight, overlapping training.
+
+    ``save`` waits for the previous save, copies every tensor to the host
+    in the caller, registers the step as in flight and starts one writer
+    thread that writes the model, EMA and optimizer files and then the meta
+    file (the commit marker). ``wait()`` joins the writer, takes the step
+    off the registry and raises the writer's error, if there was one.
+    ``tear()`` is ``crash_in_save``'s: the payload files written, the meta
+    left unwritten (or removed), whatever the writer's timing."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._key: Optional[tuple] = None
+        self._meta_path = ""
+        self._lock = threading.Lock()
+        self._torn = False
+
+    @property
+    def in_flight(self) -> bool:
+        return self._thread is not None
+
+    def save(self, run_dir: str, step: int,
+             params: Mapping[str, torch.Tensor],
+             ema: Mapping[str, Mapping[str, torch.Tensor]],
+             opt: Mapping[str, Any], meta: Mapping[str, Any],
+             wait: bool = False) -> None:
+        """Schedule one step's model, EMA, optimizer and meta files (meta
+        last); ``wait=True`` returns once they are durable."""
+        self.wait()
+        os.makedirs(run_dir, exist_ok=True)
+        p = _paths(run_dir, step, list(ema))
+        jobs = [(_cpu_copy(params), p["model"])]
+        jobs += [(_cpu_copy(state), p["ema"][rate])
+                 for rate, state in ema.items()]
+        jobs.append(({"mu": _cpu_copy(opt["mu"]), "nu": _cpu_copy(opt["nu"]),
+                      "count": int(opt["count"])}, p["opt"]))
+        self._key = (os.path.abspath(run_dir), step)
+        _IN_FLIGHT.add(self._key)
+        self._meta_path, self._torn = p["meta"], False
+        self._thread = threading.Thread(
+            target=self._write, args=(jobs, {"step": step, **meta}),
+            name=f"ckpt-save-{step}", daemon=True)
+        self._thread.start()
+        if wait:
+            self.wait()
+
+    def _write(self, jobs: list, meta: dict) -> None:
+        try:
+            for obj, path in jobs:
+                _save(obj, path)
+            jobs.clear()
+            with self._lock:
+                if not self._torn:
+                    _write_meta(self._meta_path, meta)
+        except BaseException as e:  # raised at the next wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Block until the save in flight, if any, is durable; raise its
+        writer's error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._key is not None:
+            _IN_FLIGHT.discard(self._key)
+            self._key = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def tear(self) -> bool:
+        """Leave the save in flight torn: its payload files written, its
+        meta file absent. Returns False when no save was in flight."""
+        if self._thread is None:
+            return False
+        with self._lock:
+            self._torn = True
+        meta_path = self._meta_path
+        self.wait()
+        try:  # the writer may have committed before the flag was set
+            os.remove(meta_path)
+        except OSError:
+            pass
+        return True
+
+
+def _write_meta(path: str, meta: Mapping[str, Any]) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(dict(meta), f)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(run_dir: str, step: int,
                     params: Mapping[str, torch.Tensor],
                     ema: Mapping[str, Mapping[str, torch.Tensor]],
                     opt: Mapping[str, Any], meta: Mapping[str, Any]) -> None:
-    """One step's model, EMA, optimizer and meta files (meta last)."""
-    os.makedirs(run_dir, exist_ok=True)
-    p = _paths(run_dir, step, list(ema))
-    _save(_cpu_copy(params), p["model"])
-    for rate, state in ema.items():
-        _save(_cpu_copy(state), p["ema"][rate])
-    _save({"mu": _cpu_copy(opt["mu"]), "nu": _cpu_copy(opt["nu"]),
-           "count": int(opt["count"])}, p["opt"])
-    tmp = p["meta"] + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump({"step": step, **meta}, f)
-    os.replace(tmp, p["meta"])
+    """One step's model, EMA, optimizer and meta files (meta last),
+    durable on return."""
+    AsyncSaver().save(run_dir, step, params, ema, opt, meta, wait=True)
 
 
 def finalized_steps(run_dir: str) -> List[int]:
@@ -216,13 +322,16 @@ def prune_checkpoints(run_dir: str, keep: int) -> List[int]:
     counts once its meta file, written last, exists): model, every EMA
     rate, opt and meta go together, as the JAX package's
     ``prune_checkpoints`` prunes a step's model and companions. Files of a
-    step without its meta (a save in progress or torn) are left alone.
+    step without its meta (a save in progress or torn), and a step whose
+    save this process has in flight, are neither counted nor touched.
     Returns the pruned steps; ``keep <= 0`` prunes nothing."""
     if keep <= 0 or not os.path.isdir(run_dir):
         return []
     names = os.listdir(run_dir)
-    steps = sorted(int(m.group(1)) for m in map(_META_RE.search, names)
-                   if m)
+    inflight = in_flight_steps(run_dir)
+    steps = sorted(s for s in (int(m.group(1)) for m in
+                               map(_META_RE.search, names) if m)
+                   if s not in inflight)
     doomed = set(steps[:-keep])
     # meta first: a step whose deletion is cut short is already incomplete,
     # so resume never picks it

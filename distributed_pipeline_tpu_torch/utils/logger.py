@@ -59,7 +59,8 @@ def distributed_mean_comm() -> Comm:
         keys = sorted(k for k, v in d.items()
                       if isinstance(v, (int, float)) and not
                       isinstance(v, bool))
-        cnt = [float(counts.get(k, 1) or 1) for k in keys]
+        # a key logged with logkv counts 1, one logged absent 0
+        cnt = [float(counts.get(k, 1)) for k in keys]
         mine = (zlib.crc32(",".join(keys).encode()), len(keys),
                 [float(d[k]) * c for k, c in zip(keys, cnt)], cnt)
         rows = dist.all_gather_object(mine)
@@ -90,6 +91,7 @@ class Logger:
         self.comm = comm
         self._vals: Dict[str, Any] = {}
         self._means: Dict[str, List[float]] = defaultdict(list)
+        self._absent: set = set()
         self._text: List[IO] = [sys.stdout] if stdout else []
         self._csv: Optional[IO] = None
         self._csv_keys: List[str] = []
@@ -119,6 +121,13 @@ class Logger:
         for k, v in d.items():
             self.logkv_mean(k, v)
 
+    def logkv_absent(self, key: str) -> None:
+        """This rank has no value for ``key`` in the next row, which other
+        ranks log: it joins the row's key set with weight 0 in the ranks'
+        mean (``distributed_mean_comm``), so the row carries the others'
+        value. Without a comm the key is left out of the row."""
+        self._absent.add(key)
+
     def dumpkvs(self) -> Dict[str, Any]:
         """Write the merged row (through ``comm`` when set) to every sink
         and clear it; returns it. Under a comm every rank must dump
@@ -126,9 +135,13 @@ class Logger:
         d = dict(self._vals)
         d.update({k: sum(v) / len(v) for k, v in self._means.items() if v})
         counts = {k: len(v) for k, v in self._means.items() if v}
+        absent = self._absent - set(d)
         self._vals.clear()
         self._means.clear()
+        self._absent.clear()
         if self.comm is not None:
+            d.update({k: 0.0 for k in absent})
+            counts.update({k: 0 for k in absent})
             d = self.comm(d, counts)
         if not d:
             return d

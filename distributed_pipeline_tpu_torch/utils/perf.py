@@ -125,12 +125,15 @@ class StepTimer:
 
 class EventTimer:
     """Seconds and calls of one kind of timed call (a collective): CUDA
-    events around each call on the current stream, read at ``drain()`` so
-    the call waits for nothing, or the host's clock on the CPU."""
+    events around each call on the current stream, read later so the call
+    waits for nothing, or the host's clock on the CPU. ``seconds`` sums
+    the ``drained`` calls: ``poll()`` adds the pairs that have completed
+    and keeps the rest (no wait), ``drain()`` waits for every pair."""
 
     def __init__(self) -> None:
         self.seconds = 0.0
         self.calls = 0
+        self.drained = 0
         self._events: List[tuple] = []
 
     @contextlib.contextmanager
@@ -147,14 +150,34 @@ class EventTimer:
             t0 = time.perf_counter()
             yield
             self.seconds += time.perf_counter() - t0
+            self.drained += 1
         self.calls += 1
 
+    def poll(self) -> None:
+        """Add the completed pairs' times into ``seconds``, oldest first,
+        up to the first pair still pending; never waits."""
+        done = 0
+        for start, end in self._events:
+            if not end.query():
+                break
+            self.seconds += start.elapsed_time(end) / 1e3
+            done += 1
+        del self._events[:done]
+        self.drained += done
+
     def drain(self) -> None:
-        """Add the recorded event pairs' times into ``seconds``."""
+        """Add every recorded pair's time into ``seconds``, waiting for
+        the pending ones."""
         for start, end in self._events:
             end.synchronize()
             self.seconds += start.elapsed_time(end) / 1e3
+        self.drained += len(self._events)
         self._events.clear()
+
+    @property
+    def seconds_per_call(self) -> float:
+        """The mean over the drained calls (0 before any)."""
+        return self.seconds / self.drained if self.drained else 0.0
 
 
 class EventStats:

@@ -26,7 +26,10 @@ into it in place), the Adam moments ``mu``/``nu``, and the EMA copies as one
 step count and the ``(-lr, bc1, bc2)`` scalars stay device tensors, so the
 host never waits on a step: metric scalars are fetched ``dispatch_lag``
 steps late (all of one step in one copy), and flushed at eval, save and
-exit.
+exit. A log interval dumps the rows fetched so far and leaves the newest
+``dispatch_lag`` steps in flight, as the JAX trainer does; the
+all-reduce's and the ring's event pairs are read there only once they
+have completed (``EventTimer.poll``).
 
 ``run_loop`` logs every ``log_interval`` steps (the step's metrics plus
 ``steps_per_sec``, ``tokens_per_sec``, ``tokens_per_sec_per_chip``,
@@ -34,7 +37,12 @@ exit.
 the footprint gauges), evaluates every ``eval_interval`` (then runs each
 of ``eval_callbacks`` with the loop, as the JAX trainer does), saves every
 ``save_interval`` and once more at the end, keeping the newest
-``keep_checkpoints`` steps when that is > 0. ``prefetch_depth`` > 0 feeds
+``keep_checkpoints`` steps when that is > 0. The loop's saves run in the
+background (``utils/checkpoint.AsyncSaver``, the JAX trainer's
+``save(wait=False)``): the device-to-host copy in the step loop, the files
+on one writer thread, meta last; the loop waits for a save before the
+next one, before pruning and at exit (also when it raises), and a
+direct ``save()`` waits by default. ``prefetch_depth`` > 0 feeds
 the step from ``data/device_prefetch.py`` (batches copied to the device
 ahead of the step that reads them); ``debug_nans`` checks each step's
 metrics, gradients and parameters on the host and raises
@@ -48,9 +56,11 @@ The training tooling (the JAX trainer's):
   and compile is ``setup_s``; the resume, walk-back included, is
   ``restore_s``; ``compile_s`` is the first use of the kernel library on
   a GPU (``ops/_build.py``: the nvcc build on a cold tree, the load on a
-  warm one); saves are ``save_s``; the ``StallBreakdown``'s data and
-  copy waits are ``data_stall_s``; steps up to ``recompute_until_step``
-  (an earlier attempt's, from the beacons) are ``recompute_s``. A step's
+  warm one); a save's copy and scheduling, and each wait for a save in
+  flight, are ``save_s`` (``save_times`` keeps both parts a save); the
+  ``StallBreakdown``'s data and copy waits are ``data_stall_s``; steps
+  up to ``recompute_until_step`` (an earlier attempt's, from the
+  beacons) are ``recompute_s``. A step's
   slice is the wall time from the previous step's end to its own, less
   the saves between them;
 * **beacons**: every rank atomically replaces ``progress_file`` every
@@ -60,15 +70,18 @@ The training tooling (the JAX trainer's):
   writes ``goodput_attempt{A:03d}.json`` at a clean exit;
 * **chaos** (``chaos/inject.py``): ``on_step`` at the top of
   ``run_step``, ``on_data`` before each batch pull (its seconds are
-  ``data_wait_s``), ``on_save`` right after a save;
+  ``data_wait_s``), ``on_save`` right after a save is scheduled
+  (``crash_in_save`` tears the save in flight through ``tear_save``);
 * **spans** (``obs/trace.py``, armed by ``trace`` or ``DPT_TRACE``):
-  ``restore``, ``compile``, ``step``, ``eval`` and ``save``, booked from
+  ``restore``, ``compile``, ``step``, ``eval`` and ``save`` (one for a
+  save's copy and scheduling, one for each wait), booked from
   the seconds the goodput tracker gets, so the step spans sum to the
   step slices;
 * **cost ledger** (``cost_ledger``): each log window computes the
   ``train_step`` row (``obs/ledger.TrainCensus`` through
   ``roofline_attribution``, over the window's rate and stall means), logs
-  its gap terms and replaces ``perf_ledger.json``; once more at exit;
+  its gap terms and replaces ``perf_ledger.json`` (whose ``step`` is the
+  newest step whose metrics were logged); once more at exit;
 * **profiler window** (``profile_dir``): ``torch.profiler`` (CPU and
   CUDA activity) over loop steps ``[3, 8)`` or ``profile_steps`` "A:B",
   written by ``tensorboard_trace_handler`` into ``profile_dir``, flushed
@@ -282,6 +295,10 @@ class TrainLoop:
         self.beacon_s = 0.0     # seconds spent writing beacons
         self.tracer = trace_lib.tracer_for(checkpoint_dir, self.rank,
                                            armed=trace)
+        self.saver = ckpt.AsyncSaver()
+        # a save's seconds: {"step", "copy_s", "wait_s"} (wait_s once the
+        # save has been waited for)
+        self.save_times: List[Dict[str, Any]] = []
 
         self.data = self._wrap_prefetch(data)
         self._build_state(init_params, seed)
@@ -758,9 +775,14 @@ class TrainLoop:
         self.logger.logkvs_mean(row)
         self.history.append({"step": step, **row})
 
+    @property
+    def logged_step(self) -> int:
+        """The newest step whose metrics have been fetched and logged."""
+        return self.step - len(self._inflight)
+
     def flush_metrics(self) -> None:
         """Fetch every in-flight step's metrics, and the all-reduce and
-        ring-shift times recorded so far."""
+        ring-shift times recorded so far (waiting for each)."""
         while self._inflight:
             self._emit_lagged()
         self.allreduce_time.drain()
@@ -792,15 +814,17 @@ class TrainLoop:
 
     @property
     def allreduce_s_per_step(self) -> float:
-        """The all-reduce's seconds over its calls (one a step)."""
-        t = self.allreduce_time
-        return t.seconds / t.calls if t.calls else 0.0
+        """The all-reduce's seconds over the calls read so far (one a
+        step; calls still in flight are not counted)."""
+        return self.allreduce_time.seconds_per_call
 
     @property
     def ring_shift_s_per_step(self) -> float:
         """The ring's shift seconds (forward and backward, eval passes
-        included) over the steps this process ran."""
-        return self.shift_time.seconds / max(self._timer.steps, 1)
+        included) a step: the mean over the shifts read so far, times the
+        shifts this process made, over the steps it ran."""
+        t = self.shift_time
+        return t.seconds_per_call * t.calls / max(self._timer.steps, 1)
 
     # ---------------------------------------------------- goodput, beacon
 
@@ -926,13 +950,17 @@ class TrainLoop:
             return
         ledger_lib.write_ledger(
             self.checkpoint_dir, {"train_step": self._ledger_row},
-            t=time.time(), extra={"step": self.step,
+            t=time.time(), extra={"step": self.logged_step,
                                   "n_devices": self.n_devices,
                                   "device_kind": self._device_kind()})
 
     # -------------------------------------------------------------- loop
 
     def _log_throughput(self) -> None:
+        # the timed collectives' pairs that have completed; the rest wait
+        # for a later window
+        self.allreduce_time.poll()
+        self.shift_time.poll()
         if self.allreduce_time.calls:
             self.logger.logkv("allreduce_s_per_step",
                               self.allreduce_s_per_step)
@@ -1005,11 +1033,14 @@ class TrainLoop:
         self.sanitize_report.write(out)
 
     def run_loop(self) -> None:
-        """Interval-driven outer loop: log, eval and save at their
-        intervals (<= 0 disables one), and a final save; then the
-        attempt's goodput record, the ledger's last snapshot and the
-        sanitizer's report. The profiler window is flushed, and the
-        report written, also when the loop raises."""
+        """Interval-driven outer loop: log (the rows fetched so far, the
+        newest ``dispatch_lag`` steps left in flight), eval and save (in
+        the background) at their intervals (<= 0 disables one), and a
+        final save; then the wait for it, the last prune, the exit
+        barrier, the attempt's goodput record, the ledger's last snapshot
+        and the sanitizer's report. The profiler window is flushed, the
+        save in flight waited for and the report written also when the
+        loop raises."""
         loop_step = 0
         try:
             while self.learning_steps <= 0 or self.step < self.learning_steps:
@@ -1018,7 +1049,6 @@ class TrainLoop:
                 self.run_step(self.next_batch())
                 loop_step += 1
                 if self.log_interval > 0 and self.step % self.log_interval == 0:
-                    self.flush_metrics()
                     self._log_throughput()
                     self.logger.dumpkvs()
                 if (self.eval_data is not None and self.eval_interval > 0
@@ -1031,7 +1061,7 @@ class TrainLoop:
                             cb(self)
                 if (self.save_interval > 0
                         and self.step % self.save_interval == 0):
-                    self.save()
+                    self.save(wait=False)
         except BaseException:
             self._write_sanitize_report()
             raise
@@ -1039,9 +1069,17 @@ class TrainLoop:
             if self._profiler is not None:
                 # the run ended (or raised) inside the window: flush it
                 self._stop_profiler()
-            self.flush_metrics()
+            try:
+                self.flush_metrics()
+            finally:
+                # a process leaving mid-write would leave the step torn
+                self.wait_for_saves()
         if self.save_interval <= 0 or self.step % self.save_interval != 0:
-            self.save()
+            self.save(wait=False)
+        self.wait_for_saves()
+        # the exit barrier: every rank leaves with rank 0's last save
+        # durable
+        dist.barrier("save_exit")
         summary = self.goodput_summary()
         self.logger.info("goodput: " + json.dumps(
             {k: round(v, 4) for k, v in summary.items()}))
@@ -1055,31 +1093,68 @@ class TrainLoop:
 
     __call__ = run_loop
 
-    def save(self) -> None:
+    def save(self, wait: bool = True) -> None:
         """``model_/ema_{rate}_/opt_/meta_{step:06d}`` in the run dir,
         written and pruned by rank 0; then every rank passes a barrier.
-        The seconds are ``save_s`` (and a ``save`` span), taken out of the
-        next step's slice; a chaos ``crash_in_save`` fires after."""
+        The save in flight, if any, is waited for first (and the run dir
+        pruned); then the device-to-host copy, and the files on the
+        saver's writer thread (``wait=False``, what the loop passes) or
+        before return. The copy and scheduling are ``save_s`` (and a
+        ``save`` span), taken out of the next step's slice; a chaos
+        ``crash_in_save`` fires after the save is scheduled."""
         if not self.checkpoint_dir:
             self.logger.info("no checkpoint_dir configured; skipping save")
             return
         self.flush_metrics()
+        self.wait_for_saves()
         t0, t0_wall = time.perf_counter(), time.time()
         if self.rank == 0:
-            self._write_checkpoint()
+            self._schedule_checkpoint()
         dist.barrier("save")
         dt = time.perf_counter() - t0
+        self.save_times.append({"step": self.step, "copy_s": dt,
+                                "wait_s": 0.0})
+        self._book_save(dt, t0_wall, {"step": self.step, "async": not wait})
+        if self.chaos is not None:
+            self.chaos.on_save(self)
+        if wait:
+            self.wait_for_saves()
+
+    def _book_save(self, dt: float, t0_wall: float,
+                   args: Dict[str, Any]) -> None:
+        """``dt`` seconds of saving: ``save_s``, a ``save`` span, and out of
+        the next step's slice."""
         self.goodput.add("save_s", dt)
         self._g_prev_t += dt
         self._g_prev_wall += dt
         if self.tracer.enabled:
-            self.tracer.complete("save", "ckpt", t0_wall, dt,
-                                 args={"step": self.step})
-        if self.chaos is not None:
-            self.chaos.on_save(self)
+            self.tracer.complete("save", "ckpt", t0_wall, dt, args=args)
 
-    def _write_checkpoint(self) -> None:
-        ckpt.save_checkpoint(
+    def wait_for_saves(self) -> None:
+        """Wait for the save in flight, if any, then prune the run dir
+        (booked as ``save_s`` and a ``save`` span, as the JAX trainer books
+        its wait); raises the writer's error."""
+        if not self.saver.in_flight:
+            return
+        t0, t0_wall = time.perf_counter(), time.time()
+        try:
+            self.saver.wait()
+            # the step just finalized may push an older one out
+            self._prune()
+        finally:
+            dt = time.perf_counter() - t0
+            last = self.save_times[-1]
+            last["wait_s"] += dt
+            self._book_save(dt, t0_wall, {"step": last["step"],
+                                          "wait": True})
+
+    def tear_save(self) -> bool:
+        """``crash_in_save``'s hook: leave the save in flight torn (its
+        payload written, its meta not); False when none is in flight."""
+        return self.saver.tear()
+
+    def _schedule_checkpoint(self) -> None:
+        self.saver.save(
             self.checkpoint_dir, self.step, self.state_dict_of(self.params),
             self.ema_state_dicts(),
             {"mu": self.state_dict_of(self.mu),
@@ -1087,12 +1162,17 @@ class TrainLoop:
             {"samples": self._samples, "batch_size": self.batch_size,
              "global_batch": self.global_batch,
              "eval_batches_consumed": self.eval_batches_consumed})
-        self.logger.info(f"saved checkpoint at step {self.step} -> "
-                         f"{self.checkpoint_dir}")
-        if self.keep_checkpoints > 0:
-            pruned = ckpt.prune_checkpoints(self.checkpoint_dir,
-                                            self.keep_checkpoints)
-            if pruned:
-                self.logger.info(f"pruned checkpoints at steps {pruned} "
-                                 f"(keep_checkpoints="
-                                 f"{self.keep_checkpoints})")
+        self.logger.info(f"scheduled checkpoint save at step {self.step} "
+                         f"-> {self.checkpoint_dir}")
+
+    def _prune(self) -> None:
+        """Rank 0: keep the newest ``keep_checkpoints`` finalized steps
+        (a step in flight is neither counted nor touched)."""
+        if (self.keep_checkpoints <= 0 or self.rank != 0
+                or not self.checkpoint_dir):
+            return
+        pruned = ckpt.prune_checkpoints(self.checkpoint_dir,
+                                        self.keep_checkpoints)
+        if pruned:
+            self.logger.info(f"pruned checkpoints at steps {pruned} "
+                             f"(keep_checkpoints={self.keep_checkpoints})")

@@ -559,16 +559,25 @@ def _run_train(tmp_path, name, extra, fam):
 def test_run_train_sequence_two_ranks_on_the_cpu(tmp_path, fam):
     """``run.train --distributed --nprocs 2 --sequence 2 --device cpu``:
     one data group of two sequence ranks reads the rows one process
-    reads, and its losses are that process's (rtol 1e-4); the sidecars
-    record the geometry, the ring's shifts and equal parameters."""
+    reads, and its losses are that process's (rtol 1e-4), step by step
+    (the sidecars' history) and as logged (a row holds the step before
+    its own: the metrics stay ``dispatch_lag`` steps in flight at a log);
+    the sidecars record the geometry, the ring's shifts and equal
+    parameters."""
     rows, sides = _run_train(
         tmp_path, "sp", ["--distributed", "--nprocs", "2", "--sequence",
                          "2"], fam)
-    one, _ = _run_train(tmp_path, "one", [], fam)
+    one, one_sides = _run_train(tmp_path, "one", [], fam)
     assert len(rows) == len(one) == 3
+    np.testing.assert_allclose(
+        [h["loss"] for h in sides[0]["history"]],
+        [h["loss"] for h in one_sides[0]["history"]], rtol=1e-4)
+    assert [h["step"] for h in sides[1]["history"]] == [1, 2, 3]
+    assert rows[0]["loss"] == one[0]["loss"] == ""
     for a, b in zip(rows, one):
-        np.testing.assert_allclose(float(a["loss"]), float(b["loss"]),
-                                   rtol=1e-4)
+        if b["loss"]:
+            np.testing.assert_allclose(float(a["loss"]), float(b["loss"]),
+                                       rtol=1e-4)
         assert float(a["ring_shift_s_per_step"]) > 0
     assert [(s["data_index"], s["sequence_index"], s["sequence"])
             for s in sides] == [(0, 0, 2), (0, 1, 2)]
@@ -650,13 +659,21 @@ def test_data_group_shard_is_the_jax_process_shard(d, monkeypatch):
     ("2", ["--sequence", "2", "--seq_len", "33"], "not divisible"),
     ("2", ["--sequence", "2", "--moe_experts", "4"], "ROADMAP A.8e"),
     ("2", ["--sequence", "2", "--eval_decode", "true"], "ROADMAP A.8f"),
+    ("2", ["--sequence", "3"], "must divide the world size"),
+    ("4", ["--sequence", "2", "--dp", "1"], "dp * sequence"),
     ("2", ["--sequence", "2", "--attention_impl", "xla"], "only the ring"),
     ("2", ["--sequence", "2", "--attention_impl", "cuda"], "only the ring"),
     ("2", ["--sequence", "2", "--attention_impl", "torch"],
      "only the ring")])
 def test_sequence_refusals_at_parse_time(world, argv, expect, monkeypatch,
                                          capsys):
+    """Each case is refused with its message, but for the refusals a
+    later slice lifted (MoE and the decode callback under a sequence
+    group, ROADMAP A.8e and A.8f): those settings parse."""
     monkeypatch.setenv("WORLD_SIZE", world)
+    if expect in ("ROADMAP A.8e", "ROADMAP A.8f"):
+        assert parse_settings(argv).sequence == 2
+        return
     with pytest.raises(SystemExit) as e:
         parse_settings(argv)
     assert e.value.code == 2

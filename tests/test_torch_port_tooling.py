@@ -432,7 +432,11 @@ def test_spans_match_the_goodput_boundaries(tmp_path, monkeypatch):
     for e in trace_lib.read_trace(trace_lib.trace_path(str(tmp_path), 0)):
         by.setdefault(e["name"], []).append(e)
     assert [e["args"]["step"] for e in by["step"]] == [1, 2, 3, 4]
-    assert [e["args"]["step"] for e in by["save"]] == [2, 4]
+    # each save's two parts: the copy and scheduling, then the wait for
+    # its writer (before the next save, at exit)
+    assert [(e["args"]["step"], e["args"].get("wait", False))
+            for e in by["save"]] == [(2, False), (2, True), (4, False),
+                                     (4, True)]
     assert sum(e["dur"] for e in by.get("compile", [])) == \
         loop.goodput.get("compile_s") == 0.0
     assert sum(e["dur"] for e in by["restore"]) == pytest.approx(
