@@ -154,8 +154,9 @@ Phases (any failure raises, and the script exits non-zero):
    completions to a step-21 checkpoint (step 20 plus seeded noise): both
    replicas moved, one at a time, requests after the swap equal a fresh
    server at step 21; a ``corrupt_swap_checkpoint``: the
-   canary refuses, no replica moves, every request served off step 20;
-   ``--serve_transport socket``; ``--replicas 1 --disagg 1`` (16
+   canary refuses, no replica moves, every request served off step 20,
+   over ``--serve_transport socket`` (one run holds both checks);
+   ``--replicas 1 --disagg 1`` (16
    requests; the decode worker's decode kernel launched, plain never).
    Tokens/s and TTFT p50/p95 beside the single run's; its line is
    ``{"serving_fleet": {...}}``;
@@ -272,7 +273,31 @@ Phases (any failure raises, and the script exits non-zero):
    ring) equals the one-process callback's on the saved step-2 weights.
    Its line is ``{"moe_eval_decode_sequence": {...}}``; the flash,
    ``flash_attention_lse`` and update rows gain ``launches_moe_sp2`` and
-   (flash and GPT-2 update) ``launches_eval_decode_sp2``.
+   (flash and GPT-2 update) ``launches_eval_decode_sp2``;
+18. the sharded training state, last: phase 12's GPT-2 base workload
+   (batch 4 in microbatches of 2 a rank, 5 steps, two gloo ranks sharing
+   ``cuda:0``) through ``run.train`` three times, each held to phase 12's
+   ``--nprocs 2`` run: (a) ``--shard_optimizer true --save_interval 3``:
+   losses and the final parameters' SHA-256 bitwise, grad norms within
+   1e-6 relative, the flash kernels 120 launches each way and the fused
+   update 5 a rank over the shard's elements (printed), no plain call,
+   ``opt_state_bytes_per_replica`` and ``ema_bytes_per_replica`` half of
+   phase 12's within the padding, each rank's peak memory printed beside
+   phase 12's; (b) ``--fsdp 2`` (dp 1, the same global batch): losses and
+   grad norms within phase 12's bars (5e-3, 3e-2; the gradients are
+   reduced a microbatch at a time), the ranks bitwise equal,
+   ``params_bytes_per_replica`` below the whole, the peak below phase
+   12's and printed beside (a)'s, the largest gathered unit's bytes
+   printed; (c) (a)'s step-3 checkpoint (full tensors) resumed at
+   ``--nprocs 2`` without ZeRO-1 into a fresh run dir through
+   ``--resume_checkpoint``, run beside (b) (so (b)'s seconds share the
+   card and the host): steps 4-5 and the final parameters bitwise phase
+   12's. The fused update is held against its plain version and timed at
+   the shard's element count with the other update rows (the kernels
+   line's ``fused_adamw_ema_gpt2_zero1_shard`` row, ``AdamW(fused=True)``
+   at that size beside it; phase 18 checks its element count is the
+   runs'). Its line is ``{"sharded_state": {...}}``; the flash rows gain
+   ``launches_zero1``/``launches_fsdp2``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -1663,14 +1688,15 @@ def param_shapes(cfg: dict) -> list:
 
 
 def update_phase(torch, bw, f32_peak, cfg: dict,
-                 name: str = "fused_adamw_ema") -> dict:
+                 name: str = "fused_adamw_ema",
+                 elements: int = 0) -> dict:
     """The fused update vs its plain version, bitwise over 3 steps, at the
-    parameter count of the model ``cfg`` with 3 EMA rates; its time beside
-    its bound."""
+    parameter count of the model ``cfg`` (or at ``elements``, one leaf: a
+    ZeRO-1 shard) with 3 EMA rates; its time beside its bound."""
     from distributed_pipeline_tpu_torch.ops import fused_update as fu
 
     dev = torch.device("cuda")
-    shapes = param_shapes(cfg)
+    shapes = [(elements,)] if elements else param_shapes(cfg)
     sizes = [int(torch.Size(s).numel()) for s in shapes]
     n, rates = sum(sizes), [0.5, 0.9, 0.99]
     g = torch.Generator(device=dev).manual_seed(11)
@@ -2725,15 +2751,18 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     del m21
     out["swap"] = rec
 
-    # 4. a corrupted swap target (a copy of step 21 as step 22): the
-    # canary refuses it, no replica moves, the old weights serve on
+    # 4. a corrupted swap target (a copy of step 21 as step 22) over the
+    # socket transport: the canary refuses it, no replica moves, the old
+    # weights serve on (one fleet run holds both runs' checks: the
+    # socket transport's, and the refused swap's)
     shutil.copy(os.path.join(run, "model_000021.pt"),
                 os.path.join(run, "model_000022.pt"))
     plan = json.dumps({"faults": [{"kind": "corrupt_swap_checkpoint",
                                    "step": 0}]})
     summary, rows, rec, _ = one(
         "corrupt", "--swap_after_requests", "32", "--swap_step", "22",
-        "--chaos_plan", plan)
+        "--chaos_plan", plan, "--serve_transport", "socket")
+    check(summary["transport"] == "socket", f"socket: {summary}")
     sw = summary["swap"]
     check(sw and not sw["ok"] and sw["swapped"] == [] and sw["injected"]
           and "refused" in sw["error"], f"corrupt swap: {sw}")
@@ -2742,15 +2771,9 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     rec.update(hold_streams(torch, model, rows, refs, "fleet corrupt"))
     rec["swap"] = {"ok": sw["ok"], "swapped": sw["swapped"],
                    "error": sw["error"][:200]}
-    out["corrupt_swap"] = rec
+    out["corrupt_swap"] = out["socket"] = rec
 
-    # 5. the socket transport
-    summary, rows, rec, _ = one("socket", "--serve_transport", "socket")
-    check(summary["transport"] == "socket", f"socket: {summary}")
-    rec.update(hold_streams(torch, model, rows, refs, "fleet socket"))
-    out["socket"] = rec
-
-    # 6. --replicas 1 --disagg 1, 16 requests, against the colocated run
+    # 5. --replicas 1 --disagg 1, 16 requests, against the colocated run
     k = 16
     fdir, jsonl = paths("disagg")
     dargv = serve_argv(run, "fp", k) + [
@@ -2778,7 +2801,7 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
           f"{out['file']['served_window_tokens_per_s']:.1f}) "
           f"{out['file']['ttft_p50_s']}/{out['file']['ttft_p95_s']}",
           flush=True)
-    for tag in ("file", "kill", "swap", "corrupt_swap", "socket"):
+    for tag in ("file", "kill", "swap", "corrupt_swap"):
         print(f"# fleet {tag} ({CARD}): replicas' launches, peak device "
               f"memory, attempts {json.dumps(out[tag]['replicas'])}",
               flush=True)
@@ -2806,26 +2829,44 @@ def dp_argv(run: str, batch: int, micro: int) -> list:
             "--save_interval", "0", "--seed", "0"]
 
 
-def dp_run(run: str, argv: list, what: str) -> dict:
-    """``python -m distributed_pipeline_tpu_torch.run.train argv`` as a
-    subprocess; returns its progress rows, its ranks' sidecars and rank
-    0's per-step metrics (``steps``: the sidecar's history; a progress row
-    holds the step ``dispatch_lag`` before it)."""
+def dp_start(argv: list) -> tuple:
+    """Start ``python -m distributed_pipeline_tpu_torch.run.train argv``
+    as a subprocess; returns it with its start time (``dp_finish`` waits
+    for it)."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
         "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP")}
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    return (subprocess.Popen(
         [sys.executable, "-m", "distributed_pipeline_tpu_torch.run.train",
-         *argv], cwd=repo, env=env, capture_output=True, text=True,
-        timeout=600)
+         *argv], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+
+def dp_run(run: str, argv: list, what: str) -> dict:
+    """``python -m distributed_pipeline_tpu_torch.run.train argv`` as a
+    subprocess; returns its progress rows, its ranks' sidecars and rank
+    0's per-step metrics (``steps``: the sidecar's history; a progress row
+    holds the step ``dispatch_lag`` before it)."""
+    return dp_finish(dp_start(argv), run, what)
+
+
+def dp_finish(started: tuple, run: str, what: str) -> dict:
+    """Wait for a ``dp_start`` run (at most 600 s) and read it as
+    ``dp_run`` does."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        print(out.stdout[-4000:], out.stderr[-8000:], file=sys.stderr)
-    check(out.returncode == 0, f"{what}: run.train exited "
-                               f"{out.returncode}")
+    if proc.returncode != 0:
+        print(stdout[-4000:], stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{what}: run.train exited "
+                                f"{proc.returncode}")
     with open(os.path.join(run, "progress.csv")) as f:
         lines = f.read().splitlines()
     head = lines[0].split(",")
@@ -2893,7 +2934,7 @@ def dp_phase(torch) -> dict:
                 "rank", "backend", "device", "launches", "plain_calls",
                 "allreduce_s_per_step", "allreduce_calls", "step_time_s",
                 "tokens_per_sec", "tokens_per_sec_per_chip", "mfu",
-                "peak_memory_bytes", "params_sha256")}
+                "peak_memory_bytes", "params_sha256", "footprint")}
                 for side in r["ranks"]]}
     single, one, two = (runs[k] for k in ("single", "nprocs1", "nprocs2"))
     check(one["ranks"][0]["backend"] == "nccl",
@@ -3907,6 +3948,207 @@ def moe_sequence_phase(torch, one: dict) -> dict:
     return out
 
 
+# ------------------------------------------ sharded training state (18)
+
+# the phase's wall budget: three run.train pairs of GPT-2 base (ZeRO-1
+# with two saves, then --fsdp 2 beside the resume of steps 4-5; phase
+# 12's three runs took 85.4 s)
+SHARD_BUDGET_S = 120.0
+
+
+def zero1_shard_elements(cfg: dict, dp: int) -> int:
+    """The elements a rank's ZeRO-1 update covers: the flat buffer padded
+    to a multiple of ``dp``, over ``dp``."""
+    n = sum(math.prod(s) for s in param_shapes(cfg))
+    return -(-n // dp)
+
+
+def shard_ranks(r: dict, what: str, want: dict) -> list:
+    """Each rank's sidecar of a sharded run, checked: gloo on ``cuda:0``,
+    the launches ``want``, no plain call, the two ranks' final parameters
+    bitwise equal; printed with the collectives' seconds, the footprint and
+    the peak memory."""
+    ranks = r["ranks"]
+    check(len(ranks) == 2, f"{what}: {len(ranks)} sidecars")
+    for side in ranks:
+        i = side["rank"]
+        check(side["backend"] == "gloo" and side["device"] == "cuda:0",
+              f"{what} rank {i}: {side['backend']} {side['device']}")
+        check(side["launches"] == want,
+              f"{what} rank {i}: launches {side['launches']}, expected "
+              f"{want}")
+        check(not any(side["plain_calls"].values()),
+              f"{what} rank {i}: plain calls {side['plain_calls']}")
+        print(f"# sharded state {what} rank {i} ({CARD}): mesh "
+              f"{side['mesh']}, ZeRO-1 {side['shard_optimizer']}, layout "
+              f"{json.dumps(side['layout'])}, launches {side['launches']}, "
+              f"reduce-scatter {side['reduce_scatter_s_per_step']:.6f} s a "
+              f"step over {side['reduce_scatter_calls']} calls, all-gather "
+              f"{side['all_gather_s_per_step']:.6f} s a step over "
+              f"{side['all_gather_calls']} calls, all-reduce "
+              f"{side['allreduce_s_per_step']:.6f} s a step, step "
+              f"{side.get('step_time_s', 0.0):.6f} s, "
+              f"{side.get('tokens_per_sec', 0.0):.1f} tokens/s, footprint "
+              f"{json.dumps(side['footprint'])}, largest gathered unit "
+              f"{side['fsdp_largest_unit_bytes']} B, peak memory "
+              f"{side['peak_memory_bytes']} B", flush=True)
+    check(ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+          f"{what}: the two ranks' final parameters differ")
+    return [{k: side.get(k) for k in (
+        "rank", "backend", "device", "mesh", "shard_optimizer", "layout",
+        "launches", "plain_calls", "reduce_scatter_s_per_step",
+        "reduce_scatter_calls", "all_gather_s_per_step", "all_gather_calls",
+        "allreduce_s_per_step", "allreduce_calls", "step_time_s",
+        "tokens_per_sec", "footprint", "fsdp_largest_unit_bytes",
+        "peak_memory_bytes", "params_sha256")} for side in ranks]
+
+
+def shard_phase(torch, dp: dict, update_row: dict) -> dict:
+    """Phase 18 (see the module doc). ``dp`` is phase 12's output: its
+    ``nprocs2`` run is the unsharded pair every run here is held to.
+    ``update_row`` is the update's kernel row at the ZeRO-1 shard's size:
+    its element count is checked against the runs' and its launches are
+    (a)'s. The resume (c) runs beside (b), so (b)'s seconds share the
+    card and the host with it."""
+    t0 = time.perf_counter()
+    layers, micro = GPT2_BASE["num_layers"], 2
+    per = layers * micro
+    want = {"flash_forward": per * DP_STEPS, "flash_backward": per * DP_STEPS,
+            "fused_adamw_ema": DP_STEPS}
+    ref = dp["nprocs2"]
+    ref_sha = ref["ranks"][0]["params_sha256"]
+    ref_peak = max(x["peak_memory_bytes"] for x in ref["ranks"])
+    ref_fp = ref["ranks"][0]["footprint"]
+    out: dict = {"steps": DP_STEPS}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) ZeRO-1, saving at step 3 (and at the end)
+        run_a = os.path.join(work, "zero1")
+        a = dp_run(run_a, ["--distributed", "--nprocs", "2",
+                           "--shard_optimizer", "true"]
+                   + dp_argv(run_a, 4, 2) + ["--save_interval", "3"],
+                   "zero1")
+        torch.cuda.empty_cache()
+        ranks_a = shard_ranks(a, "zero1", want)
+        losses = [h["loss"] for h in a["steps"]]
+        check(losses == ref["losses"],
+              f"zero1 losses {losses} differ from phase 12's --nprocs 2 "
+              f"{ref['losses']} (must be bitwise)")
+        check(ranks_a[0]["params_sha256"] == ref_sha,
+              "zero1 final parameters differ from phase 12's --nprocs 2")
+        gn_rel = [abs(h["grad_norm"] - x) / abs(x)
+                  for h, x in zip(a["steps"], ref["grad_norms"])]
+        check(max(gn_rel) <= 1e-6, f"zero1 grad norms relative {gn_rel} to "
+                                   f"phase 12's --nprocs 2, over 1e-6")
+        owned = ranks_a[0]["layout"]["owned"]
+        n = ranks_a[0]["layout"]["n"]
+        fp = ranks_a[0]["footprint"]
+        for key in ("opt_state_bytes_per_replica", "ema_bytes_per_replica"):
+            # half of the unsharded pair's, within the shard's padding
+            check(abs(2 * fp[key] - ref_fp[key]) <= 2 * 4 * 3 * (owned * 2
+                                                                 - n) + 4,
+                  f"zero1 {key} {fp[key]} is not half of phase 12's "
+                  f"{ref_fp[key]}")
+        print(f"# sharded state zero1 ({CARD}): losses bitwise phase 12's "
+              f"--nprocs 2, final parameters' SHA-256 equal, grad norms "
+              f"relative {gn_rel}; the update launched {DP_STEPS} times a "
+              f"rank over {owned} of {n} elements; footprint "
+              f"{json.dumps(fp)} vs phase 12's {json.dumps(ref_fp)}; peak "
+              f"memory {[x['peak_memory_bytes'] for x in ranks_a]} B vs "
+              f"phase 12's {[x['peak_memory_bytes'] for x in ref['ranks']]}"
+              f" B", flush=True)
+        out["zero1"] = {"losses": losses,
+                        "grad_norms": [h["grad_norm"] for h in a["steps"]],
+                        "grad_norm_rel": gn_rel, "update_elements": owned,
+                        "ranks": ranks_a, "wall_s": a["wall_s"]}
+        # (c), started now: (a)'s step-3 save resumed without ZeRO-1 into a
+        # fresh run dir, to step 5, beside (b)
+        saved = torch.load(os.path.join(run_a, "opt_000003.pt"),
+                           weights_only=True, mmap=True)
+        elems = sum(t.numel() for t in saved["mu"].values())
+        check(elems == n and saved["count"] == 3,
+              f"zero1's step-3 opt file holds {elems} mu elements at count "
+              f"{saved['count']}, not the gathered {n} at 3")
+        del saved
+        run_c = os.path.join(work, "resume")
+        started_c = dp_start(["--distributed", "--nprocs", "2"]
+                             + dp_argv(run_c, 4, 2) + [
+                                 "--resume_checkpoint",
+                                 os.path.join(run_a, "model_000003.pt")])
+        # (b) --fsdp 2 (dp 1, the same global batch)
+        run_b = os.path.join(work, "fsdp2")
+        try:
+            b = dp_run(run_b, ["--distributed", "--nprocs", "2", "--fsdp",
+                               "2"] + dp_argv(run_b, 4, 2), "fsdp2")
+        finally:
+            c = dp_finish(started_c, run_c, "resume")
+        torch.cuda.empty_cache()
+        ranks_b = shard_ranks(b, "fsdp2", want)
+        rel = {}
+        for col, key, bar in (("loss", "losses", 5e-3),
+                              ("grad_norm", "grad_norms", 3e-2)):
+            got = [h[col] for h in b["steps"]]
+            rel[col] = max(abs(x - y) / abs(y)
+                           for x, y in zip(got, ref[key]))
+            check(rel[col] <= bar, f"fsdp2 {col} {got} vs phase 12's "
+                                   f"--nprocs 2 {ref[key]}: relative "
+                                   f"{rel[col]} > {bar}")
+        fp_b = ranks_b[0]["footprint"]
+        check(fp_b["params_bytes_per_replica"] < fp_b["params_bytes"],
+              f"fsdp2 holds {fp_b['params_bytes_per_replica']} parameter "
+              f"bytes a rank, not less than the whole "
+              f"{fp_b['params_bytes']}")
+        peak_a = max(x["peak_memory_bytes"] for x in ranks_a)
+        peak_b = max(x["peak_memory_bytes"] for x in ranks_b)
+        check(peak_b < ref_peak, f"fsdp2 peak {peak_b} B not below phase "
+                                 f"12's --nprocs 2 peak {ref_peak} B")
+        print(f"# sharded state fsdp2 ({CARD}): vs phase 12's --nprocs 2 "
+              f"largest relative difference {rel}, losses bitwise "
+              f"{[h['loss'] for h in b['steps']] == ref['losses']}; params "
+              f"{fp_b['params_bytes_per_replica']} of "
+              f"{fp_b['params_bytes']} B a rank, largest gathered unit "
+              f"{ranks_b[0]['fsdp_largest_unit_bytes']} B; peak memory "
+              f"{peak_b} B vs zero1 {peak_a} B and phase 12's --nprocs 2 "
+              f"{ref_peak} B", flush=True)
+        out["fsdp2"] = {"losses": [h["loss"] for h in b["steps"]],
+                        "grad_norms": [h["grad_norm"] for h in b["steps"]],
+                        "vs_nprocs2_max_rel": rel, "ranks": ranks_b,
+                        "peak_vs_zero1": peak_b - peak_a,
+                        "wall_s": b["wall_s"]}
+        # (c)
+        rest = DP_STEPS - 3
+        ranks_c = shard_ranks(c, "resume", {
+            "flash_forward": per * rest, "flash_backward": per * rest,
+            "fused_adamw_ema": rest})
+        losses_c = [h["loss"] for h in c["steps"]]
+        check([h["step"] for h in c["steps"]] == [4, 5]
+              and losses_c == ref["losses"][3:],
+              f"resumed steps {[h['step'] for h in c['steps']]} losses "
+              f"{losses_c} differ from phase 12's --nprocs 2 steps 4-5 "
+              f"{ref['losses'][3:]}")
+        check(ranks_c[0]["params_sha256"] == ref_sha,
+              "the resumed run's final parameters differ from phase 12's "
+              "--nprocs 2")
+        print(f"# sharded state resume ({CARD}): zero1's step-3 files "
+              f"(full tensors, {n} elements) resumed without ZeRO-1: steps "
+              f"4-5 losses and the final parameters bitwise phase 12's "
+              f"--nprocs 2", flush=True)
+        out["resume"] = {"losses": losses_c, "ranks": ranks_c,
+                         "wall_s": c["wall_s"]}
+    check(update_row["elements"] == owned,
+          f"the update row's {update_row['elements']} elements are not the "
+          f"runs' shard of {owned}")
+    update_row["launches"] = [x["launches"]["fused_adamw_ema"]
+                              for x in ranks_a]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# sharded state ({CARD}): walls {a['wall_s']:.1f}, then "
+          f"{b['wall_s']:.1f} beside {c['wall_s']:.1f} s; phase "
+          f"{out['phase_s']:.1f} s of its {SHARD_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= SHARD_BUDGET_S,
+          f"phase 18 took {out['phase_s']:.1f} s, over {SHARD_BUDGET_S} s")
+    return out
+
+
 # ------------------------------------------------- the run readers (16)
 
 READERS_BUDGET_S = 30.0
@@ -4064,6 +4306,10 @@ def main() -> int:
     update_moe = clocked("fused update gpt2 moe8", update_phase, torch, bw,
                          f32_peak, GPT2_MOE8,
                          name="fused_adamw_ema_gpt2_moe8")
+    update_shard = clocked(
+        "fused update gpt2 zero1 shard", update_phase, torch, bw, f32_peak,
+        GPT2_BASE, name="fused_adamw_ema_gpt2_zero1_shard",
+        elements=zero1_shard_elements(GPT2_BASE, 2))
     small_model_phase(torch)
     t0 = time.perf_counter()
     serve, spec, options = serve_phase(torch, fd, bw, bf16_peak)
@@ -4142,6 +4388,16 @@ def main() -> int:
         row["launches_eval_decode_sp2"] = [
             r["launches"][row["name"]] for r in
             spm["eval_decode_sp2"]["ranks"]]
+    # phase 18: ZeRO-1, --fsdp 2 and a layout-flipping resume, against
+    # phase 12's --nprocs 2 run
+    shard = clocked("sharded training state", shard_phase, torch, dp,
+                    update_shard)
+    for row in flash:
+        for key in ("zero1", "fsdp2"):
+            row[f"launches_{key}"] = [r["launches"][row["name"]]
+                                      for r in shard[key]["ranks"]]
+    update["launches_fsdp2"] = [r["launches"]["fused_adamw_ema"]
+                                for r in shard["fsdp2"]["ranks"]]
     # phase 15: the finished attempts' launches, read from their sidecars
     update_dq["launches_tooling"] = {
         key: tools[key]["launches"]["fused_adamw_ema"]
@@ -4168,10 +4424,12 @@ def main() -> int:
     print(json.dumps({"training_tooling": tools}), flush=True)
     print(json.dumps({"run_readers": readers}), flush=True)
     print(json.dumps({"moe_eval_decode_sequence": spm}), flush=True)
+    print(json.dumps({"sharded_state": shard}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,
-                                  update_dq, update_moe]}), flush=True)
+                                  update_dq, update_moe, update_shard]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

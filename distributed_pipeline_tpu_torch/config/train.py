@@ -2,9 +2,15 @@
 (``distributed_pipeline_tpu/config/train.py``) that this port trains, as a
 dataclass with an argparse bridge and a mutually exclusive
 ``--config_json``. ``--sequence`` is the sequence-parallel group size
-(ring attention over L/sequence slices) and ``--dp`` the data-parallel
-axis (-1: ``WORLD_SIZE / sequence``; any other value must satisfy ``dp *
-sequence == WORLD_SIZE``, 1 for one process).
+(ring attention over L/sequence slices), ``--fsdp`` the parameter-sharding
+axis and ``--dp`` the data-parallel axis (-1: ``WORLD_SIZE / (fsdp *
+sequence)``; the axes' product must equal ``WORLD_SIZE``, 1 for one
+process: ``parallel/mesh.resolve_axis_sizes``). ``--shard_optimizer``
+shards the weight-update state over the data axis (ZeRO-1) and
+``--partition_rules`` overrides the model's rule table (inline JSON,
+``@file`` or a path; a tuner artifact's mesh and ``shard_optimizer`` fold
+in through ``run/train.apply_tuned_layout``). Sharding with ``--sequence >
+1`` is refused (ROADMAP A.8g).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
@@ -24,6 +30,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 from ..chaos.plan import ChaosPlan
 from ..models.diffusion import NOISE_SCHEDULES
+from ..parallel.mesh import resolve_axis_sizes
+from ..parallel.partition import load_partition_artifact
 from ..utils.perf import parse_profile_steps
 
 __all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
@@ -34,12 +42,9 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "pp_chunks": (4, "ROADMAP A.9 (pipeline parallelism)"),
     "pp_schedule": ("1f1b", "ROADMAP A.9 (pipeline parallelism)"),
     "pp_virtual": (2, "ROADMAP A.9 (pipeline parallelism)"),
-    "fsdp": (1, "ROADMAP A.8c (sharded state)"),
-    "tensor": (1, "ROADMAP A.8c (sharded state)"),
-    "expert": (1, "ROADMAP A.8c (sharded state)"),
+    "tensor": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
+    "expert": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
     "pipe": (1, "ROADMAP A.9 (pipeline parallelism)"),
-    "shard_optimizer": (False, "ROADMAP A.8c (ZeRO-1)"),
-    "partition_rules": ("", "ROADMAP A.8c (partition rules)"),
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
     "mpmd": (False, "ROADMAP A.9 (MPMD pipeline)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
@@ -190,17 +195,24 @@ class TrainSettings:
                           ("1f1b", "gpipe", "interleaved"))
     pp_virtual: int = _f(2, "virtual pipeline stages per device")
     dp: int = _f(-1, "data-parallel axis size: -1 = WORLD_SIZE / "
-                     "sequence, else dp * sequence must equal WORLD_SIZE "
-                     "(1 for one process)")
-    fsdp: int = _f(1, "FSDP axis size")
+                     "(fsdp * sequence), else dp * fsdp * sequence must "
+                     "equal WORLD_SIZE (1 for one process)")
+    fsdp: int = _f(1, "FSDP axis size: the parameters the rule table cuts "
+                      "over fsdp, and their optimizer state, live 1/fsdp a "
+                      "rank, gathered a block at a time")
     tensor: int = _f(1, "tensor-parallel axis size")
     sequence: int = _f(1, "sequence-parallel axis size: each group of "
                           "this many ranks splits L and rings its "
                           "attention")
     expert: int = _f(1, "expert-parallel axis size")
     pipe: int = _f(1, "pipeline-parallel axis size")
-    shard_optimizer: bool = _f(False, "ZeRO-1 optimizer-state sharding")
-    partition_rules: str = _f("", "parameter partition-rule override")
+    shard_optimizer: bool = _f(False, "ZeRO-1: mu, nu and the EMA copies "
+                                      "sharded over the data axis (one "
+                                      "reduce-scatter and one all-gather "
+                                      "a step)")
+    partition_rules: str = _f("", "parameter partition-rule override: "
+                                  "inline JSON, @/path.json or a path (a "
+                                  "rule list or a tuner artifact)")
     auto_tune: bool = _f(False, "inline sharding auto-tuner")
     mpmd: bool = _f(False, "MPMD pipeline training")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
@@ -242,11 +254,25 @@ class TrainSettings:
         if self.sequence < 1 or world % self.sequence:
             raise ValueError(f"--sequence {self.sequence} must divide the "
                              f"world size ({world})")
-        if self.dp not in (-1, world // self.sequence):
-            raise ValueError(f"--dp {self.dp}: dp * sequence must equal the "
-                             f"world size ({self.dp} * {self.sequence} != "
-                             f"{world}); other meshes come with ROADMAP "
-                             f"A.8c")
+        try:
+            resolve_axis_sizes(self.dp, self.fsdp, self.sequence,
+                               self.tensor, self.expert, self.pipe,
+                               n_devices=world)
+        except ValueError as e:
+            raise ValueError(f"--dp {self.dp} --fsdp {self.fsdp} --sequence "
+                             f"{self.sequence}: {e}; the mesh's axes must "
+                             f"multiply to the world size") from None
+        if self.sequence > 1 and (self.fsdp > 1 or self.shard_optimizer):
+            raise ValueError(
+                "--fsdp > 1 or --shard_optimizer with --sequence > 1 comes "
+                "with ROADMAP A.8g (the gradient's sums over the sequence "
+                "ranks and the data shards together)")
+        if self.partition_rules:
+            try:
+                load_partition_artifact(self.partition_rules)
+            except OSError as e:
+                raise ValueError(f"--partition_rules {self.partition_rules!r}"
+                                 f": {e}") from None
         if self.seq_len % self.sequence:
             raise ValueError(f"--seq_len {self.seq_len} not divisible by "
                              f"--sequence {self.sequence}")

@@ -32,7 +32,7 @@ summed over all ranks by the trainer (``GlobalMoEStats``).
 engine pass it) computes the exact per-token top-k mixture over all
 experts, which makes cached and uncached decoding give the same tokens.
 The expert products stay ``torch.einsum``: the JAX package computes them
-outside any Pallas kernel too. Expert parallelism is ROADMAP A.8c.
+outside any Pallas kernel too. Expert parallelism is ROADMAP A.8g.
 """
 
 from __future__ import annotations

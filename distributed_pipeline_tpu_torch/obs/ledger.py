@@ -286,12 +286,14 @@ class TrainCensus:
     ``flash_shape`` is ``(B, H, L, Dh, has_mask)`` of the step's flash
     launches (a microbatch's attention on this rank); :meth:`cost` takes
     the launches and ring-shift bytes the step made, as the trainer
-    counts them."""
+    counts them. ``update_elems`` is the range the rank's update covers
+    (its ZeRO-1 shard; default all of the parameters)."""
 
     def __init__(self, *, n_params: int, num_layers: int, hidden: int,
                  seq_len: int, tokens_per_step: int, n_micro: int,
                  compute_bytes: int, n_ema_rates: int, world: int,
-                 flash_shape: tuple) -> None:
+                 flash_shape: tuple,
+                 update_elems: Optional[int] = None) -> None:
         from ..ops.fused_update import update_hbm_bytes
         from ..utils.perf import transformer_train_flops_per_token
         self.flops_per_token = transformer_train_flops_per_token(
@@ -301,7 +303,9 @@ class TrainCensus:
         self.flash_shape = flash_shape
         weight_pass = n_params * (4 if compute_bytes >= 4
                                   else 4 + 2 * compute_bytes)
-        self.base_bytes = (update_hbm_bytes([n_params], n_ema_rates,
+        # the update runs over the rank's owned range (ZeRO-1's shard)
+        update_elems = n_params if update_elems is None else update_elems
+        self.base_bytes = (update_hbm_bytes([update_elems], n_ema_rates,
                                             per_leaf_scalars=False)
                            + 2 * n_micro * weight_pass)
         self.allreduce_bytes = 4.0 * n_params if world > 1 else 0.0

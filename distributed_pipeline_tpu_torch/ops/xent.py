@@ -1,6 +1,6 @@
 """Token-level cross-entropy: the port of
 ``distributed_pipeline_tpu/ops/xent.py`` (its single-device branch; the
-vocab-parallel decomposition waits for multi-GPU, ROADMAP A.8).
+vocab-parallel decomposition comes with tensor parallelism, ROADMAP A.8g).
 
 ``nll = logsumexp(logits) - logits[target]``, with the softmax statistics
 in f32 whatever the logits' dtype, and the target logit gathered in the

@@ -30,9 +30,17 @@ stage them through host memory; NCCL sends them directly.
 ``ring_shift_bytes`` counts the bytes this rank has sent round its ring
 (the training ledger's collective term).
 
+The sharded training state (``--shard_optimizer``, ``--fsdp``) adds
+``reduce_scatter`` and ``all_gather`` over a group of the mesh
+(``parallel/mesh.py``) and ``all_reduce`` takes one too. NCCL runs them on
+the tensors as they are; under gloo they go through fresh host buffers
+(gloo's tensor collectives are CPU collectives), which also lets the
+ZeRO-1 shard be a view of the buffer it is reduced from or gathered into.
+
 Under the trainer's ``--sanitize`` guard (``set_sync_debug_mode("error")``)
 the collectives that gloo stages through host memory are intended
-host<->device transfers: ``all_reduce`` and ``ring_shift`` lift the guard
+host<->device transfers: ``all_reduce``, ``reduce_scatter``,
+``all_gather`` and ``ring_shift`` lift the guard
 around them (``utils/perf.sync_allowed``), as the JAX guard keeps
 explicit transfers legal; NCCL's collectives stay under it.
 
@@ -64,7 +72,8 @@ __all__ = ["is_available", "is_initialized", "setup_dist", "get_rank",
            "sync_params", "all_reduce", "all_gather_object", "backend",
            "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG",
            "SequenceGroups", "sequence_groups", "ring_shift",
-           "ring_shift_bytes"]
+           "ring_shift_bytes", "new_group", "group_size", "reduce_scatter",
+           "all_gather"]
 
 _ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 # distinct devices of the ring, learned once at setup; bytes this rank has
@@ -173,13 +182,113 @@ def _host_staged(device: torch.device):
             else contextlib.nullcontext())
 
 
-def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the ranks in place (the identity
-    single-process); returns it."""
+def all_reduce(tensor: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """Sum ``tensor`` over the ranks of ``group`` (default: all) in place
+    (the identity single-process); returns it."""
     if is_initialized():
         with _host_staged(tensor.device):
-            tdist.all_reduce(tensor)
+            tdist.all_reduce(tensor, group=group)
     return tensor
+
+
+def new_group(ranks: Sequence[int]) -> Any:
+    """A process group of ``ranks`` (every rank must call this, for every
+    group, in the same order)."""
+    return tdist.new_group(list(ranks))
+
+
+def group_size(group: Any = None) -> int:
+    """The ranks in ``group`` (default: all); 1 when not distributed."""
+    return tdist.get_world_size(group) if is_initialized() else 1
+
+
+# pinned host buffers for staging CUDA tensors under gloo, by (role,
+# elements, dtype): a rank stages the same few sizes every step
+_PINNED: dict = {}
+
+
+def _host_buffer(role: str, like: torch.Tensor, numel: int) -> torch.Tensor:
+    """A host buffer of ``numel`` elements of ``like``'s dtype: a fresh
+    one for a CPU tensor, a kept pinned one for a CUDA tensor (pinned
+    copies run at the link's rate; pageable ones do not)."""
+    if like.device.type != "cuda":
+        return torch.empty(numel, dtype=like.dtype)
+    key = (role, numel, like.dtype)
+    buf = _PINNED.get(key)
+    if buf is None:
+        buf = _PINNED[key] = torch.empty(numel, dtype=like.dtype,
+                                         pin_memory=True)
+    return buf
+
+
+def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group: Any = None
+                   ) -> torch.Tensor:
+    """``out`` = this rank's chunk (by its rank in ``group``) of ``inp``
+    summed over the group's ranks; ``inp`` holds ``group_size(group)``
+    chunks of ``out``'s size and ``out`` may be a view of it (the ZeRO-1
+    shard). Single-process: ``out`` = ``inp``. Returns ``out``.
+
+    Under NCCL this is ``reduce_scatter_tensor``. Under gloo it is the
+    direct algorithm over host buffers: one ``all_to_all_single`` hands
+    every rank its chunk from each rank, and the chunks are summed in rank
+    order (gloo's own reduce-scatter of the same host buffers takes over
+    four times as long on the card's host,
+    ``scripts/profile_torch_collectives.py``). The input is copied to the
+    host first, so the output may alias it."""
+    n = group_size(group)
+    if inp.numel() != n * out.numel():
+        raise ValueError(f"reduce_scatter: input of {inp.numel()} elements "
+                         f"is not {n} chunks of {out.numel()}")
+    if not is_initialized():
+        if out.data_ptr() != inp.data_ptr():
+            out.copy_(inp)
+        return out
+    with _host_staged(inp.device):
+        if backend() != "gloo":
+            tdist.reduce_scatter_tensor(out, inp, group=group)
+            return out
+        src = _host_buffer("in", inp, inp.numel())
+        src.copy_(inp.detach().reshape(-1))
+        got = _host_buffer("out", inp, inp.numel())
+        tdist.all_to_all_single(got, src, group=group)
+        flat = out.view(-1)
+        parts = got.view(n, -1)
+        flat.copy_(parts[0])
+        for part in parts[1:]:
+            flat.add_(part.to(flat.device))
+    return out
+
+
+def all_gather(out: torch.Tensor, inp: torch.Tensor, group: Any = None
+               ) -> torch.Tensor:
+    """``out`` = every rank of ``group``'s ``inp``, concatenated in group
+    rank order; ``inp`` may be this rank's chunk of ``out`` (the ZeRO-1
+    parameters). Single-process: ``out`` = ``inp``. Returns ``out``.
+
+    Under NCCL this is ``all_gather_into_tensor``. Under gloo it is one
+    ``all_to_all_single`` over host buffers whose input repeats this
+    rank's chunk for every rank (gloo's own all-gather takes about twice
+    as long, ``scripts/profile_torch_collectives.py``)."""
+    n = group_size(group)
+    if out.numel() != n * inp.numel():
+        raise ValueError(f"all_gather: output of {out.numel()} elements "
+                         f"is not {n} chunks of {inp.numel()}")
+    if not is_initialized():
+        if out.data_ptr() != inp.data_ptr():
+            out.copy_(inp)
+        return out
+    with _host_staged(inp.device):
+        if backend() != "gloo":
+            tdist.all_gather_into_tensor(out, inp, group=group)
+            return out
+        src = _host_buffer("in", out, out.numel()).view(n, -1)
+        src[0].copy_(inp.detach().reshape(-1))
+        for row in src[1:]:
+            row.copy_(src[0])
+        got = _host_buffer("out", out, out.numel())
+        tdist.all_to_all_single(got, src.view(-1), group=group)
+        out.copy_(got.view(out.shape))
+    return out
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:

@@ -36,7 +36,7 @@ consumed. :func:`parse_and_autorun` is the entry points' ``--distributed``
 flag: ``--distributed --nprocs N`` relaunches the running module as such a
 ring and exits with its code. The multi-host in-process path
 (``--coordinator_address``, ``--num_processes``, ``--process_id``) is not
-ported (ROADMAP A.8c).
+ported (ROADMAP A.8g).
 
 The serving fleet runs one ring of one process per replica, each in a
 thread of the fleet parent; this module imports no torch. Its log lines go

@@ -10,6 +10,8 @@
         --nprocs 2 [--max_restarts 1] ...          # data-parallel ranks
     python -m distributed_pipeline_tpu_torch.run.train --distributed \\
         --nprocs 2 --sequence 2 ...                # one ring over L
+    python -m distributed_pipeline_tpu_torch.run.train --distributed \\
+        --nprocs 2 --shard_optimizer true ...      # ZeRO-1 (or --fsdp 2)
 
 ``--distributed --nprocs N`` relaunches this module as N supervised worker
 processes (``parallel/launcher.py``) that form one ``torch.distributed``
@@ -18,17 +20,23 @@ gloo on the CPU or when ranks share one); ``batch_size`` and
 ``microbatch`` are per rank. ``--sequence N`` makes each N consecutive
 ranks one sequence group that reads the same rows, splits L N ways and
 rings its attention (``parallel/ring.py``); the loader shards over the
-``world / N`` data groups. Settings -> process group -> run dir (made by
-rank 0; every rank resolves the same one, the launcher pinning
-``DPT_RUN_TIMESTAMP``) -> logger (means across ranks at each dump; rank 0
-alone on stdout, rank r > 0 into ``-rank{r:03d}`` files) ->
+``world / N`` data groups. ``--dp``, ``--fsdp`` and ``--sequence`` lay
+the ranks out as the JAX mesh (``parallel/mesh.py``; the data and fsdp
+ranks read distinct rows); ``--shard_optimizer`` and ``--fsdp`` shard the
+training state (``utils/trainer.py``) by the model's rule table or
+``--partition_rules``, whose tuner artifact folds its mesh and ZeRO-1 into
+the settings first (``apply_tuned_layout``). Settings -> process group ->
+run dir (made by rank 0; every rank resolves the same one, the launcher
+pinning ``DPT_RUN_TIMESTAMP``) -> logger (means across ranks at each
+dump; rank 0 alone on stdout, rank r > 0 into ``-rank{r:03d}`` files) ->
 ``training_args.json`` -> model -> ``TrainLoop`` (which resumes from the
 run dir's newest complete checkpoint) -> each rank's data shard
 fast-forwarded past the global samples the checkpoint consumed ->
 ``run_loop`` -> ``train_summary.json`` (``train_summary-rank{r:03d}.json``
 for rank r > 0): the rank's backend, device, kernel launches and plain
-calls, all-reduce and ring-shift seconds, its (data index, sequence
-index, sequence size), throughput, peak device memory, the beacon's
+calls, all-reduce, reduce-scatter, all-gather and ring-shift seconds,
+its (data index, sequence index, sequence size), the mesh, the layout
+and the footprint, throughput, peak device memory, the beacon's
 seconds a step, the stall gauges' means, each save's copy and wait
 seconds, the metrics of its newest 1000 steps and the SHA-256 of its
 final flat parameters (equal on every rank of a healthy ring).
@@ -48,29 +56,34 @@ CUDA unless ``--device cpu`` is given, and raises when CUDA is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Any, Callable, Dict, Optional, Sequence,
+                    Tuple)
 
-import torch
-
+# the modules this file imports at its top import no torch: the launcher
+# parent of ``--distributed --nprocs N`` only spawns and supervises the
+# workers, and importing torch would hold every launch up by seconds. The
+# torch-side modules are imported where training starts (``train``).
 from ..chaos import CHAOS_PLAN_ENV, ChaosInjector, ChaosPlan
 from ..chaos.goodput import beacon_max_step
-from ..config.train import TrainSettings, parse_settings
 from ..data import load_data_from_args, skip_batches_for_samples
-from ..models import create_model_from_config
-from ..models.sampling import make_decode_callback
-from ..ops import flash_attention, fused_update
-from ..parallel import dist
 from ..parallel.launcher import RUN_TIMESTAMP_ENV, parse_and_autorun
-from ..utils.device import resolve_device
+from ..parallel.mesh import AXES, local_mesh_info
+from ..parallel.partition import load_partition_artifact
 from ..utils.logger import Logger, distributed_mean_comm
-from ..utils.trainer import TrainLoop
+
+if TYPE_CHECKING:
+    import torch
+
+    from ..config.train import TrainSettings
+    from ..utils.trainer import TrainLoop
 
 __all__ = ["main", "train", "resolve_run_dir", "resume_sample_position",
-           "eval_decode_callback"]
+           "eval_decode_callback", "mesh_flags_default", "apply_tuned_layout"]
 
 # the steps of history a sidecar keeps
 SIDECAR_HISTORY = 1000
@@ -87,6 +100,63 @@ def resolve_run_dir(args: TrainSettings) -> str:
           or time.strftime("%Y%m%d-%H%M%S"))
     return os.path.join("model_checkpoints",
                         f"Run_{args.dataset}_lr{args.lr}_seed{args.seed}_{ts}")
+
+
+def mesh_flags_default(args) -> bool:
+    """Whether the user left every mesh-axis flag at its default: the gate
+    for applying a tuner artifact's mesh recommendation. An explicit
+    ``--dp``/``--fsdp``/... is an instruction; the recommendation then
+    only logs."""
+    return (args.dp == -1 and args.fsdp == 1 and args.sequence == 1
+            and args.tensor == 1 and args.expert == 1 and args.pipe == 1)
+
+
+def apply_tuned_layout(args, artifact, n_devices: int, n_hosts: int = 1,
+                       log: Callable[[str], None] = print):
+    """Fold a tuner artifact (``load_partition_artifact``) into the
+    settings, as the JAX entry point does: the mesh recommendation applies
+    only when the mesh flags are at their defaults AND it fits the run (its
+    product is the rank count, and the global microbatch divides over
+    data x fsdp x expert); ZeRO-1 follows the default gate alone. A
+    recommendation of tensor, expert or pipe > 1 is logged and not applied
+    (ROADMAP A.8g, A.9). Returns the (possibly replaced) settings; the
+    rules themselves go to the ``TrainLoop``."""
+    if artifact is None:
+        return args
+    mesh_rec = artifact.get("mesh")
+    updates = {}
+    if mesh_rec:
+        sizes = {a: int(mesh_rec.get(a, 1)) for a in AXES}
+        product = 1
+        for v in sizes.values():
+            product *= v
+        micro = args.microbatch if args.microbatch > 0 else args.batch_size
+        dpf = sizes["data"] * sizes["fsdp"] * sizes["expert"]
+        if not mesh_flags_default(args):
+            log(f"tuned mesh recommendation {mesh_rec} NOT applied "
+                f"(mesh flags set explicitly)")
+        elif product != n_devices:
+            log(f"tuned mesh recommendation {mesh_rec} NOT applied "
+                f"(product {product} != {n_devices} devices — "
+                f"artifact tuned for another device set)")
+        elif (micro * max(n_hosts, 1)) % dpf:
+            log(f"tuned mesh recommendation {mesh_rec} NOT applied "
+                f"(global microbatch {micro * max(n_hosts, 1)} not "
+                f"divisible by data x fsdp x expert = {dpf} — "
+                f"artifact tuned at a different batch shape)")
+        elif max(sizes["tensor"], sizes["expert"], sizes["pipe"]) > 1:
+            log(f"tuned mesh recommendation {mesh_rec} NOT applied "
+                f"(tensor/expert parallelism comes with ROADMAP A.8g, "
+                f"pipeline parallelism with A.9)")
+        else:
+            updates.update(dp=sizes["data"], fsdp=sizes["fsdp"],
+                           sequence=sizes["sequence"])
+            log(f"applying tuned mesh recommendation: {mesh_rec}")
+    zero = artifact.get("shard_optimizer")
+    if zero is not None and not args.shard_optimizer and zero:
+        updates["shard_optimizer"] = True
+        log("applying tuned ZeRO-1 recommendation (--shard_optimizer true)")
+    return dataclasses.replace(args, **updates) if updates else args
 
 
 def resume_sample_position(resume_step: int, meta: Optional[Dict[str, Any]],
@@ -114,6 +184,10 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
                    ) -> None:
     """This rank's sidecar (see the module doc), written at a clean
     exit."""
+    import torch
+
+    from ..ops import flash_attention, fused_update
+    from ..parallel import dist
     loop.flush_metrics()
     out = {"rank": loop.rank, "world_size": loop.world,
            "backend": dist.backend(), "device": str(device),
@@ -134,6 +208,15 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            "allreduce_calls": loop.allreduce_time.calls,
            "allreduce_s": loop.allreduce_time.seconds,
            "allreduce_s_per_step": loop.allreduce_s_per_step,
+           "reduce_scatter_calls": loop.reduce_scatter_time.calls,
+           "reduce_scatter_s_per_step": loop.reduce_scatter_s_per_step,
+           "all_gather_calls": loop.all_gather_time.calls,
+           "all_gather_s_per_step": loop.all_gather_s_per_step,
+           "mesh": loop.mesh.shape, "shard_optimizer": loop.shard_optimizer,
+           "layout": loop.shard.describe(),
+           "fsdp_largest_unit_bytes": (loop.fsdp.largest_unit_bytes
+                                       if loop.fsdp is not None else 0),
+           "footprint": loop.footprint(),
            "ring_shift_calls": loop.shift_time.calls,
            "ring_shift_s_per_step": loop.ring_shift_s_per_step,
            **loop.throughput,
@@ -147,8 +230,9 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            # trail them by dispatch_lag)
            "saves": loop.save_times,
            "history": loop.history[-SIDECAR_HISTORY:],
+           # the full parameters (gathered by every rank when sharded)
            "params_sha256": hashlib.sha256(
-               loop.params.cpu().numpy().tobytes()).hexdigest()}
+               loop.full_flat("params").cpu().numpy().tobytes()).hexdigest()}
     suffix = f"-rank{loop.rank:03d}" if loop.rank > 0 else ""
     path = os.path.join(run_dir, f"train_summary{suffix}.json")
     with open(path + ".tmp", "w") as f:
@@ -160,6 +244,7 @@ def eval_decode_callback(args: TrainSettings) -> Callable[[TrainLoop], None]:
     """``--eval_decode``'s callback: one held-out batch of at most 32 rows
     (every rank, and every run with the same data flags, decodes the same
     one), decoded as ``make_decode_callback`` does."""
+    from ..models.sampling import make_decode_callback
     settings = {k: v for k, v in args.to_dict().items() if k != "device"}
     decode_data = load_data_from_args(
         "valid", **{**settings, "deterministic": True,
@@ -174,6 +259,10 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     """Train with ``args`` to ``learning_steps``; returns the loop. Joins
     the process group the environment describes first (one process when
     there is none)."""
+    from ..models import create_model_from_config
+    from ..parallel import dist
+    from ..utils.device import resolve_device
+    from ..utils.trainer import TrainLoop
     device = resolve_device(args.device)
     dist.setup_dist(device)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -183,6 +272,14 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     dist.barrier("mkdir")
     logger = Logger(run_dir, stdout=stdout and rank == 0,
                     comm=distributed_mean_comm(), rank=rank)
+    rules = None
+    if args.partition_rules:
+        # a tuner artifact's mesh and ZeRO-1 fold into the settings; every
+        # rank is a host of its own rows
+        artifact = load_partition_artifact(args.partition_rules)
+        args = apply_tuned_layout(args, artifact, n_devices=world,
+                                  n_hosts=world, log=logger.info)
+        rules = artifact["rules"]
     settings = args.to_dict()
     settings.pop("device")  # where a run trained is not part of its config
     if rank == 0:
@@ -214,7 +311,8 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         fused_update=args.fused_update, eval_callbacks=eval_callbacks,
         keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
         prefetch_depth=args.prefetch_depth, sequence=args.sequence,
-        chaos=chaos,
+        dp=args.dp, fsdp=args.fsdp, shard_optimizer=args.shard_optimizer,
+        partition_rules=rules, chaos=chaos,
         # steps an earlier attempt reached (its beacons) book as recompute
         recompute_until_step=beacon_max_step(run_dir),
         # None defers to DPT_TRACE, which the launcher passes to every rank
@@ -224,9 +322,9 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     # exact-order resume: skip the global samples the restored step
     # consumed (by this data group's shard)
     meta = loop.resume_meta or {}
-    shard = (loop.seq.data_index, loop.seq.dp)
+    shard = loop.mesh.rows()
     train_skip, consumed = resume_sample_position(
-        loop.step, meta, args.batch_size, loop.seq.dp)
+        loop.step, meta, args.batch_size, shard[1])
     eval_skip = int(meta.get("eval_batches_consumed", 0))
     if loop.step:
         logger.info(f"resume at step {loop.step}: {consumed} global samples "
@@ -250,7 +348,9 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
                 f"backend {dist.backend()}, data group "
                 f"{loop.seq.data_index} of {loop.seq.dp}, sequence index "
                 f"{loop.seq.index} of {loop.seq.size}, global batch "
-                f"{loop.global_batch}")
+                f"{loop.global_batch}; {local_mesh_info(loop.mesh)}, "
+                f"ZeRO-1 {loop.shard.zero1}, layout "
+                f"{json.dumps(loop.shard.describe())}")
     try:
         loop.run_loop()
         _write_summary(loop, run_dir, device)
@@ -259,10 +359,16 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     return loop
 
 
+def _parse_settings(argv: Sequence[str]) -> TrainSettings:
+    from ..config.train import parse_settings
+    return parse_settings(argv)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> TrainLoop:
     """Train from argv; ``--distributed --nprocs N`` runs this module as a
-    supervised ring of N workers instead and exits with its code."""
-    return train(parse_and_autorun(parse_settings, argv,
+    supervised ring of N workers instead and exits with its code (that
+    parent imports no torch; the workers do)."""
+    return train(parse_and_autorun(_parse_settings, argv,
                                    "distributed_pipeline_tpu_torch.run.train"))
 
 

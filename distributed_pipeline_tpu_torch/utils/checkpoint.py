@@ -13,7 +13,12 @@ package writes them) and, per saved step, the JAX package's file names:
   data fast-forward on resume, at the same or another world size.
 
 Under several processes rank 0 alone writes and prunes, and every rank
-passes a barrier after it (``TrainLoop.save``).
+passes a barrier after it (``TrainLoop.save``). The files hold the full
+tensors whatever the layout the run trained under: a sharded trainer
+(``--shard_optimizer``, ``--fsdp``) gathers each state to rank 0 before
+the save, and a resume under any layout cuts its shard from them
+(``TrainLoop.load_state``), so a run saved under one layout resumes
+under another.
 
 :class:`AsyncSaver` is the JAX package's saver on this format: the
 device-to-host copy runs in the caller (the next step may overwrite the
@@ -138,16 +143,19 @@ class AsyncSaver:
              params: Mapping[str, torch.Tensor],
              ema: Mapping[str, Mapping[str, torch.Tensor]],
              opt: Mapping[str, Any], meta: Mapping[str, Any],
-             wait: bool = False) -> None:
+             wait: bool = False, copied: bool = False) -> None:
         """Schedule one step's model, EMA, optimizer and meta files (meta
-        last); ``wait=True`` returns once they are durable."""
+        last); ``wait=True`` returns once they are durable. ``copied``:
+        the state dicts are host copies the saver may keep as they are
+        (a sharded trainer's gathered state), else it copies them."""
         self.wait()
         os.makedirs(run_dir, exist_ok=True)
         p = _paths(run_dir, step, list(ema))
-        jobs = [(_cpu_copy(params), p["model"])]
-        jobs += [(_cpu_copy(state), p["ema"][rate])
+        copy = dict if copied else _cpu_copy
+        jobs = [(copy(params), p["model"])]
+        jobs += [(copy(state), p["ema"][rate])
                  for rate, state in ema.items()]
-        jobs.append(({"mu": _cpu_copy(opt["mu"]), "nu": _cpu_copy(opt["nu"]),
+        jobs.append(({"mu": copy(opt["mu"]), "nu": copy(opt["nu"]),
                       "count": int(opt["count"])}, p["opt"]))
         self._key = (os.path.abspath(run_dir), step)
         _IN_FLIGHT.add(self._key)

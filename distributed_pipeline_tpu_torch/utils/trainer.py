@@ -46,8 +46,8 @@ direct ``save()`` waits by default. ``prefetch_depth`` > 0 feeds
 the step from ``data/device_prefetch.py`` (batches copied to the device
 ahead of the step that reads them); ``debug_nans`` checks each step's
 metrics, gradients and parameters on the host and raises
-``FloatingPointError`` at the first non-finite one. Sharded state is later
-work (ROADMAP A.8c).
+``FloatingPointError`` at the first non-finite one (the gradient and
+parameters this rank holds, under a sharded state).
 
 The training tooling (the JAX trainer's):
 
@@ -146,6 +146,42 @@ DiffuSeq's draws are the global microbatch's, sliced by data index over
 rows and by sequence index over the noise's positions (``t`` is one a
 row). The ring's shifts are timed like the all-reduce
 (``ring_shift_s_per_step``).
+
+Sharded state (``dp``, ``fsdp``, ``shard_optimizer``, ``partition_rules``;
+the JAX trainer's mesh axes and ZeRO-1). The ranks form a mesh
+(``parallel/mesh.py``: rank r at its index in ``arange(world).reshape(dp,
+fsdp, sequence, ...)``, a process group per data and fsdp group), and a
+``parallel/partition.ShardLayout`` lays the flat buffers out:
+
+* ``--fsdp F``: the leaves the rule table (the family's, or
+  ``partition_rules``) cuts over fsdp at the run's sizes live 1/F on each
+  fsdp rank, a contiguous range of each unit's cut leaves (ROADMAP C.17);
+  the replicated leaves stay whole. The units (a block each, and the rest)
+  are gathered around their forward and backward and their gradients
+  reduce-scattered after every microbatch (``parallel/fsdp.py``); the
+  replicated leaves' gradients are all-reduced over the fsdp group after
+  the microbatch loop. The fsdp ranks read distinct rows, as data ranks do;
+* ``--shard_optimizer`` (ZeRO-1): the rank's flat buffer is padded to a
+  multiple of dp and the rank owns its data index's contiguous dp-th:
+  ``mu``, ``nu`` and its own ``[R, owned]`` EMA buffer cover that range
+  only (the fused kernel takes contiguous buffers, and a column slice of
+  a shared ``[R, n]`` EMA would not be). After the microbatch loop ONE
+  reduce-scatter over the data group sums the gradient into the owned
+  range (a view of the gradient buffer); ``grad_norm`` is the owned
+  ranges' squares summed over the ranks (the replicated leaves' divided
+  by their copies); then the clip, ONE fused-update launch over the owned
+  range, and ONE all-gather of the parameters over the data group. With
+  two ranks the sums are a + b as the all-reduce's are, so losses and
+  parameters are bitwise the unsharded run's; ``grad_norm`` differs by
+  its sum order.
+
+Every rank starts from its shard of rank 0's values. Checkpoints stay
+layout-free: a save gathers each full state to rank 0 (every rank takes
+part) and writes the usual files, and a resume under any dp, fsdp or
+``shard_optimizer`` cuts its shard from them (``load_state``);
+``full_flat``, ``ema_weights``, ``ema_state_dicts`` and the eval callbacks
+(run inside ``full_weights``) gather likewise. Sharding with ``sequence >
+1`` is refused (ROADMAP A.8g).
 """
 
 from __future__ import annotations
@@ -173,6 +209,9 @@ from ..ops import flash_attention
 from ..ops.fused_update import (fused_adamw_ema, resolve_fused_update,
                                 torch_fused_update, update_scalars)
 from ..parallel import dist
+from ..parallel.fsdp import FsdpUnits
+from ..parallel.mesh import make_mesh
+from ..parallel.partition import Rules, ShardLayout, rules_for_workload
 from ..parallel.ring import sequence_parallel
 from . import checkpoint as ckpt
 from .logger import Logger
@@ -193,7 +232,9 @@ class TrainLoop:
     given, returns the (global) microbatch i's DiffuSeq draws at ``step``
     (a generator or ``{"t", "noise"}``) in place of the seeded generator.
     ``batch_size`` and ``microbatch`` are per rank (the rows of its data
-    group); ``sequence`` is the sequence-parallel group size. ``chaos``
+    group); ``sequence`` is the sequence-parallel group size; ``dp``,
+    ``fsdp``, ``shard_optimizer`` and ``partition_rules`` lay out the
+    sharded state (the module docstring). ``chaos``
     (a ``ChaosInjector``), ``progress_file``, ``recompute_until_step``,
     ``trace`` (None defers to ``DPT_TRACE``), ``cost_ledger``,
     ``sanitize``, ``profile_dir`` and ``profile_steps`` are the tooling of
@@ -216,6 +257,8 @@ class TrainLoop:
                  draws: Optional[Callable[[int, int], Draws]] = None,
                  keep_checkpoints: int = 0, debug_nans: bool = False,
                  prefetch_depth: int = 0, sequence: int = 1,
+                 dp: int = -1, fsdp: int = 1, shard_optimizer: bool = False,
+                 partition_rules: Optional[Rules] = None,
                  chaos: Optional[Any] = None, progress_file: str = "",
                  recompute_until_step: int = 0,
                  trace: Optional[bool] = None, cost_ledger: bool = False,
@@ -242,12 +285,25 @@ class TrainLoop:
         self.world = dist.get_world_size()
         # a group of one rank takes the collective path too
         self.distributed = dist.is_initialized()
+        if sequence > 1 and (fsdp > 1 or shard_optimizer):
+            raise ValueError(
+                "--fsdp and --shard_optimizer with --sequence > 1 come with "
+                "ROADMAP A.8g (the gradient's sums over the sequence ranks "
+                "and the data shards together)")
         self.seq = dist.sequence_groups(sequence)
-        self.global_batch = batch_size * self.seq.dp
+        self.mesh = make_mesh(dp=dp, fsdp=fsdp, sequence=sequence)
+        self.shard_optimizer = shard_optimizer
+        self.partition_rules = (tuple(partition_rules)
+                                if partition_rules else None)
         self.microbatch = microbatch if microbatch > 0 else batch_size
         if batch_size % self.microbatch:
             raise ValueError(f"batch_size {batch_size} not divisible by "
                              f"microbatch {self.microbatch}")
+        # the rows a step reads: the rank's batch times the row groups
+        # (the data, fsdp and expert ranks read distinct rows; every rank
+        # reads its own microbatches, so the JAX check that the global
+        # microbatch divides over them holds by construction)
+        self.global_batch = batch_size * self.mesh.rows()[1]
         self.n_micro = batch_size // self.microbatch
         self.lr = lr
         self.ema_rates = tuple(r.strip() for r in str(ema_rate).split(",")
@@ -301,6 +357,12 @@ class TrainLoop:
         self.save_times: List[Dict[str, Any]] = []
 
         self.data = self._wrap_prefetch(data)
+        # the gradient all-reduce's time, the ZeRO-1 and FSDP collectives'
+        # and the ring's shifts' (sequence parallelism), read at each flush
+        self.allreduce_time = EventTimer()
+        self.reduce_scatter_time = EventTimer()
+        self.all_gather_time = EventTimer()
+        self.shift_time = EventTimer()
         self._build_state(init_params, seed)
         self.step = 0
         self.resumed_from = ""
@@ -308,24 +370,21 @@ class TrainLoop:
         self._load_kernels()
         self._resume(resume_checkpoint)
         self.start_step = self.step
-        if self.world > 1:
+        if self.world > 1 and not self.shard.sharded:
             # every rank starts from rank 0's weights (a resumed run loaded
             # the same files everywhere; a fresh one may have been seeded
-            # apart)
+            # apart; a sharded state took its shard of rank 0's values in
+            # _build_state)
             dist.sync_params(self.params)
             dist.broadcast(self.ema)
         self._samples = self.step * self.global_batch
-        self.n_params = self.params.numel()
+        self.n_params = self.shard.n
         # the parameters a token runs through (top-k of an MoE block's
         # experts); mfu counts them all, as the JAX trainer does
         self.n_active_params = active_param_count(
             dict(model.named_parameters()), self.n_params,
             moe_experts=model.moe_experts, moe_top_k=model.moe_top_k)
         self.n_devices = dist.device_count()
-        # the gradient all-reduce's time and the ring's shifts' (sequence
-        # parallelism), read at each flush
-        self.allreduce_time = EventTimer()
-        self.shift_time = EventTimer()
         self.throughput: Dict[str, float] = {}
         tokens_per_step = self.global_batch * model.seq_len
         self._timer = StepTimer(tokens_per_step)
@@ -336,6 +395,7 @@ class TrainLoop:
             tokens_per_step=tokens_per_step, n_micro=self.n_micro,
             compute_bytes=torch.finfo(model.dtype).bits // 8,
             n_ema_rates=len(self.ema_rates), world=self.world,
+            update_elems=self.shard.own,
             flash_shape=(self.microbatch, model.num_heads, seq_rank_len,
                          model.hidden_size // model.num_heads,
                          model.family == "diffuseq"))
@@ -356,18 +416,26 @@ class TrainLoop:
     # ------------------------------------------------------------- state
 
     def _build_state(self, init_params, seed: int) -> None:
-        """Flat buffers, parameters and gradients as views into them."""
+        """Flat buffers, parameters and gradients as views into them (the
+        cut leaves of an FSDP unit into the unit's gathered buffers), laid
+        out by the ``ShardLayout`` of the mesh, the rule table and
+        ``shard_optimizer``; the update's state covers the rank's owned
+        range."""
         named = list(self.model.named_parameters())
-        self._layout = {}
-        off = 0
-        for name, p in named:
-            self._layout[name] = (off, p.numel(), tuple(p.shape))
-            off += p.numel()
+        mesh = self.mesh
+        rules = (self.partition_rules if self.partition_rules is not None
+                 else rules_for_workload(self.model))
+        self.shard = shard = ShardLayout(
+            [(name, tuple(p.shape)) for name, p in named], sizes=mesh.shape,
+            rules=rules, fsdp_index=mesh.index("fsdp"),
+            data_index=mesh.index("data"),
+            shard_optimizer=self.shard_optimizer)
+        self._layout = shard.full
         dev, f32 = self.device, torch.float32
-        self.params = torch.empty(off, dtype=f32, device=dev)
-        self.grads = torch.zeros(off, dtype=f32, device=dev)
-        self.mu = torch.zeros(off, dtype=f32, device=dev)
-        self.nu = torch.zeros(off, dtype=f32, device=dev)
+        self.params = torch.zeros(shard.m_pad, dtype=f32, device=dev)
+        self.grads = torch.zeros(shard.m_pad, dtype=f32, device=dev)
+        self.mu = torch.zeros(shard.own, dtype=f32, device=dev)
+        self.nu = torch.zeros(shard.own, dtype=f32, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         if init_params is None:
             m = self.model
@@ -376,67 +444,139 @@ class TrainLoop:
                 seq_len=m.seq_len, hidden_size=m.hidden_size,
                 num_layers=m.num_layers, num_heads=m.num_heads,
                 moe_experts=m.moe_experts, moe_every=m.moe_every), seed)
-        self._load_flat(self.params, init_params)
+        self._check_state(init_params)
+        if shard.sharded and self.world > 1:
+            # every rank takes its shard of rank 0's values (a fresh run
+            # may have been seeded apart)
+            full = torch.empty(shard.n, dtype=f32, device=dev)
+            self._load_full(full, init_params)
+            dist.broadcast(full)
+            init_params = self.state_dict_of(full)
+        shard.local_from_full(init_params, self.params)
         for name, p in named:
-            p.data = self._view(self.params, name)
-            p.grad = self._view(self.grads, name)
-        # fresh EMA = a copy of the params, per rate
-        self.ema = self.params[None].repeat(len(self.ema_rates), 1)
+            if name in shard.local:
+                off, n, shape = shard.local[name]
+                p.data = self.params[off:off + n].view(shape)
+                p.grad = self.grads[off:off + n].view(shape)
+        self.fsdp = (FsdpUnits(self.model, shard, self.params, self.grads,
+                               self.mesh.group("fsdp"), self.all_gather_time,
+                               self.reduce_scatter_time)
+                     if shard.units else None)
+        # fresh EMA = a copy of the (owned) params, per rate
+        self.ema = self._owned(self.params)[None].repeat(
+            len(self.ema_rates), 1)
+
+    def _owned(self, local: torch.Tensor) -> torch.Tensor:
+        """The range of a rank-layout buffer this rank updates."""
+        return local[self.shard.lo:self.shard.hi]
 
     def _view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         off, n, shape = self._layout[name]
         return flat[off:off + n].view(shape)
 
     def state_dict_of(self, flat: torch.Tensor) -> StateDict:
-        """A params-shaped state dict of views into a flat buffer."""
+        """A params-shaped state dict of views into a full flat buffer
+        (``full_flat``; an unsharded loop's own buffers are full)."""
         return {name: self._view(flat, name) for name in self._layout}
 
-    def _load_flat(self, flat: torch.Tensor,
+    def _load_full(self, flat: torch.Tensor,
                    state: Mapping[str, torch.Tensor]) -> None:
-        missing = set(self._layout) ^ set(state)
-        if missing:
-            raise KeyError(f"state dict keys differ from the model's: "
-                           f"{sorted(missing)[:5]}")
         with torch.no_grad():
             for name in self._layout:
                 self._view(flat, name).copy_(state[name])
 
+    def _load_owned(self, dst: torch.Tensor,
+                    state: Mapping[str, torch.Tensor]) -> None:
+        """This rank's owned range of a full state dict into ``dst``."""
+        if not self.shard.zero1:
+            self.shard.local_from_full(state, dst)
+            return
+        local = torch.zeros(self.shard.m_pad, dtype=dst.dtype,
+                            device=dst.device)
+        self.shard.local_from_full(state, local)
+        dst.copy_(self._owned(local))
+
     def load_state(self, params: Mapping[str, torch.Tensor],
                    ema: Optional[Mapping[str, Mapping[str, torch.Tensor]]]
                    = None, opt: Optional[Mapping[str, Any]] = None) -> None:
-        """Set the training state: params, EMA copies per rate (default: a
-        copy of the params) and ``{"mu", "nu", "count"}`` (default: fresh)."""
-        self._load_flat(self.params, params)
-        for i, rate in enumerate(self.ema_rates):
-            self._load_flat(self.ema[i], ema[rate] if ema else params)
-        if opt is None:
-            self.mu.zero_()
-            self.nu.zero_()
-            self.count.fill_(0)
+        """Set the training state from full state dicts, whatever the
+        layout they were saved under: params, EMA copies per rate
+        (default: a copy of the params) and ``{"mu", "nu", "count"}``
+        (default: fresh); each rank keeps its shard."""
+        self._check_state(params)
+        with torch.no_grad():
+            self.shard.local_from_full(params, self.params)
+            for i, rate in enumerate(self.ema_rates):
+                self._load_owned(self.ema[i], ema[rate] if ema else params)
+            if opt is None:
+                self.mu.zero_()
+                self.nu.zero_()
+                self.count.fill_(0)
+            else:
+                self._load_owned(self.mu, opt["mu"])
+                self._load_owned(self.nu, opt["nu"])
+                self.count.fill_(int(opt["count"]))
+
+    def full_flat(self, which: str = "params", rate: str = "") -> torch.Tensor:
+        """The full flat layout (``n_params`` elements) of ``which``:
+        ``params``, ``mu``, ``nu`` or ``ema`` (of ``rate``). A view of the
+        loop's own buffer when the state is not sharded; else a gathered
+        copy, a collective every rank calls (the owned ranges all-gathered
+        over the data group, then the units' pieces over the fsdp
+        group)."""
+        shard = self.shard
+        if which == "params":
+            local = self.params
         else:
-            self._load_flat(self.mu, opt["mu"])
-            self._load_flat(self.nu, opt["nu"])
-            self.count.fill_(int(opt["count"]))
+            own = (self.ema[self.ema_rates.index(rate)] if which == "ema"
+                   else getattr(self, which))
+            if not shard.zero1:
+                local = own
+            else:
+                local = own.new_empty(shard.m_pad)
+                dist.all_gather(local, own, self.mesh.group("data"))
+        if not shard.units:
+            return local[:shard.n]
+        return shard.gather_full(local, local.new_empty(shard.n),
+                                 self.mesh.group("fsdp"))
+
+    @contextlib.contextmanager
+    def full_weights(self) -> Iterator[None]:
+        """Inside the block every parameter is whole: under ``--fsdp`` a
+        view into one gathered copy (every rank gathers), with the units'
+        hooks off; otherwise as it is."""
+        if self.fsdp is None:
+            yield
+            return
+        with self.fsdp.pinned_to(self.full_flat("params")):
+            yield
 
     @contextlib.contextmanager
     def ema_weights(self, rate: str) -> Iterator[None]:
         """Inside the block the model computes with the EMA copy of
         ``rate``: each parameter's ``data`` is a view into that EMA row
-        (nothing is copied, nothing is written), and a view into the
-        training buffer again after it."""
-        ema = self.state_dict_of(self.ema[self.ema_rates.index(rate)])
+        (gathered first when the EMA is sharded: every rank calls this;
+        nothing of the training state is written), and its previous view
+        again after it."""
+        ema = self.full_flat("ema", rate)
+        if self.fsdp is not None:
+            with self.fsdp.pinned_to(ema):
+                yield
+            return
         named = list(self.model.named_parameters())
+        before = [p.data for _name, p in named]
         try:
             for name, p in named:
-                p.data = ema[name]
+                p.data = self._view(ema, name)
             yield
         finally:
-            for name, p in named:
-                p.data = self._view(self.params, name)
+            for (_name, p), data in zip(named, before):
+                p.data = data
 
     def ema_state_dicts(self) -> Dict[str, StateDict]:
-        return {r: self.state_dict_of(self.ema[i])
-                for i, r in enumerate(self.ema_rates)}
+        """Each rate's EMA as a full state dict (gathered when sharded)."""
+        return {r: self.state_dict_of(self.full_flat("ema", r))
+                for r in self.ema_rates}
 
     def _check_state(self, state: Mapping[str, Any]) -> None:
         """Raise unless ``state`` is a state dict of this model's
@@ -622,11 +762,29 @@ class TrainLoop:
                 sums[k] = v if k not in sums else sums[k] + v
         return sums
 
-    def _all_reduce_grads(self) -> None:
-        """Sum ``self.grads`` over the ranks in place, timed into
-        ``allreduce_time``."""
-        with self.allreduce_time.measure(self.device):
-            dist.all_reduce(self.grads)
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the ranks: under ``--fsdp`` the
+        replicated leaves' over the fsdp group (the units' pieces were
+        reduce-scattered there after each microbatch); then over the data
+        axis, by one reduce-scatter into the rank's owned range under
+        ZeRO-1, else one all-reduce (of everything, over every rank,
+        without sharding). Each collective is timed into its
+        ``EventTimer``."""
+        shard = self.shard
+        if self.fsdp is not None:
+            with self.allreduce_time.measure(self.device):
+                dist.all_reduce(self.grads[shard.pieces:shard.m],
+                                self.mesh.group("fsdp"))
+        if shard.zero1:
+            with self.reduce_scatter_time.measure(self.device):
+                dist.reduce_scatter(self._owned(self.grads), self.grads,
+                                    self.mesh.group("data"))
+        elif self.fsdp is None:
+            with self.allreduce_time.measure(self.device):
+                dist.all_reduce(self.grads)
+        elif self.mesh.size("data") > 1:
+            with self.allreduce_time.measure(self.device):
+                dist.all_reduce(self.grads, self.mesh.group("data"))
 
     def forward_backward(self, batch: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
@@ -639,19 +797,47 @@ class TrainLoop:
         self.grads.zero_()
         denoms = self._global_denoms(mbs)
         per_micro = []
+        scale = 1.0 / self.n_micro
+        fsdp = self.fsdp
         with sequence_parallel(self.seq, self.shift_time):
             for i, mb in enumerate(mbs):
-                d = compute_losses(self.model, mb,
-                                   self._rank_draws(self.step, i, mb),
-                                   *denoms[i])
-                d["loss"].backward()
+                with (fsdp.rest() if fsdp is not None
+                      else contextlib.nullcontext()):
+                    d = compute_losses(self.model, mb,
+                                       self._rank_draws(self.step, i, mb),
+                                       *denoms[i])
+                    d["loss"].backward()
+                if fsdp is not None:
+                    fsdp.after_backward(scale)
                 per_micro.append({k: v.detach() for k, v in d.items()})
-        scale = 1.0 / self.n_micro
-        self.grads.mul_(scale)
+        if fsdp is None:
+            self.grads.mul_(scale)
+        else:
+            # the units' pieces were scaled before their reduce-scatters
+            self.grads[self.shard.pieces:].mul_(scale)
         if self.distributed:
-            self._all_reduce_grads()
+            self._reduce_grads()
         return {k: v * scale
                 for k, v in self._summed_metrics(per_micro).items()}
+
+    def _grad_norm(self, grads: torch.Tensor) -> torch.Tensor:
+        """The global L2 norm of the gradient this rank holds reduced
+        (``grads``: its owned range). Unsharded, the norm of the whole
+        buffer; sharded, the owned range's squares over the units' pieces
+        and over the replicated leaves, summed over the ranks (one
+        all-reduce) and each divided by its copies across the ranks: the
+        same value up to the f32 sum order."""
+        shard = self.shard
+        if not shard.sharded:
+            return torch.linalg.vector_norm(grads)
+        lo, hi = shard.lo, shard.hi
+        cut = min(max(shard.pieces - lo, 0), hi - lo)
+        sums = torch.stack([torch.linalg.vector_norm(grads[:cut]) ** 2,
+                            torch.linalg.vector_norm(grads[cut:]) ** 2])
+        dist.all_reduce(sums)
+        copies = 1 if shard.zero1 else self.mesh.size("data")
+        return torch.sqrt(sums[0] / copies
+                          + sums[1] / (copies * self.mesh.size("fsdp")))
 
     @contextlib.contextmanager
     def _guard(self) -> Iterator[None]:
@@ -672,14 +858,20 @@ class TrainLoop:
     def _dispatch(self, mbs: List[Dict]) -> Dict[str, torch.Tensor]:
         """The step's device work: forward, backward, clip and update."""
         metrics = self._forward_backward(mbs)
-        gnorm = torch.linalg.vector_norm(self.grads)
+        grads = self._owned(self.grads)
+        gnorm = self._grad_norm(grads)
         if self.gradient_clipping > 0:
-            self.grads.mul_(torch.clamp(
+            grads.mul_(torch.clamp(
                 self.gradient_clipping / (gnorm + 1e-6), max=1.0))
         scalars = update_scalars(self.count, self._lr_at)
         update = fused_adamw_ema if self.fused_update else torch_fused_update
-        update(self.params, self.grads, self.mu, self.nu, self.ema, scalars,
-               self._rate_values, weight_decay=self.weight_decay)
+        # one launch over the owned range (all of it unsharded)
+        update(self._owned(self.params), grads, self.mu, self.nu, self.ema,
+               scalars, self._rate_values, weight_decay=self.weight_decay)
+        if self.shard.zero1:
+            with self.all_gather_time.measure(self.device):
+                dist.all_gather(self.params, self._owned(self.params),
+                                self.mesh.group("data"))
         metrics["grad_norm"] = gnorm
         metrics["lr"] = self._lr_at(self.count)
         return metrics
@@ -754,15 +946,17 @@ class TrainLoop:
             if not bool(torch.isfinite(metrics[k]).all()):
                 raise FloatingPointError(
                     f"debug_nans: non-finite {k} at step {step}")
-        for what, flat in (("gradient", self.grads),
-                           ("parameter", self.params)):
-            if bool(torch.isfinite(flat).all()):
-                continue
-            for name in self._layout:
-                if not bool(torch.isfinite(self._view(flat, name)).all()):
-                    raise FloatingPointError(
-                        f"debug_nans: non-finite {what} {name} at step "
-                        f"{step}")
+        # the gradient this rank holds reduced and its parameters; the
+        # first non-finite element names its leaf
+        shard = self.shard
+        for what, flat, base in (("gradient", self._owned(self.grads),
+                                  shard.lo),
+                                 ("parameter", self.params[:shard.m], 0)):
+            bad = torch.nonzero(~torch.isfinite(flat))
+            if len(bad):
+                name = shard.name_at_local(base + int(bad[0, 0]))
+                raise FloatingPointError(
+                    f"debug_nans: non-finite {what} {name} at step {step}")
 
     def _emit_lagged(self) -> None:
         """Fetch the oldest in-flight step's metrics (one device->host copy)
@@ -785,8 +979,8 @@ class TrainLoop:
         ring-shift times recorded so far (waiting for each)."""
         while self._inflight:
             self._emit_lagged()
-        self.allreduce_time.drain()
-        self.shift_time.drain()
+        for timer in self._timers():
+            timer.drain()
 
     @torch.no_grad()
     def forward_only(self, batch: Dict[str, np.ndarray]
@@ -798,11 +992,14 @@ class TrainLoop:
         step = 0x7FFF0000 + self.step
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
+        per_micro = []
         with sequence_parallel(self.seq, self.shift_time):
-            per_micro = [compute_losses(self.model, mb,
-                                        self._rank_draws(step, i, mb),
-                                        *denoms[i])
-                         for i, mb in enumerate(mbs)]
+            for i, mb in enumerate(mbs):
+                with (self.fsdp.rest(grads=False) if self.fsdp is not None
+                      else contextlib.nullcontext()):
+                    per_micro.append(compute_losses(
+                        self.model, mb, self._rank_draws(step, i, mb),
+                        *denoms[i]))
         sums = self._summed_metrics(per_micro)
         out = {f"eval_{k}": float(v) / self.n_micro for k, v in sums.items()}
         if self.tracer.enabled:
@@ -818,13 +1015,34 @@ class TrainLoop:
         step; calls still in flight are not counted)."""
         return self.allreduce_time.seconds_per_call
 
+    def _timers(self) -> Tuple[EventTimer, ...]:
+        return (self.allreduce_time, self.reduce_scatter_time,
+                self.all_gather_time, self.shift_time)
+
+    def _per_step(self, timer: EventTimer) -> float:
+        """A timer's seconds a step: the mean over the calls read so far,
+        times the calls this process made, over the steps it ran."""
+        return timer.seconds_per_call * timer.calls / max(self._timer.steps,
+                                                          1)
+
+    @property
+    def reduce_scatter_s_per_step(self) -> float:
+        """The reduce-scatters' seconds a step (ZeRO-1's one; under
+        ``--fsdp`` each unit's, after every microbatch)."""
+        return self._per_step(self.reduce_scatter_time)
+
+    @property
+    def all_gather_s_per_step(self) -> float:
+        """The all-gathers' seconds a step (ZeRO-1's parameters; under
+        ``--fsdp`` each unit's gathers)."""
+        return self._per_step(self.all_gather_time)
+
     @property
     def ring_shift_s_per_step(self) -> float:
         """The ring's shift seconds (forward and backward, eval passes
         included) a step: the mean over the shifts read so far, times the
         shifts this process made, over the steps it ran."""
-        t = self.shift_time
-        return t.seconds_per_call * t.calls / max(self._timer.steps, 1)
+        return self._per_step(self.shift_time)
 
     # ---------------------------------------------------- goodput, beacon
 
@@ -887,14 +1105,19 @@ class TrainLoop:
             **{k: round(v, 6) for k, v in self.goodput_summary().items()}})
 
     def footprint(self) -> Dict[str, int]:
-        """State bytes (the JAX gauges; nothing is sharded, so per replica
-        = whole) and this process's peak device allocation (0 on the
-        CPU)."""
+        """State bytes under the JAX gauges: the logical bytes of the
+        params and of the optimizer state (``mu``, ``nu`` and the int32
+        count), the bytes this rank holds of each (its flat parameter
+        buffer; its owned range of ``mu``, ``nu`` and the EMA rows,
+        padding included), and this process's peak device allocation (0
+        on the CPU)."""
         n = self.n_params * 4
-        return {"params_bytes": n, "params_bytes_per_replica": n,
+        own = self.shard.own * 4
+        return {"params_bytes": n,
+                "params_bytes_per_replica": self.params.numel() * 4,
                 "opt_state_bytes": 2 * n + 4,
-                "opt_state_bytes_per_replica": 2 * n + 4,
-                "ema_bytes_per_replica": len(self.ema_rates) * n,
+                "opt_state_bytes_per_replica": 2 * own + 4,
+                "ema_bytes_per_replica": len(self.ema_rates) * own,
                 "peak_live_bytes": peak_live_bytes(self.device)}
 
     # --------------------------------------------------------- cost ledger
@@ -959,14 +1182,15 @@ class TrainLoop:
     def _log_throughput(self) -> None:
         # the timed collectives' pairs that have completed; the rest wait
         # for a later window
-        self.allreduce_time.poll()
-        self.shift_time.poll()
-        if self.allreduce_time.calls:
-            self.logger.logkv("allreduce_s_per_step",
-                              self.allreduce_s_per_step)
-        if self.shift_time.calls:
-            self.logger.logkv("ring_shift_s_per_step",
-                              self.ring_shift_s_per_step)
+        for timer in self._timers():
+            timer.poll()
+        for key, timer in (("allreduce_s_per_step", self.allreduce_time),
+                           ("reduce_scatter_s_per_step",
+                            self.reduce_scatter_time),
+                           ("all_gather_s_per_step", self.all_gather_time),
+                           ("ring_shift_s_per_step", self.shift_time)):
+            if timer.calls:
+                self.logger.logkv(key, getattr(self, key))
         sps, tps = self._timer.lap()
         stall = self.stalls.lap()
         # the stall gauges' window means, the attempt's goodput so far and
@@ -1056,7 +1280,7 @@ class TrainLoop:
                     self.flush_metrics()
                     self.forward_only(next(self.eval_data))
                     self.eval_batches_consumed += 1
-                    with self._guard():
+                    with self._guard(), self.full_weights():
                         for cb in self.eval_callbacks:
                             cb(self)
                 if (self.save_interval > 0
@@ -1108,7 +1332,8 @@ class TrainLoop:
         self.flush_metrics()
         self.wait_for_saves()
         t0, t0_wall = time.perf_counter(), time.time()
-        if self.rank == 0:
+        if self.rank == 0 or self.shard.sharded:
+            # a sharded state is gathered by every rank
             self._schedule_checkpoint()
         dist.barrier("save")
         dt = time.perf_counter() - t0
@@ -1153,15 +1378,36 @@ class TrainLoop:
         payload written, its meta not); False when none is in flight."""
         return self.saver.tear()
 
+    def _host_state(self, which: str, rate: str = "") -> Optional[StateDict]:
+        """Rank 0's host copy of ``full_flat(which, rate)`` as a state dict
+        (None on the other ranks, which take part in the gather)."""
+        full = self.full_flat(which, rate)
+        if self.rank != 0:
+            return None
+        return {k: v.to("cpu", copy=True)
+                for k, v in self.state_dict_of(full).items()}
+
     def _schedule_checkpoint(self) -> None:
+        """The step's full files (C.8) whatever the layout: unsharded,
+        views the saver copies to the host; sharded, each state gathered
+        and copied to rank 0's host one at a time (every rank gathers)."""
+        if not self.shard.sharded:
+            params = self.state_dict_of(self.params)
+            ema = self.ema_state_dicts()
+            mu, nu = self.state_dict_of(self.mu), self.state_dict_of(self.nu)
+        else:
+            params = self._host_state("params")
+            ema = {r: self._host_state("ema", r) for r in self.ema_rates}
+            mu, nu = self._host_state("mu"), self._host_state("nu")
+        if self.rank != 0:
+            return
         self.saver.save(
-            self.checkpoint_dir, self.step, self.state_dict_of(self.params),
-            self.ema_state_dicts(),
-            {"mu": self.state_dict_of(self.mu),
-             "nu": self.state_dict_of(self.nu), "count": int(self.count)},
+            self.checkpoint_dir, self.step, params, ema,
+            {"mu": mu, "nu": nu, "count": int(self.count)},
             {"samples": self._samples, "batch_size": self.batch_size,
              "global_batch": self.global_batch,
-             "eval_batches_consumed": self.eval_batches_consumed})
+             "eval_batches_consumed": self.eval_batches_consumed},
+            copied=self.shard.sharded)
         self.logger.info(f"scheduled checkpoint save at step {self.step} "
                          f"-> {self.checkpoint_dir}")
 

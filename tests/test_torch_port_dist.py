@@ -756,7 +756,8 @@ def test_dp_is_the_world_size(monkeypatch, world, dp, ok):
     if ok:
         assert TrainSettings(dp=dp).dp == dp
     else:
-        with pytest.raises(ValueError, match="ROADMAP A.8c"):
+        with pytest.raises(ValueError,
+                           match="must multiply to the world size"):
             TrainSettings(dp=dp)
 
 

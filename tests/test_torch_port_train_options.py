@@ -97,6 +97,9 @@ def test_jax_config_json_trains(tmp_path):
     ("keep_checkpoints", "-1", "must be >= 0"),
     ("prefetch_depth", "-1", "must be >= 0")])
 def test_new_fields_refused_name_their_reason(flag, value, item, capsys):
+    # the tensor axis's refusal moved to A.8g when A.8c brought the
+    # sharded state
+    item = {"ROADMAP A.8c": "ROADMAP A.8g"}.get(item, item)
     with pytest.raises(SystemExit) as e:
         parse_settings([f"--{flag}", value])
     assert e.value.code == 2
