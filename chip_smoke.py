@@ -298,6 +298,46 @@ Phases (any failure raises, and the script exits non-zero):
    at that size beside it; phase 18 checks its element count is the
    runs'). Its line is ``{"sharded_state": {...}}``; the flash rows gain
    ``launches_zero1``/``launches_fsdp2``.
+19. stacked layers and pipeline parallelism, last (budget 200 s): phase
+   12's GPT-2 base workload (batch 8 in microbatches of 4, 5 steps) with
+   ``--scan_layers true``, through ``run.train``: (a) no group, each loss
+   within 2e-3 relative of phase 12's run without a group (named blocks;
+   the largest difference printed); (b) ``--nprocs 2 --pipe 2
+   --pp_schedule 1f1b --pp_chunks 4 --save_interval 3`` beside (a): both
+   ranks' losses equal; step 1's loss within 1e-6 relative of (a)'s (the
+   chunks' f32 loss sums) and its grad norm within 1e-3, every loss
+   within 5e-3 relative (phase 12's bar
+   across a change of microbatch split: each one-row chunk's weight
+   gradient rounds to bf16 before the f32 sum, and Adam turns that into
+   differences of ~3e-3 by step 5, over the 1e-3 absolute first set for
+   this phase); the 1F1B stash's peak ``stash_size(4, 2) = 3`` at stage
+   0; (c) gpipe with ``--eval_decode true --eval_interval 3
+   --save_interval 3`` (8 rows, prompt 512; one eval, so the last log
+   window is a plain step): held to (a) as (b), ``decode_acc`` logged and
+   the step-3 decode's token digest equal to ``gpt2_decode`` of the
+   step-3 checkpoint at ``--pipe 1``; (d)
+   ``interleaved --pp_virtual 2``: held to (a) as (b), rank 0 holding
+   layers 0-2 and 6-8, rank 1 3-5 and 9-11; (e) (b)'s step-3 checkpoint
+   (block tensors of leading dim 12) resumed with no group to step 5,
+   step 4 within 1e-6 relative of (b)'s and step 5 within 5e-3; (f) DiffuSeq-base
+   at the DiffuSeq phase's flags (batch 256 / 64, 20 steps, seed 0) on
+   ``--nprocs 2 --pipe 2``, the first 3 losses within 2e-3 relative of
+   that phase's. (c), (d), (e) and (f) run together, so their seconds
+   share the card. (c) and (d) run 5 steps, not 3: the learning rate
+   anneals over ``--learning_steps``, and a 3-step run's third loss would
+   follow another rate than (a)'s. Launches, exact, from each rank's
+   sidecar: a rank holds 6 layers and a step runs 2 microbatches of 4
+   one-row chunks, so 1F1B and interleaved launch the flash forward
+   2 x 4 x 6 x 2 = 96 times a step (the B slot recomputes the stage) and the backward
+   48, GPipe 48 and 48; (c)'s eval pass (the forward-only stream) 48
+   forwards, and stage 0's decode 12 (the prefill at L 1024); the fused
+   update once a step over the rank's 81,871,104 elements (its stage's 6
+   x 7,080,960 block elements and the 39,385,344 of the rest). Each run
+   prints its step time, ``pipe_p2p_s_per_step``, the bytes sent and each
+   rank's peak memory. The update is timed at that element count with
+   the other update rows (``fused_adamw_ema_gpt2_pipe2_stage``). Its
+   line is ``{"pipeline": {...}}``; the flash rows gain
+   ``launches_pipe_1f1b``/``_gpipe``/``_interleaved``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -4149,6 +4189,296 @@ def shard_phase(torch, dp: dict, update_row: dict) -> dict:
     return out
 
 
+# ----------------------------------- stacked layers and the pipeline (19)
+
+PIPE_BUDGET_S = 200.0
+PIPE_FLAGS = ["--distributed", "--nprocs", "2", "--pipe", "2"]
+DIFFUSEQ_STEPS = 20
+
+
+def pipe_stage_elements(cfg: dict, stages: int) -> int:
+    """The elements a pipe rank's update covers: its stage's share of the
+    stacked block weights and the whole rest of the model."""
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    model = create_model_from_config(**cfg, scan_layers=True, device="meta")
+    blocks = sum(p.numel() for n, p in model.named_parameters()
+                 if ".blocks." in n)
+    rest = sum(p.numel() for n, p in model.named_parameters()
+               if ".blocks." not in n)
+    return blocks // stages + rest
+
+
+def pipe_ranks(r: dict, what: str, want: list) -> list:
+    """Each rank's sidecar of a pipe run, checked: gloo on ``cuda:0``, the
+    launches ``want[rank]``, no plain call, the two ranks' losses and
+    final parameters equal; printed with the step time, the exchange's
+    seconds and bytes and the peak memory."""
+    ranks = r["ranks"]
+    check(len(ranks) == 2, f"{what}: {len(ranks)} sidecars")
+    for side in ranks:
+        i = side["rank"]
+        check(side["backend"] == "gloo" and side["device"] == "cuda:0",
+              f"{what} rank {i}: {side['backend']} {side['device']}")
+        check(side["launches"] == want[i],
+              f"{what} rank {i}: launches {side['launches']}, expected "
+              f"{want[i]}")
+        check(not any(side["plain_calls"].values()),
+              f"{what} rank {i}: plain calls {side['plain_calls']}")
+        print(f"# pipeline {what} rank {i} ({CARD}): stage "
+              f"{json.dumps(side['pipe'])}, launches {side['launches']}, "
+              f"step {side.get('step_time_s', 0.0):.6f} s, pipe_p2p "
+              f"{side['pipe_p2p_s_per_step']:.6f} s a step over "
+              f"{side['pipe_p2p_calls']} exchanges, {side['pipe_bytes']} B "
+              f"sent, all-reduce {side['allreduce_s_per_step']:.6f} s a "
+              f"step, update over {side['layout']['owned']} elements, peak "
+              f"memory {side['peak_memory_bytes']} B", flush=True)
+    check([h["loss"] for h in ranks[0]["history"]]
+          == [h["loss"] for h in ranks[1]["history"]],
+          f"{what}: the two ranks logged different losses")
+    check(ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+          f"{what}: the two ranks' final parameters differ")
+    return [{k: side.get(k) for k in (
+        "rank", "pipe", "launches", "plain_calls", "pipe_p2p_s_per_step",
+        "pipe_p2p_calls", "pipe_bytes", "allreduce_s_per_step",
+        "step_time_s", "tokens_per_sec", "peak_memory_bytes", "layout",
+        "eval_decodes", "params_sha256")} for side in ranks]
+
+
+def held_to_scan(steps: list, ref: list, what: str) -> dict:
+    """A pipe run's per-step metrics against (a)'s over the same steps:
+    step 1's loss (the forward before any update) within 1e-6 relative
+    (the chunks' f32 loss sums), its grad norm within 1e-3 relative,
+    every loss within 5e-3 relative (phase 12's bar across a change of
+    microbatch split: each one-row chunk's weight gradient rounds to bf16
+    before the f32 sum). Returns the largest absolute and relative loss
+    differences."""
+    got = [h["loss"] for h in steps]
+    want = [h["loss"] for h in ref]
+    check(len(got) == len(want), f"{what}: {len(got)} steps vs {len(want)}")
+    gn = abs(steps[0]["grad_norm"] - ref[0]["grad_norm"]) / ref[0][
+        "grad_norm"]
+    worst = max(abs(x - y) for x, y in zip(got, want))
+    rels = [abs(x - y) / abs(y) for x, y in zip(got, want)]
+    check(rels[0] <= 1e-6 and gn <= 1e-3 and max(rels) <= 5e-3,
+          f"{what}: losses {got} vs {want}, relative {rels} (step 1 within "
+          f"1e-6, all within 5e-3), step-1 grad norm relative {gn}")
+    return {"max_abs": worst, "max_rel": max(rels), "step1_rel": rels[0],
+            "step1_grad_norm_rel": gn}
+
+
+def pipe_launches(per_step_fwd: int, per_step_bwd: int, steps: int,
+                  extra_fwd=(0, 0)) -> list:
+    return [{"flash_forward": per_step_fwd * steps + extra_fwd[i],
+             "flash_backward": per_step_bwd * steps,
+             "fused_adamw_ema": steps} for i in range(2)]
+
+
+def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
+    """Phase 19 (see the module doc). ``dp`` is phase 12's output (its run
+    without a group holds (a)), ``diffuseq`` the DiffuSeq phase's (its
+    losses hold (f)), ``update_row`` the update's kernel row at a pipe
+    rank's element count (checked against the runs')."""
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    from distributed_pipeline_tpu_torch.models.sampling import \
+        gpt2_decode_and_score
+    from distributed_pipeline_tpu_torch.models.schedule_1f1b import \
+        stash_size
+    from distributed_pipeline_tpu_torch.data import load_data_from_args
+
+    t0 = time.perf_counter()
+    layers, micro, chunks = GPT2_BASE["num_layers"], 2, 4
+    held = layers // 2 * chunks * micro           # 48 chunk-layers a step
+    scan = ["--scan_layers", "true"]
+    out: dict = {"steps": DP_STEPS}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) and (b) together
+        run_a, run_b = (os.path.join(work, k) for k in ("scan", "1f1b"))
+        started_b = dp_start(PIPE_FLAGS + dp_argv(run_b, 8, 4) + scan + [
+            "--pp_schedule", "1f1b", "--pp_chunks", str(chunks),
+            "--save_interval", "3"])
+        try:
+            a = dp_run(run_a, dp_argv(run_a, 8, 4) + scan, "scan_layers")
+        finally:
+            b = dp_finish(started_b, run_b, "pipe 1f1b")
+        side_a = a["ranks"][0]
+        check(side_a["launches"] == {"flash_forward": layers * micro
+                                     * DP_STEPS, "flash_backward": layers
+                                     * micro * DP_STEPS,
+                                     "fused_adamw_ema": DP_STEPS},
+              f"scan_layers launches {side_a['launches']}")
+        losses_a = [h["loss"] for h in a["steps"]]
+        ref = dp["single"]["losses"]
+        rel_a = max(abs(x - y) / abs(y) for x, y in zip(losses_a, ref))
+        check(len(losses_a) == DP_STEPS and rel_a <= 2e-3,
+              f"scan_layers losses {losses_a} vs phase 12's named blocks "
+              f"{ref}: relative {rel_a} > 2e-3")
+        print(f"# pipeline scan_layers ({CARD}): losses {losses_a} vs phase "
+              f"12's named blocks {ref}, largest relative difference "
+              f"{rel_a}, step {side_a.get('step_time_s', 0.0):.6f} s, peak "
+              f"memory {side_a['peak_memory_bytes']} B", flush=True)
+        out["scan_layers"] = {"losses": losses_a, "vs_named_max_rel": rel_a,
+                              "step_time_s": side_a.get("step_time_s"),
+                              "peak_memory_bytes":
+                                  side_a["peak_memory_bytes"],
+                              "wall_s": a["wall_s"]}
+        ranks_b = pipe_ranks(b, "1f1b", pipe_launches(2 * held, held,
+                                                      DP_STEPS))
+        losses_b = [h["loss"] for h in b["steps"]]
+        held_b = held_to_scan(b["steps"], a["steps"], "pipe 1f1b")
+        peak = ranks_b[0]["pipe"]["stash_peak"]
+        check(peak == stash_size(chunks, 2) == 3,
+              f"1f1b stage 0's stash peaked at {peak}, not stash_size(4, 2)"
+              f" = 3")
+        owned = ranks_b[0]["layout"]["owned"]
+        check(owned == update_row["elements"]
+              and [x["layout"]["owned"] for x in ranks_b] == [owned] * 2,
+              f"pipe ranks update {[x['layout']['owned'] for x in ranks_b]}"
+              f" elements, the update row {update_row['elements']}")
+        out["1f1b"] = {"losses": losses_b, "vs_scan": held_b,
+                       "stash_peak": peak, "ranks": ranks_b,
+                       "wall_s": b["wall_s"]}
+        saved = torch.load(os.path.join(run_b, "model_000003.pt"),
+                           weights_only=True, mmap=True)
+        depth = saved["backbone.blocks.qkv"].shape[0]
+        check(depth == layers, f"1f1b's step-3 checkpoint holds "
+                               f"{depth} layers of qkv, not {layers}")
+        del saved
+        torch.cuda.empty_cache()
+        # (c), (d) and (e) together
+        run_c, run_d, run_e = (os.path.join(work, k) for k in
+                               ("gpipe", "interleaved", "resume"))
+        run_f = os.path.join(work, "diffuseq")
+        started = [dp_start(PIPE_FLAGS + dp_argv(run_c, 8, 4) + scan + [
+                       "--pp_schedule", "gpipe", "--pp_chunks", str(chunks),
+                       "--eval_decode", "true", "--eval_interval", "3",
+                       "--save_interval", "3"]),
+                   dp_start(PIPE_FLAGS + dp_argv(run_d, 8, 4) + scan + [
+                       "--pp_schedule", "interleaved", "--pp_virtual", "2",
+                       "--pp_chunks", str(chunks)]),
+                   # (f): the DiffuSeq phase's flags
+                   dp_start(PIPE_FLAGS + scan + [
+                       "--checkpoint_path", run_f, "--batch_size", "256",
+                       "--microbatch", "64", "--learning_steps",
+                       str(DIFFUSEQ_STEPS), "--ema_rate", "0.5,0.9,0.99",
+                       "--attention_impl", "auto", "--fused_update", "auto",
+                       "--log_interval", "5", "--save_interval", "0",
+                       "--seed", "0"])]
+        try:
+            e = dp_run(run_e, dp_argv(run_e, 8, 4) + scan + [
+                "--resume_checkpoint", os.path.join(run_b,
+                                                    "model_000003.pt")],
+                "resume")
+        finally:
+            c = dp_finish(started[0], run_c, "pipe gpipe")
+            d = dp_finish(started[1], run_d, "pipe interleaved")
+            f = dp_finish(started[2], run_f, "pipe diffuseq")
+        # (c): an eval of 48 forwards, stage 0's decode prefill of 12
+        ranks_c = pipe_ranks(c, "gpipe", pipe_launches(
+            held, held, DP_STEPS, (held + layers, held)))
+        losses_c = [h["loss"] for h in c["steps"]]
+        held_c = held_to_scan(c["steps"], a["steps"], "pipe gpipe")
+        decodes = ranks_c[0]["eval_decodes"]
+        check([x["step"] for x in decodes] == [3]
+              and not ranks_c[1]["eval_decodes"],
+              f"gpipe eval decodes {decodes} / rank 1 "
+              f"{ranks_c[1]['eval_decodes']}")
+        accs = [float(row["decode_acc"]) for row in c["rows"]
+                if row.get("decode_acc")]
+        check(accs == [x["value"] for x in decodes],
+              f"gpipe decode_acc rows {accs} vs the decodes {decodes}")
+        with open(os.path.join(run_c, "training_args.json")) as fh:
+            targs = json.load(fh)
+        model = create_model_from_config(**targs, device="cuda")
+        model.load_state_dict(torch.load(os.path.join(
+            run_c, "model_000003.pt"), weights_only=True))
+        batch = next(load_data_from_args(
+            "valid", **{**targs, "deterministic": True, "batch_size": 8,
+                        "num_loader_proc": 0, "data_loader_workers": 0,
+                        "host_sharded": False}))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        with torch.no_grad():
+            pred, acc = gpt2_decode_and_score(model.eval(), batch)
+        import hashlib
+        sha = hashlib.sha256(pred.cpu().numpy().tobytes()).hexdigest()
+        check(sha == decodes[0]["tokens_sha256"]
+              and float(acc) == decodes[0]["value"],
+              f"gpipe's step-3 decode ({decodes[0]}) differs from "
+              f"gpt2_decode of its step-3 checkpoint at --pipe 1 ({acc}, "
+              f"{sha})")
+        del model, batch, pred
+        torch.cuda.empty_cache()
+        print(f"# pipeline gpipe ({CARD}): vs scan_layers {held_c}; eval "
+              f"decodes {decodes}; the step-3 tokens equal gpt2_decode of "
+              f"model_000003.pt at --pipe 1", flush=True)
+        out["gpipe"] = {"losses": losses_c, "vs_scan": held_c,
+                        "eval_decodes": decodes, "ranks": ranks_c,
+                        "wall_s": c["wall_s"]}
+        ranks_d = pipe_ranks(d, "interleaved", pipe_launches(2 * held, held,
+                                                             DP_STEPS))
+        losses_d = [h["loss"] for h in d["steps"]]
+        held_d = held_to_scan(d["steps"], a["steps"], "pipe interleaved")
+        check([x["pipe"]["layers"] for x in ranks_d]
+              == [[0, 1, 2, 6, 7, 8], [3, 4, 5, 9, 10, 11]],
+              f"interleaved layers {[x['pipe']['layers'] for x in ranks_d]}")
+        out["interleaved"] = {"losses": losses_d, "vs_scan": held_d,
+                              "ranks": ranks_d, "wall_s": d["wall_s"]}
+        # (e)
+        side_e = e["ranks"][0]
+        rest = DP_STEPS - 3
+        check(side_e["launches"] == {"flash_forward": layers * micro * rest,
+                                     "flash_backward": layers * micro * rest,
+                                     "fused_adamw_ema": rest},
+              f"resume launches {side_e['launches']}")
+        check([h["step"] for h in e["steps"]] == [4, 5],
+              f"resumed steps {[h['step'] for h in e['steps']]}")
+        losses_e = [h["loss"] for h in e["steps"]]
+        rel_e = max(abs(x - y) / abs(y) for x, y in zip(losses_e,
+                                                        losses_b[3:]))
+        # step 4 runs the saved weights (within the chunks' f32 loss
+        # sums); step 5 follows an update from other chunking's gradients
+        rel_e4 = abs(losses_e[0] - losses_b[3]) / abs(losses_b[3])
+        check(rel_e4 <= 1e-6 and rel_e <= 5e-3,
+              f"resumed steps 4-5 {losses_e} vs 1f1b's {losses_b[3:]}: "
+              f"step 4 within 1e-6 ({rel_e4}), both within 5e-3 relative "
+              f"({rel_e})")
+        worst_e = max(abs(x - y) for x, y in zip(losses_e, losses_b[3:]))
+        print(f"# pipeline resume ({CARD}): 1f1b's step-3 files ({layers} "
+              f"stacked layers) at --pipe 1: steps 4-5 {losses_e} vs "
+              f"1f1b's {losses_b[3:]}, step 4 relative {rel_e4}, largest "
+              f"difference {worst_e}", flush=True)
+        out["resume"] = {"losses": losses_e, "vs_1f1b_max_abs": worst_e,
+                         "wall_s": e["wall_s"]}
+        torch.cuda.empty_cache()
+        # (f)
+        ranks_f = pipe_ranks(f, "diffuseq", [{
+            "flash_forward": 0, "flash_backward": 0,
+            "fused_adamw_ema": DIFFUSEQ_STEPS}] * 2)
+        losses_f = [h["loss"] for h in f["steps"]]
+        ref_f = diffuseq["losses"]
+        rel_f = [abs(x - y) / abs(y) for x, y in zip(losses_f, ref_f)]
+        check(len(losses_f) == DIFFUSEQ_STEPS and max(rel_f[:3]) <= 2e-3,
+              f"pipe diffuseq losses {losses_f[:3]} vs the DiffuSeq "
+              f"phase's {ref_f[:3]}: relative {rel_f[:3]} > 2e-3")
+        print(f"# pipeline diffuseq ({CARD}): first 3 losses relative "
+              f"{rel_f[:3]} to the DiffuSeq phase's, all {DIFFUSEQ_STEPS} "
+              f"largest {max(rel_f)}", flush=True)
+        out["diffuseq"] = {"losses": losses_f, "vs_phase_rel": rel_f,
+                           "ranks": ranks_f, "wall_s": f["wall_s"]}
+    update_row["launches"] = [x["launches"]["fused_adamw_ema"]
+                              for x in ranks_b]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# pipeline ({CARD}): walls {a['wall_s']:.1f} beside "
+          f"{b['wall_s']:.1f}, then {c['wall_s']:.1f}, {d['wall_s']:.1f}, "
+          f"{f['wall_s']:.1f} beside {e['wall_s']:.1f} s; phase "
+          f"{out['phase_s']:.1f} s of its {PIPE_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= PIPE_BUDGET_S,
+          f"phase 19 took {out['phase_s']:.1f} s, over {PIPE_BUDGET_S} s")
+    return out
+
+
 # ------------------------------------------------- the run readers (16)
 
 READERS_BUDGET_S = 30.0
@@ -4310,6 +4640,10 @@ def main() -> int:
         "fused update gpt2 zero1 shard", update_phase, torch, bw, f32_peak,
         GPT2_BASE, name="fused_adamw_ema_gpt2_zero1_shard",
         elements=zero1_shard_elements(GPT2_BASE, 2))
+    update_pipe = clocked(
+        "fused update gpt2 pipe2 stage", update_phase, torch, bw, f32_peak,
+        GPT2_BASE, name="fused_adamw_ema_gpt2_pipe2_stage",
+        elements=pipe_stage_elements(GPT2_BASE, 2))
     small_model_phase(torch)
     t0 = time.perf_counter()
     serve, spec, options = serve_phase(torch, fd, bw, bf16_peak)
@@ -4398,6 +4732,13 @@ def main() -> int:
                                       for r in shard[key]["ranks"]]
     update["launches_fsdp2"] = [r["launches"]["fused_adamw_ema"]
                                 for r in shard["fsdp2"]["ranks"]]
+    # phase 19: stacked layers and the pipeline schedules
+    pipe = clocked("stacked layers and the pipeline", pipe_phase, torch, dp,
+                   diffuseq, update_pipe)
+    for row in flash:
+        for key in ("1f1b", "gpipe", "interleaved"):
+            row[f"launches_pipe_{key}"] = [r["launches"][row["name"]]
+                                           for r in pipe[key]["ranks"]]
     # phase 15: the finished attempts' launches, read from their sidecars
     update_dq["launches_tooling"] = {
         key: tools[key]["launches"]["fused_adamw_ema"]
@@ -4425,10 +4766,12 @@ def main() -> int:
     print(json.dumps({"run_readers": readers}), flush=True)
     print(json.dumps({"moe_eval_decode_sequence": spm}), flush=True)
     print(json.dumps({"sharded_state": shard}), flush=True)
+    print(json.dumps({"pipeline": pipe}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,
-                                  update_dq, update_moe, update_shard]}),
+                                  update_dq, update_moe, update_shard,
+                                  update_pipe]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,12 @@ shards the weight-update state over the data axis (ZeRO-1) and
 ``--partition_rules`` overrides the model's rule table (inline JSON,
 ``@file`` or a path; a tuner artifact's mesh and ``shard_optimizer`` fold
 in through ``run/train.apply_tuned_layout``). Sharding with ``--sequence >
-1`` is refused (ROADMAP A.8g).
+1`` is refused (ROADMAP A.8g). ``--scan_layers`` stacks the layer weights
+and ``--pipe S`` makes each S consecutive ranks one pipeline
+(``--pp_schedule`` gpipe, 1f1b or interleaved over ``--pp_chunks`` chunks a
+microbatch, ``--pp_virtual`` slices a rank under interleaved); pipe with
+``--fsdp > 1``, ``--shard_optimizer``, ``--sequence > 1`` or MoE, and
+``--scan_layers`` with MoE, are refused (ROADMAP A.9c).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
@@ -34,30 +39,55 @@ from ..parallel.mesh import resolve_axis_sizes
 from ..parallel.partition import load_partition_artifact
 from ..utils.perf import parse_profile_steps
 
-__all__ = ["TrainSettings", "DEFERRED", "create_parser", "parse_settings"]
+__all__ = ["TrainSettings", "DEFERRED", "PIPE_LATER", "PIPE_NEEDS_SCAN",
+           "pipe_refusal", "create_parser", "parse_settings"]
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
-    "scan_layers": (False, "ROADMAP A.9 (stacked layers, pipeline)"),
-    "pp_chunks": (4, "ROADMAP A.9 (pipeline parallelism)"),
-    "pp_schedule": ("1f1b", "ROADMAP A.9 (pipeline parallelism)"),
-    "pp_virtual": (2, "ROADMAP A.9 (pipeline parallelism)"),
     "tensor": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
     "expert": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
-    "pipe": (1, "ROADMAP A.9 (pipeline parallelism)"),
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
-    "mpmd": (False, "ROADMAP A.9 (MPMD pipeline)"),
+    "mpmd": (False, "ROADMAP A.9b (MPMD pipeline)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
-    "scan_unroll": (0, "ROADMAP A.9 (stacked layers, pipeline)"),
-    "mpmd_stages": (2, "ROADMAP A.9 (MPMD pipeline)"),
-    "mpmd_link_capacity": (8, "ROADMAP A.9 (MPMD pipeline)"),
-    "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9 (MPMD pipeline)"),
-    "mpmd_max_restarts": (3, "ROADMAP A.9 (MPMD pipeline)"),
+    "mpmd_stages": (2, "ROADMAP A.9b (MPMD pipeline)"),
+    "mpmd_link_capacity": (8, "ROADMAP A.9b (MPMD pipeline)"),
+    "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9b (MPMD pipeline)"),
+    "mpmd_max_restarts": (3, "ROADMAP A.9b (MPMD pipeline)"),
 }
+# the compositions of the pipe axis and the stacked layers a later slice
+# brings
+PIPE_LATER = ("ROADMAP A.9c (pipe x fsdp, x ZeRO-1, x sequence, MoE scan "
+              "blocks)")
+# the JAX entry point's refusal of a pipe axis over named blocks
+PIPE_NEEDS_SCAN = ("--pipe > 1 requires --scan_layers true (stacked layer "
+                   "weights are what shard into pipeline stages); without "
+                   "it the pipe axis would only replicate work")
 # compilation_cache_dir names an XLA cache; PyTorch runs eagerly and
 # compiles nothing across runs, so only the JAX default and "off" (both
 # meaning "nothing to cache" here) are accepted
 COMPILATION_CACHE_DIRS = ("auto", "off")
+
+
+
+def pipe_refusal(pipe: int, scan_layers: bool, fsdp: int = 1,
+                 shard_optimizer: bool = False, sequence: int = 1,
+                 moe_experts: int = 0) -> str:
+    """Why this composition of the pipe axis and the stacked layers is
+    not trained, or "" when it is."""
+    if pipe > 1 and not scan_layers:
+        return PIPE_NEEDS_SCAN
+    if pipe > 1:
+        for bad, what in ((fsdp > 1, "--fsdp > 1"),
+                          (shard_optimizer, "--shard_optimizer"),
+                          (sequence > 1, "--sequence > 1"),
+                          (moe_experts > 0, "--moe_experts > 0")):
+            if bad:
+                return f"--pipe > 1 with {what} comes with {PIPE_LATER}"
+    if scan_layers and moe_experts > 0:
+        return (f"--scan_layers with --moe_experts > 0 (the JAX "
+                f"MoEScanBlocks) comes with {PIPE_LATER}")
+    return ""
+
 
 _TRUE = {"true", "t", "1", "yes", "y", "on"}
 _FALSE = {"false", "f", "0", "no", "n", "off"}
@@ -188,12 +218,25 @@ class TrainSettings:
                                 "loop entry (with --profile_dir; empty = "
                                 "3:8)")
 
-    # options of the JAX trainer that later slices bring (DEFERRED)
-    scan_layers: bool = _f(False, "stacked layer weights")
-    pp_chunks: int = _f(4, "pipeline microchunks")
-    pp_schedule: str = _f("1f1b", "pipeline schedule",
-                          ("1f1b", "gpipe", "interleaved"))
-    pp_virtual: int = _f(2, "virtual pipeline stages per device")
+    # stacked layers and the pipeline schedule
+    scan_layers: bool = _f(False, "stacked layer weights (one module whose "
+                                  "weights carry a leading [num_layers] "
+                                  "dim; what --pipe cuts into stages)")
+    pp_chunks: int = _f(4, "pipeline chunks a microbatch (bubble "
+                           "(S-1)/(chunks+S-1) under gpipe)")
+    pp_schedule: str = _f(
+        "1f1b", "pipeline schedule: 1f1b streams each chunk's backward as "
+                "soon as its forward clears the last stage (a stash of at "
+                "most 2S-1 chunk inputs, the stage forward recomputed in "
+                "the backward); interleaved splits each rank into "
+                "pp_virtual slices (V*min(chunks, 3S) stashed inputs); "
+                "gpipe runs the forward stream, then autograd back "
+                "through it (residuals grow with pp_chunks)",
+        ("1f1b", "gpipe", "interleaved"))
+    pp_virtual: int = _f(2, "virtual stage slices a rank under "
+                            "--pp_schedule interleaved (num_layers must "
+                            "divide by pipe * pp_virtual, pp_chunks by "
+                            "pipe)")
     dp: int = _f(-1, "data-parallel axis size: -1 = WORLD_SIZE / "
                      "(fsdp * sequence), else dp * fsdp * sequence must "
                      "equal WORLD_SIZE (1 for one process)")
@@ -205,7 +248,9 @@ class TrainSettings:
                           "this many ranks splits L and rings its "
                           "attention")
     expert: int = _f(1, "expert-parallel axis size")
-    pipe: int = _f(1, "pipeline-parallel axis size")
+    pipe: int = _f(1, "pipeline-parallel axis size: each group of this "
+                      "many consecutive ranks runs the stages of the "
+                      "stacked layers (requires --scan_layers true)")
     shard_optimizer: bool = _f(False, "ZeRO-1: mu, nu and the EMA copies "
                                       "sharded over the data axis (one "
                                       "reduce-scatter and one all-gather "
@@ -216,7 +261,10 @@ class TrainSettings:
     auto_tune: bool = _f(False, "inline sharding auto-tuner")
     mpmd: bool = _f(False, "MPMD pipeline training")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
-    scan_unroll: int = _f(0, "scan_layers unroll factor")
+    scan_unroll: int = _f(0, "the JAX layer scan's unroll factor (<= 0 = "
+                             "auto, else the factor), read as the JAX flag; "
+                             "perf-only there, and the eager layer loop "
+                             "runs the same for every value")
     mpmd_stages: int = _f(2, "MPMD stage count")
     mpmd_link_capacity: int = _f(8, "MPMD StageLink in-flight frame cap")
     mpmd_hang_timeout_s: float = _f(0.0, "MPMD per-stage hang watchdog")
@@ -250,6 +298,8 @@ class TrainSettings:
                              f"--sequence > 1: each rank holds an "
                              f"L/sequence slice, and only the ring ('auto' "
                              f"or 'ring') attends across the slices")
+        if self.pipe > 1 and not self.scan_layers:
+            raise ValueError(PIPE_NEEDS_SCAN)   # before the mesh's check
         world = int(os.environ.get("WORLD_SIZE", "1"))
         if self.sequence < 1 or world % self.sequence:
             raise ValueError(f"--sequence {self.sequence} must divide the "
@@ -260,8 +310,9 @@ class TrainSettings:
                                n_devices=world)
         except ValueError as e:
             raise ValueError(f"--dp {self.dp} --fsdp {self.fsdp} --sequence "
-                             f"{self.sequence}: {e}; the mesh's axes must "
-                             f"multiply to the world size") from None
+                             f"{self.sequence} --pipe {self.pipe}: {e}; the "
+                             f"mesh's axes must multiply to the world "
+                             f"size") from None
         if self.sequence > 1 and (self.fsdp > 1 or self.shard_optimizer):
             raise ValueError(
                 "--fsdp > 1 or --shard_optimizer with --sequence > 1 comes "
@@ -273,6 +324,14 @@ class TrainSettings:
             except OSError as e:
                 raise ValueError(f"--partition_rules {self.partition_rules!r}"
                                  f": {e}") from None
+        if self.pp_chunks < 1 or self.pp_virtual < 1:
+            raise ValueError(f"--pp_chunks and --pp_virtual must be >= 1, "
+                             f"got {self.pp_chunks} and {self.pp_virtual}")
+        refused = pipe_refusal(self.pipe, self.scan_layers, self.fsdp,
+                               self.shard_optimizer, self.sequence,
+                               self.moe_experts)
+        if refused:
+            raise ValueError(refused)
         if self.seq_len % self.sequence:
             raise ValueError(f"--seq_len {self.seq_len} not divisible by "
                              f"--sequence {self.sequence}")

@@ -9,6 +9,15 @@ transposed. Trees shaped like the parameters (the Adam moments,
 each EMA copy) convert with the same mapping. :func:`init_params` draws the
 JAX initializers' distributions with numpy, for either family, which gives
 full-width weights without JAX.
+
+A stacked (``scan_layers``) model's blocks are one ``backbone.blocks``
+module whose weights carry a leading ``[num_layers]`` dim, the JAX
+``params/backbone/blocks/{qkv, ...}`` tree, so the flax bridge holds for
+it as it is. :func:`stack_blocks` and :func:`unstack_blocks` move a state
+dict between the named blocks (``backbone.block_i.attn.qkv``, ...) and the
+stacked ones (``backbone.blocks.qkv[i]``), and :func:`to_layout` gives a
+state dict the layout a model's parameter names ask for, so a stacked
+checkpoint loads into the named-block model and the reverse.
 """
 
 from __future__ import annotations
@@ -21,7 +30,66 @@ import torch
 from .models.diffuseq import DIFFUSEQ_EMB_DIM
 
 __all__ = ["params_from_flax", "params_to_flax", "init_params",
-           "opt_state_from_optax"]
+           "opt_state_from_optax", "stack_blocks", "unstack_blocks",
+           "to_layout", "STACKED_FROM_NAMED"]
+
+# a named block's leaf -> its stacked weight (models/pipeline.py)
+STACKED_FROM_NAMED = {"ln1.scale": "ln1_scale", "ln1.bias": "ln1_bias",
+                      "attn.qkv": "qkv", "attn.out": "out",
+                      "ln2.scale": "ln2_scale", "ln2.bias": "ln2_bias",
+                      "mlp.wi": "wi", "mlp.wo": "wo"}
+_NAMED = "backbone.block_"
+_STACKED = "backbone.blocks."
+
+
+def _num_named_layers(state: Mapping[str, Any]) -> int:
+    return len({k[len(_NAMED):].split(".")[0] for k in state
+                if k.startswith(_NAMED)})
+
+
+def stack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """Named blocks -> stacked: ``backbone.block_i.<leaf>`` of every i
+    stacked in layer order into ``backbone.blocks.<name>``; the other
+    keys as they are. Raises ``KeyError`` for a block the stacked layout
+    cannot hold (an MoE block)."""
+    n = _num_named_layers(state)
+    out = {k: v for k, v in state.items() if not k.startswith(_NAMED)}
+    if not n:
+        return out
+    for leaf, name in STACKED_FROM_NAMED.items():
+        out[_STACKED + name] = torch.stack(
+            [torch.as_tensor(state[f"{_NAMED}{i}.{leaf}"])
+             for i in range(n)])
+    extra = set(state) - set(out) - {f"{_NAMED}{i}.{leaf}" for i in range(n)
+                                     for leaf in STACKED_FROM_NAMED}
+    if extra:
+        raise KeyError(f"stacked blocks hold no {sorted(extra)[0]}")
+    return out
+
+
+def unstack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """Stacked blocks -> named: row i of ``backbone.blocks.<name>`` to
+    ``backbone.block_i.<leaf>``; the other keys as they are."""
+    out = {k: v for k, v in state.items() if not k.startswith(_STACKED)}
+    if _STACKED + "qkv" not in state:
+        return out
+    n = state[_STACKED + "qkv"].shape[0]
+    for leaf, name in STACKED_FROM_NAMED.items():
+        rows = state[_STACKED + name]
+        for i in range(n):
+            out[f"{_NAMED}{i}.{leaf}"] = rows[i]
+    return out
+
+
+def to_layout(state: Mapping[str, Any], names) -> Mapping[str, Any]:
+    """``state`` in the block layout that the parameter ``names`` use
+    (stacked when they hold ``backbone.blocks.qkv``, else named): as it
+    is when it already is, else stacked or unstacked."""
+    names = set(names)
+    stacked_model = _STACKED + "qkv" in names
+    if (_STACKED + "qkv" in state) == stacked_model:
+        return state
+    return stack_blocks(state) if stacked_model else unstack_blocks(state)
 
 # the standard deviation of a unit normal truncated to [-2, 2] (flax's
 # variance_scaling divides by it so the truncated draw keeps the variance)
@@ -72,7 +140,9 @@ def init_params(cfg: Mapping[str, Any], seed: int) -> Dict[str, torch.Tensor]:
     ``moe_experts`` and ``moe_every`` (an MoE block draws ``router`` and
     ``wi`` ``normal(D**-0.5)``, ``wo`` ``normal((4D)**-0.5)``, the JAX
     ``_dense_init``); the result is an f32 state dict for the model's
-    ``load_state_dict``."""
+    ``load_state_dict``. With ``scan_layers`` the blocks come stacked
+    (:func:`stack_blocks` of the same draws: a stacked and a named model
+    from one seed hold the same weights)."""
     rng = np.random.default_rng(seed)
     V, L = cfg["vocab_size"], cfg["seq_len"]
     D, H = cfg["hidden_size"], cfg["num_heads"]
@@ -126,7 +196,7 @@ def init_params(cfg: Mapping[str, Any], seed: int) -> Dict[str, torch.Tensor]:
             sd[f"{p}.mlp.wi"] = normal(D ** -0.5, D, 4 * D)
             sd[f"{p}.mlp.wo"] = normal((4 * D) ** -0.5, 4 * D, D)
     sd.update(layer_norm("backbone.ln_f"))
-    return sd
+    return stack_blocks(sd) if cfg.get("scan_layers") else sd
 
 
 def opt_state_from_optax(opt_state: Any) -> Dict[str, Any]:

@@ -15,7 +15,9 @@ and the expert counts all-reduced; ``models/moe.py``). Under sequence
 parallelism ``sequence_slice`` gives a rank its L slice of a microbatch
 (GPT-2's with the next slice's first token for its last target); the
 same global denominators hold, every term being a per-token masked
-mean.
+mean. Under a pipe group (``pipeline.pipe_parallel``) ``compute_losses``
+runs the pipe schedule: with gradients on it also runs the backward
+(``models/schedule_1f1b.py``), and returns this rank's shares.
 """
 
 from __future__ import annotations
@@ -73,12 +75,17 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                              remat: bool = False, moe_experts: int = 0,
                              moe_top_k: int = 2, moe_every: int = 2,
                              moe_capacity_factor: float = 1.25,
+                             scan_layers: bool = False, pp_chunks: int = 4,
+                             pp_schedule: str = "1f1b", pp_virtual: int = 2,
+                             scan_unroll: int = 0,
                              **_unused: Any) -> Model:
     """The model for (a superset of) the JAX package's ``TrainSettings``
-    fields; preset dims are overridden by nonzero hidden/layers/heads, and
+    fields; preset dims are overridden by nonzero hidden/layers/heads,
     ``moe_experts`` > 0 builds the mixture-of-experts model a run dir's
-    ``training_args.json`` names. The parameters are zeros until a state
-    dict is loaded."""
+    ``training_args.json`` names, and ``scan_layers`` the stacked blocks
+    (with the pipe schedule's ``pp_*`` fields and ``scan_unroll``, as the
+    JAX factory). The parameters are zeros until a state dict is
+    loaded."""
     if model_family not in PRESETS:
         raise ValueError(f"unknown model family: {model_family!r}; "
                          f"available: {sorted(PRESETS)}")
@@ -96,7 +103,10 @@ def create_model_from_config(*, model_family: str = "diffuseq",
                 dtype=torch_dtype(dtype), device=device,
                 attention_impl=attention_impl, remat=bool(remat),
                 moe_experts=moe_experts, moe_top_k=moe_top_k,
-                moe_every=moe_every, moe_capacity_factor=moe_capacity_factor)
+                moe_every=moe_every, moe_capacity_factor=moe_capacity_factor,
+                scan_layers=bool(scan_layers), pp_chunks=pp_chunks,
+                pp_schedule=pp_schedule, pp_virtual=pp_virtual,
+                scan_unroll=scan_unroll)
     if model_family == "diffuseq":
         return DiffuSeqModel(**dims, emb_dim=DIFFUSEQ_EMB_DIM,
                              schedule=make_schedule(noise_schedule,

@@ -52,8 +52,15 @@ exact top-k experts (inference), in place of the JAX
 ``remat=True`` runs each block under ``torch.utils.checkpoint`` (the JAX
 ``nn.remat(Block)``) when gradients are enabled: only the block's input
 is kept, and the block runs again in the backward. Without gradients
-(sampling, serving, eval) it runs plainly. Stacked (``scan_layers``)
-weights are later work (ROADMAP A.9).
+(sampling, serving, eval) it runs plainly.
+
+``scan_layers=True`` holds the blocks as one stacked module
+(``models/pipeline.py`` ``PipelinedBlocks``, submodule ``blocks``: each
+weight once with a leading ``[num_layers]`` dim, the JAX layout) and runs
+them in a loop over that dim, as the JAX backbone routes to
+``PipelinedBlocks``; a pipe group cuts the leading dim into stages
+(``models/schedule_1f1b.py``). Stacked blocks decode through the dense
+cache only: a paged cache raises the JAX refusal.
 """
 
 from __future__ import annotations
@@ -73,7 +80,8 @@ from ..serving.paged_kv import (write_prompt_kv, write_prompt_kv_q8,
 from .moe import MoEMlp, MoEStats
 
 __all__ = ["TransformerBackbone", "Block", "Mlp", "SelfAttention",
-           "LayerNorm", "Embed", "DenseKV"]
+           "LayerNorm", "Embed", "DenseKV", "dense_cached_attention",
+           "STACKED_PAGED_REFUSAL"]
 
 
 class DenseKV:
@@ -91,6 +99,48 @@ class DenseKV:
 # for an int8 pool, or a dense decode cache
 LayerKV = Union[Tuple[torch.Tensor, ...], DenseKV]
 KV_QUANTS = ("fp", "int8")
+# the JAX backbone's refusal of a paged cache for stacked weights
+STACKED_PAGED_REFUSAL = ("paged decode needs per-layer named blocks; stacked "
+                         "(scan_layers) models use the dense cache path")
+
+
+def dense_cached_attention(q, k, v, pad_mask, cache_index, cache: DenseKV,
+                           attention_impl: str = "auto") -> torch.Tensor:
+    """Attention of one layer through its dense decode cache (the JAX
+    ``decode=True`` contract): a full-length call (or the first, which
+    sizes the cache) is the prefill, keeping every position's K/V and
+    attending causally through the seam; a single-token call writes
+    position ``cache_index`` (0-d) and attends densely over
+    ``cache[0..cache_index]``. Named blocks and the stacked blocks
+    (``models/pipeline.py``) both attend through it."""
+    B, H, L, Dh = q.shape
+    if cache.k is None or L == cache.k.shape[2]:
+        # prefill (the first call sizes the cache): keep every
+        # position's K/V, attend causally through the seam
+        cache.k = k.clone(memory_format=torch.contiguous_format)
+        cache.v = v.clone(memory_format=torch.contiguous_format)
+        return dot_product_attention(q, k, v, pad_mask, causal=True,
+                                     impl=attention_impl)
+    Lmax = cache.k.shape[2]
+    if L != 1:
+        raise ValueError(
+            f"decode calls take the full length ({Lmax}, prefill) or a "
+            f"single token, got {L}")
+    if cache_index is None:
+        raise ValueError("single-token decode needs cache_index")
+    # the position as a device tensor (no host sync), clamped to the
+    # cache as JAX's dynamic_update_slice clamps it
+    idx = torch.clamp(cache_index.reshape(1).long(), 0, Lmax - 1)
+    cache.k.index_copy_(2, idx, k)
+    cache.v.index_copy_(2, idx, v)
+    # positions beyond idx hold stale or unwritten rows: masked
+    # (causality IS this mask for one query row)
+    live = (torch.arange(Lmax, device=q.device)[None, :]
+            <= idx).to(torch.int32).expand(B, Lmax)
+    if pad_mask is not None:
+        live = live * pad_mask
+    return dot_product_attention(q, cache.k, cache.v, live,
+                                 causal=False, impl="xla")
 
 
 def _param(shape, device) -> nn.Parameter:
@@ -151,7 +201,8 @@ class SelfAttention(nn.Module):
             if block_table is not None:
                 raise ValueError("block_table is only meaningful with a "
                                  "paged KV cache")
-            o = self._cached_attention(q, k, v, pad_mask, cache_index, kv)
+            o = dense_cached_attention(q, k, v, pad_mask, cache_index, kv,
+                                       self.attention_impl)
         elif kv is not None:
             if block_table is None:
                 raise ValueError("paged attention needs a block_table")
@@ -164,37 +215,6 @@ class SelfAttention(nn.Module):
             o = dot_product_attention(q, k, v, pad_mask, causal=self.causal,
                                       impl=self.attention_impl)
         return torch.einsum("bhlk,hkd->bld", o, self.out.to(self.dtype))
-
-    def _cached_attention(self, q, k, v, pad_mask, cache_index,
-                          cache: DenseKV):
-        B, H, L, Dh = q.shape
-        if cache.k is None or L == cache.k.shape[2]:
-            # prefill (the first call sizes the cache): keep every
-            # position's K/V, attend causally through the seam
-            cache.k = k.clone(memory_format=torch.contiguous_format)
-            cache.v = v.clone(memory_format=torch.contiguous_format)
-            return dot_product_attention(q, k, v, pad_mask, causal=True,
-                                         impl=self.attention_impl)
-        Lmax = cache.k.shape[2]
-        if L != 1:
-            raise ValueError(
-                f"decode calls take the full length ({Lmax}, prefill) or a "
-                f"single token, got {L}")
-        if cache_index is None:
-            raise ValueError("single-token decode needs cache_index")
-        # the position as a device tensor (no host sync), clamped to the
-        # cache as JAX's dynamic_update_slice clamps it
-        idx = torch.clamp(cache_index.reshape(1).long(), 0, Lmax - 1)
-        cache.k.index_copy_(2, idx, k)
-        cache.v.index_copy_(2, idx, v)
-        # positions beyond idx hold stale or unwritten rows: masked
-        # (causality IS this mask for one query row)
-        live = (torch.arange(Lmax, device=q.device)[None, :]
-                <= idx).to(torch.int32).expand(B, Lmax)
-        if pad_mask is not None:
-            live = live * pad_mask
-        return dot_product_attention(q, cache.k, cache.v, live,
-                                     causal=False, impl="xla")
 
     def _paged_attention(self, q, k, v, pad_mask, cache_index, block_table,
                          kv, decode_impl, kv_quant):
@@ -316,19 +336,30 @@ class Block(nn.Module):
 class TransformerBackbone(nn.Module):
     """Stack of pre-LN blocks over embedded inputs [B, L, D], then ``ln_f``.
     Blocks are named ``block_0 .. block_{n-1}`` as in flax; with
-    ``moe_experts`` > 0 every ``moe_every``-th block is an MoE block."""
+    ``moe_experts`` > 0 every ``moe_every``-th block is an MoE block;
+    ``scan_layers`` stacks them into ``blocks``."""
 
     def __init__(self, num_layers: int, hidden: int, num_heads: int,
                  dtype: torch.dtype, device=None,
                  attention_impl: str = "auto", causal: bool = False,
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
-                 remat: bool = False) -> None:
+                 remat: bool = False, scan_layers: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
         self.remat = remat
-        for i in range(num_layers):
+        self.scan_layers = scan_layers
+        if scan_layers:
+            if moe_experts > 0:
+                raise ValueError(
+                    "scan_layers with moe_experts > 0 (the JAX "
+                    "MoEScanBlocks) comes with ROADMAP A.9c")
+            from .pipeline import PipelinedBlocks
+            self.blocks = PipelinedBlocks(num_layers, hidden, num_heads,
+                                          dtype, device, attention_impl,
+                                          causal, remat)
+        for i in range(0 if scan_layers else num_layers):
             is_moe = moe_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(f"block_{i}",
                             Block(hidden, num_heads, dtype, device,
@@ -346,6 +377,11 @@ class TransformerBackbone(nn.Module):
                 kv_quant: str = "fp", moe_no_drop: bool = False,
                 moe_stats: Optional[List[MoEStats]] = None
                 ) -> torch.Tensor:
+        if self.scan_layers:
+            if block_table is not None:
+                raise NotImplementedError(STACKED_PAGED_REFUSAL)
+            x = self.blocks(x, pad_mask, cache_index, kv_cache)
+            return self.ln_f(x).to(self.dtype)
         remat = self.remat and torch.is_grad_enabled() and kv_cache is None
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")

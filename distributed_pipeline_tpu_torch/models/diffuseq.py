@@ -20,8 +20,8 @@ The loss's random draws (timesteps ``t`` and ``noise``) come from an
 explicit ``torch.Generator``, or are handed in by the caller
 (``{"t": [B], "noise": [B, L, E]}``), so a test can feed the reference's
 draws. An MoE model (``moe_experts`` > 0) adds the load-balance aux to
-the loss, as ``gpt2_losses`` does. The pipeline (1F1B) losses are ROADMAP
-A.9.
+the loss, as ``gpt2_losses`` does. Under a pipe group the loss runs the
+pipe schedule (``schedule_1f1b.diffuseq_1f1b_losses``).
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from ..parallel.ring import sequence_offset
 from .backbone import Embed, TransformerBackbone, _param
 from .diffusion import DiffusionSchedule
 from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
+from .pipeline import current_pipe
 
 __all__ = ["DiffuSeqModel", "diffuseq_losses", "diffuseq_loss_count",
            "timestep_embedding", "Draws", "DIFFUSEQ_EMB_DIM",
@@ -111,8 +112,9 @@ class DiffuSeqModel(nn.Module):
     [B, L, E]`` (f32), over a bidirectional, pad-masked backbone. The word
     embedding doubles as the rounding head (``logits``). ``schedule`` is the
     run's diffusion schedule, which the loss and the samplers read.
-    ``moe_*`` and ``remat`` are the backbone's (``GPT2Model``'s fields).
-    Parameters start at zero; load weights with ``load_state_dict``."""
+    ``moe_*``, ``remat``, ``scan_layers``, the ``pp_*`` fields and
+    ``scan_unroll`` are ``GPT2Model``'s. Parameters start at zero; load
+    weights with ``load_state_dict``."""
 
     family = "diffuseq"
 
@@ -123,7 +125,9 @@ class DiffuSeqModel(nn.Module):
                  schedule: Optional[DiffusionSchedule] = None,
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
-                 remat: bool = False) -> None:
+                 remat: bool = False, scan_layers: bool = False,
+                 pp_chunks: int = 4, pp_schedule: str = "1f1b",
+                 pp_virtual: int = 2, scan_unroll: int = 0) -> None:
         super().__init__()
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -139,6 +143,11 @@ class DiffuSeqModel(nn.Module):
         self.moe_every = moe_every
         self.moe_capacity_factor = moe_capacity_factor
         self.remat = remat
+        self.scan_layers = scan_layers
+        self.pp_chunks = pp_chunks
+        self.pp_schedule = pp_schedule
+        self.pp_virtual = pp_virtual
+        self.scan_unroll = scan_unroll
         self.word_emb = Embed(vocab_size, emb_dim, device)
         self.in_proj = Dense(emb_dim, hidden_size, dtype, device)
         self.time_mlp = TimeMlp(hidden_size, device)
@@ -147,7 +156,8 @@ class DiffuSeqModel(nn.Module):
             num_layers, hidden_size, num_heads, dtype, device,
             attention_impl, causal=False, moe_experts=moe_experts,
             moe_top_k=moe_top_k, moe_every=moe_every,
-            moe_capacity_factor=moe_capacity_factor, remat=remat)
+            moe_capacity_factor=moe_capacity_factor, remat=remat,
+            scan_layers=scan_layers)
         self.out_proj = Dense(hidden_size, emb_dim, dtype, device)
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
@@ -165,14 +175,24 @@ class DiffuSeqModel(nn.Module):
                 pad_mask: Optional[torch.Tensor] = None,
                 moe_no_drop: bool = False,
                 moe_stats: Optional[List[MoEStats]] = None) -> torch.Tensor:
+        h = self.denoise_in(x_t, t)
+        h = self.backbone(h, pad_mask,          # bidirectional, pad-masked
+                          moe_no_drop=moe_no_drop, moe_stats=moe_stats)
+        return self.denoise_out(h)
+
+    def denoise_in(self, x_t: torch.Tensor, t: torch.Tensor
+                   ) -> torch.Tensor:
+        """The denoiser's input [B, L, D] in the model dtype: ``in_proj``
+        of x_t, plus the time MLP's embedding of t, plus positions."""
         L = x_t.shape[1]
         h = self.in_proj(x_t.to(self.dtype))
         temb = self.time_mlp(timestep_embedding(t, self.hidden_size))
         h = h + temb[:, None, :].to(self.dtype)
         off = sequence_offset(L)   # a sequence-parallel rank's slice
-        h = h + self.pos_emb[None, off:off + L].to(self.dtype)
-        h = self.backbone(h, pad_mask,          # bidirectional, pad-masked
-                          moe_no_drop=moe_no_drop, moe_stats=moe_stats)
+        return h + self.pos_emb[None, off:off + L].to(self.dtype)
+
+    def denoise_out(self, h: torch.Tensor) -> torch.Tensor:
+        """The backbone's output (after ``ln_f``) -> x0_hat, f32."""
         return self.out_proj(h).float()
 
 
@@ -241,7 +261,13 @@ def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     clamped to >= 1) replaces the batch's own in every masked mean: a
     rank's terms then sum over the ranks to the global ones. An MoE model
     adds ``moe_aux`` and ``MOE_AUX_WEIGHT * moe_aux`` to ``loss``, the aux
-    from the global counts under ``moe_global`` (``gpt2_losses``)."""
+    from the global counts under ``moe_global`` (``gpt2_losses``). Under a
+    pipe group it runs the pipe schedule and returns this rank's shares
+    (``schedule_1f1b.diffuseq_1f1b_losses``)."""
+    ctx = current_pipe()
+    if ctx is not None:
+        from .schedule_1f1b import diffuseq_1f1b_losses
+        return diffuseq_1f1b_losses(model, batch, draws, denom, ctx)
     ids = batch["input_ids"]
     tgt_mask = batch["input_mask"].float()
     pad_mask = batch["pad_mask"]

@@ -18,6 +18,7 @@ from ..ops.xent import token_cross_entropy
 from ..parallel.ring import sequence_offset
 from .backbone import Embed, LayerKV, TransformerBackbone
 from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
+from .pipeline import current_pipe
 
 __all__ = ["GPT2Model", "gpt2_losses", "gpt2_loss_count", "gpt2_ppl",
            "gpt2_sequence_slice"]
@@ -39,8 +40,12 @@ class GPT2Model(nn.Module):
     mixture of experts in every ``moe_every``-th block; ``forward``'s
     ``moe_no_drop`` routes without capacity (inference) and ``moe_stats``
     (a list) collects the MoE blocks' load-balance sums. ``remat``
-    recomputes each block in the backward. Parameters start at zero; load
-    weights with ``load_state_dict``."""
+    recomputes each block in the backward. ``scan_layers`` stacks the
+    blocks (``backbone.blocks``, ``models/pipeline.py``); ``pp_chunks``,
+    ``pp_schedule`` and ``pp_virtual`` are the pipe schedule's, read
+    under a pipe group, and ``scan_unroll`` the JAX scan's unroll knob
+    (perf-only there; nothing to unroll here). Parameters start at zero;
+    load weights with ``load_state_dict``."""
 
     family = "gpt2"
 
@@ -50,7 +55,9 @@ class GPT2Model(nn.Module):
                  attention_impl: str = "auto", moe_experts: int = 0,
                  moe_top_k: int = 2, moe_every: int = 2,
                  moe_capacity_factor: float = 1.25,
-                 remat: bool = False) -> None:
+                 remat: bool = False, scan_layers: bool = False,
+                 pp_chunks: int = 4, pp_schedule: str = "1f1b",
+                 pp_virtual: int = 2, scan_unroll: int = 0) -> None:
         super().__init__()
         self.vocab_size = vocab_size
         self.seq_len = seq_len
@@ -64,6 +71,11 @@ class GPT2Model(nn.Module):
         self.moe_every = moe_every
         self.moe_capacity_factor = moe_capacity_factor
         self.remat = remat
+        self.scan_layers = scan_layers
+        self.pp_chunks = pp_chunks
+        self.pp_schedule = pp_schedule
+        self.pp_virtual = pp_virtual
+        self.scan_unroll = scan_unroll
         self.word_emb = Embed(vocab_size, hidden_size, device)
         self.pos_emb = nn.Parameter(torch.zeros(
             (seq_len, hidden_size), dtype=torch.float32, device=device))
@@ -71,7 +83,8 @@ class GPT2Model(nn.Module):
             num_layers, hidden_size, num_heads, dtype, device,
             attention_impl, causal=True, moe_experts=moe_experts,
             moe_top_k=moe_top_k, moe_every=moe_every,
-            moe_capacity_factor=moe_capacity_factor, remat=remat)
+            moe_capacity_factor=moe_capacity_factor, remat=remat,
+            scan_layers=scan_layers)
 
     def forward(self, ids: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
@@ -82,6 +95,19 @@ class GPT2Model(nn.Module):
                 kv_quant: str = "fp", moe_no_drop: bool = False,
                 moe_stats: Optional[List[MoEStats]] = None
                 ) -> torch.Tensor:
+        h = self.embed_tokens(ids, cache_index)
+        if pad_mask is None:
+            pad_mask = torch.ones_like(ids)
+        h = self.backbone(h, pad_mask, cache_index, block_table, kv_cache,
+                          decode_impl, kv_quant, moe_no_drop, moe_stats)
+        return self.lm_head(h)
+
+    def embed_tokens(self, ids: torch.Tensor,
+                     cache_index: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Token plus position embeddings in the compute dtype [B, L, D]
+        (positions from ``cache_index`` when given, else from 0, or from
+        a sequence slice's offset)."""
         B, L = ids.shape
         if cache_index is not None:
             # per-slot positions (continuous-batching decode): each slot
@@ -100,12 +126,10 @@ class GPT2Model(nn.Module):
             # a sequence-parallel rank holds the slice at its offset
             off = sequence_offset(L)
             pos = self.pos_emb[None, off:off + L]
-        h = (self.word_emb.embedding[ids.long()] + pos).to(self.dtype)
-        if pad_mask is None:
-            pad_mask = torch.ones_like(ids)
-        h = self.backbone(h, pad_mask, cache_index, block_table, kv_cache,
-                          decode_impl, kv_quant, moe_no_drop, moe_stats)
-        # tied LM head in the compute dtype
+        return (self.word_emb.embedding[ids.long()] + pos).to(self.dtype)
+
+    def lm_head(self, h: torch.Tensor) -> torch.Tensor:
+        """The tied LM head in the compute dtype: [B, L, D] -> logits."""
         return torch.einsum("bld,vd->blv", h,
                             self.word_emb.embedding.to(self.dtype))
 
@@ -175,8 +199,14 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     summed loss gives ``ppl``). An MoE model adds ``moe_aux`` (summed
     over its MoE blocks) and ``MOE_AUX_WEIGHT * moe_aux`` to ``loss``;
     ``moe_global`` forms the aux from the global microbatch's counts
-    (this rank's share, ``moe.moe_aux``). Pipeline (1F1B) training is
-    ROADMAP A.9."""
+    (this rank's share, ``moe.moe_aux``). Under a pipe group
+    (``pipeline.pipe_parallel``) the loss runs the pipe schedule
+    (``schedule_1f1b.gpt2_1f1b_losses``, the JAX routing): with gradients
+    on it also runs the backward, and it returns this rank's shares."""
+    ctx = current_pipe()
+    if ctx is not None:
+        from .schedule_1f1b import gpt2_1f1b_losses
+        return gpt2_1f1b_losses(model, batch, denom, ctx)
     ids = batch["input_ids"]
     pad_mask = batch["pad_mask"]
     targets, loss_mask = _targets(batch)

@@ -32,6 +32,7 @@ models are ROADMAP A.9.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
@@ -306,9 +307,14 @@ def gpt2_decode_and_score(model: GPT2Model,
 
 
 def gpt2_decode_accuracy(model: GPT2Model, batch: Dict[str, torch.Tensor],
-                         prompt_len: int = 0) -> torch.Tensor:
-    """Greedy generated-span accuracy (:func:`gpt2_decode_and_score`)."""
-    return gpt2_decode_and_score(model, batch, prompt_len)[1]
+                         prompt_len: int = 0,
+                         preds: Optional[list] = None) -> torch.Tensor:
+    """Greedy generated-span accuracy (:func:`gpt2_decode_and_score`);
+    ``preds``, a list, receives the decoded rows."""
+    pred, acc = gpt2_decode_and_score(model, batch, prompt_len)
+    if preds is not None:
+        preds.append(pred)
+    return acc
 
 
 def make_decode_callback(data: Iterator[Dict[str, np.ndarray]],
@@ -329,16 +335,24 @@ def make_decode_callback(data: Iterator[Dict[str, np.ndarray]],
     full sequence from its replicated weights, as one process would, while
     the group's other ranks log the key absent (the logger's mean over the
     ranks then carries the decoding ranks' value) and every rank meets at
-    a barrier."""
+    a barrier. Each decode appends ``{"step", "key", "value",
+    "tokens_sha256"}`` (the decoded rows' SHA-256) to the loop's
+    ``eval_decodes`` when it has one. Under a pipe group
+    (``loop.pipe.size`` > 1) the trainer runs the callback inside
+    ``full_weights``, which gathers the stacked weights onto every rank;
+    the group's stage 0 decodes (the dense cache over every layer) and the
+    others log the key absent and wait at the barrier (ROADMAP C.18b: JAX
+    decodes through pipe-sharded caches)."""
     cache: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def callback(loop) -> None:
-        seq = loop.seq
-        if seq.size > 1:
+        seq, pipe = loop.seq, getattr(loop, "pipe", None)
+        staged = pipe is not None and pipe.size > 1
+        if seq.size > 1 or staged:
             key = (f"decode_acc_ema_{use_ema}"
                    if use_ema and use_ema in loop.ema_rates
                    else "decode_acc")
-            if seq.index == 0:
+            if seq.index == 0 and (not staged or pipe.index == 0):
                 decode(loop)
             else:
                 loop.logger.logkv_absent(key)
@@ -364,13 +378,23 @@ def make_decode_callback(data: Iterator[Dict[str, np.ndarray]],
             with weights:
                 if model.family == "diffuseq":
                     noise = seeded_generator(loop.device, 0, loop.step)
-                    acc = target_span_accuracy(
-                        diffuseq_sample(model, batch, noise, sample_steps),
-                        batch)
+                    pred = diffuseq_sample(model, batch, noise, sample_steps)
+                    acc = target_span_accuracy(pred, batch)
                 else:
-                    acc = gpt2_decode_accuracy(model, batch, prompt_len or 0)
+                    rows: list = []
+                    acc = gpt2_decode_accuracy(model, batch, prompt_len or 0,
+                                               preds=rows)
+                    pred = rows[0]
         finally:
             model.train(was_training)
         loop.logger.logkv(key, float(acc))
+        record = getattr(loop, "eval_decodes", None)
+        if record is not None:
+            # the decoded rows' digest: a run's decodes compared token for
+            # token without keeping them
+            record.append({"step": loop.step, "key": key,
+                           "value": float(acc), "tokens_sha256":
+                           hashlib.sha256(pred.cpu().numpy().tobytes())
+                           .hexdigest()})
 
     return callback

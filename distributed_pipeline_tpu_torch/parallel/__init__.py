@@ -13,7 +13,8 @@ _DIST_NAMES = ("barrier", "broadcast", "dev", "device_count", "get_rank",
                "setup_dist", "sync_params", "all_reduce",
                "all_gather_object", "backend", "SequenceGroups",
                "sequence_groups", "ring_shift", "sequence_all_gather",
-               "new_group", "group_size", "reduce_scatter", "all_gather")
+               "new_group", "group_size", "reduce_scatter", "all_gather",
+               "PipeGroup", "pipe_exchange", "pipe_bytes")
 
 __all__ = ["AUTORUN_ENV_FLAG", "find_free_port", "parse_and_autorun",
            "parse_distributed_args", "run_argv_as_distributed",

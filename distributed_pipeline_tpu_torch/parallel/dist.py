@@ -30,6 +30,14 @@ stage them through host memory; NCCL sends them directly.
 ``ring_shift_bytes`` counts the bytes this rank has sent round its ring
 (the training ledger's collective term).
 
+Pipeline parallelism (``--pipe S``) hands stage activations and their
+cotangents between pipe neighbours: ``pipe_exchange`` posts one tick's
+frames, the sends and the receives together, in one
+``batch_isend_irecv`` (``ppermute`` of the JAX schedules, non-cyclic for
+GPipe and 1F1B, cyclic for the interleaved schedule). Under gloo, CUDA
+tensors go through pinned host buffers kept across ticks; NCCL sends
+them directly. ``pipe_bytes`` counts the bytes this rank has sent.
+
 The sharded training state (``--shard_optimizer``, ``--fsdp``) adds
 ``reduce_scatter`` and ``all_gather`` over a group of the mesh
 (``parallel/mesh.py``) and ``all_reduce`` takes one too. NCCL runs them on
@@ -56,6 +64,7 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import math
 import os
 import sys
 from typing import Any, List, Optional, Sequence, Tuple
@@ -73,12 +82,12 @@ __all__ = ["is_available", "is_initialized", "setup_dist", "get_rank",
            "choose_backend", "find_free_port", "AUTORUN_ENV_FLAG",
            "SequenceGroups", "sequence_groups", "ring_shift",
            "ring_shift_bytes", "new_group", "group_size", "reduce_scatter",
-           "all_gather"]
+           "all_gather", "PipeGroup", "pipe_exchange", "pipe_bytes"]
 
 _ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 # distinct devices of the ring, learned once at setup; bytes this rank has
 # sent round its sequence ring
-_state = {"device_count": 1, "shift_bytes": 0}
+_state = {"device_count": 1, "shift_bytes": 0, "pipe_bytes": 0}
 
 
 def is_available() -> bool:
@@ -399,3 +408,72 @@ def sequence_all_gather(tensor: torch.Tensor, seq: SequenceGroups
 def ring_shift_bytes() -> int:
     """Bytes this process has sent through ``ring_shift``."""
     return _state["shift_bytes"]
+
+
+# --------------------------------------------------- pipeline parallelism
+
+@dataclasses.dataclass(frozen=True)
+class PipeGroup:
+    """This rank's pipe group: the process group (None when it spans every
+    rank, or for a pipe of one), its global ranks by stage index, and this
+    rank's stage index."""
+
+    group: Any
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def peer(self, step: int) -> int:
+        """The global rank ``step`` stages on, cyclically."""
+        return self.ranks[(self.index + step) % self.size]
+
+
+def pipe_exchange(pipe: PipeGroup,
+                  sends: Sequence[Tuple[torch.Tensor, int, int]],
+                  recvs: Sequence[Tuple[Tuple[int, ...], torch.dtype, int,
+                                        int]],
+                  device: torch.device) -> List[torch.Tensor]:
+    """One tick's frames between pipe neighbours, in one
+    ``batch_isend_irecv``: ``sends`` are ``(tensor, step, tag)`` to the
+    stage ``step`` on, ``recvs`` are ``(shape, dtype, step, tag)`` from
+    the stage ``step`` on; returns the received tensors on ``device``, in
+    ``recvs`` order. Both sides name a frame by the same tag. Under gloo
+    a CUDA tensor is copied into a pinned host buffer kept for its tag
+    (the copy waits for the stream), and a received one copied back."""
+    if not sends and not recvs:
+        return []
+    stage = backend() == "gloo" and device.type == "cuda"
+    with _host_staged(device):
+        ops, out = [], []
+        for t, step, tag in sends:
+            src = t.detach().contiguous()
+            if stage:
+                buf = _host_buffer(f"pipe_send{tag}", src, src.numel())
+                buf.copy_(src.view(-1))
+                src = buf
+            _state["pipe_bytes"] += src.numel() * src.element_size()
+            ops.append(tdist.P2POp(tdist.isend, src, pipe.peer(step),
+                                   pipe.group, tag))
+        for shape, dtype, step, tag in recvs:
+            n = math.prod(shape)
+            if stage:
+                dst = _host_buffer(f"pipe_recv{tag}",
+                                   torch.empty(0, dtype=dtype,
+                                               device=device), n)
+            else:
+                dst = torch.empty(n, dtype=dtype, device=device)
+            out.append(dst)
+            ops.append(tdist.P2POp(tdist.irecv, dst, pipe.peer(step),
+                                   pipe.group, tag))
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        return [(r.to(device) if stage else r).view(shape)
+                for r, (shape, *_rest) in zip(out, recvs)]
+
+
+def pipe_bytes() -> int:
+    """Bytes this process has sent through ``pipe_exchange``."""
+    return _state["pipe_bytes"]

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -77,15 +78,41 @@ RUN_TIMESTAMP_ENV = "DPT_RUN_TIMESTAMP"
 FORCE_NPROCS_ENV = "DPT_FORCE_NPROCS"
 
 
-def find_free_port() -> int:
-    """A TCP port on the loopback interface that was free a moment ago."""
+def _ephemeral_low() -> int:
+    """The low end of the kernel's ephemeral port range (32768 when it
+    cannot be read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def _bound_port(port: int) -> Optional[int]:
     s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     try:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("127.0.0.1", 0))
+        s.bind(("127.0.0.1", port))
         return s.getsockname()[1]
+    except OSError:
+        return None
     finally:
         s.close()
+
+
+def find_free_port() -> int:
+    """A TCP port on the loopback interface that was free a moment ago,
+    drawn below the kernel's ephemeral range: a port from that range can
+    be handed to an outgoing connection (gloo opens many) between this
+    check and the rendezvous's bind."""
+    low = _ephemeral_low()
+    if low > 2048:
+        pick = random.Random()
+        for _ in range(64):
+            port = _bound_port(pick.randrange(low // 2, low))
+            if port is not None:
+                return port
+    return _bound_port(0)
 
 
 def parse_capacity_schedule(text: str) -> Optional[List[int]]:

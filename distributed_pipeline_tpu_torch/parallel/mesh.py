@@ -18,15 +18,19 @@ functions of the sizes.
   reduce-scatters (``--fsdp``);
 * ``sequence``: the ring (``--sequence``), formed by
   ``dist.sequence_groups``: rank ``(d * fsdp + f) * sp + i`` is sequence
-  index i of the row group ``rank // sp``, its old split.
+  index i of the row group ``rank // sp``, its old split;
+* ``pipe``: the pipeline stages (``--pipe``), the innermost axis, so a
+  pipe group is S consecutive ranks and a rank's stage index is its pipe
+  coordinate (:meth:`RankMesh.pipe_group`).
 
-``tensor``, ``expert`` and ``pipe`` stay 1 (ROADMAP A.8g and A.9). An axis
-of size 1 has no group; an axis that spans every rank uses the default
-group. :func:`batch_spec` is the JAX rule for a batch's rows, and
+``tensor`` and ``expert`` stay 1 (ROADMAP A.8g). An axis of size 1 has no
+group; an axis that spans every rank uses the default group.
+:func:`batch_spec` is the JAX rule for a batch's rows, and
 :meth:`RankMesh.rows` the row selection it implies here (the port of
 ``sharding.batch_shardings`` and ``shard_batch``): the data, fsdp and
-expert ranks read distinct rows, the sequence ranks of a row group the
-same rows (each its L slice).
+expert ranks read distinct rows; the sequence ranks of a row group read
+the same rows (each its L slice), and so do its pipe ranks (each runs its
+stage of every row).
 """
 
 from __future__ import annotations
@@ -115,6 +119,14 @@ class RankMesh:
     def group(self, axis: str) -> Any:
         return self.groups.get(axis)
 
+    def pipe_group(self) -> Any:
+        """This rank's ``dist.PipeGroup``: its pipe group's process group,
+        global ranks by stage index, and its own stage index."""
+        from . import dist
+        return dist.PipeGroup(self.group("pipe"),
+                              axis_ranks(self.rank, self.sizes, "pipe"),
+                              self.index("pipe"))
+
     def rows(self) -> Tuple[int, int]:
         """``(row group, row groups)``: the global batch splits into
         ``row groups`` shards, one for each index over the data, fsdp and
@@ -131,15 +143,16 @@ def make_mesh(dp: int = -1, fsdp: int = 1, sequence: int = 1,
               tensor: int = 1, expert: int = 1, pipe: int = 1) -> RankMesh:
     """This rank's mesh over the process group (one rank when there is
     none): the sizes resolved against the world size, its coordinates,
-    and one process group per data and fsdp group of more than one rank
-    (every rank forms every group, in the same order, as ``new_group``
-    requires; the sequence groups are ``dist.sequence_groups``')."""
+    and one process group per data, fsdp and pipe group of more than one
+    rank (every rank forms every group, in the same order, as
+    ``new_group`` requires; the sequence groups are
+    ``dist.sequence_groups``')."""
     from . import dist
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = resolve_axis_sizes(dp, fsdp, sequence, tensor, expert, pipe,
                                n_devices=world)
     groups: Dict[str, Any] = {}
-    for axis in ("data", "fsdp"):
+    for axis in ("data", "fsdp", "pipe"):
         n = sizes[AXES.index(axis)]
         if n == 1 or n == world:
             continue

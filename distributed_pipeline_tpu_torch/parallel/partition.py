@@ -35,6 +35,15 @@ of one unit (a block, or the rest of the model) are concatenated in
 parameter order and the concatenation is cut into ``fsdp`` contiguous
 ranges, where the JAX layout cuts each leaf along one dimension. A unit
 gathered is then one contiguous buffer that every cut leaf is a view of.
+
+Under a pipe axis S > 1 the stacked rules (``pipe`` on dim 0 of every
+``blocks/...`` weight) give a rank its stage: those leaves hold only the
+rows of the layers the rank owns (``models/pipeline.stage_layers``: a
+contiguous L/S, or under the interleaved schedule the V slices of
+virtual stages ``j*S + s``), first in its flat buffer, so the stage slice
+is one contiguous range; the rest stays whole. ``gather_full`` all-gathers
+the stage slices over the pipe group and puts each rank's rows back at
+their layers (the interleaved order undone).
 """
 
 from __future__ import annotations
@@ -367,13 +376,19 @@ class ShardLayout:
     elements in all. With F = 1 that buffer is the full layout. Under
     ZeRO-1 (``shard_optimizer`` with a data axis D > 1) the buffer is
     padded to ``m_pad``, a multiple of D, and this rank updates
-    ``[lo, hi)``, its data index's D-th; else it updates all of it."""
+    ``[lo, hi)``, its data index's D-th; else it updates all of it.
+
+    With a pipe axis S > 1 the leaves whose fixed spec puts ``pipe`` on
+    dim 0 (``staged``) hold this rank's rows, the layers ``stage_layers``
+    (``pipe_index`` s, ``pipe_virtual`` V), in ``[0, staged_end)`` of its
+    buffer."""
 
     def __init__(self, leaves: Sequence[Tuple[str, Sequence[int]]], *,
                  sizes: Mapping[str, int], rules: Optional[Rules] = None,
                  fsdp_index: int = 0, data_index: int = 0,
                  shard_optimizer: bool = False,
-                 unit_key: Callable[[str], str] = unit_of) -> None:
+                 unit_key: Callable[[str], str] = unit_of,
+                 pipe_index: int = 0, pipe_virtual: int = 1) -> None:
         self.sizes = {a: int(sizes.get(a, 1)) for a in
                       ("data", "fsdp", "sequence", "tensor", "expert",
                        "pipe")}
@@ -395,12 +410,36 @@ class ShardLayout:
                     if F > 1 and "fsdp" in {a for e in self.specs.get(k, ())
                                             for a in spec_axes(e)}]
         cut = set(self.cut)
+        S = self.sizes["pipe"]
+        self.staged = [k for k in self.full if S > 1
+                       and self.specs.get(k, (None,))[:1] == ("pipe",)]
+        self.pipe_index, self.pipe_virtual = pipe_index, pipe_virtual
+        self.stage_layers: Tuple[int, ...] = ()
+        local_off = 0
+        self.local: Dict[str, Tuple[int, int, Tuple[int, ...]]] = {}
+        if self.staged:
+            if cut:
+                raise ValueError("a pipe axis with fsdp-cut leaves comes "
+                                 "with ROADMAP A.9c")
+            from ..models.pipeline import stage_layers
+            depth = {self.full[k][2][0] for k in self.staged}
+            if len(depth) != 1:
+                raise ValueError(f"stacked leaves of unequal depths "
+                                 f"{sorted(depth)}")
+            self.stage_layers = stage_layers(depth.pop(), S, pipe_index,
+                                             pipe_virtual)
+            for name in self.staged:
+                shape = (len(self.stage_layers),) + self.full[name][2][1:]
+                n = math.prod(shape)
+                self.local[name] = (local_off, n, shape)
+                local_off += n
+        self.staged_end = local_off
+        staged = set(self.staged)
         keys: List[str] = [""]
         for name in self.full:
             if unit_key(name) not in keys:
                 keys.append(unit_key(name))
         self.units: List[Unit] = []
-        local_off = 0
         for key in keys:
             names = [k for k in self.full if k in cut and unit_key(k) == key]
             if not names:
@@ -414,9 +453,8 @@ class ShardLayout:
                                    local_off))
             local_off += size // F
         self.pieces = local_off
-        self.local: Dict[str, Tuple[int, int, Tuple[int, ...]]] = {}
         for name, (_o, n, shape) in self.full.items():
-            if name not in cut:
+            if name not in cut and name not in staged:
                 self.local[name] = (local_off, n, shape)
                 local_off += n
         self.m = local_off
@@ -431,7 +469,14 @@ class ShardLayout:
     @property
     def sharded(self) -> bool:
         """True when this rank holds less than the whole state."""
-        return bool(self.units) or self.zero1
+        return bool(self.units) or self.zero1 or bool(self.staged)
+
+    def layers_of(self, pipe_index: int) -> Tuple[int, ...]:
+        """The layers pipe rank ``pipe_index`` holds, in its rows' order."""
+        from ..models.pipeline import stage_layers
+        depth = self.full[self.staged[0]][2][0]
+        return stage_layers(depth, self.sizes["pipe"], pipe_index,
+                            self.pipe_virtual)
 
     @property
     def own(self) -> int:
@@ -443,8 +488,12 @@ class ShardLayout:
         leaf whole, and this fsdp index's piece of each unit's cut
         leaves."""
         f = self.fsdp_index
+        staged = set(self.staged)
         for name, (off, n, _shape) in self.local.items():
-            out[off:off + n].copy_(state[name].reshape(-1))
+            leaf = state[name]
+            if name in staged:
+                leaf = leaf[list(self.stage_layers)]
+            out[off:off + n].copy_(leaf.reshape(-1))
         for u in self.units:
             lo, hi = f * u.piece, (f + 1) * u.piece
             for name in u.leaves:
@@ -456,18 +505,35 @@ class ShardLayout:
                         state[name].reshape(-1)[s - a:e - a])
 
     def gather_full(self, local: Any, out: Any, fsdp_group: Any = None,
-                    all_gather: Optional[Callable] = None) -> Any:
+                    all_gather: Optional[Callable] = None,
+                    pipe_group: Any = None) -> Any:
         """The full flat layout (``n`` elements) into ``out`` from every
         fsdp rank's flat buffer ``local`` (whole over the data axis):
         replicated leaves copied, each unit's pieces all-gathered over
         ``fsdp_group`` (a collective every fsdp rank calls, unit by unit
-        in order). ``all_gather(out, inp, group)`` defaults to
-        ``dist.all_gather``."""
+        in order), the stage slices all-gathered over ``pipe_group`` and
+        put back at their layers. ``all_gather(out, inp, group)`` defaults
+        to ``dist.all_gather``."""
         if all_gather is None:
             from .dist import all_gather
+        staged = set(self.staged)
         for name, (off, n, _shape) in self.local.items():
+            if name in staged:
+                continue
             out[self.full[name][0]:self.full[name][0] + n].copy_(
                 local[off:off + n])
+        if self.staged:
+            S, end = self.sizes["pipe"], self.staged_end
+            slices = local.new_empty(S * end)
+            all_gather(slices, local[:end], pipe_group)
+            for p in range(S):
+                rows = list(self.layers_of(p))
+                for name in self.staged:
+                    off, n, shape = self.local[name]
+                    o, N, full_shape = self.full[name]
+                    out[o:o + N].view(full_shape)[rows] = \
+                        slices[p * end + off:p * end + off + n].view(shape)
+            del slices
         for u in self.units:
             unit = local.new_empty(u.size)
             all_gather(unit, local[u.local_off:u.local_off + u.piece],
@@ -500,4 +566,7 @@ class ShardLayout:
         return {"n": self.n, "local": self.m, "local_padded": self.m_pad,
                 "owned": self.own, "cut_leaves": len(self.cut),
                 "units": len(self.units),
-                "largest_unit": max((u.size for u in self.units), default=0)}
+                "largest_unit": max((u.size for u in self.units), default=0),
+                "staged_leaves": len(self.staged),
+                "stage_elements": self.staged_end,
+                "pipe_layers": list(self.stage_layers)}

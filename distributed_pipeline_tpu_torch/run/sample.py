@@ -34,7 +34,8 @@ import torch
 from ..data import load_data_from_args
 from ..models import Model, compute_losses, create_model_from_config
 from ..models.diffuseq import mix_seed, seeded_generator
-from ..models.sampling import diffuseq_sample_mbr, target_span_accuracy
+from ..models.sampling import (diffuseq_sample_mbr, gpt2_decode,
+                               target_span_accuracy)
 from ..serving.scheduler import DecodeServer, one_shot_decode
 from ..utils.checkpoint import find_resume_checkpoint, parse_step_from_name
 from ..utils.device import resolve_device
@@ -133,7 +134,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in host.items()}
             # distinct streams for the decoder and the loss's draws
-            if model.family == "gpt2":
+            if model.family == "gpt2" and model.scan_layers:
+                # stacked blocks have no paged cache: the dense cache
+                # decode, as the JAX entry point routes them
+                pred = gpt2_decode(model, batch["input_ids"], plen,
+                                   temperature=ns.temperature,
+                                   top_k=ns.top_k, top_p=ns.top_p,
+                                   seed=mix_seed(ns.seed, i, 0))
+                gen = (torch.arange(model.seq_len, device=device)[None, :]
+                       >= plen).to(torch.int32) * batch["pad_mask"]
+                accs.append(target_span_accuracy(
+                    pred, dict(batch, input_mask=gen)))
+                pred = pred.cpu().numpy()
+            elif model.family == "gpt2":
                 if server is None:
                     # built once: each batch brings its own seed
                     server = DecodeServer(

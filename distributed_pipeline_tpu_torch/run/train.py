@@ -12,6 +12,8 @@
         --nprocs 2 --sequence 2 ...                # one ring over L
     python -m distributed_pipeline_tpu_torch.run.train --distributed \\
         --nprocs 2 --shard_optimizer true ...      # ZeRO-1 (or --fsdp 2)
+    python -m distributed_pipeline_tpu_torch.run.train --distributed \\
+        --nprocs 2 --scan_layers true --pipe 2 ... # two pipeline stages
 
 ``--distributed --nprocs N`` relaunches this module as N supervised worker
 processes (``parallel/launcher.py``) that form one ``torch.distributed``
@@ -25,7 +27,11 @@ the ranks out as the JAX mesh (``parallel/mesh.py``; the data and fsdp
 ranks read distinct rows); ``--shard_optimizer`` and ``--fsdp`` shard the
 training state (``utils/trainer.py``) by the model's rule table or
 ``--partition_rules``, whose tuner artifact folds its mesh and ZeRO-1 into
-the settings first (``apply_tuned_layout``). Settings -> process group ->
+the settings first (``apply_tuned_layout``). ``--pipe S`` (with
+``--scan_layers true``) makes each S consecutive ranks one pipeline that
+reads the same rows, each rank a stage (``--pp_schedule``,
+``--pp_chunks``, ``--pp_virtual``; ``utils/trainer.py``). Settings ->
+process group ->
 run dir (made by rank 0; every rank resolves the same one, the launcher
 pinning ``DPT_RUN_TIMESTAMP``) -> logger (means across ranks at each
 dump; rank 0 alone on stdout, rank r > 0 into ``-rank{r:03d}`` files) ->
@@ -36,7 +42,9 @@ fast-forwarded past the global samples the checkpoint consumed ->
 for rank r > 0): the rank's backend, device, kernel launches and plain
 calls, all-reduce, reduce-scatter, all-gather and ring-shift seconds,
 its (data index, sequence index, sequence size), the mesh, the layout
-and the footprint, throughput, peak device memory, the beacon's
+and the footprint, its pipe stage (index, schedule, chunks, V, layers
+held, the 1F1B stash's peak, ``pipe_p2p_s_per_step`` and the exchange's
+calls and bytes), throughput, peak device memory, the beacon's
 seconds a step, the stall gauges' means, each save's copy and wait
 seconds, the metrics of its newest 1000 steps and the SHA-256 of its
 final flat parameters (equal on every rank of a healthy ring).
@@ -118,9 +126,10 @@ def apply_tuned_layout(args, artifact, n_devices: int, n_hosts: int = 1,
     only when the mesh flags are at their defaults AND it fits the run (its
     product is the rank count, and the global microbatch divides over
     data x fsdp x expert); ZeRO-1 follows the default gate alone. A
-    recommendation of tensor, expert or pipe > 1 is logged and not applied
-    (ROADMAP A.8g, A.9). Returns the (possibly replaced) settings; the
-    rules themselves go to the ``TrainLoop``."""
+    recommendation of tensor or expert > 1 is logged and not applied
+    (ROADMAP A.8g); its pipe applies as the JAX entry point applies it,
+    to a run with ``--scan_layers true`` (else it is logged). Returns the (possibly replaced) settings; the rules themselves go to
+    the ``TrainLoop``."""
     if artifact is None:
         return args
     mesh_rec = artifact.get("mesh")
@@ -144,13 +153,15 @@ def apply_tuned_layout(args, artifact, n_devices: int, n_hosts: int = 1,
                 f"(global microbatch {micro * max(n_hosts, 1)} not "
                 f"divisible by data x fsdp x expert = {dpf} — "
                 f"artifact tuned at a different batch shape)")
-        elif max(sizes["tensor"], sizes["expert"], sizes["pipe"]) > 1:
+        elif max(sizes["tensor"], sizes["expert"]) > 1:
             log(f"tuned mesh recommendation {mesh_rec} NOT applied "
-                f"(tensor/expert parallelism comes with ROADMAP A.8g, "
-                f"pipeline parallelism with A.9)")
+                f"(tensor/expert parallelism comes with ROADMAP A.8g)")
+        elif sizes["pipe"] > 1 and not args.scan_layers:
+            log(f"tuned mesh recommendation {mesh_rec} NOT applied "
+                f"(--pipe > 1 requires --scan_layers true)")
         else:
             updates.update(dp=sizes["data"], fsdp=sizes["fsdp"],
-                           sequence=sizes["sequence"])
+                           sequence=sizes["sequence"], pipe=sizes["pipe"])
             log(f"applying tuned mesh recommendation: {mesh_rec}")
     zero = artifact.get("shard_optimizer")
     if zero is not None and not args.shard_optimizer and zero:
@@ -189,6 +200,7 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
     from ..ops import flash_attention, fused_update
     from ..parallel import dist
     loop.flush_metrics()
+    ctx = loop.pipe_ctx
     out = {"rank": loop.rank, "world_size": loop.world,
            "backend": dist.backend(), "device": str(device),
            "devices_in_ring": loop.n_devices, "steps": loop.step,
@@ -219,6 +231,17 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            "footprint": loop.footprint(),
            "ring_shift_calls": loop.shift_time.calls,
            "ring_shift_s_per_step": loop.ring_shift_s_per_step,
+           "pipe": {"index": loop.pipe.index, "size": loop.pipe.size,
+                    "schedule": ctx.schedule if ctx else "",
+                    "chunks": ctx.chunks if ctx else 0,
+                    "virtual": ctx.virtual if ctx else 0,
+                    "layers": list(loop.shard.stage_layers),
+                    "stash_peak": ctx.stash_peak if ctx else 0,
+                    "f_slots": ctx.f_slots if ctx else 0,
+                    "b_slots": ctx.b_slots if ctx else 0},
+           "pipe_p2p_calls": loop.pipe_time.calls,
+           "pipe_p2p_s_per_step": loop.pipe_p2p_s_per_step,
+           "pipe_bytes": dist.pipe_bytes(),
            **loop.throughput,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else 0),
@@ -229,6 +252,8 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            # newest steps this attempt ran (the rows a log interval dumps
            # trail them by dispatch_lag)
            "saves": loop.save_times,
+           # each eval decode's value and its rows' digest
+           "eval_decodes": loop.eval_decodes,
            "history": loop.history[-SIDECAR_HISTORY:],
            # the full parameters (gathered by every rank when sharded)
            "params_sha256": hashlib.sha256(
@@ -312,7 +337,7 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
         keep_checkpoints=args.keep_checkpoints, debug_nans=args.debug_nans,
         prefetch_depth=args.prefetch_depth, sequence=args.sequence,
         dp=args.dp, fsdp=args.fsdp, shard_optimizer=args.shard_optimizer,
-        partition_rules=rules, chaos=chaos,
+        partition_rules=rules, pipe=args.pipe, chaos=chaos,
         # steps an earlier attempt reached (its beacons) book as recompute
         recompute_until_step=beacon_max_step(run_dir),
         # None defers to DPT_TRACE, which the launcher passes to every rank
@@ -347,7 +372,9 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
                 f"fused update {loop.fused_update}; rank {rank} of {world}, "
                 f"backend {dist.backend()}, data group "
                 f"{loop.seq.data_index} of {loop.seq.dp}, sequence index "
-                f"{loop.seq.index} of {loop.seq.size}, global batch "
+                f"{loop.seq.index} of {loop.seq.size}, pipe stage "
+                f"{loop.pipe.index} of {loop.pipe.size} (layers "
+                f"{list(loop.shard.stage_layers)}), global batch "
                 f"{loop.global_batch}; {local_mesh_info(loop.mesh)}, "
                 f"ZeRO-1 {loop.shard.zero1}, layout "
                 f"{json.dumps(loop.shard.describe())}")

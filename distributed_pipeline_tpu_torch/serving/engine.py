@@ -149,6 +149,12 @@ class DecodeEngine:
         if model.family != "gpt2":
             raise ValueError(f"the decode engine serves the gpt2 family, "
                              f"got {model.family!r}")
+        if model.scan_layers:
+            # the JAX engine's refusal: stacked models decode through
+            # models/sampling.py::gpt2_decode (the dense cache)
+            raise NotImplementedError(
+                "paged decode needs per-layer named blocks; scan_layers "
+                "models decode through models/sampling.py::gpt2_decode")
         max_len = max_len or model.seq_len
         if not 1 <= max_len <= model.seq_len:
             raise ValueError(f"max_len {max_len} must be in [1, seq_len="

@@ -182,6 +182,43 @@ part) and writes the usual files, and a resume under any dp, fsdp or
 ``full_flat``, ``ema_weights``, ``ema_state_dicts`` and the eval callbacks
 (run inside ``full_weights``) gather likewise. Sharding with ``sequence >
 1`` is refused (ROADMAP A.8g).
+
+Pipeline parallelism (``pipe`` = S > 1, a stacked ``scan_layers`` model;
+the JAX ``--pipe``). The pipe axis is the mesh's innermost, so each S
+consecutive ranks are one pipe group that reads the same rows, and rank
+r's stage index is its pipe coordinate. The ``ShardLayout`` gives each
+rank the rows of its stage's layers of every stacked weight (first in its
+flat buffers) and the rest of the model whole; every microbatch runs the
+model's schedule (``pp_schedule``: gpipe, 1f1b or interleaved over
+``pp_chunks`` chunks, ``models/schedule_1f1b.py``) inside
+``pipeline.pipe_parallel``, which runs its own backward. Then:
+
+* the stage slice's gradient is all-reduced over the data group (the
+  ranks that hold the same stage), and the rest's over every rank (data x
+  pipe), as the JAX engine psums it: the tied embedding's gradient is the
+  sum of stage 0's embedding and the last stage's head;
+* the loss shares (the last stage's loss terms, stage 0's DiffuSeq
+  embedding-only terms, zeros elsewhere) are summed over every rank, so
+  every rank logs the same loss; the global denominators are counted once
+  a pipe group (its stage 0 contributes them);
+* ``grad_norm`` sums the stage slices' squares over the pipe group and
+  counts the rest once; the fused update runs once over the rank's flat
+  buffers (its stage slice and the rest);
+* DiffuSeq's draws are keyed by the row group: every pipe rank of a row
+  group draws the same ``t`` and noise;
+* checkpoints hold full stacked ``[num_layers, ...]`` tensors in layer
+  order, gathered over the pipe group (``full_flat``), and a resume under
+  any pipe size takes its stage's rows; a checkpoint of named blocks
+  loads into a stacked model and the reverse (``convert.to_layout``);
+* the exchange's seconds are ``pipe_p2p_s_per_step`` (CUDA events
+  around each tick's exchange), its bytes ``dist.pipe_bytes()``, the
+  most stage inputs the 1F1B stash held ``pipe_ctx.stash_peak``;
+* the eval callbacks run inside ``full_weights``, which gathers the full
+  stacked weights onto every rank (``models/sampling.py``'s decode
+  callback decodes on each pipe group's stage 0 while the others wait).
+
+Pipe with ``fsdp`` > 1, ``shard_optimizer``, ``sequence`` > 1 or an MoE
+model is refused (ROADMAP A.9c).
 """
 
 from __future__ import annotations
@@ -198,11 +235,14 @@ import numpy as np
 import torch
 
 from ..chaos.goodput import beacon_path, goodput_record_path
+from ..config.train import pipe_refusal
 from ..convert import init_params as random_params
+from ..convert import to_layout
 from ..data.device_prefetch import prefetch_to_device
 from ..models import (GlobalMoEStats, Model, compute_losses, finish_losses,
                       loss_count, moe_live_count, sequence_slice)
 from ..models.diffuseq import Draws, rank_draws, seeded_generator
+from ..models.pipeline import PipeContext, pipe_parallel
 from ..obs import ledger as ledger_lib
 from ..obs import trace as trace_lib
 from ..ops import flash_attention
@@ -234,7 +274,8 @@ class TrainLoop:
     ``batch_size`` and ``microbatch`` are per rank (the rows of its data
     group); ``sequence`` is the sequence-parallel group size; ``dp``,
     ``fsdp``, ``shard_optimizer`` and ``partition_rules`` lay out the
-    sharded state (the module docstring). ``chaos``
+    sharded state, and ``pipe`` the pipeline stages (the module
+    docstring). ``chaos``
     (a ``ChaosInjector``), ``progress_file``, ``recompute_until_step``,
     ``trace`` (None defers to ``DPT_TRACE``), ``cost_ledger``,
     ``sanitize``, ``profile_dir`` and ``profile_steps`` are the tooling of
@@ -258,7 +299,7 @@ class TrainLoop:
                  keep_checkpoints: int = 0, debug_nans: bool = False,
                  prefetch_depth: int = 0, sequence: int = 1,
                  dp: int = -1, fsdp: int = 1, shard_optimizer: bool = False,
-                 partition_rules: Optional[Rules] = None,
+                 partition_rules: Optional[Rules] = None, pipe: int = 1,
                  chaos: Optional[Any] = None, progress_file: str = "",
                  recompute_until_step: int = 0,
                  trace: Optional[bool] = None, cost_ledger: bool = False,
@@ -290,8 +331,23 @@ class TrainLoop:
                 "--fsdp and --shard_optimizer with --sequence > 1 come with "
                 "ROADMAP A.8g (the gradient's sums over the sequence ranks "
                 "and the data shards together)")
+        refused = pipe_refusal(pipe, model.scan_layers, fsdp,
+                               shard_optimizer, sequence, model.moe_experts)
+        if refused:
+            raise ValueError(refused)
         self.seq = dist.sequence_groups(sequence)
-        self.mesh = make_mesh(dp=dp, fsdp=fsdp, sequence=sequence)
+        self.mesh = make_mesh(dp=dp, fsdp=fsdp, sequence=sequence,
+                              pipe=pipe)
+        self.pipe = self.mesh.pipe_group()
+        # the exchange's seconds (pipeline parallelism), read at each flush
+        self.pipe_time = EventTimer()
+        self.pipe_ctx: Optional[PipeContext] = None
+        if pipe > 1:
+            virtual = (model.pp_virtual if model.pp_schedule == "interleaved"
+                       else 1)
+            self.pipe_ctx = PipeContext(self.pipe, model.pp_schedule,
+                                        model.pp_chunks, max(virtual, 1),
+                                        self.pipe_time)
         self.shard_optimizer = shard_optimizer
         self.partition_rules = (tuple(partition_rules)
                                 if partition_rules else None)
@@ -322,6 +378,9 @@ class TrainLoop:
         self.device = next(model.parameters()).device
         self.fused_update = resolve_fused_update(fused_update, self.device)
         self.eval_batches_consumed = 0
+        # the decode callback's records ({"step", "key", "value",
+        # "tokens_sha256"}, models/sampling.py)
+        self.eval_decodes: List[Dict[str, Any]] = []
         # per-step metrics as fetched (step, loss, grad_norm, lr, ...)
         self.history: List[Dict[str, float]] = []
         self._inflight: "collections.deque" = collections.deque()
@@ -429,7 +488,16 @@ class TrainLoop:
             [(name, tuple(p.shape)) for name, p in named], sizes=mesh.shape,
             rules=rules, fsdp_index=mesh.index("fsdp"),
             data_index=mesh.index("data"),
-            shard_optimizer=self.shard_optimizer)
+            shard_optimizer=self.shard_optimizer,
+            pipe_index=self.pipe.index,
+            pipe_virtual=(self.pipe_ctx.virtual if self.pipe_ctx else 1))
+        if self.pipe_ctx is not None:
+            loose = [name for name, _p in named
+                     if ".blocks." in name and name not in shard.staged]
+            if loose or not shard.staged:
+                raise ValueError(f"--pipe > 1: the rule table puts no "
+                                 f"'pipe' on dim 0 of {loose or 'any leaf'}"
+                                 f" (the stacked rules shard the layers)")
         self._layout = shard.full
         dev, f32 = self.device, torch.float32
         self.params = torch.zeros(shard.m_pad, dtype=f32, device=dev)
@@ -443,7 +511,9 @@ class TrainLoop:
                 model_family=m.family, vocab_size=m.vocab_size,
                 seq_len=m.seq_len, hidden_size=m.hidden_size,
                 num_layers=m.num_layers, num_heads=m.num_heads,
-                moe_experts=m.moe_experts, moe_every=m.moe_every), seed)
+                moe_experts=m.moe_experts, moe_every=m.moe_every,
+                scan_layers=m.scan_layers), seed)
+        init_params = self._as_layout(init_params)
         self._check_state(init_params)
         if shard.sharded and self.world > 1:
             # every rank takes its shard of rank 0's values (a fresh run
@@ -465,6 +535,11 @@ class TrainLoop:
         # fresh EMA = a copy of the (owned) params, per rate
         self.ema = self._owned(self.params)[None].repeat(
             len(self.ema_rates), 1)
+
+    def _as_layout(self, state: Mapping[str, Any]) -> Mapping[str, Any]:
+        """A full state dict in this model's block layout (named or
+        stacked, ``convert.to_layout``)."""
+        return to_layout(state, self._layout)
 
     def _owned(self, local: torch.Tensor) -> torch.Tensor:
         """The range of a rank-layout buffer this rank updates."""
@@ -502,7 +577,14 @@ class TrainLoop:
         """Set the training state from full state dicts, whatever the
         layout they were saved under: params, EMA copies per rate
         (default: a copy of the params) and ``{"mu", "nu", "count"}``
-        (default: fresh); each rank keeps its shard."""
+        (default: fresh); each rank keeps its shard. A state of the other
+        block layout (named or stacked) is converted first."""
+        params = self._as_layout(params)
+        if ema:
+            ema = {r: self._as_layout(e) for r, e in ema.items()}
+        if opt is not None:
+            opt = {**opt, "mu": self._as_layout(opt["mu"]),
+                   "nu": self._as_layout(opt["nu"])}
         self._check_state(params)
         with torch.no_grad():
             self.shard.local_from_full(params, self.params)
@@ -522,8 +604,8 @@ class TrainLoop:
         ``params``, ``mu``, ``nu`` or ``ema`` (of ``rate``). A view of the
         loop's own buffer when the state is not sharded; else a gathered
         copy, a collective every rank calls (the owned ranges all-gathered
-        over the data group, then the units' pieces over the fsdp
-        group)."""
+        over the data group, then the units' pieces over the fsdp group,
+        or the stage slices over the pipe group)."""
         shard = self.shard
         if which == "params":
             local = self.params
@@ -535,16 +617,37 @@ class TrainLoop:
             else:
                 local = own.new_empty(shard.m_pad)
                 dist.all_gather(local, own, self.mesh.group("data"))
-        if not shard.units:
+        if not shard.units and not shard.staged:
             return local[:shard.n]
         return shard.gather_full(local, local.new_empty(shard.n),
-                                 self.mesh.group("fsdp"))
+                                 self.mesh.group("fsdp"),
+                                 pipe_group=self.pipe.group)
+
+    @contextlib.contextmanager
+    def _pinned(self, flat: torch.Tensor) -> Iterator[None]:
+        """Inside the block each parameter's ``data`` is a view into the
+        full flat buffer ``flat`` (a stacked weight whole, every layer),
+        and its own view again after it."""
+        named = list(self.model.named_parameters())
+        before = [p.data for _name, p in named]
+        try:
+            for name, p in named:
+                p.data = self._view(flat, name)
+            yield
+        finally:
+            for (_name, p), data in zip(named, before):
+                p.data = data
 
     @contextlib.contextmanager
     def full_weights(self) -> Iterator[None]:
         """Inside the block every parameter is whole: under ``--fsdp`` a
         view into one gathered copy (every rank gathers), with the units'
-        hooks off; otherwise as it is."""
+        hooks off; under ``--pipe`` likewise, every layer of the stacked
+        weights; otherwise as it is."""
+        if self.pipe_ctx is not None:
+            with self._pinned(self.full_flat("params")):
+                yield
+            return
         if self.fsdp is None:
             yield
             return
@@ -563,15 +666,8 @@ class TrainLoop:
             with self.fsdp.pinned_to(ema):
                 yield
             return
-        named = list(self.model.named_parameters())
-        before = [p.data for _name, p in named]
-        try:
-            for name, p in named:
-                p.data = self._view(ema, name)
+        with self._pinned(ema):
             yield
-        finally:
-            for (_name, p), data in zip(named, before):
-                p.data = data
 
     def ema_state_dicts(self) -> Dict[str, StateDict]:
         """Each rate's EMA as a full state dict (gathered when sharded)."""
@@ -581,7 +677,12 @@ class TrainLoop:
     def _check_state(self, state: Mapping[str, Any]) -> None:
         """Raise unless ``state`` is a state dict of this model's
         parameter names and shapes (the resume walks back past one that
-        is not)."""
+        is not); a state of the other block layout is converted first."""
+        if isinstance(state, Mapping):
+            try:
+                state = self._as_layout(state)
+            except KeyError:
+                pass
         if not isinstance(state, Mapping) or set(state) != set(self._layout):
             raise KeyError("checkpoint keys differ from the model's")
         for name, (_off, _n, shape) in self._layout.items():
@@ -714,22 +815,25 @@ class TrainLoop:
     def _rank_draws(self, step: int, i: int, mb: Mapping[str, torch.Tensor]
                     ) -> Draws:
         """Microbatch i's draws for this rank: the global microbatch's,
-        sliced to its data group's rows and its sequence slice's
-        positions under several ranks."""
+        sliced to its row group's rows and its sequence slice's
+        positions under several ranks (every pipe rank of a row group
+        takes the same)."""
         draws = (self._draws or self._seeded_draws)(step, i)
         if self.world == 1 or self.model.family != "diffuseq":
             return draws
         seq = self.seq
+        row, rows = self.mesh.rows()
         shape = tuple(mb["input_ids"].shape) + (self.model.emb_dim,)
-        return rank_draws(self.model.schedule, draws, shape, seq.data_index,
-                          seq.dp, seq.index, seq.size)
+        return rank_draws(self.model.schedule, draws, shape, row, rows,
+                          seq.index, seq.size)
 
     def _global_denoms(self, mbs: List[Dict]) -> List[tuple]:
         """Each microbatch's ``(denom, moe_global)``: the masked means'
         denominator summed over the ranks, clamped to >= 1, and for an MoE
         model the global live-token count with the expert counts'
         all-reduce (one all-reduce for every microbatch's counts); Nones
-        without a process group (each loss then takes its own)."""
+        without a process group (each loss then takes its own). A pipe
+        group counts its rows once (its stage 0's counts)."""
         if not self.distributed:
             return [(None, None)] * len(mbs)
         moe = self.model.moe_experts > 0
@@ -737,6 +841,8 @@ class TrainLoop:
             torch.stack([loss_count(self.model, mb)]
                         + ([moe_live_count(mb)] if moe else []))
             for mb in mbs])                         # [micro, 1 or 2]
+        if self.pipe.index > 0:
+            counts.zero_()
         dist.all_reduce(counts)
         denoms = torch.clamp(counts[:, 0], min=1.0).unbind(0)
         if not moe:
@@ -768,9 +874,17 @@ class TrainLoop:
         reduce-scattered there after each microbatch); then over the data
         axis, by one reduce-scatter into the rank's owned range under
         ZeRO-1, else one all-reduce (of everything, over every rank,
-        without sharding). Each collective is timed into its
-        ``EventTimer``."""
+        without sharding). Under ``--pipe`` the stage slice over the data
+        group (the ranks of the same stage) and the rest over every rank.
+        Each collective is timed into its ``EventTimer``."""
         shard = self.shard
+        if shard.staged:
+            with self.allreduce_time.measure(self.device):
+                if self.mesh.size("data") > 1:
+                    dist.all_reduce(self.grads[:shard.staged_end],
+                                    self.mesh.group("data"))
+                dist.all_reduce(self.grads[shard.staged_end:shard.m])
+            return
         if self.fsdp is not None:
             with self.allreduce_time.measure(self.device):
                 dist.all_reduce(self.grads[shard.pieces:shard.m],
@@ -799,14 +913,17 @@ class TrainLoop:
         per_micro = []
         scale = 1.0 / self.n_micro
         fsdp = self.fsdp
-        with sequence_parallel(self.seq, self.shift_time):
+        with sequence_parallel(self.seq, self.shift_time), \
+                pipe_parallel(self.pipe_ctx):
             for i, mb in enumerate(mbs):
                 with (fsdp.rest() if fsdp is not None
                       else contextlib.nullcontext()):
                     d = compute_losses(self.model, mb,
                                        self._rank_draws(self.step, i, mb),
                                        *denoms[i])
-                    d["loss"].backward()
+                    if self.pipe_ctx is None:
+                        # under a pipe the schedule ran its backward
+                        d["loss"].backward()
                 if fsdp is not None:
                     fsdp.after_backward(scale)
                 per_micro.append({k: v.detach() for k, v in d.items()})
@@ -826,8 +943,16 @@ class TrainLoop:
         buffer; sharded, the owned range's squares over the units' pieces
         and over the replicated leaves, summed over the ranks (one
         all-reduce) and each divided by its copies across the ranks: the
-        same value up to the f32 sum order."""
+        same value up to the f32 sum order. Under ``--pipe`` the stage
+        slices' squares are summed over the pipe group and the rest's
+        counted once."""
         shard = self.shard
+        if shard.staged:
+            end = shard.staged_end
+            stage = torch.linalg.vector_norm(grads[:end]) ** 2
+            dist.all_reduce(stage, self.pipe.group)
+            return torch.sqrt(stage
+                              + torch.linalg.vector_norm(grads[end:]) ** 2)
         if not shard.sharded:
             return torch.linalg.vector_norm(grads)
         lo, hi = shard.lo, shard.hi
@@ -993,7 +1118,8 @@ class TrainLoop:
         mbs = self._micro(batch)
         denoms = self._global_denoms(mbs)
         per_micro = []
-        with sequence_parallel(self.seq, self.shift_time):
+        with sequence_parallel(self.seq, self.shift_time), \
+                pipe_parallel(self.pipe_ctx):
             for i, mb in enumerate(mbs):
                 with (self.fsdp.rest(grads=False) if self.fsdp is not None
                       else contextlib.nullcontext()):
@@ -1017,7 +1143,7 @@ class TrainLoop:
 
     def _timers(self) -> Tuple[EventTimer, ...]:
         return (self.allreduce_time, self.reduce_scatter_time,
-                self.all_gather_time, self.shift_time)
+                self.all_gather_time, self.shift_time, self.pipe_time)
 
     def _per_step(self, timer: EventTimer) -> float:
         """A timer's seconds a step: the mean over the calls read so far,
@@ -1043,6 +1169,12 @@ class TrainLoop:
         included) a step: the mean over the shifts read so far, times the
         shifts this process made, over the steps it ran."""
         return self._per_step(self.shift_time)
+
+    @property
+    def pipe_p2p_s_per_step(self) -> float:
+        """The pipe exchange's seconds (every tick's frames, eval passes
+        included) a step."""
+        return self._per_step(self.pipe_time)
 
     # ---------------------------------------------------- goodput, beacon
 
@@ -1188,7 +1320,8 @@ class TrainLoop:
                            ("reduce_scatter_s_per_step",
                             self.reduce_scatter_time),
                            ("all_gather_s_per_step", self.all_gather_time),
-                           ("ring_shift_s_per_step", self.shift_time)):
+                           ("ring_shift_s_per_step", self.shift_time),
+                           ("pipe_p2p_s_per_step", self.pipe_time)):
             if timer.calls:
                 self.logger.logkv(key, getattr(self, key))
         sps, tps = self._timer.lap()

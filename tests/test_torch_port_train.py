@@ -222,13 +222,20 @@ def test_run_train_without_device_needs_cuda(tmp_path, monkeypatch):
 # process the sequence axis's own check refuses --sequence 2. The sharded
 # state (A.8c) is trained: --shard_optimizer parses, --fsdp 2 and --dp 2
 # fail the mesh's own check on one process, an unreadable
-# --partition_rules fails naming the flag, and --expert names A.8g
+# --partition_rules fails naming the flag, and --expert names A.8g. The
+# stacked layers and the pipe schedule (A.9a) are trained
 LIFTED = {"ROADMAP A.8e": "must divide the world size",
           "ROADMAP A.8c": "ROADMAP A.8g",
           ("--fsdp", "2"): "must multiply to the world size",
           ("--dp", "2"): "must multiply to the world size",
           ("--shard_optimizer", "true"): None,
-          ("--partition_rules", "x"): "--partition_rules"}
+          ("--partition_rules", "x"): "--partition_rules",
+          # the stacked layers and the pipe schedule (A.9a) are trained:
+          # their flags parse; the MPMD runtime names A.9b
+          ("--scan_layers", "true"): None,
+          ("--pp_chunks", "8"): None,
+          ("--scan_unroll", "2"): None,
+          ("--mpmd", "true"): "ROADMAP A.9b"}
 
 
 @pytest.mark.parametrize("entry,argv,expect", [

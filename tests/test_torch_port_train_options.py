@@ -82,6 +82,13 @@ def test_jax_config_json_trains(tmp_path):
     assert os.path.exists(os.path.join(run, "meta_000002.json"))
 
 
+LIFTED_A9A = {"scan_unroll": None, "pp_schedule": None, "pp_virtual": None,
+              "mpmd_stages": "ROADMAP A.9b",
+              "mpmd_link_capacity": "ROADMAP A.9b",
+              "mpmd_hang_timeout_s": "ROADMAP A.9b",
+              "mpmd_max_restarts": "ROADMAP A.9b"}
+
+
 @pytest.mark.parametrize("flag,value,item", [
     ("profile_steps", "8:3", "profile_steps window must satisfy 0 <= A < B"),
     ("auto_tune_budget_s", "30", "ROADMAP A.10"),
@@ -98,8 +105,15 @@ def test_jax_config_json_trains(tmp_path):
     ("prefetch_depth", "-1", "must be >= 0")])
 def test_new_fields_refused_name_their_reason(flag, value, item, capsys):
     # the tensor axis's refusal moved to A.8g when A.8c brought the
-    # sharded state
+    # sharded state; A.9a brought the stacked layers and the pipe schedule
+    # (their flags parse: item None), the MPMD runtime is A.9b
     item = {"ROADMAP A.8c": "ROADMAP A.8g"}.get(item, item)
+    item = LIFTED_A9A.get(flag, item)
+    if item is None:
+        s = parse_settings([f"--{flag}", value])
+        assert flag not in DEFERRED
+        assert str(getattr(s, flag)) == value
+        return
     with pytest.raises(SystemExit) as e:
         parse_settings([f"--{flag}", value])
     assert e.value.code == 2
