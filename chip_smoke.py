@@ -163,7 +163,9 @@ Phases (any failure raises, and the script exits non-zero):
 12. data-parallel training: GPT-2 base at full width (seq 1024,
    synthetic-lm, global batch 8 in global microbatches of 4, 5 steps from
    seed 0) through ``python -m distributed_pipeline_tpu_torch.run.train``
-   as subprocesses, three times: without ``--distributed``; with
+   as subprocesses: without ``--distributed``, alone (its step time is
+   the one read), then side by side (their step and all-reduce seconds
+   share the card and the host, printed as contended): with
    ``--distributed --nprocs 1`` (a one-rank NCCL group), whose losses,
    grad norms and final parameters (``train_summary.json``'s SHA-256) must
    be bitwise the first run's; and with ``--distributed --nprocs 2`` (two
@@ -220,15 +222,19 @@ Phases (any failure raises, and the script exits non-zero):
    ring-shift seconds a step, step time and peak memory; and DiffuSeq-base
    at seq 1024 (bidirectional and pad-masked: both ranks launch on both
    hops and the mask rotates; batch 8 in microbatches of 4, 3 steps) with
-   ``--sequence 2`` held to the same run in one process. Its line is
+   ``--sequence 2`` held to the same run in one process; the three runs
+   side by side, after the kernel timings (their seconds printed as
+   contended). Its line is
    ``{"sequence_parallel": {...}}``, and the kernels line gains the
    ``flash_attention_lse`` row (the ``g_lse`` arm);
 15. training tooling, last: DiffuSeq-base at full width (phase 5's batch,
    256 in microbatches of 64, seed 0, 6 steps, a save every 2, keeping
    2) through ``run.train --distributed --nprocs 1 --max_restarts 3``,
-   three rings: (a) ``corrupt_checkpoint`` + ``kill`` at step 4 in
-   ``DPT_CHAOS_PLAN``: attempts ``(-9, end 4)`` and ``(0, end 6)``, both
-   ``.chaos_fired_*`` markers, the walk-back to step 2 in the log,
+   three rings, (b) alone (its laps are the ones read), then (a) beside
+   (c) (printed as contended): (a) ``corrupt_checkpoint`` + ``kill`` at
+   step 4 in ``DPT_CHAOS_PLAN``: attempts ``(-9, end 4)`` and ``(0, end
+   6)``, both ``.chaos_fired_*`` markers, the walk-back to step 2 in the
+   log,
    ``aggregate_run`` with ``recompute_s > 0`` and ``accounted_frac``
    within 0.01 of 1 (this ring also arms ``--cost_ledger``, for phase
    16); (b) the uninterrupted twin with ``--trace
@@ -270,13 +276,15 @@ Phases (any failure raises, and the script exits non-zero):
    GPT-2 base at
    ``--sequence 2 --eval_decode true --eval_interval 2``: the step-2
    eval's ``decode_acc`` (decoded by the first sequence rank outside the
-   ring) equals the one-process callback's on the saved step-2 weights.
-   Its line is ``{"moe_eval_decode_sequence": {...}}``; the flash,
+   ring) equals the one-process callback's on the saved step-2 weights;
+   the two runs side by side (their seconds printed as contended). Its
+   line is ``{"moe_eval_decode_sequence": {...}}``; the flash,
    ``flash_attention_lse`` and update rows gain ``launches_moe_sp2`` and
    (flash and GPT-2 update) ``launches_eval_decode_sp2``;
 18. the sharded training state, last: phase 12's GPT-2 base workload
    (batch 4 in microbatches of 2 a rank, 5 steps, two gloo ranks sharing
-   ``cuda:0``) through ``run.train`` three times, each held to phase 12's
+   ``cuda:0``) through ``run.train`` three times ((a) alone, then (b)
+   beside (c), printed as contended), each held to phase 12's
    ``--nprocs 2`` run: (a) ``--shard_optimizer true --save_interval 3``:
    losses and the final parameters' SHA-256 bitwise, grad norms within
    1e-6 relative, the flash kernels 120 launches each way and the fused
@@ -322,8 +330,10 @@ Phases (any failure raises, and the script exits non-zero):
    step 4 within 1e-6 relative of (b)'s and step 5 within 5e-3; (f) DiffuSeq-base
    at the DiffuSeq phase's flags (batch 256 / 64, 20 steps, seed 0) on
    ``--nprocs 2 --pipe 2``, the first 3 losses within 2e-3 relative of
-   that phase's. (c), (d), (e) and (f) run together, so their seconds
-   share the card. (c) and (d) run 5 steps, not 3: the learning rate
+   that phase's. (b) runs alone (its step and exchange seconds are the
+   ones read), then (a), (c), (d), (e) and (f) together, so their seconds
+   share the card (printed as contended). (c) and (d) run
+   5 steps, not 3: the learning rate
    anneals over ``--learning_steps``, and a 3-step run's third loss would
    follow another rate than (a)'s. Launches, exact, from each rank's
    sidecar: a rank holds 6 layers and a step runs 2 microbatches of 4
@@ -338,6 +348,31 @@ Phases (any failure raises, and the script exits non-zero):
    the other update rows (``fused_adamw_ema_gpt2_pipe2_stage``). Its
    line is ``{"pipeline": {...}}``; the flash rows gain
    ``launches_pipe_1f1b``/``_gpipe``/``_interleaved``.
+20. the MPMD pipeline runtime, last (budget 120 s): phase 19's GPT-2 base
+   flags (batch 8, 5 steps, seed 0) through ``run.train --mpmd true
+   --mpmd_stages 2 --pp_schedule 1f1b --pp_chunks 4`` (a torch-free
+   driver, two stage rings of one process each on ``cuda:0``, the frames
+   through files), three runs side by side (their seconds share the card
+   and the host, printed as contended: with (a) alone the phase does not
+   fit its budget): (a) the 5 losses within 1e-6 relative of
+   ``run_pipeline_inprocess`` of the same config on the card, step 1
+   within 1e-6 relative of phase 19 (a)'s and step 2 within 5e-3 (later
+   steps part: the stages' learning rate is constant, run.train's
+   anneals), ``rewinds`` 0, ``accounted_frac`` within 0.01 of 1 with
+   ``link_wait_s`` in the fold; stage 0 launches the flash forward 240
+   times (its B recomputes the stage) and the backward 120, stage 1 120
+   and 120, the fused update and the plain versions never; each stage's
+   peak memory, step seconds (and of them the data's and the math's),
+   link wait, save seconds, act-frame and snapshot bytes printed; (b)
+   the same with ``DPT_MPMD_KILL=1:3``: ``rewinds`` 1, attempts [1, 2],
+   the losses bitwise (a)'s; (c) DiffuSeq-base at seq 128, batch 8 in 4
+   chunks, 3 steps (the JAX bench leg
+   ``diffuseq-base-seq128-mpmd-pipe``'s traffic at full width): losses
+   within 1e-5 relative of the in-process runner, ``accounted_frac``
+   within 0.01 of 1. The in-process references run beside the three.
+   Each run dir's bytes are printed before it is removed (a GPT-2 stage
+   snapshot is ~0.98 GB a step). Its line is ``{"mpmd": {...}}``; the
+   flash and GPT-2 update rows gain ``launches_mpmd`` (per stage).
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -348,6 +383,7 @@ before the last is ``{"kernels": [...]}`` and the last is
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import gc
 import json
 import math
@@ -357,6 +393,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 GPT2_BASE = dict(model_family="gpt2", model_size="base", vocab_size=50257,
@@ -2869,19 +2906,59 @@ def dp_argv(run: str, batch: int, micro: int) -> list:
             "--save_interval", "0", "--seed", "0"]
 
 
-def dp_start(argv: list) -> tuple:
+# every run.train started, killed at exit if a failed check left it running
+_JOBS: list = []
+
+
+@atexit.register
+def _kill_jobs() -> None:
+    for proc in _JOBS:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def dp_start(argv: list, extra_env=None) -> dict:
     """Start ``python -m distributed_pipeline_tpu_torch.run.train argv``
-    as a subprocess; returns it with its start time (``dp_finish`` waits
-    for it)."""
+    as a subprocess (``extra_env`` added to its environment), drained by a
+    thread that notes when it ended (at most 600 s), so runs side by side
+    each get their own wall; ``dp_finish`` waits for it."""
     env = {k: v for k, v in os.environ.items() if k not in (
         "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
-        "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP")}
+        "LOCAL_WORLD_SIZE", "DPT_DIST_AUTORUN", "DPT_RUN_TIMESTAMP",
+        "DPT_MPMD_KILL")}
+    env.update(extra_env or {})
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo
-    return (subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "distributed_pipeline_tpu_torch.run.train",
          *argv], cwd=repo, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True), time.perf_counter())
+        stderr=subprocess.PIPE, text=True)
+    job = {"proc": proc, "t0": time.perf_counter()}
+    _JOBS.append(proc)
+
+    def drain():
+        try:
+            job["out"] = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            job["out"] = proc.communicate()
+        job["t1"] = time.perf_counter()
+    job["thread"] = threading.Thread(target=drain, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def dp_wait(job: dict, what: str) -> tuple:
+    """Wait for a ``dp_start`` run: ``(stdout, stderr, wall)``; fails
+    the phase when it exited with another code than 0."""
+    job["thread"].join()
+    proc = job["proc"]
+    stdout, stderr = job["out"]
+    if proc.returncode != 0:
+        print(stdout[-4000:], stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{what}: run.train exited "
+                                f"{proc.returncode}")
+    return stdout, stderr, job["t1"] - job["t0"]
 
 
 def dp_run(run: str, argv: list, what: str) -> dict:
@@ -2892,21 +2969,9 @@ def dp_run(run: str, argv: list, what: str) -> dict:
     return dp_finish(dp_start(argv), run, what)
 
 
-def dp_finish(started: tuple, run: str, what: str) -> dict:
-    """Wait for a ``dp_start`` run (at most 600 s) and read it as
-    ``dp_run`` does."""
-    proc, t0 = started
-    try:
-        stdout, stderr = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(stdout[-4000:], stderr[-8000:], file=sys.stderr)
-    check(proc.returncode == 0, f"{what}: run.train exited "
-                                f"{proc.returncode}")
+def dp_finish(job: dict, run: str, what: str) -> dict:
+    """Wait for a ``dp_start`` run and read it as ``dp_run`` does."""
+    _stdout, _stderr, wall = dp_wait(job, what)
     with open(os.path.join(run, "progress.csv")) as f:
         lines = f.read().splitlines()
     head = lines[0].split(",")
@@ -2930,15 +2995,23 @@ def dp_phase(torch) -> dict:
             "fused_adamw_ema": DP_STEPS}
     runs = {}
     with tempfile.TemporaryDirectory() as work:
+        # the run without a group alone (its step time is the one read),
+        # then its bitwise twin beside the two ranks: their step and
+        # all-reduce seconds share the card and the host (contended)
+        run = os.path.join(work, "single")
+        runs["single"] = dp_run(run, dp_argv(run, 8, 4), "single")
+        started = {}
         for key, extra, batch, micro in (
-                ("single", [], 8, 4),
                 ("nprocs1", ["--distributed", "--nprocs", "1"], 8, 4),
                 ("nprocs2", ["--distributed", "--nprocs", "2"], 4, 2)):
             run = os.path.join(work, key)
-            runs[key] = dp_run(run, extra + dp_argv(run, batch, micro), key)
-            torch.cuda.empty_cache()
+            started[key] = (dp_start(extra + dp_argv(run, batch, micro)),
+                            run)
+        for key, (job, run) in started.items():
+            runs[key] = dp_finish(job, run, key)
     out = {"steps": DP_STEPS, "wall_s": {k: r["wall_s"]
-                                         for k, r in runs.items()}}
+                                         for k, r in runs.items()},
+           "contended": ["nprocs1", "nprocs2"]}
     for key, r in runs.items():
         check(len(r["rows"]) == DP_STEPS
               and [h["step"] for h in r["steps"]]
@@ -2958,7 +3031,9 @@ def dp_phase(torch) -> dict:
             check(side["device"].startswith("cuda"),
                   f"{key} rank {side['rank']} on {side['device']}")
             print(f"# data parallel {key} rank {side['rank']}/"
-                  f"{side['world_size']}: backend {side['backend']}, "
+                  f"{side['world_size']} "
+                  f"({'alone' if key == 'single' else 'contended'}): "
+                  f"backend {side['backend']}, "
                   f"device {side['device']}, launches {side['launches']}, "
                   f"plain {side['plain_calls']}, all-reduce "
                   f"{side['allreduce_s_per_step']:.6f} s a step over "
@@ -3007,7 +3082,8 @@ def dp_phase(torch) -> dict:
     out["phase_s"] = time.perf_counter() - t0
     print(f"# data parallel: --nprocs 1 bitwise the run without a group "
           f"(losses, grad norms, parameters); --nprocs 2 against it, "
-          f"largest relative difference {rel}; walls {out['wall_s']}; "
+          f"largest relative difference {rel}; walls {out['wall_s']} "
+          f"(single alone, then nprocs1 beside nprocs2: contended); "
           f"phase {out['phase_s']:.1f} s of its {DP_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= DP_BUDGET_S,
@@ -3497,23 +3573,29 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
     per = layers * micro * DP_STEPS
     runs = {}
     with tempfile.TemporaryDirectory() as work:
+        # the three runs side by side, after the kernel timings: their
+        # seconds share the card and the host (contended; with GPT-2's
+        # ranks alone the whole script outgrows its budget)
         run = os.path.join(work, "gpt2_sp2")
-        runs["gpt2"] = dp_run(run, SP_FLAGS + dp_argv(run, 8, 4),
-                              "gpt2 sp2")
-        torch.cuda.empty_cache()
+        started = {"gpt2": (dp_start(SP_FLAGS + dp_argv(run, 8, 4)), run,
+                            "gpt2 sp2")}
         for key, extra in (("diffuseq_one", []),
                            ("diffuseq_sp2", SP_FLAGS)):
             run = os.path.join(work, key)
-            runs[key] = dp_run(run, extra + sp_diffuseq_argv(run), key)
-            torch.cuda.empty_cache()
+            started[key] = (dp_start(extra + sp_diffuseq_argv(run)), run,
+                            key)
+        for key, (job, run, what) in started.items():
+            runs[key] = dp_finish(job, run, what)
     out = {"kernel_checks": errs, "timing": timing,
-           "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "contended": ["gpt2", "diffuseq_one", "diffuseq_sp2"]}
     gpt2_want = [{"flash_forward": per * n, "flash_backward": per * n,
                   "fused_adamw_ema": DP_STEPS} for n in (1, 2)]
     out["gpt2_base_sp2"] = {
         "losses": [h["loss"] for h in runs["gpt2"]["steps"]],
         "grad_norms": [h["grad_norm"] for h in runs["gpt2"]["steps"]],
-        "ranks": sp_ranks(runs["gpt2"], "gpt2 base sp2", gpt2_want),
+        "ranks": sp_ranks(runs["gpt2"], "gpt2 base sp2 (contended)",
+                          gpt2_want),
         "vs_no_group_max_rel": held_to(runs["gpt2"]["steps"], single,
                                        "gpt2 base sp2 vs no group")}
     dq_per = layers * micro * SP_DIFFUSEQ_STEPS
@@ -3532,10 +3614,11 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
         "sp2": {"losses": [h["loss"]
                            for h in runs["diffuseq_sp2"]["steps"]],
                 "ranks": sp_ranks(runs["diffuseq_sp2"], "diffuseq seq1024 "
-                                  "sp2", [{"flash_forward": 2 * dq_per,
-                                           "flash_backward": 2 * dq_per,
-                                           "fused_adamw_ema":
-                                               SP_DIFFUSEQ_STEPS}] * 2)},
+                                  "sp2 (contended)",
+                                  [{"flash_forward": 2 * dq_per,
+                                    "flash_backward": 2 * dq_per,
+                                    "fused_adamw_ema":
+                                        SP_DIFFUSEQ_STEPS}] * 2)},
         "sp2_vs_one_max_rel": held_to(runs["diffuseq_sp2"]["steps"],
                                       one_ref,
                                       "diffuseq seq1024 sp2 vs one")}
@@ -3569,7 +3652,8 @@ def sequence_phase(torch, fa, bw, bf16_peak, single: dict) -> tuple:
     dq_rel = out["diffuseq_base_seq1024"]["sp2_vs_one_max_rel"]
     print(f"# sequence parallel ({CARD}): gpt2 base sp2 vs no group "
           f"{out['gpt2_base_sp2']['vs_no_group_max_rel']}, diffuseq seq1024 "
-          f"sp2 vs one process {dq_rel}; walls {out['wall_s']}; phase "
+          f"sp2 vs one process {dq_rel}; walls {out['wall_s']} (side by "
+          f"side: contended); phase "
           f"{out['phase_s']:.1f} s of its {SP_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= SP_BUDGET_S,
@@ -3696,13 +3780,36 @@ def tooling_phase(torch, work: str) -> dict:
     from distributed_pipeline_tpu_torch.obs import trace as trace_lib
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    out = {"steps": TOOL_STEPS}
+    out = {"steps": TOOL_STEPS, "contended": ["chaos", "watchdog"]}
+    # (b) the uninterrupted twin with every tool armed, alone (its laps are
+    # the ones read); it saves once, at the end, so its laps overlap no
+    # background write
+    twin = os.path.join(work, "twin")
+    prof = os.path.join(work, "prof")
+    b = tool_run(twin, tool_argv(twin, (
+        "--trace", "true", "--cost_ledger", "true", "--sanitize", "true",
+        "--profile_dir", prof, "--profile_steps", "2:4",
+        "--save_interval", str(TOOL_STEPS))), "twin")
+    # then (a) and (c) side by side (their checks are bitwise or about
+    # their attempts; their seconds share the card and the host)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
     # (a) corrupt + kill at step 4: walk back to step 2, finish
     chaos = os.path.join(work, "chaos")
-    a = tool_run(chaos, tool_argv(chaos, ("--cost_ledger", "true")),
-                 "chaos ring", plan=[
-                     {"kind": "corrupt_checkpoint", "step": 4, "rank": 0},
-                     {"kind": "kill", "step": 4, "rank": 0}])
+    job_a = pool.submit(
+        tool_run, chaos, tool_argv(chaos, ("--cost_ledger", "true")),
+        "chaos ring", plan=[
+            {"kind": "corrupt_checkpoint", "step": 4, "rank": 0},
+            {"kind": "kill", "step": 4, "rank": 0}])
+    # (c) the watchdog kills a wedged attempt; this ring logs nothing
+    # (--log_interval 0): its history holds every step it ran
+    hang = os.path.join(work, "hang")
+    job_c = pool.submit(tool_run, hang, tool_argv(hang, (
+        "--hang_timeout_s", str(TOOL_HANG_S),
+        "--hang_startup_timeout_s", "120", "--log_interval", "0")),
+        "watchdog ring", plan=[
+            {"kind": "stall_step", "step": 3, "seconds": 600, "rank": 0}])
+    pool.shutdown(wait=True)
+    a, c = job_a.result(), job_c.result()
     recs = a["attempts"]
     check([(r["rc"], r["end_step"]) for r in recs] == [(-9, 4), (0, 6)],
           f"chaos ring attempts {[(r['rc'], r['end_step']) for r in recs]}")
@@ -3719,14 +3826,7 @@ def tooling_phase(torch, work: str) -> dict:
           f"chaos ring recompute_s {a['goodput']['recompute_s']}")
     check_side(a["side"], TOOL_STEPS - 2, "chaos ring attempt 1")
 
-    # (b) the uninterrupted twin with every tool armed; it saves once, at
-    # the end, so its laps overlap no background write
-    twin = os.path.join(work, "twin")
-    prof = os.path.join(work, "prof")
-    b = tool_run(twin, tool_argv(twin, (
-        "--trace", "true", "--cost_ledger", "true", "--sanitize", "true",
-        "--profile_dir", prof, "--profile_steps", "2:4",
-        "--save_interval", str(TOOL_STEPS))), "twin")
+    # (b)
     check([(r["rc"], r["end_step"]) for r in b["attempts"]] == [(0, 6)],
           f"twin attempts {b['attempts']}")
     check_side(b["side"], TOOL_STEPS, "twin")
@@ -3773,14 +3873,7 @@ def tooling_phase(torch, work: str) -> dict:
           <= 1e-3 * rec["save_s"] + 1e-6,
           f"save spans {save_spans} vs save_s {rec['save_s']}")
 
-    # (c) the watchdog kills a wedged attempt; this ring logs nothing
-    # (--log_interval 0): its history holds every step it ran
-    hang = os.path.join(work, "hang")
-    c = tool_run(hang, tool_argv(hang, (
-        "--hang_timeout_s", str(TOOL_HANG_S),
-        "--hang_startup_timeout_s", "120", "--log_interval", "0")),
-        "watchdog ring", plan=[
-            {"kind": "stall_step", "step": 3, "seconds": 600, "rank": 0}])
+    # (c)
     hrecs = c["attempts"]
     check(len(hrecs) == 2 and hrecs[0].get("hung") is True
           and hrecs[0]["end_step"] == 3 and hrecs[1]["rc"] == 0
@@ -3844,7 +3937,8 @@ def tooling_phase(torch, work: str) -> dict:
         "chaos_bitwise_twin": True, "dirs": {
             "chaos": chaos, "twin": twin, "hang": hang}})
     out["phase_s"] = time.perf_counter() - t0
-    for key, r in (("chaos", a), ("twin", b), ("watchdog", c)):
+    for key, r in (("chaos (contended)", a), ("twin (alone)", b),
+                   ("watchdog (contended)", c)):
         print(f"# training tooling {key} ({CARD}): save_s per save "
               f"(copy + wait) " + ", ".join(
                   f"step {sv['step']}: {sv['copy_s']:.4f} + "
@@ -3857,10 +3951,12 @@ def tooling_phase(torch, work: str) -> dict:
           f"{hrecs[0]['hang_s']}); twin step times {step_times} (steady "
           f"lap {step_times[-1]:.6f} s at --log_interval 1, the metrics "
           f"one step in flight), the chaos ring's (no tool but the ledger "
-          f"armed) {out['chaos']['step_time_s']}, beacon "
+          f"armed; contended) {out['chaos']['step_time_s']}, beacon "
           f"{b['side']['beacon_s_per_step']:.6f} s a step, peak "
           f"{b['side']['peak_memory_bytes']} B; walls "
-          f"{a['wall_s']:.1f} / {b['wall_s']:.1f} / {c['wall_s']:.1f} s; "
+          f"{a['wall_s']:.1f} / {b['wall_s']:.1f} / {c['wall_s']:.1f} s (the "
+          f"twin alone, then the chaos and watchdog rings side by side: "
+          f"contended); "
           f"phase {out['phase_s']:.1f} s of its {TOOL_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= TOOL_BUDGET_S,
@@ -3905,13 +4001,20 @@ def moe_sequence_phase(torch, one: dict) -> dict:
     t0 = time.perf_counter()
     layers, micro = GPT2_BASE["num_layers"], 2
     per = layers * micro * MOE_STEPS
-    out: dict = {"steps": MOE_STEPS}
+    out: dict = {"steps": MOE_STEPS, "contended": ["moe8", "decode"]}
     with tempfile.TemporaryDirectory() as work:
+        # the two runs side by side (contended: no time of theirs is
+        # compared with an earlier one)
         run = os.path.join(work, "moe8_sp2")
-        sp2 = dp_run(run, SP_FLAGS + spm_argv(run, GPT2_MOE8, MOE_STEPS),
-                     "moe8 sp2")
-        torch.cuda.empty_cache()
-        ranks = sp_ranks(sp2, "gpt2 moe8 sp2", [
+        job = dp_start(SP_FLAGS + spm_argv(run, GPT2_MOE8, MOE_STEPS))
+        run_dec = os.path.join(work, "decode_sp2")
+        extra = ["--eval_decode", "true", "--eval_interval", "2",
+                 "--save_interval", "2"]
+        argv = spm_argv(run_dec, GPT2_BASE, 3, extra)
+        job_dec = dp_start(SP_FLAGS + argv)
+        sp2 = dp_finish(job, run, "moe8 sp2")
+        dec = dp_finish(job_dec, run_dec, "eval_decode sp2")
+        ranks = sp_ranks(sp2, "gpt2 moe8 sp2 (contended)", [
             {"flash_forward": per * n, "flash_backward": per * n,
              "fused_adamw_ema": MOE_STEPS} for n in (1, 2)])
         # held to the one process: every step's loss and the first step's
@@ -3942,11 +4045,6 @@ def moe_sequence_phase(torch, one: dict) -> dict:
             "wall_s": sp2["wall_s"]}
         # --eval_decode on two sequence ranks: the eval at step 2 lands in
         # step 3's row; the step-2 weights are saved
-        run = os.path.join(work, "decode_sp2")
-        extra = ["--eval_decode", "true", "--eval_interval", "2",
-                 "--save_interval", "2"]
-        argv = spm_argv(run, GPT2_BASE, 3, extra)
-        dec = dp_run(run, SP_FLAGS + argv, "eval_decode sp2")
         got = [float(row["decode_acc"]) for row in dec["rows"]
                if row.get("decode_acc")]
         check(len(got) == 1, f"eval_decode sp2 rows carry decode_acc "
@@ -3959,7 +4057,7 @@ def moe_sequence_phase(torch, one: dict) -> dict:
         loop = TrainLoop(
             model=model, data=None, batch_size=8, microbatch=4,
             ema_rate="0.9999", checkpoint_dir="", logger=log,
-            init_params=torch.load(os.path.join(run, "model_000002.pt"),
+            init_params=torch.load(os.path.join(run_dec, "model_000002.pt"),
                                    weights_only=True))
         loop.step = 2
         eval_decode_callback(args)(loop)
@@ -3980,7 +4078,8 @@ def moe_sequence_phase(torch, one: dict) -> dict:
           f"norm {out['moe8']['sp2_vs_one_grad_norm_rel']}, moe_aux "
           f"{out['moe8']['sp2']['moe_aux']}; eval_decode sp2 decode_acc "
           f"{got[0]} == one process {want}; walls "
-          f"{out['moe8']['wall_s']:.1f} + {dec['wall_s']:.1f} s; phase "
+          f"{out['moe8']['wall_s']:.1f} beside {dec['wall_s']:.1f} s "
+          f"(contended); phase "
           f"{out['phase_s']:.1f} s of its {SPM_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= SPM_BUDGET_S,
@@ -4048,8 +4147,8 @@ def shard_phase(torch, dp: dict, update_row: dict) -> dict:
     ``nprocs2`` run is the unsharded pair every run here is held to.
     ``update_row`` is the update's kernel row at the ZeRO-1 shard's size:
     its element count is checked against the runs' and its launches are
-    (a)'s. The resume (c) runs beside (b), so (b)'s seconds share the
-    card and the host with it."""
+    (a)'s. (a) runs alone; (b) then runs beside the resume (c), so their
+    seconds share the card and the host (printed as contended)."""
     t0 = time.perf_counter()
     layers, micro = GPT2_BASE["num_layers"], 2
     per = layers * micro
@@ -4059,9 +4158,9 @@ def shard_phase(torch, dp: dict, update_row: dict) -> dict:
     ref_sha = ref["ranks"][0]["params_sha256"]
     ref_peak = max(x["peak_memory_bytes"] for x in ref["ranks"])
     ref_fp = ref["ranks"][0]["footprint"]
-    out: dict = {"steps": DP_STEPS}
+    out: dict = {"steps": DP_STEPS, "contended": ["fsdp2", "resume"]}
     with tempfile.TemporaryDirectory() as work:
-        # (a) ZeRO-1, saving at step 3 (and at the end)
+        # (a) ZeRO-1 alone, saving at step 3 (and at the end)
         run_a = os.path.join(work, "zero1")
         a = dp_run(run_a, ["--distributed", "--nprocs", "2",
                            "--shard_optimizer", "true"]
@@ -4114,15 +4213,13 @@ def shard_phase(torch, dp: dict, update_row: dict) -> dict:
                              + dp_argv(run_c, 4, 2) + [
                                  "--resume_checkpoint",
                                  os.path.join(run_a, "model_000003.pt")])
-        # (b) --fsdp 2 (dp 1, the same global batch)
+        # (b) --fsdp 2 (dp 1, the same global batch), beside (c)
         run_b = os.path.join(work, "fsdp2")
-        try:
-            b = dp_run(run_b, ["--distributed", "--nprocs", "2", "--fsdp",
-                               "2"] + dp_argv(run_b, 4, 2), "fsdp2")
-        finally:
-            c = dp_finish(started_c, run_c, "resume")
+        b = dp_run(run_b, ["--distributed", "--nprocs", "2", "--fsdp", "2"]
+                   + dp_argv(run_b, 4, 2), "fsdp2")
+        c = dp_finish(started_c, run_c, "resume")
         torch.cuda.empty_cache()
-        ranks_b = shard_ranks(b, "fsdp2", want)
+        ranks_b = shard_ranks(b, "fsdp2 (contended)", want)
         rel = {}
         for col, key, bar in (("loss", "losses", 5e-3),
                               ("grad_norm", "grad_norms", 3e-2)):
@@ -4180,8 +4277,8 @@ def shard_phase(torch, dp: dict, update_row: dict) -> dict:
     update_row["launches"] = [x["launches"]["fused_adamw_ema"]
                               for x in ranks_a]
     out["phase_s"] = time.perf_counter() - t0
-    print(f"# sharded state ({CARD}): walls {a['wall_s']:.1f}, then "
-          f"{b['wall_s']:.1f} beside {c['wall_s']:.1f} s; phase "
+    print(f"# sharded state ({CARD}): walls {a['wall_s']:.1f} alone, then "
+          f"{b['wall_s']:.1f} beside {c['wall_s']:.1f} s (contended); phase "
           f"{out['phase_s']:.1f} s of its {SHARD_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= SHARD_BUDGET_S,
@@ -4291,17 +4388,40 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
     layers, micro, chunks = GPT2_BASE["num_layers"], 2, 4
     held = layers // 2 * chunks * micro           # 48 chunk-layers a step
     scan = ["--scan_layers", "true"]
-    out: dict = {"steps": DP_STEPS}
+    out: dict = {"steps": DP_STEPS,
+                 "contended": ["scan_layers", "gpipe", "interleaved",
+                               "resume", "diffuseq"]}
     with tempfile.TemporaryDirectory() as work:
-        # (a) and (b) together
+        # (b) alone (its step and exchange seconds are the ones read), then
+        # (a), (c), (d), (f) and (e) on (b)'s step-3 checkpoint side by
+        # side (contended)
         run_a, run_b = (os.path.join(work, k) for k in ("scan", "1f1b"))
-        started_b = dp_start(PIPE_FLAGS + dp_argv(run_b, 8, 4) + scan + [
+        run_c, run_d, run_e = (os.path.join(work, k) for k in
+                               ("gpipe", "interleaved", "resume"))
+        run_f = os.path.join(work, "diffuseq")
+        b = dp_run(run_b, PIPE_FLAGS + dp_argv(run_b, 8, 4) + scan + [
             "--pp_schedule", "1f1b", "--pp_chunks", str(chunks),
-            "--save_interval", "3"])
-        try:
-            a = dp_run(run_a, dp_argv(run_a, 8, 4) + scan, "scan_layers")
-        finally:
-            b = dp_finish(started_b, run_b, "pipe 1f1b")
+            "--save_interval", "3"], "pipe 1f1b")
+        started = [dp_start(PIPE_FLAGS + dp_argv(run_c, 8, 4) + scan + [
+                       "--pp_schedule", "gpipe", "--pp_chunks", str(chunks),
+                       "--eval_decode", "true", "--eval_interval", "3",
+                       "--save_interval", "3"]),
+                   dp_start(PIPE_FLAGS + dp_argv(run_d, 8, 4) + scan + [
+                       "--pp_schedule", "interleaved", "--pp_virtual", "2",
+                       "--pp_chunks", str(chunks)]),
+                   # (f): the DiffuSeq phase's flags
+                   dp_start(PIPE_FLAGS + scan + [
+                       "--checkpoint_path", run_f, "--batch_size", "256",
+                       "--microbatch", "64", "--learning_steps",
+                       str(DIFFUSEQ_STEPS), "--ema_rate", "0.5,0.9,0.99",
+                       "--attention_impl", "auto", "--fused_update", "auto",
+                       "--log_interval", "5", "--save_interval", "0",
+                       "--seed", "0"]),
+                   # (e): no group
+                   dp_start(dp_argv(run_e, 8, 4) + scan + [
+                       "--resume_checkpoint",
+                       os.path.join(run_b, "model_000003.pt")])]
+        a = dp_run(run_a, dp_argv(run_a, 8, 4) + scan, "scan_layers")
         side_a = a["ranks"][0]
         check(side_a["launches"] == {"flash_forward": layers * micro
                                      * DP_STEPS, "flash_backward": layers
@@ -4314,7 +4434,8 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
         check(len(losses_a) == DP_STEPS and rel_a <= 2e-3,
               f"scan_layers losses {losses_a} vs phase 12's named blocks "
               f"{ref}: relative {rel_a} > 2e-3")
-        print(f"# pipeline scan_layers ({CARD}): losses {losses_a} vs phase "
+        print(f"# pipeline scan_layers (contended) ({CARD}): losses "
+              f"{losses_a} vs phase "
               f"12's named blocks {ref}, largest relative difference "
               f"{rel_a}, step {side_a.get('step_time_s', 0.0):.6f} s, peak "
               f"memory {side_a['peak_memory_bytes']} B", flush=True)
@@ -4346,36 +4467,12 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
                                f"{depth} layers of qkv, not {layers}")
         del saved
         torch.cuda.empty_cache()
-        # (c), (d) and (e) together
-        run_c, run_d, run_e = (os.path.join(work, k) for k in
-                               ("gpipe", "interleaved", "resume"))
-        run_f = os.path.join(work, "diffuseq")
-        started = [dp_start(PIPE_FLAGS + dp_argv(run_c, 8, 4) + scan + [
-                       "--pp_schedule", "gpipe", "--pp_chunks", str(chunks),
-                       "--eval_decode", "true", "--eval_interval", "3",
-                       "--save_interval", "3"]),
-                   dp_start(PIPE_FLAGS + dp_argv(run_d, 8, 4) + scan + [
-                       "--pp_schedule", "interleaved", "--pp_virtual", "2",
-                       "--pp_chunks", str(chunks)]),
-                   # (f): the DiffuSeq phase's flags
-                   dp_start(PIPE_FLAGS + scan + [
-                       "--checkpoint_path", run_f, "--batch_size", "256",
-                       "--microbatch", "64", "--learning_steps",
-                       str(DIFFUSEQ_STEPS), "--ema_rate", "0.5,0.9,0.99",
-                       "--attention_impl", "auto", "--fused_update", "auto",
-                       "--log_interval", "5", "--save_interval", "0",
-                       "--seed", "0"])]
-        try:
-            e = dp_run(run_e, dp_argv(run_e, 8, 4) + scan + [
-                "--resume_checkpoint", os.path.join(run_b,
-                                                    "model_000003.pt")],
-                "resume")
-        finally:
-            c = dp_finish(started[0], run_c, "pipe gpipe")
-            d = dp_finish(started[1], run_d, "pipe interleaved")
-            f = dp_finish(started[2], run_f, "pipe diffuseq")
+        c = dp_finish(started[0], run_c, "pipe gpipe")
+        d = dp_finish(started[1], run_d, "pipe interleaved")
+        f = dp_finish(started[2], run_f, "pipe diffuseq")
+        e = dp_finish(started[3], run_e, "resume")
         # (c): an eval of 48 forwards, stage 0's decode prefill of 12
-        ranks_c = pipe_ranks(c, "gpipe", pipe_launches(
+        ranks_c = pipe_ranks(c, "gpipe (contended)", pipe_launches(
             held, held, DP_STEPS, (held + layers, held)))
         losses_c = [h["loss"] for h in c["steps"]]
         held_c = held_to_scan(c["steps"], a["steps"], "pipe gpipe")
@@ -4415,8 +4512,8 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
         out["gpipe"] = {"losses": losses_c, "vs_scan": held_c,
                         "eval_decodes": decodes, "ranks": ranks_c,
                         "wall_s": c["wall_s"]}
-        ranks_d = pipe_ranks(d, "interleaved", pipe_launches(2 * held, held,
-                                                             DP_STEPS))
+        ranks_d = pipe_ranks(d, "interleaved (contended)",
+                             pipe_launches(2 * held, held, DP_STEPS))
         losses_d = [h["loss"] for h in d["steps"]]
         held_d = held_to_scan(d["steps"], a["steps"], "pipe interleaved")
         check([x["pipe"]["layers"] for x in ranks_d]
@@ -4452,7 +4549,7 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
                          "wall_s": e["wall_s"]}
         torch.cuda.empty_cache()
         # (f)
-        ranks_f = pipe_ranks(f, "diffuseq", [{
+        ranks_f = pipe_ranks(f, "diffuseq (contended)", [{
             "flash_forward": 0, "flash_backward": 0,
             "fused_adamw_ema": DIFFUSEQ_STEPS}] * 2)
         losses_f = [h["loss"] for h in f["steps"]]
@@ -4469,13 +4566,270 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
     update_row["launches"] = [x["launches"]["fused_adamw_ema"]
                               for x in ranks_b]
     out["phase_s"] = time.perf_counter() - t0
-    print(f"# pipeline ({CARD}): walls {a['wall_s']:.1f} beside "
-          f"{b['wall_s']:.1f}, then {c['wall_s']:.1f}, {d['wall_s']:.1f}, "
-          f"{f['wall_s']:.1f} beside {e['wall_s']:.1f} s; phase "
+    print(f"# pipeline ({CARD}): walls {b['wall_s']:.1f} (1f1b alone), "
+          f"then {a['wall_s']:.1f}, {c['wall_s']:.1f}, {d['wall_s']:.1f}, "
+          f"{f['wall_s']:.1f} and {e['wall_s']:.1f} side by side "
+          f"(contended); phase "
           f"{out['phase_s']:.1f} s of its {PIPE_BUDGET_S:.0f} s budget",
           flush=True)
     check(out["phase_s"] <= PIPE_BUDGET_S,
           f"phase 19 took {out['phase_s']:.1f} s, over {PIPE_BUDGET_S} s")
+    return out
+
+
+# ------------------------------------------------ the MPMD pipeline (20)
+
+# the phase's wall budget: three run.train --mpmd drivers (two stage
+# processes each on cuda:0; the killed stage's ring starts a third) and
+# the in-process references of (a) and (c) beside (b) and (c)
+MPMD_BUDGET_S = 120.0
+MPMD_CHUNKS = 4
+MPMD_DIFFUSEQ_STEPS = 3
+MPMD_FLAGS = ["--scan_layers", "true", "--mpmd", "true", "--mpmd_stages",
+              "2", "--pp_schedule", "1f1b", "--pp_chunks", str(MPMD_CHUNKS)]
+# what --mpmd refuses but at its default: the stages keep no EMA, fuse no
+# update, chunk the batch by --pp_chunks and snapshot on their own
+MPMD_DROPPED = ("--microbatch", "--ema_rate", "--fused_update",
+                "--save_interval")
+
+
+def mpmd_gpt2_argv(run: str) -> list:
+    """Phase 19's GPT-2 base flags (batch 8, 5 steps) under --mpmd."""
+    argv = dp_argv(run, 8, 8)
+    keep = [i for i in range(0, len(argv), 2)
+            if argv[i] not in MPMD_DROPPED]
+    return [x for i in keep for x in argv[i:i + 2]] + MPMD_FLAGS
+
+
+def mpmd_diffuseq_argv(run: str) -> list:
+    """DiffuSeq-base at seq 128 under --mpmd: batch 8 in 4 chunks, 3 steps
+    (the JAX bench leg ``diffuseq-base-seq128-mpmd-pipe``'s traffic at
+    full width)."""
+    return ["--checkpoint_path", run, "--model_family", "diffuseq",
+            "--model_size", "base", "--vocab_size", "8192", "--seq_len",
+            "128", "--hidden_size", "768", "--num_layers", "12",
+            "--num_heads", "12", "--diffusion_steps", "2000",
+            "--noise_schedule", "sqrt", "--dtype", "bfloat16",
+            "--dataset", "synthetic-seq2seq", "--batch_size", "8",
+            "--learning_steps", str(MPMD_DIFFUSEQ_STEPS), "--lr", "1e-3",
+            "--attention_impl", "auto", "--seed", "0", *MPMD_FLAGS]
+
+
+def tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def mpmd_config_of(run: str, timeout_s: float = 120.0) -> dict:
+    """The ``mpmd_config.json`` a driver writes as it starts."""
+    path = os.path.join(run, "mpmd_config.json")
+    deadline = time.perf_counter() + timeout_s
+    while not os.path.exists(path):
+        check(time.perf_counter() < deadline, f"no {path} after {timeout_s} s")
+        time.sleep(0.1)
+    with open(path) as f:
+        return json.load(f)
+
+
+def mpmd_finish(job: dict, run: str, what: str) -> dict:
+    """Wait for a ``dp_start`` of a ``run.train --mpmd`` driver; returns
+    its summary line, its result (``mpmd_result.json``), its config and
+    each stage's last clean-exit sidecar; prints the run dir's bytes and
+    removes it. A failed driver's stage logs go to stderr first."""
+    job["thread"].join()
+    if job["proc"].returncode != 0:
+        for d, _, files in os.walk(run):
+            for f in files:
+                if f.endswith(".log"):
+                    with open(os.path.join(d, f)) as fh:
+                        print(f"== {d}/{f}", fh.read()[-3000:],
+                              file=sys.stderr)
+    stdout, _stderr, wall = dp_wait(job, f"mpmd {what}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    with open(os.path.join(run, "mpmd_result.json")) as f:
+        result = json.load(f)
+    with open(os.path.join(run, "mpmd_config.json")) as f:
+        config = json.load(f)
+    stages = []
+    for s in range(2):
+        sd = os.path.join(run, f"stage_{s}")
+        names = sorted(n for n in os.listdir(sd)
+                       if n.startswith("goodput_attempt"))
+        check(bool(names), f"mpmd {what}: stage {s} left no sidecar")
+        with open(os.path.join(sd, names[-1])) as f:
+            stages.append(json.load(f))
+    size = tree_bytes(run)
+    print(f"# mpmd {what} ({CARD}): run dir {size} B, removed", flush=True)
+    shutil.rmtree(run, ignore_errors=True)
+    return {"summary": summary, "result": result, "config": config,
+            "stages": stages, "run_dir_bytes": size, "wall_s": wall}
+
+
+def mpmd_stage_rows(r: dict, what: str) -> list:
+    """Each stage's sidecar, printed: peak memory, seconds a step (the mean
+    after the first), link wait, the bytes of an act frame and of a
+    snapshot; no plain call on the card."""
+    rows = []
+    for side in r["stages"]:
+        s = side["stage"]
+        check(side["device"].startswith("cuda"),
+              f"mpmd {what} stage {s} ran on {side['device']}")
+        check(not any(side["plain_calls"].values()),
+              f"mpmd {what} stage {s}: plain calls {side['plain_calls']}")
+        steps = side["step_s"]
+        steady = statistics.mean(steps[1:]) if len(steps) > 1 else steps[0]
+        row = {"stage": s, "layers": side["layers"],
+               "launches": side["launches"],
+               "peak_memory_bytes": side["peak_memory_bytes"],
+               "step_s": steps, "steady_step_s": steady,
+               "step_data_s": side["step_data_s"],
+               "step_math_s": side["step_math_s"],
+               "link_wait_s": side["link_wait_s"],
+               "save_s": side["save_s"], "startup_s": side["startup_s"],
+               "act_frame_bytes": side["act_frame_bytes"],
+               "snapshot_bytes": side["snapshot_bytes"]}
+        print(f"# mpmd {what} stage {s} ({CARD}): layers {side['layers']}, "
+              f"launches {side['launches']}, peak memory "
+              f"{side['peak_memory_bytes']} B, steps {steps} s (steady "
+              f"{steady:.6f} s; data {side['step_data_s']}, math "
+              f"{side['step_math_s']}), link_wait "
+              f"{side['link_wait_s']:.6f} s, "
+              f"save {side['save_s']:.6f} s, startup "
+              f"{side['startup_s']:.6f} s, act frame "
+              f"{side['act_frame_bytes']} B, snapshot "
+              f"{side['snapshot_bytes']} B", flush=True)
+        rows.append(row)
+    return rows
+
+
+def mpmd_reference(torch, config: dict, steps: int) -> list:
+    """``run_pipeline_inprocess`` of a driver's own config on the card:
+    the same StageMath in this process, over in-memory links."""
+    from distributed_pipeline_tpu_torch.mpmd.stage_math import \
+        run_pipeline_inprocess
+    out = run_pipeline_inprocess(config, steps)
+    losses = out["losses"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def mpmd_fold(r: dict, what: str) -> dict:
+    gp = r["result"]["goodput"]
+    check("link_wait_s" in gp and abs(gp["accounted_frac"] - 1.0) <= 0.01,
+          f"mpmd {what}: accounted_frac {gp.get('accounted_frac')}, "
+          f"link_wait_s {gp.get('link_wait_s')}")
+    return {k: gp[k] for k in ("wall_s", "goodput", "accounted_frac",
+                               "link_wait_s", "save_s", "startup_s",
+                               "restore_s", "recompute_s", "lost_s",
+                               "downtime_s", "attempts")}
+
+
+def mpmd_phase(torch, pipe: dict) -> dict:
+    """Phase 20 (see the module doc). ``pipe`` is phase 19's output: its
+    ``--scan_layers`` run without a group holds (a)'s first two steps."""
+    t0 = time.perf_counter()
+    layers = GPT2_BASE["num_layers"]
+    out: dict = {"steps": DP_STEPS, "chunks": MPMD_CHUNKS,
+                 "contended": ["gpt2", "gpt2_kill", "diffuseq"]}
+    with tempfile.TemporaryDirectory() as work:
+        free = shutil.disk_usage(work).free
+        print(f"# mpmd ({CARD}): {free} B free under {work} for the run "
+              f"dirs", flush=True)
+        run_a, run_b, run_c = (os.path.join(work, k) for k in
+                               ("gpt2", "gpt2_kill", "diffuseq"))
+        # (a), (b) and (c) side by side, beside the in-process references
+        # of (a) and (c): their seconds share the card and the host
+        # (contended; with (a) alone the phase does not fit its budget)
+        job_a = dp_start(mpmd_gpt2_argv(run_a))
+        job_b = dp_start(mpmd_gpt2_argv(run_b), {"DPT_MPMD_KILL": "1:3"})
+        job_c = dp_start(mpmd_diffuseq_argv(run_c))
+        config_a = mpmd_config_of(run_a)
+        config_c = mpmd_config_of(run_c)
+        ref_a = mpmd_reference(torch, config_a, DP_STEPS)
+        ref_c = mpmd_reference(torch, config_c, MPMD_DIFFUSEQ_STEPS)
+        a = mpmd_finish(job_a, run_a, "gpt2 (contended)")
+        b = mpmd_finish(job_b, run_b, "gpt2 kill 1:3 (contended)")
+        c = mpmd_finish(job_c, run_c, "diffuseq (contended)")
+        check(a["config"] == config_a and c["config"] == config_c,
+              "mpmd: a driver's config changed while it ran")
+    # (a)
+    losses = a["result"]["losses"]
+    sm = a["summary"]
+    check(sm["mode"] == "mpmd" and sm["rewinds"] == 0
+          and sm["attempts_per_stage"] == [1, 1] and len(losses) == DP_STEPS,
+          f"mpmd gpt2 summary {sm}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref_a)]
+    check(len(ref_a) == DP_STEPS and max(rel) <= 1e-6,
+          f"mpmd gpt2 losses {losses} vs the in-process runner {ref_a}: "
+          f"relative {rel} > 1e-6")
+    single = pipe["scan_layers"]["losses"]
+    rel19 = [abs(x - y) / abs(y) for x, y in zip(losses[:2], single[:2])]
+    check(rel19[0] <= 1e-6 and rel19[1] <= 5e-3,
+          f"mpmd gpt2 steps 1-2 {losses[:2]} vs phase 19 (a)'s "
+          f"{single[:2]}: relative {rel19} (1e-6, 5e-3)")
+    rows_a = mpmd_stage_rows(a, "gpt2 (contended)")
+    per = layers // 2 * MPMD_CHUNKS * DP_STEPS        # 120 chunk-layers
+    want = [{"flash_forward": 2 * per, "flash_backward": per,
+             "fused_adamw_ema": 0},
+            {"flash_forward": per, "flash_backward": per,
+             "fused_adamw_ema": 0}]
+    check([r["launches"] for r in rows_a] == want,
+          f"mpmd gpt2 launches {[r['launches'] for r in rows_a]}, "
+          f"expected {want}")
+    fold_a = mpmd_fold(a, "gpt2")
+    print(f"# mpmd gpt2 (contended) ({CARD}): losses {losses} vs the "
+          f"in-process runner {ref_a}, largest relative difference "
+          f"{max(rel)}; steps 1-2 relative to phase 19 (a) {rel19}; {sm}; "
+          f"fold {fold_a}; wall "
+          f"{a['wall_s']:.1f} s", flush=True)
+    out["gpt2"] = {"losses": losses, "inprocess_losses": ref_a,
+                   "vs_inprocess_max_rel": max(rel),
+                   "vs_phase19_rel": rel19, "stages": rows_a,
+                   "goodput": fold_a, "run_dir_bytes": a["run_dir_bytes"],
+                   "wall_s": a["wall_s"]}
+    # (b)
+    sm_b = b["summary"]
+    check(sm_b["rewinds"] == 1 and sm_b["attempts_per_stage"] == [1, 2],
+          f"mpmd kill 1:3 summary {sm_b}")
+    check(b["result"]["losses"] == losses,
+          f"mpmd kill 1:3 losses {b['result']['losses']} vs (a)'s {losses}")
+    fold_b = mpmd_fold(b, "gpt2 kill 1:3")
+    print(f"# mpmd gpt2 kill 1:3 (contended) ({CARD}): {sm_b}; losses "
+          f"bitwise (a)'s; fold {fold_b}; wall {b['wall_s']:.1f} s",
+          flush=True)
+    out["gpt2_kill"] = {"summary": sm_b, "goodput": fold_b,
+                        "stages": mpmd_stage_rows(
+                            b, "gpt2 kill 1:3 (contended)"),
+                        "run_dir_bytes": b["run_dir_bytes"],
+                        "wall_s": b["wall_s"]}
+    # (c)
+    losses_c = c["result"]["losses"]
+    rel_c = [abs(x - y) / abs(y) for x, y in zip(losses_c, ref_c)]
+    check(c["summary"]["rewinds"] == 0
+          and len(losses_c) == len(ref_c) == MPMD_DIFFUSEQ_STEPS
+          and max(rel_c) <= 1e-5,
+          f"mpmd diffuseq losses {losses_c} vs the in-process runner "
+          f"{ref_c}: relative {rel_c} > 1e-5")
+    fold_c = mpmd_fold(c, "diffuseq")
+    print(f"# mpmd diffuseq (contended) ({CARD}): losses {losses_c} vs "
+          f"the in-process runner {ref_c}, relative {rel_c}; fold "
+          f"{fold_c}; wall "
+          f"{c['wall_s']:.1f} s", flush=True)
+    out["diffuseq"] = {"losses": losses_c, "inprocess_losses": ref_c,
+                       "vs_inprocess_max_rel": max(rel_c),
+                       "stages": mpmd_stage_rows(c, "diffuseq (contended)"),
+                       "goodput": fold_c,
+                       "run_dir_bytes": c["run_dir_bytes"],
+                       "wall_s": c["wall_s"]}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# mpmd ({CARD}): walls {a['wall_s']:.1f}, {b['wall_s']:.1f} "
+          f"and {c['wall_s']:.1f} s side by side (contended); phase "
+          f"{out['phase_s']:.1f} s of its {MPMD_BUDGET_S:.0f} s budget",
+          flush=True)
+    check(out["phase_s"] <= MPMD_BUDGET_S,
+          f"phase 20 took {out['phase_s']:.1f} s, over {MPMD_BUDGET_S} s")
     return out
 
 
@@ -4739,6 +5093,11 @@ def main() -> int:
         for key in ("1f1b", "gpipe", "interleaved"):
             row[f"launches_pipe_{key}"] = [r["launches"][row["name"]]
                                            for r in pipe[key]["ranks"]]
+    # phase 20: the MPMD pipeline's stage processes, last
+    mpmd = clocked("mpmd pipeline", mpmd_phase, torch, pipe)
+    for row in (*flash, update):
+        row["launches_mpmd"] = [r["launches"][row["name"]]
+                                for r in mpmd["gpt2"]["stages"]]
     # phase 15: the finished attempts' launches, read from their sidecars
     update_dq["launches_tooling"] = {
         key: tools[key]["launches"]["fused_adamw_ema"]
@@ -4767,6 +5126,7 @@ def main() -> int:
     print(json.dumps({"moe_eval_decode_sequence": spm}), flush=True)
     print(json.dumps({"sharded_state": shard}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
+    print(json.dumps({"mpmd": mpmd}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,

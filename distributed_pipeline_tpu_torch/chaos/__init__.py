@@ -7,7 +7,7 @@ The port's copy of ``distributed_pipeline_tpu/chaos``: the fault plan
 data stalls, corrupted and torn checkpoints — and the serving ones:
 replica kills and wedges, corrupted swap checkpoints) and the run- and
 fleet-dir layouts with the training and serving goodput folds
-(:mod:`.goodput`). The pipeline stages' fold waits for ROADMAP A.9.
+(:mod:`.goodput`), the MPMD pipeline's stage dirs folded stage by stage.
 
 Import-light by design: the fleet parent, which never imports torch,
 imports this package.

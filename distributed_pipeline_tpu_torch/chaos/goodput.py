@@ -36,10 +36,13 @@ did on requests that later re-ran on a sibling, measured by the router
 into the journal), ``drain``/``swap`` are the hot-swap windows, and
 ``lost`` is attempt wall covered by no snapshot.
 
-Import-light (no torch): the fleet parent and the launcher read and write
-these artifacts without torch. The pipeline stages' fold (``stage_{k}``
-dirs, the JAX ``_aggregate_pipeline``) comes with the pipeline (ROADMAP
-A.9).
+An MPMD pipeline run dir (one ``stage_{k}`` launcher-ring dir a stage,
+no attempts of its own) folds stage by stage (``_aggregate_pipeline``):
+its wall is the summed stage wall, and ``link_wait_s`` is the stages'
+blocked link time.
+
+Import-light (no torch): the fleet parent, the pipeline driver and the
+launcher read and write these artifacts without torch.
 """
 
 from __future__ import annotations
@@ -63,8 +66,7 @@ _BEACON_RE = re.compile(r"\.progress_rank(\d+)\.json$")
 
 # Goodput categories summed across attempts (the JAX tuple:
 # utils/perf.GoodputTracker.CATEGORIES, the data stall merged at summary
-# time, and the pipeline stages' link_wait_s, which stays 0 until the
-# pipeline is ported)
+# time, and the pipeline stages' link_wait_s)
 _CATEGORIES = ("startup_s", "setup_s", "restore_s", "compile_s", "save_s",
                "data_stall_s", "recompute_s", "link_wait_s")
 
@@ -190,9 +192,9 @@ _STAGE_RE = re.compile(r"stage_(\d+)$")
 
 def stage_dir(run_dir: str, stage: int) -> str:
     """One MPMD pipeline stage's run dir inside a pipeline run dir (the
-    stage-side twin of :func:`replica_dir`). The port writes none until
-    ROADMAP A.9; the readers (``run/status.py``, ``obs/export.py``) look
-    for them already."""
+    stage-side twin of :func:`replica_dir`): ``run.train --mpmd``'s
+    stage rings write them, and the readers (``run/status.py``,
+    ``obs/export.py``) look for them."""
     return os.path.join(run_dir, f"stage_{stage}")
 
 
@@ -284,12 +286,15 @@ def aggregate_run(run_dir: str) -> Dict[str, Any]:
     sidecar and NO training goodput, so their wall folds to ``lost`` and
     they are counted in ``serving_attempts`` — use
     :func:`aggregate_serving` for the serving-side decomposition. A
-    pipeline run dir (``stage_{k}`` dirs and no attempts of its own) is
-    folded by the JAX package only until the pipeline is ported (ROADMAP
-    A.9); here it folds as an empty run.
+    pipeline run dir (``stage_{k}`` dirs and no attempts or sidecars of
+    its own) folds stage by stage (:func:`_aggregate_pipeline`).
     """
     attempts = read_attempts(run_dir)
     sidecars = read_goodput_records(run_dir)
+    if not attempts and not sidecars:
+        stages = list_stage_dirs(run_dir)
+        if stages:
+            return _aggregate_pipeline(stages)
     serving_recs = read_serving_records(run_dir)
     cats = {c: 0.0 for c in _CATEGORIES}
     useful = lost = downtime = hang = 0.0
@@ -361,6 +366,55 @@ def aggregate_run(run_dir: str) -> Dict[str, Any]:
         "attempts": len(per_attempt),
         "serving_attempts": serving_attempts,
         "per_attempt": per_attempt,
+    }
+
+
+def _aggregate_pipeline(stage_dirs: List[str]) -> Dict[str, Any]:
+    """Fold an MPMD pipeline run dir (one ``stage_{k}`` launcher-ring dir
+    per stage, no root-level attempts) into ONE decomposition: every
+    numeric field sums across the per-stage folds, so ``wall_s`` is
+    summed STAGE wall (an S-stage run's wall is ~S x the clock time —
+    every stage-second accounted, the same contract as
+    :func:`aggregate_serving`'s summed replica wall) and
+    ``accounted_frac`` stays 1.0 iff it held per stage. ``per_stage``
+    keeps each stage's own fold (minus its per_attempt detail) so a
+    restart on stage k is attributable to stage k alone."""
+    cats = {c: 0.0 for c in _CATEGORIES}
+    useful = lost = downtime = hang = wall = accounted = 0.0
+    n_attempts = 0
+    serving_attempts = 0
+    per_stage: List[dict] = []
+    for sd in stage_dirs:
+        agg = aggregate_run(sd)
+        wall += _fnum(agg.get("wall_s"))
+        useful += _fnum(agg.get("useful_step_s"))
+        for c in _CATEGORIES:
+            cats[c] += _fnum(agg.get(c))
+        hang += _fnum(agg.get("hang_s"))
+        lost += _fnum(agg.get("lost_s"))
+        downtime += _fnum(agg.get("downtime_s"))
+        accounted += _fnum(agg.get("accounted_s"))
+        n_attempts += int(_fnum(agg.get("attempts")))
+        serving_attempts += int(_fnum(agg.get("serving_attempts")))
+        per_stage.append({"stage": stage_id(sd),
+                          **{k: v for k, v in agg.items()
+                             if k != "per_attempt"}})
+    wall = max(wall, 1e-9)
+    return {
+        "wall_s": wall,
+        "useful_step_s": useful,
+        "goodput": useful / wall,
+        **cats,
+        "hang_s": hang,
+        "lost_s": lost,
+        "downtime_s": downtime,
+        "accounted_s": accounted,
+        "accounted_frac": accounted / wall,
+        "attempts": n_attempts,
+        "serving_attempts": serving_attempts,
+        "stages": len(per_stage),
+        "per_stage": per_stage,
+        "per_attempt": [],
     }
 
 

@@ -15,14 +15,20 @@ and ``--pipe S`` makes each S consecutive ranks one pipeline
 (``--pp_schedule`` gpipe, 1f1b or interleaved over ``--pp_chunks`` chunks a
 microbatch, ``--pp_virtual`` slices a rank under interleaved); pipe with
 ``--fsdp > 1``, ``--shard_optimizer``, ``--sequence > 1`` or MoE, and
-``--scan_layers`` with MoE, are refused (ROADMAP A.9c).
+``--scan_layers`` with MoE, are refused (ROADMAP A.9c). ``--mpmd`` trains
+the stacked layers as ``--mpmd_stages`` processes, one supervised ring a
+stage, under a host driver (``run/train.py``, ``mpmd/``); it needs
+``--scan_layers true``, the 1f1b or gpipe schedule and ``--learning_steps
+> 0``, and refuses ``--pipe``, and a sub-mesh inside a stage (``--dp``,
+``--fsdp``, ``--sequence`` > 1, ``--shard_optimizer``: ROADMAP A.9c).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
 DiffuSeq on the synthetic seq2seq stream. Flags of options this port does
 not train yet are accepted so that a JAX command line reads the same, but
 any value other than the default fails at parse time with the ROADMAP item
-that brings it. ``--device`` is the port's own: empty means CUDA.
+that brings it. ``--device`` is the port's own: empty means CUDA. Parsing
+imports no torch: the ``--mpmd`` driver parses its settings torch-free.
 """
 
 from __future__ import annotations
@@ -34,25 +40,24 @@ import os
 from typing import Dict, Optional, Sequence, Tuple
 
 from ..chaos.plan import ChaosPlan
-from ..models.diffusion import NOISE_SCHEDULES
 from ..parallel.mesh import resolve_axis_sizes
 from ..parallel.partition import load_partition_artifact
 from ..utils.perf import parse_profile_steps
 
 __all__ = ["TrainSettings", "DEFERRED", "PIPE_LATER", "PIPE_NEEDS_SCAN",
-           "pipe_refusal", "create_parser", "parse_settings"]
+           "MPMD_SUBMESH", "MPMD_DROPS", "NOISE_SCHEDULES", "pipe_refusal",
+           "mpmd_refusal", "create_parser", "parse_settings"]
+
+# the schedules models/diffusion.named_beta_schedule builds (named here:
+# parsing imports no torch)
+NOISE_SCHEDULES = ("sqrt", "cosine", "linear")
 
 # option -> (the only value trained now, the ROADMAP item that brings more)
 DEFERRED: Dict[str, Tuple[object, str]] = {
     "tensor": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
     "expert": (1, "ROADMAP A.8g (tensor and expert parallelism)"),
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
-    "mpmd": (False, "ROADMAP A.9b (MPMD pipeline)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
-    "mpmd_stages": (2, "ROADMAP A.9b (MPMD pipeline)"),
-    "mpmd_link_capacity": (8, "ROADMAP A.9b (MPMD pipeline)"),
-    "mpmd_hang_timeout_s": (0.0, "ROADMAP A.9b (MPMD pipeline)"),
-    "mpmd_max_restarts": (3, "ROADMAP A.9b (MPMD pipeline)"),
 }
 # the compositions of the pipe axis and the stacked layers a later slice
 # brings
@@ -66,7 +71,21 @@ PIPE_NEEDS_SCAN = ("--pipe > 1 requires --scan_layers true (stacked layer "
 # compiles nothing across runs, so only the JAX default and "off" (both
 # meaning "nothing to cache" here) are accepted
 COMPILATION_CACHE_DIRS = ("auto", "off")
-
+# what an MPMD stage cannot hold yet: more than one process of its own
+MPMD_SUBMESH = "ROADMAP A.9c (a sub-mesh inside an MPMD stage)"
+# what the MPMD stages leave out, as the JAX stages do (each runs
+# optax.adamw over its slice at a constant rate and snapshots into its
+# own dir): under --mpmd these options are refused unless at their
+# default
+MPMD_DROPS = {
+    "ema_rate": "the stages keep no EMA",
+    "warmup_steps": "the stages run a constant learning rate",
+    "gradient_clipping": "the stages clip no gradient",
+    "fused_update": "a stage's AdamW is its slice's plain update",
+    "microbatch": "--pp_chunks splits the batch",
+    "save_interval": "every stage snapshots each step into its own dir",
+    "resume_checkpoint": "a stage resumes from its own snapshots",
+}
 
 
 def pipe_refusal(pipe: int, scan_layers: bool, fsdp: int = 1,
@@ -86,6 +105,41 @@ def pipe_refusal(pipe: int, scan_layers: bool, fsdp: int = 1,
     if scan_layers and moe_experts > 0:
         return (f"--scan_layers with --moe_experts > 0 (the JAX "
                 f"MoEScanBlocks) comes with {PIPE_LATER}")
+    return ""
+
+
+def mpmd_refusal(s: "TrainSettings") -> str:
+    """Why ``--mpmd`` is not trained with these settings, or "" when it is
+    (or when ``--mpmd`` is off): the JAX entry point's refusals, then the
+    sub-mesh a stage would need."""
+    if not s.mpmd:
+        return ""
+    if not s.scan_layers:
+        return ("--mpmd requires --scan_layers true (stages slice the "
+                "stacked layer dim)")
+    if s.pp_schedule not in ("1f1b", "gpipe"):
+        return ("--mpmd runs the host-driven 1f1b or gpipe schedule; "
+                "interleaved virtual stages are a single-program schedule "
+                "(models/schedule_1f1b.py) — drop --mpmd or switch "
+                "schedules")
+    if s.learning_steps <= 0:
+        return ("--mpmd needs --learning_steps > 0 (the host driver runs a "
+                "bounded schedule)")
+    if s.pipe > 1:
+        return ("--pipe is the in-program pipeline axis; under --mpmd "
+                "stages are separate processes — set --mpmd_stages instead")
+    if s.mpmd_stages < 2:
+        return f"--mpmd_stages {s.mpmd_stages}: an MPMD pipeline needs >= 2"
+    for bad, what in ((s.dp > 1, "--dp > 1"), (s.fsdp > 1, "--fsdp > 1"),
+                      (s.sequence > 1, "--sequence > 1"),
+                      (s.shard_optimizer, "--shard_optimizer")):
+        if bad:
+            return f"--mpmd with {what} comes with {MPMD_SUBMESH}"
+    defaults = {f.name: f.default for f in dataclasses.fields(s)}
+    for name, why in MPMD_DROPS.items():
+        if getattr(s, name) != defaults[name]:
+            return (f"--mpmd ignores --{name} ({why}): leave it at its "
+                    f"default, {defaults[name]!r}")
     return ""
 
 
@@ -259,16 +313,35 @@ class TrainSettings:
                                   "inline JSON, @/path.json or a path (a "
                                   "rule list or a tuner artifact)")
     auto_tune: bool = _f(False, "inline sharding auto-tuner")
-    mpmd: bool = _f(False, "MPMD pipeline training")
+    mpmd: bool = _f(
+        False, "MPMD pipeline training (mpmd/): each stage runs as its OWN "
+               "supervised process ring with its own restart budget and "
+               "snapshots (stages are independently preemptible), a "
+               "torch-free host driver broadcasts the --pp_schedule "
+               "microbatch schedule, and activations/grads move over the "
+               "StageLink transport instead of a collective; requires "
+               "--scan_layers true; a stage runs AdamW over its slice at "
+               "a constant --lr with no EMA, clipping or warmup; a "
+               "sub-mesh inside a stage (dp/fsdp/sequence > 1, "
+               "shard_optimizer) comes with ROADMAP A.9c")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
     scan_unroll: int = _f(0, "the JAX layer scan's unroll factor (<= 0 = "
                              "auto, else the factor), read as the JAX flag; "
                              "perf-only there, and the eager layer loop "
                              "runs the same for every value")
-    mpmd_stages: int = _f(2, "MPMD stage count")
-    mpmd_link_capacity: int = _f(8, "MPMD StageLink in-flight frame cap")
-    mpmd_hang_timeout_s: float = _f(0.0, "MPMD per-stage hang watchdog")
-    mpmd_max_restarts: int = _f(3, "MPMD per-stage restart budget")
+    mpmd_stages: int = _f(2, "MPMD stage count (process rings); "
+                             "num_layers need not divide it — stages take "
+                             "floor-balanced layer slices")
+    mpmd_link_capacity: int = _f(8, "StageLink in-flight frame cap per "
+                                    "direction (backpressure: a sender "
+                                    "blocks past this and books the wait "
+                                    "as link_wait)")
+    mpmd_hang_timeout_s: float = _f(0.0, "per-stage beacon watchdog: a "
+                                         "stage whose beacons freeze this "
+                                         "long is SIGKILLed and restarted "
+                                         "by ITS OWN ring (0 = off)")
+    mpmd_max_restarts: int = _f(3, "per-stage restart budget (sliding "
+                                   "window, launcher semantics)")
 
     def __post_init__(self) -> None:
         for name, (served, item) in DEFERRED.items():
@@ -298,6 +371,9 @@ class TrainSettings:
                              f"--sequence > 1: each rank holds an "
                              f"L/sequence slice, and only the ring ('auto' "
                              f"or 'ring') attends across the slices")
+        refused = mpmd_refusal(self)   # before the mesh's and pipe's checks
+        if refused:
+            raise ValueError(refused)
         if self.pipe > 1 and not self.scan_layers:
             raise ValueError(PIPE_NEEDS_SCAN)   # before the mesh's check
         world = int(os.environ.get("WORLD_SIZE", "1"))

@@ -42,8 +42,8 @@ from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
 from .pipeline import current_pipe
 
 __all__ = ["DiffuSeqModel", "diffuseq_losses", "diffuseq_loss_count",
-           "timestep_embedding", "Draws", "DIFFUSEQ_EMB_DIM",
-           "seeded_generator", "mix_seed", "rank_draws"]
+           "embedding_terms", "timestep_embedding", "Draws",
+           "DIFFUSEQ_EMB_DIM", "seeded_generator", "mix_seed", "rank_draws"]
 
 DIFFUSEQ_EMB_DIM = 128  # DiffuSeq's low-dim embedding space
 
@@ -206,6 +206,19 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
     return torch.sum(x * m) / denom
 
 
+def embedding_terms(model: DiffuSeqModel, x_start: torch.Tensor,
+                    ids: torch.Tensor, tgt_mask: torch.Tensor,
+                    denom: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two loss terms that need only the embedding, ``(tT,
+    decoder_nll)``: masked means over the target span (``_masked_mean``'s
+    ``denom``) of the prior's KL at step T and of the rounding head's CE."""
+    tT = _masked_mean(model.schedule.mean_flat_tT(x_start), tgt_mask, denom)
+    decoder_nll = _masked_mean(
+        token_cross_entropy(model.logits(x_start), ids), tgt_mask, denom)
+    return tT, decoder_nll
+
+
 def diffuseq_loss_count(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """The positions the masked means average over (the target span), f32
     0-d: what a rank contributes to a global denominator."""
@@ -281,10 +294,7 @@ def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     x0_hat = model(x_t, t, pad_mask, moe_stats=stats)
     mse = _masked_mean(torch.mean((x0_hat - x_start) ** 2, dim=-1), tgt_mask,
                        denom)
-    tT = _masked_mean(schedule.mean_flat_tT(x_start), tgt_mask, denom)
-    logits = model.logits(x_start)
-    decoder_nll = _masked_mean(token_cross_entropy(logits, ids), tgt_mask,
-                               denom)
+    tT, decoder_nll = embedding_terms(model, x_start, ids, tgt_mask, denom)
     out = {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
            "decoder_nll": decoder_nll}
     if stats:  # an MoE model

@@ -17,10 +17,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DiffusionSchedule", "make_schedule", "named_beta_schedule",
-           "NOISE_SCHEDULES"]
-
-NOISE_SCHEDULES = ("sqrt", "cosine", "linear")
+__all__ = ["DiffusionSchedule", "make_schedule", "named_beta_schedule"]
 
 
 def _betas_for_alpha_bar(T: int, alpha_bar_fn,

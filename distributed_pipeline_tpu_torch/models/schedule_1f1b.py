@@ -57,7 +57,8 @@ from .pipeline import (PipeContext, StageFns, _add, current_pipe,
                        gpipe_stream)
 
 __all__ = ["stash_size", "pipelined_loss", "gpt2_1f1b_losses",
-           "diffuseq_1f1b_losses", "check_pipe_layout", "SCHEDULES"]
+           "diffuseq_1f1b_losses", "gpt2_head", "diffuseq_head",
+           "check_pipe_layout", "SCHEDULES"]
 
 SCHEDULES = ("1f1b", "gpipe", "interleaved")
 # the tags of a tick's two frames
@@ -259,6 +260,32 @@ def _stage_fn(model, ctx: PipeContext):
     return stage
 
 
+def gpt2_head(model, h: torch.Tensor, targets: torch.Tensor,
+              loss_mask: torch.Tensor, inv: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GPT-2's loss head over one chunk at the last stage: ``ln_f``, the
+    tied LM head and the next-token CE of the stage output ``h``, as
+    ``(loss share, acc share)``, each ``(sum over the chunk) * inv``
+    (the acc share detached)."""
+    logits = model.lm_head(model.backbone.ln_f(h).to(model.dtype))
+    logits = logits[:, :targets.shape[1]]
+    nll = token_cross_entropy(logits, targets)
+    hit = (torch.argmax(logits, dim=-1) == targets).float()
+    acc = (hit * loss_mask).sum().detach() * inv
+    return (nll * loss_mask).sum() * inv, acc
+
+
+def diffuseq_head(model, h: torch.Tensor, x_start: torch.Tensor,
+                  tgt_mask: torch.Tensor, inv: torch.Tensor
+                  ) -> torch.Tensor:
+    """DiffuSeq's mse term over one chunk at the last stage: ``ln_f`` and
+    ``denoise_out`` of the stage output ``h`` against ``x_start``, the
+    chunk's sum over the target span times ``inv``."""
+    x0_hat = model.denoise_out(model.backbone.ln_f(h).to(model.dtype))
+    per = torch.mean((x0_hat - x_start) ** 2, dim=-1)
+    return (per * tgt_mask).sum() * inv
+
+
 def gpt2_1f1b_losses(model, batch: Dict[str, torch.Tensor],
                      denom: Optional[torch.Tensor] = None,
                      ctx: Optional[PipeContext] = None
@@ -280,13 +307,8 @@ def gpt2_1f1b_losses(model, batch: Dict[str, torch.Tensor],
     rows = lambda a, c: a[c * cb:(c + 1) * cb]  # noqa: E731
 
     def head(h, c):
-        logits = model.lm_head(model.backbone.ln_f(h).to(model.dtype))
-        logits = logits[:, :targets.shape[1]]
-        tgt, m = rows(targets, c), rows(lm, c)
-        nll = token_cross_entropy(logits, tgt)
-        hit = (torch.argmax(logits, dim=-1) == tgt).float()
-        return ((nll * m).sum() * inv,
-                {"acc": (hit * m).sum().detach() * inv})
+        loss, acc = gpt2_head(model, h, rows(targets, c), rows(lm, c), inv)
+        return loss, {"acc": acc}
 
     fns = StageFns(pre=lambda c: model.embed_tokens(rows(ids, c)),
                    stage=_stage_fn(model, ctx), mask=lambda c: rows(pad, c),
@@ -306,7 +328,7 @@ def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
     ``decoder_nll`` (module doc). Every pipe rank draws the same ``t`` and
     noise (the caller passes the row group's draws); ``denom`` defaults to
     the microbatch's target count."""
-    from .diffuseq import _masked_mean, draw
+    from .diffuseq import draw, embedding_terms
     ctx = ctx if ctx is not None else current_pipe()
     check_pipe_layout(model, ctx)
     ids = batch["input_ids"]
@@ -330,9 +352,8 @@ def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
     rows = lambda a, c: a[c * cb:(c + 1) * cb]  # noqa: E731
 
     def head(h, c):
-        x0_hat = model.denoise_out(model.backbone.ln_f(h).to(model.dtype))
-        per = torch.mean((x0_hat - rows(xs_leaf, c)) ** 2, dim=-1)
-        return (per * rows(tgt_mask, c)).sum() * inv, {}
+        return diffuseq_head(model, h, rows(xs_leaf, c), rows(tgt_mask, c),
+                             inv), {}
 
     fns = StageFns(pre=lambda c: model.denoise_in(rows(xt_leaf, c),
                                                   rows(t, c)),
@@ -342,10 +363,8 @@ def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
     first = ctx.index == 0
     if first:
         # the terms that need only the embedding, once over the pipe
-        tT = _masked_mean(schedule.mean_flat_tT(x_start), tgt_mask, denom)
-        decoder_nll = _masked_mean(
-            token_cross_entropy(model.logits(x_start), ids), tgt_mask,
-            denom)
+        tT, decoder_nll = embedding_terms(model, x_start, ids, tgt_mask,
+                                          denom)
     mse, _ = pipelined_loss(ctx, fns)
     if grad:
         roots, cots = [], []

@@ -10,7 +10,10 @@ is one pass over them, **in place**:
   with a launch count;
 * :func:`torch_fused_update` is the plain version: optax's op sequence in
   separate torch ops (the ``fused_update false`` arm), bit-identical to the
-  kernel on the card and within an ulp of the JAX package on the CPU.
+  kernel on the card and within an ulp of the JAX package on the CPU;
+  its AdamW half, :func:`adamw_step`, is also the MPMD stages' whole
+  update (``optax.adamw`` with no EMA, as the JAX stages run it), and
+  counts nothing.
 
 The op order is optax's (``mu' = (1-b1) g + b1 mu``;
 ``nu' = (1-b2) g^2 + b2 nu``; ``u = (mu'/bc1) / (sqrt(nu'/bc2) + eps)``;
@@ -33,8 +36,10 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-__all__ = ["fused_adamw_ema", "torch_fused_update", "resolve_fused_update", "update_scalars", "update_hbm_bytes",
-           "launch_count", "reset_launch_count", "plain_call_count", "B1", "B2", "EPS"]
+__all__ = ["fused_adamw_ema", "torch_fused_update", "adamw_step",
+           "resolve_fused_update", "update_scalars", "update_hbm_bytes",
+           "launch_count", "reset_launch_count", "plain_call_count", "B1",
+           "B2", "EPS"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults, as the trainer
 _MAX_RATES = 8                   # the kernel's EMA slots
@@ -107,18 +112,15 @@ def _coefs(rates: Sequence[float], weight_decay: float, b1: float, b2: float,
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def torch_fused_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-                       nu: torch.Tensor, ema: torch.Tensor,
-                       scalars: torch.Tensor, rates: Sequence[float], *,
-                       weight_decay: float = 0.0, b1: float = B1,
-                       b2: float = B2, eps: float = EPS) -> None:
-    """The plain version, in place: optax's op sequence, one torch op per
-    step of it. ``ema`` is ``[R, n]`` (``R = len(rates)``)."""
-    global _plain_calls
-    _plain_calls += 1
-    c = [float(x) for x in _coefs(rates, weight_decay, b1, b2, eps)]
-    cb1, comb1, cb2, comb2, ceps, cwd = c[:6]
-    n_r = len(rates)
+def adamw_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+               nu: torch.Tensor, scalars: torch.Tensor, *,
+               weight_decay: float = 0.0, b1: float = B1, b2: float = B2,
+               eps: float = EPS) -> torch.Tensor:
+    """optax.adamw's op sequence in place on ``p``, ``mu`` and ``nu`` (any
+    shape), one torch op per step of it; returns the new ``p``. Counts
+    nothing: it is no kernel's stand-in on its own."""
+    c = [float(x) for x in _coefs((), weight_decay, b1, b2, eps)]
+    cb1, comb1, cb2, comb2, ceps, cwd = c
     step_size, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     m = comb1 * g + cb1 * mu
     v = comb2 * (g * g) + cb2 * nu
@@ -129,6 +131,22 @@ def torch_fused_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     p.copy_(pn)
     mu.copy_(m)
     nu.copy_(v)
+    return pn
+
+
+def torch_fused_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                       nu: torch.Tensor, ema: torch.Tensor,
+                       scalars: torch.Tensor, rates: Sequence[float], *,
+                       weight_decay: float = 0.0, b1: float = B1,
+                       b2: float = B2, eps: float = EPS) -> None:
+    """The plain version, in place: :func:`adamw_step`, then each EMA copy
+    from the new ``p``. ``ema`` is ``[R, n]`` (``R = len(rates)``)."""
+    global _plain_calls
+    _plain_calls += 1
+    pn = adamw_step(p, g, mu, nu, scalars, weight_decay=weight_decay,
+                    b1=b1, b2=b2, eps=eps)
+    n_r = len(rates)
+    c = [float(x) for x in _coefs(rates, weight_decay, b1, b2, eps)]
     for i in range(n_r):
         ema[i].copy_(ema[i] * c[6 + i] + pn * c[6 + n_r + i])
 

@@ -14,6 +14,8 @@
         --nprocs 2 --shard_optimizer true ...      # ZeRO-1 (or --fsdp 2)
     python -m distributed_pipeline_tpu_torch.run.train --distributed \\
         --nprocs 2 --scan_layers true --pipe 2 ... # two pipeline stages
+    python -m distributed_pipeline_tpu_torch.run.train --mpmd true \\
+        --mpmd_stages 2 --scan_layers true ...     # MPMD stage processes
 
 ``--distributed --nprocs N`` relaunches this module as N supervised worker
 processes (``parallel/launcher.py``) that form one ``torch.distributed``
@@ -60,6 +62,13 @@ held-out batch of at most 32 rows, as the JAX entry point does: DiffuSeq
 samples ``--eval_decode_sample_steps`` reverse steps, GPT-2 continues the
 second half of each row greedily (dense KV cache). Runs on
 CUDA unless ``--device cpu`` is given, and raises when CUDA is missing.
+
+``--mpmd true`` trains the stacked layers as ``--mpmd_stages`` processes
+(``_mpmd_main``): this process is the torch-free host driver
+(``mpmd/driver.py``), each stage one supervised ring of one process
+(``mpmd/stage_worker.py``) on the run's device (on one card every stage
+shares ``cuda:0``), activations and gradients moving stage to stage over
+``FileStageLink``s under the run dir.
 """
 
 from __future__ import annotations
@@ -79,7 +88,8 @@ from typing import (TYPE_CHECKING, Any, Callable, Dict, Optional, Sequence,
 from ..chaos import CHAOS_PLAN_ENV, ChaosInjector, ChaosPlan
 from ..chaos.goodput import beacon_max_step
 from ..data import load_data_from_args, skip_batches_for_samples
-from ..parallel.launcher import RUN_TIMESTAMP_ENV, parse_and_autorun
+from ..parallel.launcher import (RUN_TIMESTAMP_ENV, parse_and_autorun,
+                                 parse_distributed_args)
 from ..parallel.mesh import AXES, local_mesh_info
 from ..parallel.partition import load_partition_artifact
 from ..utils.logger import Logger, distributed_mean_comm
@@ -386,17 +396,106 @@ def train(args: TrainSettings, stdout: bool = True) -> TrainLoop:
     return loop
 
 
+def _mpmd_main(args: TrainSettings) -> dict:
+    """MPMD pipeline training: THIS process is the torch-free host driver.
+    It writes the shared ``mpmd_config.json``, spawns one supervised
+    launcher ring PER STAGE (each with its own restart budget, snapshots
+    and beacon watchdog: stages are independently preemptible), and
+    broadcasts the microbatch schedule over the StageLink command links.
+    The stage workers (``mpmd/stage_worker.py``) own the torch math;
+    activations and gradients move over the file-relay StageLink
+    transport instead of a collective. The settings' refusals
+    (``config/train.mpmd_refusal``) ran at parse time. Prints the JAX
+    summary line and returns the driver's result."""
+    from ..mpmd.driver import PipelineDriver
+
+    ckpt_path = resolve_run_dir(args)
+    os.makedirs(ckpt_path, exist_ok=True)
+    flat = args.to_dict()
+    device = flat.pop("device")  # where a run trained is not its config
+    with open(os.path.join(ckpt_path, "training_args.json"), "w") as f:
+        json.dump(flat, f, indent=2)
+    if args.trace:
+        # arm tracing pipeline-wide (the fleet parent's pattern): the env
+        # rides the launcher's worker environment to every stage attempt,
+        # so stage fwd/bwd spans carry the per-microbatch trace ids that
+        # stitch the cross-process timeline
+        from ..obs.trace import TRACE_ENV
+        os.environ[TRACE_ENV] = "1"
+    config = {
+        "n_stages": args.mpmd_stages,
+        "n_microbatches": args.pp_chunks,
+        "schedule": args.pp_schedule,
+        # create_model_from_config / load_data_from_args both swallow the
+        # flat settings (the single-process path passes them too); the
+        # loader gets batch_size on its own
+        "model": flat,
+        "data": {k: v for k, v in flat.items() if k != "batch_size"},
+        "batch_size": args.batch_size,
+        "seed": args.seed,
+        "lr": args.lr,
+        "weight_decay": args.weight_decay,
+        "link_capacity": args.mpmd_link_capacity,
+        # every stage's device ("" = CUDA)
+        "device": device,
+    }
+    driver = PipelineDriver(
+        ckpt_path, config, max_restarts=args.mpmd_max_restarts,
+        hang_timeout_s=args.mpmd_hang_timeout_s,
+        trace_armed=True if args.trace else None)
+    try:
+        result = driver.run(args.learning_steps)
+    finally:
+        driver.stop()
+    driver.write_result(result)
+    print(json.dumps({
+        "mode": "mpmd", "stages": args.mpmd_stages,
+        "schedule": args.pp_schedule, "steps": result["steps"],
+        "final_loss": (result["losses"][-1] if result["losses"]
+                       else None),
+        "rewinds": result["rewinds"],
+        "attempts_per_stage": result["attempts_per_stage"],
+        "accounted_frac": result["goodput"].get("accounted_frac"),
+    }), flush=True)
+    return result
+
+
+def _asks_mpmd(script_argv: Sequence[str]) -> bool:
+    """Whether a command line (its flags, or its ``--config_json``) turns
+    ``--mpmd`` on; read without building the settings, whose mesh checks
+    need the ranks' world size."""
+    from ..config.train import create_parser
+    ns, _ = create_parser().parse_known_args(list(script_argv))
+    if ns.config_json:
+        with open(ns.config_json) as f:
+            return bool(json.load(f).get("mpmd"))
+    return bool(ns.mpmd)
+
+
 def _parse_settings(argv: Sequence[str]) -> TrainSettings:
     from ..config.train import parse_settings
     return parse_settings(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> TrainLoop:
+def main(argv: Optional[Sequence[str]] = None):
     """Train from argv; ``--distributed --nprocs N`` runs this module as a
     supervised ring of N workers instead and exits with its code (that
-    parent imports no torch; the workers do)."""
-    return train(parse_and_autorun(_parse_settings, argv,
-                                   "distributed_pipeline_tpu_torch.run.train"))
+    parent imports no torch; the workers do). ``--mpmd true`` runs the
+    torch-free MPMD driver (``_mpmd_main``) and returns its result;
+    under ``--distributed`` it is refused."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    dist_ns, script_argv = parse_distributed_args(argv)
+    if dist_ns.distributed and _asks_mpmd(script_argv):
+        from ..config.train import MPMD_SUBMESH
+        raise SystemExit(f"--mpmd with --distributed comes with "
+                         f"{MPMD_SUBMESH}: each stage is a ring of one "
+                         f"process of its own; drop --distributed")
+    args = parse_and_autorun(_parse_settings, argv,
+                             "distributed_pipeline_tpu_torch.run.train")
+    if args.mpmd:
+        return _mpmd_main(args)
+    return train(args)
 
 
 if __name__ == "__main__":

@@ -419,12 +419,9 @@ def test_deferred_holds_no_pipeline_option():
     for name in ("scan_layers", "scan_unroll", "pp_chunks", "pp_schedule",
                  "pp_virtual", "pipe"):
         assert name not in DEFERRED
+    # the MPMD runtime (A.9b) took its options out too
     assert set(DEFERRED) == {"tensor", "expert", "auto_tune",
-                             "auto_tune_budget_s", "mpmd", "mpmd_stages",
-                             "mpmd_link_capacity", "mpmd_hang_timeout_s",
-                             "mpmd_max_restarts"}
-    assert all("A.9b" in item for name, (_v, item) in DEFERRED.items()
-               if name.startswith("mpmd"))
+                             "auto_tune_budget_s"}
     s = parse_settings(["--scan_layers", "true", "--scan_unroll", "2",
                         "--pp_schedule", "interleaved", "--pp_virtual", "3",
                         "--pp_chunks", "8"])
@@ -444,7 +441,7 @@ def test_deferred_holds_no_pipeline_option():
     (["--scan_layers", "true", "--moe_experts", "4"], PIPE_LATER),
     (["--pp_chunks", "0"], "--pp_chunks and --pp_virtual must be >= 1"),
     (["--pp_schedule", "zigzag"], "invalid choice"),
-    (["--mpmd", "true"], "ROADMAP A.9b")])
+    (["--mpmd", "true"], "--mpmd requires --scan_layers true")])
 def test_pipeline_refusals_at_parse_time(argv, expect, monkeypatch, capsys):
     """The A.9c compositions refused naming their item, ``--pipe`` over
     named blocks with the JAX message (the A.9c checks run on a world the

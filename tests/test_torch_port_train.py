@@ -231,11 +231,12 @@ LIFTED = {"ROADMAP A.8e": "must divide the world size",
           ("--shard_optimizer", "true"): None,
           ("--partition_rules", "x"): "--partition_rules",
           # the stacked layers and the pipe schedule (A.9a) are trained:
-          # their flags parse; the MPMD runtime names A.9b
+          # their flags parse; the MPMD runtime (A.9b) needs the stacked
+          # layers
           ("--scan_layers", "true"): None,
           ("--pp_chunks", "8"): None,
           ("--scan_unroll", "2"): None,
-          ("--mpmd", "true"): "ROADMAP A.9b"}
+          ("--mpmd", "true"): "--mpmd requires --scan_layers true"}
 
 
 @pytest.mark.parametrize("entry,argv,expect", [

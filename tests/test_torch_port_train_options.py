@@ -83,10 +83,8 @@ def test_jax_config_json_trains(tmp_path):
 
 
 LIFTED_A9A = {"scan_unroll": None, "pp_schedule": None, "pp_virtual": None,
-              "mpmd_stages": "ROADMAP A.9b",
-              "mpmd_link_capacity": "ROADMAP A.9b",
-              "mpmd_hang_timeout_s": "ROADMAP A.9b",
-              "mpmd_max_restarts": "ROADMAP A.9b"}
+              "mpmd_stages": None, "mpmd_link_capacity": None,
+              "mpmd_hang_timeout_s": None, "mpmd_max_restarts": None}
 
 
 @pytest.mark.parametrize("flag,value,item", [
@@ -106,13 +104,14 @@ LIFTED_A9A = {"scan_unroll": None, "pp_schedule": None, "pp_virtual": None,
 def test_new_fields_refused_name_their_reason(flag, value, item, capsys):
     # the tensor axis's refusal moved to A.8g when A.8c brought the
     # sharded state; A.9a brought the stacked layers and the pipe schedule
-    # (their flags parse: item None), the MPMD runtime is A.9b
+    # and A.9b the MPMD runtime (their flags parse: item None)
     item = {"ROADMAP A.8c": "ROADMAP A.8g"}.get(item, item)
     item = LIFTED_A9A.get(flag, item)
     if item is None:
         s = parse_settings([f"--{flag}", value])
         assert flag not in DEFERRED
-        assert str(getattr(s, flag)) == value
+        got = getattr(s, flag)
+        assert got == type(got)(value)
         return
     with pytest.raises(SystemExit) as e:
         parse_settings([f"--{flag}", value])
