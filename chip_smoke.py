@@ -158,7 +158,10 @@ Phases (any failure raises, and the script exits non-zero):
    over ``--serve_transport socket`` (one run holds both checks);
    ``--replicas 1 --disagg 1`` (16
    requests; the decode worker's decode kernel launched, plain never).
-   Tokens/s and TTFT p50/p95 beside the single run's; its line is
+   The fleet runs are ``run.serve`` processes side by side in two
+   groups, the plain, killed and disaggregated runs, then the two swaps
+   (their walls, rates and TTFTs printed as contended). Tokens/s and
+   TTFT p50/p95 beside the single run's; its line is
    ``{"serving_fleet": {...}}``;
 12. data-parallel training: GPT-2 base at full width (seq 1024,
    synthetic-lm, global batch 8 in global microbatches of 4, 5 steps from
@@ -199,9 +202,11 @@ Phases (any failure raises, and the script exits non-zero):
    launch (the dense arm at 128), then ``run.sample`` (2 x 32 rows, 20
    steps); DiffuSeq-large at seq 512 (batch 128 in microbatches of 8) 3
    steps without and with remat, bitwise equal, peak lower with remat.
-   The fused update is also held against its plain version and timed at
-   GPT-2 base moe8's parameter count. Its line is ``{"moe_remat":
-   {...}}``;
+   The three DiffuSeq runs are ``run.train`` processes beside the GPT-2
+   runs in this one (read from their sidecars, their peak the process's;
+   contended), and so is phase 21 (d)'s stacked moe8 process. The fused update is also held against its plain version
+   and timed at GPT-2 base moe8's parameter count. Its line is
+   ``{"moe_remat": {...}}``;
 14. sequence parallelism: ``flash_attention_lse`` on the kernels
    (forward ``(out, lse)``, and the backward of a random ``(g_out,
    g_lse)``: the kernel backward's ``g_lse`` arm) against the plain
@@ -306,7 +311,7 @@ Phases (any failure raises, and the script exits non-zero):
    at that size beside it; phase 18 checks its element count is the
    runs'). Its line is ``{"sharded_state": {...}}``; the flash rows gain
    ``launches_zero1``/``launches_fsdp2``.
-19. stacked layers and pipeline parallelism, last (budget 200 s): phase
+19. stacked layers and pipeline parallelism (budget 200 s): phase
    12's GPT-2 base workload (batch 8 in microbatches of 4, 5 steps) with
    ``--scan_layers true``, through ``run.train``: (a) no group, each loss
    within 2e-3 relative of phase 12's run without a group (named blocks;
@@ -348,7 +353,7 @@ Phases (any failure raises, and the script exits non-zero):
    the other update rows (``fused_adamw_ema_gpt2_pipe2_stage``). Its
    line is ``{"pipeline": {...}}``; the flash rows gain
    ``launches_pipe_1f1b``/``_gpipe``/``_interleaved``.
-20. the MPMD pipeline runtime, last (budget 120 s): phase 19's GPT-2 base
+20. the MPMD pipeline runtime (budget 120 s): phase 19's GPT-2 base
    flags (batch 8, 5 steps, seed 0) through ``run.train --mpmd true
    --mpmd_stages 2 --pp_schedule 1f1b --pp_chunks 4`` (a torch-free
    driver, two stage rings of one process each on ``cuda:0``, the frames
@@ -373,6 +378,37 @@ Phases (any failure raises, and the script exits non-zero):
    Each run dir's bytes are printed before it is removed (a GPT-2 stage
    snapshot is ~0.98 GB a step). Its line is ``{"mpmd": {...}}``; the
    flash and GPT-2 update rows gain ``launches_mpmd`` (per stage).
+
+21. the pipe's compositions, after phase 20 (budget 120 s, aiming at
+   90): GPT-2 base at full width and depth through ``run.train
+   --distributed --nprocs 4 --pipe 2 --scan_layers true`` (four gloo
+   ranks on ``cuda:0``), phase 19's flags with one EMA rate (5 steps:
+   the learning rate anneals over them, and phase 19's runs hold these):
+   (a) alone, ``--fsdp 2`` under 1F1B, batch 8 (4
+   a row group) in microbatches of 4 (2), one-row chunks as phase 19's
+   1F1B: within 1e-6 of phase 19's 1F1B at step 1 and 5e-3 at every
+   step, grad norm 1e-3 at step 1; launches 240 / 120 / 5 a rank (2
+   microbatches x 2 chunks x 6 layers, the B slot recomputing); each
+   rank's update over its 60,637,440 local elements (its fsdp piece of
+   its stage's cut weights, its stage's LayerNorm rows, the rest whole),
+   the ranks' update shares summing to the model; one stage gather a
+   microbatch (4 x 42,467,328 B); peak memory a rank beside phase 19's
+   1F1B peaks. Then side by side (contended): (b) ``--dp 2
+   --shard_optimizer`` under 1F1B, the same batches, each rank owning
+   40,935,552 of its 81,871,104, within (a)'s bar of (a) (bitwise where
+   the two-term sums allow it is printed); (c) ``--sequence 2`` (a 1F1B
+   request: the ring inside a stage takes GPipe) at L 1024 with phase
+   19's GPipe flags: the ring's partners from the mesh (ranks 0 and 2,
+   1 and 3), ``flash_attention_lse`` 240 / 480 launches by sequence
+   index, step 1 within 1.109e-4 of phase 19's GPipe and every step 5e-3;
+   (d) GPT-2 base moe8 stacked (``MoEScanBlocks``) in one process with
+   phase 13's flags, run beside phase 13's runs, against its named-block
+   run (launches 120 / 120 / 5), and at ``--pipe 2`` (GPipe, 3 groups a stage; launches 240 / 240 / 5 a
+   rank; the update over 180,979,968 elements) against the one process,
+   ``moe_aux`` within 1e-6 at step 1. The update is timed at the three
+   new element counts (``fused_adamw_ema_gpt2_pipe2_fsdp2``,
+   ``_pipe2_zero1``, ``_moe8_pipe2``). Its line is ``{"compositions":
+   {...}}``; the flash rows gain ``launches_compose_*``.
 
 Before and after every timed phase a ``# clocks`` line gives the card's SM
 and memory clocks, power draw and temperature (``nvidia-smi``). The line
@@ -2637,12 +2673,26 @@ def served_window_rate(fleet_dir: str, tokens: int) -> float:
     return tokens / max(t1 - t0, 1e-9)
 
 
-def fleet_run(serve_mod, argv: list, n: int, what: str) -> tuple:
-    """One fleet run through ``run.serve``: its summary and its ``--out``
-    rows, every request completed, every replica's exit code 0."""
-    t0 = time.perf_counter()
-    summary = serve_mod.main(argv)
-    wall = time.perf_counter() - t0
+SERVE_MODULE = "distributed_pipeline_tpu_torch.run.serve"
+
+
+def fleet_start(argv: list) -> dict:
+    """Start one fleet run, ``python -m ...run.serve argv``, as a
+    subprocess (the fleet parent is torch-free; its replicas hold the
+    card), so fleet runs go side by side; ``fleet_finish`` reads it."""
+    job = dp_start(argv, module=SERVE_MODULE)
+    job["argv"] = argv
+    return job
+
+
+def fleet_finish(job: dict, n: int, what: str) -> tuple:
+    """A ``fleet_start`` run's summary (the parent's last stdout line) and
+    its ``--out`` rows, every request completed, every replica's exit
+    code 0."""
+    stdout, _stderr, wall = dp_wait(job, what)
+    argv = job["argv"]
+    summary = json.loads([line for line in stdout.splitlines()
+                          if line.startswith("{")][-1])
     out = argv[argv.index("--out") + 1]
     with open(out) as f:
         rows = [json.loads(line) for line in f]
@@ -2655,8 +2705,8 @@ def fleet_run(serve_mod, argv: list, n: int, what: str) -> tuple:
     for r in rows:
         check(len(r["tokens"]) == 128, f"{what}: request {r['id']} "
               f"returned {len(r['tokens'])} tokens")
-    print(f"# fleet {what}: {wall:.1f} s, {json.dumps(summary)}",
-          flush=True)
+    print(f"# fleet {what} (side by side: contended): {wall:.1f} s, "
+          f"{json.dumps(summary)}", flush=True)
     return summary, rows
 
 
@@ -2747,12 +2797,14 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
           f"{time.perf_counter() - t0:.1f} s: {json.dumps(out['single'])}",
           flush=True)
 
-    def one(tag, *extra, requests=n):
+    def start(tag, *extra, requests=n):
         fdir, jsonl = paths(tag)
-        summary, rows = clocked(
-            f"fleet {tag}", fleet_run, serve_mod,
-            fleet_argv(run, requests, rate, fdir, jsonl, *extra),
-            requests, tag)
+        return fleet_start(fleet_argv(run, requests, rate, fdir, jsonl,
+                                      *extra))
+
+    def one(job, tag, requests=n):
+        fdir, _jsonl = paths(tag)
+        summary, rows = fleet_finish(job, requests, tag)
         rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
                "served_window_tokens_per_s": served_window_rate(
                    fdir, summary["decode_tokens"]),
@@ -2763,15 +2815,29 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
                "replicas": check_replicas(fdir, tag)}
         return summary, rows, rec, fdir
 
+    # the runs go side by side in two groups (their walls, rates and
+    # TTFTs share the card and the host: contended): 1, 2 and 5, then 3
+    # and 4 (which read the checkpoints written between the groups)
+    t_a = time.perf_counter()
+    plan = json.dumps({"faults": [{"kind": "kill_replica", "step": 4,
+                                   "rank": 1, "sig": "SIGKILL"}]})
+    k = 16
+    dfdir, djsonl = paths("disagg")
+    dargv = serve_argv(run, "fp", k) + [
+        "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate),
+        "--replicas", "1", "--disagg", "1", "--fleet_dir", dfdir,
+        "--out", djsonl, "--fleet_deadline_s", "240"]
+    first = {"file": start("file"),
+             "kill": start("kill", "--chaos_plan", plan),
+             "disagg": fleet_start(dargv)}
+
     # 1. two replicas, no fault
-    summary, rows, rec, _ = one("file")
+    summary, rows, rec, _ = one(first["file"], "file")
     rec.update(hold_streams(torch, model, rows, refs, "fleet file"))
     out["file"] = rec
 
     # 2. a replica killed while it holds requests
-    plan = json.dumps({"faults": [{"kind": "kill_replica", "step": 4,
-                                   "rank": 1, "sig": "SIGKILL"}]})
-    summary, rows, rec, fdir = one("kill", "--chaos_plan", plan)
+    summary, rows, rec, fdir = one(first["kill"], "kill")
     check(summary["replayed"] >= 1, f"kill: nothing replayed: {summary}")
     check(rec["replicas"][1]["attempts"] >= 2,
           f"kill: replica 1's attempts.jsonl: {rec['replicas'][1]}")
@@ -2782,14 +2848,38 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     out["kept_counts"] = {"completed": summary["completed"],
                           "replayed": summary["replayed"]}
 
-    # 3. a hot swap to step 21 after 32 completions; arrivals keep coming
-    # after the roll
+    # 5. --replicas 1 --disagg 1, 16 requests, against the colocated run
+    summary, rows = fleet_finish(first["disagg"], k, "disagg")
+    check(summary.get("decode_rcs") == [0], f"disagg: {summary}")
+    dec = check_replicas(os.path.join(dfdir, "decode"), "disagg decode")
+    rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "ttft_p50_s": summary["ttft_p50_s"],
+           "ttft_p95_s": summary["ttft_p95_s"], "wall_s": summary["wall_s"],
+           "decode_worker": dec[0]}
+    # the colocated streams: the single run's first 16 requests (the
+    # generator draws prompts in order, whatever the request count)
+    rec.update(hold_streams(torch, model, rows, refs[:k], "fleet disagg"))
+    out["disagg"] = rec
+    out["group_walls_s"] = [time.perf_counter() - t_a]
+
+    # 3. a hot swap to step 21 after 32 completions (arrivals keep coming
+    # after the roll), and 4. a corrupted swap target (a copy of step 21
+    # as step 22) over the socket transport
     t_ck = time.perf_counter()
     perturbed_checkpoint(torch, run, 21, seed=5)
-    print(f"# fleet: wrote the perturbed step 21 in "
+    shutil.copy(os.path.join(run, "model_000021.pt"),
+                os.path.join(run, "model_000022.pt"))
+    print(f"# fleet: wrote the perturbed step 21 (and its copy as 22) in "
           f"{time.perf_counter() - t_ck:.1f} s", flush=True)
-    summary, rows, rec, fdir = one(
-        "swap", "--swap_after_requests", "32", "--swap_step", "21")
+    t_b = time.perf_counter()
+    plan = json.dumps({"faults": [{"kind": "corrupt_swap_checkpoint",
+                                   "step": 0}]})
+    second = {"swap": start("swap", "--swap_after_requests", "32",
+                            "--swap_step", "21"),
+              "corrupt": start("corrupt", "--swap_after_requests", "32",
+                               "--swap_step", "22", "--chaos_plan", plan,
+                               "--serve_transport", "socket")}
+    summary, rows, rec, fdir = one(second["swap"], "swap")
     sw = summary["swap"]
     check(sw and sw["ok"] and sorted(sw["swapped"]) == [0, 1],
           f"swap: {sw}")
@@ -2828,17 +2918,10 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     del m21
     out["swap"] = rec
 
-    # 4. a corrupted swap target (a copy of step 21 as step 22) over the
-    # socket transport: the canary refuses it, no replica moves, the old
-    # weights serve on (one fleet run holds both runs' checks: the
+    # 4. the canary refuses the corrupted target, no replica moves, the
+    # old weights serve on (one fleet run holds both runs' checks: the
     # socket transport's, and the refused swap's)
-    shutil.copy(os.path.join(run, "model_000021.pt"),
-                os.path.join(run, "model_000022.pt"))
-    plan = json.dumps({"faults": [{"kind": "corrupt_swap_checkpoint",
-                                   "step": 0}]})
-    summary, rows, rec, _ = one(
-        "corrupt", "--swap_after_requests", "32", "--swap_step", "22",
-        "--chaos_plan", plan, "--serve_transport", "socket")
+    summary, rows, rec, _ = one(second["corrupt"], "corrupt")
     check(summary["transport"] == "socket", f"socket: {summary}")
     sw = summary["swap"]
     check(sw and not sw["ok"] and sw["swapped"] == [] and sw["injected"]
@@ -2849,26 +2932,8 @@ def _fleet_checks(torch, fd, np, parse_settings, serve_mod, load_run, run,
     rec["swap"] = {"ok": sw["ok"], "swapped": sw["swapped"],
                    "error": sw["error"][:200]}
     out["corrupt_swap"] = out["socket"] = rec
-
-    # 5. --replicas 1 --disagg 1, 16 requests, against the colocated run
-    k = 16
-    fdir, jsonl = paths("disagg")
-    dargv = serve_argv(run, "fp", k) + [
-        "--step", "20", "--traffic", "poisson", "--rate_rps", str(rate),
-        "--replicas", "1", "--disagg", "1", "--fleet_dir", fdir,
-        "--out", jsonl, "--fleet_deadline_s", "240"]
-    summary, rows = clocked("fleet disagg", fleet_run, serve_mod, dargv, k,
-                            "disagg")
-    check(summary.get("decode_rcs") == [0], f"disagg: {summary}")
-    dec = check_replicas(os.path.join(fdir, "decode"), "disagg decode")
-    rec = {"decode_tokens_per_s": summary["decode_tokens_per_s"],
-           "ttft_p50_s": summary["ttft_p50_s"],
-           "ttft_p95_s": summary["ttft_p95_s"], "wall_s": summary["wall_s"],
-           "decode_worker": dec[0]}
-    # the colocated streams: the single run's first 16 requests (the
-    # generator draws prompts in order, whatever the request count)
-    rec.update(hold_streams(torch, model, rows, refs[:k], "fleet disagg"))
-    out["disagg"] = rec
+    out["group_walls_s"].append(time.perf_counter() - t_b)
+    out["contended"] = ["file", "kill", "disagg", "swap", "corrupt_swap"]
     del model
     torch.cuda.empty_cache()
     print(f"# fleet vs single (tokens/s, TTFT p50/p95 s): single "
@@ -2917,9 +2982,11 @@ def _kill_jobs() -> None:
             proc.kill()
 
 
-def dp_start(argv: list, extra_env=None) -> dict:
-    """Start ``python -m distributed_pipeline_tpu_torch.run.train argv``
-    as a subprocess (``extra_env`` added to its environment), drained by a
+def dp_start(argv: list, extra_env=None,
+             module: str = "distributed_pipeline_tpu_torch.run.train"
+             ) -> dict:
+    """Start ``python -m <module> argv`` (``run.train`` by default) as a
+    subprocess (``extra_env`` added to its environment), drained by a
     thread that notes when it ended (at most 600 s), so runs side by side
     each get their own wall; ``dp_finish`` waits for it."""
     env = {k: v for k, v in os.environ.items() if k not in (
@@ -2930,9 +2997,8 @@ def dp_start(argv: list, extra_env=None) -> dict:
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo
     proc = subprocess.Popen(
-        [sys.executable, "-m", "distributed_pipeline_tpu_torch.run.train",
-         *argv], cwd=repo, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        [sys.executable, "-m", module, *argv], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     job = {"proc": proc, "t0": time.perf_counter()}
     _JOBS.append(proc)
 
@@ -2956,7 +3022,7 @@ def dp_wait(job: dict, what: str) -> tuple:
     stdout, stderr = job["out"]
     if proc.returncode != 0:
         print(stdout[-4000:], stderr[-8000:], file=sys.stderr)
-    check(proc.returncode == 0, f"{what}: run.train exited "
+    check(proc.returncode == 0, f"{what}: {proc.args[2]} exited "
                                 f"{proc.returncode}")
     return stdout, stderr, job["t1"] - job["t0"]
 
@@ -3131,15 +3197,7 @@ def moe_train(torch, fa, fu, run: str, cfg: dict, extra: list, *,
     from distributed_pipeline_tpu_torch.utils.perf import (
         card_rates, transformer_train_flops_per_token)
 
-    dataset = ("synthetic-lm" if cfg["model_family"] == "gpt2"
-               else "synthetic-seq2seq")
-    argv = (["--checkpoint_path", run, "--dataset", dataset]
-            + cfg_argv(cfg)
-            + ["--batch_size", str(batch), "--microbatch", str(micro),
-               "--learning_steps", str(steps), "--lr", "3e-4",
-               "--ema_rate", "0.9999", "--attention_impl", "auto",
-               "--fused_update", "auto", "--log_interval", str(steps),
-               "--save_interval", "0", "--seed", "0"] + extra)
+    argv = moe_train_argv(run, cfg, steps, batch, micro, extra)
     fa.reset_launch_counts()
     fu.reset_launch_count()
     gc.collect()
@@ -3193,6 +3251,59 @@ def moe_train(torch, fa, fu, run: str, cfg: dict, extra: list, *,
     check(not any(plain.values()), f"{what}: plain versions called {plain}")
     del loop
     torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_start(run: str, cfg: dict, extra: list, *, steps: int,
+                    batch: int, micro: int) -> dict:
+    """``moe_train``'s run as a process of its own (``run.train``), so it
+    goes beside this process's runs; ``moe_train_finish`` reads it."""
+    job = dp_start(moe_train_argv(run, cfg, steps, batch, micro, extra))
+    job.update(run=run, cfg=cfg, steps=steps, batch=batch, micro=micro,
+               remat="--remat" in extra)
+    return job
+
+
+def moe_train_finish(torch, job: dict, what: str) -> dict:
+    """A ``moe_train_start`` run read into ``moe_train``'s record, from
+    its sidecar and its last progress row: its process's peak device
+    memory is the run's own (``memory_at_start_bytes`` 0)."""
+    from distributed_pipeline_tpu_torch.utils.perf import (
+        card_rates, transformer_train_flops_per_token)
+    r = dp_finish(job, job["run"], what)
+    side, cfg, steps = r["ranks"][0], job["cfg"], job["steps"]
+    hist = r["steps"]
+    check(len(hist) == steps, f"{what}: {len(hist)} logged steps")
+    for key in ("loss", "grad_norm") + (("moe_aux",) if cfg.get(
+            "moe_experts") else ()):
+        vals = [h[key] for h in hist]
+        check(all(math.isfinite(v) for v in vals),
+              f"{what}: {key} not finite: {vals}")
+    last = r["rows"][-1]
+    gauges = {k: float(last[k]) for k in
+              ("tokens_per_sec_per_chip", "mfu", "step_time_s")}
+    peak_flops = card_rates(torch.cuda.get_device_name(0))[1]
+    gauges["mfu_active"] = (gauges["tokens_per_sec_per_chip"]
+                            * transformer_train_flops_per_token(
+                                side["n_active_params"], cfg["num_layers"],
+                                cfg["hidden_size"], cfg["seq_len"])
+                            / peak_flops)
+    out = {"steps": steps, "batch": job["batch"],
+           "microbatch": job["micro"], "remat": job["remat"],
+           "n_params": side["n_params"],
+           "n_active_params": side["n_active_params"],
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "moe_aux": [h.get("moe_aux") for h in hist],
+           "launches": side["launches"], "plain_calls": side["plain_calls"],
+           **gauges, "peak_memory_bytes": side["peak_memory_bytes"],
+           "memory_at_start_bytes": 0, "wall_s": r["wall_s"],
+           "params_sha256": side["params_sha256"]}
+    print(f"# moe/remat {what} (its own process, contended) ({CARD}): "
+          + json.dumps({k: v for k, v in out.items()
+                        if k not in ("grad_norms",)}), flush=True)
+    check(not any(out["plain_calls"].values()),
+          f"{what}: plain versions called {out['plain_calls']}")
     return out
 
 
@@ -3281,8 +3392,22 @@ def moe_remat_phase(torch, fa, fd, fu) -> dict:
     t0 = time.perf_counter()
     layers = GPT2_MOE8["num_layers"]
     per_run = layers * 2 * MOE_STEPS
-    out = {}
+    out = {"contended": ["diffuseq_moe8", "diffuseq_large_seq512"]}
     with tempfile.TemporaryDirectory() as work:
+        # the DiffuSeq runs in processes of their own, beside the GPT-2
+        # runs in this one (their times share the card: contended)
+        jobs = {"diffuseq_moe8": moe_train_start(
+            os.path.join(work, "diffuseq_moe8"), DIFFUSEQ_MOE8, [],
+            steps=20, batch=256, micro=64)}
+        for key, extra in (("no_remat", []), ("remat", ["--remat", "true"])):
+            jobs[key] = moe_train_start(
+                os.path.join(work, f"dq_large_{key}"), DIFFUSEQ_LARGE_512,
+                extra, steps=3, batch=128, micro=8)
+        # phase 21 (d)'s one process: the stacked moe8 model (MoEScanBlocks)
+        # with the flags of the named run below, read there
+        run_scan = os.path.join(work, "gpt2_moe8_scan")
+        job_scan = dp_start(moe_train_argv(run_scan, GPT2_MOE8, MOE_STEPS,
+                                           8, 4, ["--scan_layers", "true"]))
         gpt2 = {}
         for key, extra in (("no_remat", []), ("remat", ["--remat", "true"])):
             run = os.path.join(work, f"gpt2_moe8_{key}")
@@ -3301,6 +3426,8 @@ def moe_remat_phase(torch, fa, fd, fu) -> dict:
               f"active {gpt2['no_remat']['n_active_params']}")
         out["gpt2_moe8"] = {**gpt2, "remat_vs_no_remat": remat_pair(
             gpt2["no_remat"], gpt2["remat"], "gpt2 moe8")}
+        out["gpt2_moe8"]["scan_run"] = dp_finish(job_scan, run_scan,
+                                                 "gpt2 moe8 scan_layers")
         run = os.path.join(work, "gpt2_moe8_no_remat")
         argv = (["--checkpoint_path", run] + cfg_argv(GPT2_MOE8)
                 + ["--learning_steps", str(MOE_STEPS), "--lr", "3e-4",
@@ -3311,8 +3438,8 @@ def moe_remat_phase(torch, fa, fd, fu) -> dict:
         out["serve"] = moe_serve(torch, fd, run)
 
         run = os.path.join(work, "diffuseq_moe8")
-        dq = moe_train(torch, fa, fu, run, DIFFUSEQ_MOE8, [], steps=20,
-                       batch=256, micro=64, what="diffuseq-base moe8")
+        dq = moe_train_finish(torch, jobs["diffuseq_moe8"],
+                              "diffuseq-base moe8")
         check(dq["launches"] == {"flash_forward": 0, "flash_backward": 0,
                                  "fused_adamw_ema": 20},
               f"diffuseq moe8 launches {dq['launches']}")
@@ -3330,12 +3457,9 @@ def moe_remat_phase(torch, fa, fd, fu) -> dict:
         out["diffuseq_moe8"] = {**dq, "sample": {
             **sampled, "wall_s": time.perf_counter() - t1}}
 
-        large = {}
-        for key, extra in (("no_remat", []), ("remat", ["--remat", "true"])):
-            large[key] = moe_train(
-                torch, fa, fu, os.path.join(work, f"dq_large_{key}"),
-                DIFFUSEQ_LARGE_512, extra, steps=3, batch=128, micro=8,
-                what=f"diffuseq-large seq512 {key}")
+        large = {key: moe_train_finish(torch, jobs[key],
+                                       f"diffuseq-large seq512 {key}")
+                 for key in ("no_remat", "remat")}
         out["diffuseq_large_seq512"] = {**large, "remat_vs_no_remat":
                                         remat_pair(large["no_remat"],
                                                    large["remat"],
@@ -4458,6 +4582,7 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
               f"pipe ranks update {[x['layout']['owned'] for x in ranks_b]}"
               f" elements, the update row {update_row['elements']}")
         out["1f1b"] = {"losses": losses_b, "vs_scan": held_b,
+                       "grad_norms": [h["grad_norm"] for h in b["steps"]],
                        "stash_peak": peak, "ranks": ranks_b,
                        "wall_s": b["wall_s"]}
         saved = torch.load(os.path.join(run_b, "model_000003.pt"),
@@ -4510,6 +4635,7 @@ def pipe_phase(torch, dp: dict, diffuseq: dict, update_row: dict) -> dict:
               f"decodes {decodes}; the step-3 tokens equal gpt2_decode of "
               f"model_000003.pt at --pipe 1", flush=True)
         out["gpipe"] = {"losses": losses_c, "vs_scan": held_c,
+                        "grad_norms": [h["grad_norm"] for h in c["steps"]],
                         "eval_decodes": decodes, "ranks": ranks_c,
                         "wall_s": c["wall_s"]}
         ranks_d = pipe_ranks(d, "interleaved (contended)",
@@ -4835,6 +4961,299 @@ def mpmd_phase(torch, pipe: dict) -> dict:
 
 # ------------------------------------------------- the run readers (16)
 
+# ------------------------------------ the pipe's compositions (phase 21)
+
+# the phase's wall budget: (a)'s four ranks alone, then (b), (c) (four
+# ranks each) and (d)'s two pipe ranks side by side ((d)'s one process
+# runs in phase 13); 94-95 s measured on the H100 with that process here
+# too (the target: under 90 s)
+COMPOSE_BUDGET_S = 120.0
+# phase 19's flags with one EMA rate (the losses do not read the EMA; a
+# rank's final save and the update carry two fewer copies)
+COMPOSE_EMA = ["--ema_rate", "0.99"]
+COMPOSE_FLAGS = ["--distributed", "--nprocs", "4", "--pipe", "2"]
+# step 1 of the ring against the GPipe run (the largest distance of a
+# GPT-2 sp2 run from no group seen on the H100), every step within the
+# pipe bar (phase 19's)
+RING_STEP1_REL = 1.109e-4
+
+
+def fsdp_pipe_elements(cfg: dict, stages: int, fsdp: int) -> int:
+    """The elements a ``--pipe stages --fsdp fsdp`` rank's update covers:
+    its fsdp piece of its stage's embed-cut block weights (qkv, out, wi,
+    wo), its stage's LayerNorm rows whole, and the rest of the model
+    (GPT-2's vocab 50257 is odd: the table's fsdp cut drops and it stays
+    whole, as ``fix_spec`` drops it)."""
+    from distributed_pipeline_tpu_torch.models import \
+        create_model_from_config
+    model = create_model_from_config(**cfg, scan_layers=True, device="meta")
+    cut = sum(p.numel() for n, p in model.named_parameters()
+              if ".blocks." in n
+              and n.split(".")[-1] in ("qkv", "out", "wi", "wo"))
+    rows = sum(p.numel() for n, p in model.named_parameters()
+               if ".blocks.ln" in n)
+    rest = sum(p.numel() for n, p in model.named_parameters()
+               if ".blocks." not in n)
+    return cut // (stages * fsdp) + rows // stages + rest
+
+
+def moe_train_argv(run: str, cfg: dict, steps: int, batch: int, micro: int,
+                   extra=()) -> list:
+    """Phase 13's ``run.train`` flags for an MoE configuration."""
+    dataset = ("synthetic-lm" if cfg["model_family"] == "gpt2"
+               else "synthetic-seq2seq")
+    return (["--checkpoint_path", run, "--dataset", dataset]
+            + cfg_argv(cfg)
+            + ["--batch_size", str(batch), "--microbatch", str(micro),
+               "--learning_steps", str(steps), "--lr", "3e-4",
+               "--ema_rate", "0.9999", "--attention_impl", "auto",
+               "--fused_update", "auto", "--log_interval", str(steps),
+               "--save_interval", "0", "--seed", "0"] + list(extra))
+
+
+def compose_ranks(r: dict, what: str, want: list, world: int) -> list:
+    """Each rank's sidecar of a phase-21 run, checked: gloo on ``cuda:0``
+    (a world of one: no group), the launches ``want[rank]``, no plain
+    call, every rank's losses and final parameters equal; printed with
+    the step time, the exchange's and the gathers' bytes and the peak
+    memory."""
+    ranks = r["ranks"]
+    check(len(ranks) == world, f"{what}: {len(ranks)} sidecars")
+    for side in ranks:
+        i = side["rank"]
+        check(world == 1 or (side["backend"] == "gloo"
+                             and side["device"] == "cuda:0"),
+              f"{what} rank {i}: {side['backend']} {side['device']}")
+        check(side["launches"] == want[i],
+              f"{what} rank {i}: launches {side['launches']}, expected "
+              f"{want[i]}")
+        check(not any(side["plain_calls"].values()),
+              f"{what} rank {i}: plain calls {side['plain_calls']}")
+        steps = max(side["steps"], 1)
+        print(f"# compositions {what} rank {i} ({CARD}): mesh "
+              f"{json.dumps(side['mesh'])}, stage "
+              f"{json.dumps(side['pipe'])}, launches {side['launches']}, "
+              f"lse backward {side['lse_backward_launches']}, step "
+              f"{side.get('step_time_s', 0.0):.6f} s, pipe_p2p "
+              f"{side['pipe_p2p_s_per_step']:.6f} s a step, "
+              f"{side['pipe_bytes']} B sent, fsdp gathers "
+              f"{side['fsdp_gathers']} of {side['fsdp_gathered_bytes']} B "
+              f"({side['fsdp_gathered_bytes'] / steps:.0f} B a step), "
+              f"all-reduce {side['allreduce_s_per_step']:.6f} s and "
+              f"reduce-scatter {side['reduce_scatter_s_per_step']:.6f} s a "
+              f"step, update over {side['layout']['owned']} of "
+              f"{side['layout']['local']} local elements, peak memory "
+              f"{side['peak_memory_bytes']} B", flush=True)
+    for side in ranks[1:]:
+        check([h["loss"] for h in side["history"]]
+              == [h["loss"] for h in ranks[0]["history"]],
+              f"{what}: rank {side['rank']} logged other losses")
+        check(side["params_sha256"] == ranks[0]["params_sha256"],
+              f"{what}: rank {side['rank']}'s final parameters differ")
+    return [{k: side.get(k) for k in (
+        "rank", "mesh", "pipe", "launches", "lse_backward_launches",
+        "plain_calls", "pipe_p2p_s_per_step", "pipe_bytes", "fsdp_gathers",
+        "fsdp_gathered_bytes", "fsdp_largest_unit_bytes",
+        "allreduce_s_per_step", "reduce_scatter_s_per_step",
+        "all_gather_s_per_step", "step_time_s", "tokens_per_sec",
+        "peak_memory_bytes", "layout", "update_share", "params_sha256")}
+        for side in ranks]
+
+
+def ring_held(steps: list, ref: list, what: str) -> dict:
+    """The ring-in-stage run's losses against the GPipe run's: step 1
+    within ``RING_STEP1_REL`` (the hops' bf16 partial outputs folded in
+    f32, where one kernel call attends the whole row), every step within
+    5e-3 (phase 19's pipe bar), grad norms within 3e-2 (phase 12's)."""
+    got = [h["loss"] for h in steps]
+    rels = [abs(x - y) / abs(y) for x, y in zip(got, ref["losses"])]
+    gn = max(abs(h["grad_norm"] - g) / g
+             for h, g in zip(steps, ref["grad_norms"]))
+    check(len(got) == len(ref["losses"]) and rels[0] <= RING_STEP1_REL
+          and max(rels) <= 5e-3 and gn <= 3e-2,
+          f"{what}: losses {got} vs {ref['losses']}: relative {rels} "
+          f"(step 1 within {RING_STEP1_REL}, all within 5e-3), grad norms "
+          f"relative {gn} (3e-2)")
+    return {"max_rel": max(rels), "step1_rel": rels[0],
+            "grad_norm_max_rel": gn}
+
+
+def compose_phase(torch, pipe: dict, moe: dict, rows: dict) -> dict:
+    """Phase 21 (see the module doc). ``pipe`` is phase 19's output (its
+    1F1B and GPipe runs hold (a) and (c)), ``moe`` phase 13's GPT-2 moe8
+    record: its run without remat holds (d)'s one process, which ran
+    beside phase 13's runs (``scan_run``, taken out here), and that
+    process holds (d)'s pipe run; ``rows`` the update's kernel rows at
+    the new element counts (checked against the runs')."""
+    t0 = time.perf_counter()
+    layers, micro, steps = GPT2_BASE["num_layers"], 2, DP_STEPS
+    scan = ["--scan_layers", "true"]
+    half = layers // 2
+    out: dict = {"steps": steps, "contended": ["zero1", "sequence",
+                                               "moe8_scan", "moe8_pipe"]}
+    d1 = moe.pop("scan_run")
+    named = moe["no_remat"]
+    with tempfile.TemporaryDirectory() as work:
+        run = {k: os.path.join(work, k) for k in (
+            "fsdp", "zero1", "sequence", "moe8_pipe")}
+        # (a) alone: --pipe 2 --fsdp 2, batch 8 (4 a row group) in
+        # microbatches of 4 (2), one-row chunks as phase 19's 1F1B
+        a = dp_run(run["fsdp"], COMPOSE_FLAGS + ["--fsdp", "2"]
+                   + dp_argv(run["fsdp"], 4, micro) + scan + COMPOSE_EMA
+                   + ["--pp_schedule", "1f1b", "--pp_chunks", "2"],
+                   "pipe2 fsdp2")
+        # (b), (c) and (d) side by side (contended)
+        started = {
+            "zero1": dp_start(COMPOSE_FLAGS + [
+                "--dp", "2", "--shard_optimizer", "true"]
+                + dp_argv(run["zero1"], 4, micro) + scan + COMPOSE_EMA
+                + ["--pp_schedule", "1f1b", "--pp_chunks", "2"]),
+            # a 1F1B request: a ring inside a stage takes GPipe
+            "sequence": dp_start(COMPOSE_FLAGS + ["--sequence", "2"]
+                                 + dp_argv(run["sequence"], 8, 4) + scan
+                                 + COMPOSE_EMA + ["--pp_schedule", "1f1b",
+                                    "--pp_chunks", "4"]),
+            "moe8_pipe": dp_start(PIPE_FLAGS + moe_train_argv(
+                run["moe8_pipe"], GPT2_MOE8, MOE_STEPS, 8, 4, scan + [
+                    "--pp_schedule", "1f1b", "--pp_chunks", "4"]))}
+        done = {k: dp_finish(job, run[k], k) for k, job in started.items()}
+    # (a): 2 microbatches of 2 one-row chunks through 6 layers a rank;
+    # the B slot recomputes the stage
+    per = half * 2 * micro
+    ranks_a = compose_ranks(a, "pipe2 fsdp2", [{
+        "flash_forward": 2 * per * steps, "flash_backward": per * steps,
+        "fused_adamw_ema": steps}] * 4, 4)
+    elements = rows["fsdp"]["elements"]
+    check([x["layout"]["owned"] for x in ranks_a] == [elements] * 4
+          and [x["layout"]["local"] for x in ranks_a] == [elements] * 4,
+          f"pipe2 fsdp2 ranks update "
+          f"{[x['layout']['owned'] for x in ranks_a]} elements, "
+          f"expected {elements} (the local count)")
+    su = ranks_a[0]["layout"]["stage_unit_elements"]
+    check(all(x["fsdp_gathers"] == micro * steps
+              and x["fsdp_gathered_bytes"] == 4 * su * micro * steps
+              for x in ranks_a),
+          f"pipe2 fsdp2 gathers {[x['fsdp_gathers'] for x in ranks_a]} "
+          f"of {[x['fsdp_gathered_bytes'] for x in ranks_a]} B: one "
+          f"stage unit ({su} elements) a microbatch")
+    from fractions import Fraction
+    n = sum(Fraction(x["update_share"]) for x in ranks_a)
+    check(n == ranks_a[0]["layout"]["n"],
+          f"pipe2 fsdp2: the ranks' update shares sum to {n}, not the "
+          f"model's {ranks_a[0]['layout']['n']}")
+    ref_b = pipe["1f1b"]
+    held_a = held_to_scan(a["steps"], [
+        {"loss": x, "grad_norm": g} for x, g in
+        zip(ref_b["losses"], ref_b["grad_norms"])], "pipe2 fsdp2")
+    peak19 = [x["peak_memory_bytes"] for x in ref_b["ranks"]]
+    print(f"# compositions pipe2 fsdp2 (alone) ({CARD}): vs phase 19's "
+          f"1F1B {held_a}; peak memory a rank "
+          f"{[x['peak_memory_bytes'] for x in ranks_a]} B against phase "
+          f"19's 1F1B {peak19} B; gathered {4 * su * micro} B a step a "
+          f"rank ({micro} stage gathers of {4 * su} B)", flush=True)
+    out["fsdp"] = {"losses": [h["loss"] for h in a["steps"]],
+                   "grad_norms": [h["grad_norm"] for h in a["steps"]],
+                   "vs_pipe_1f1b": held_a, "ranks": ranks_a,
+                   "phase19_1f1b_peak_bytes": peak19,
+                   "gathered_bytes_per_step": 4 * su * micro,
+                   "wall_s": a["wall_s"]}
+    # (b): the same chunks; the owned range half a rank's buffer
+    b = done["zero1"]
+    ranks_b = compose_ranks(b, "pipe2 zero1 (contended)", [{
+        "flash_forward": 2 * per * steps, "flash_backward": per * steps,
+        "fused_adamw_ema": steps}] * 4, 4)
+    check([x["layout"]["owned"] for x in ranks_b]
+          == [rows["zero1"]["elements"]] * 4,
+          f"pipe2 zero1 owned {[x['layout']['owned'] for x in ranks_b]}, "
+          f"expected {rows['zero1']['elements']}")
+    held_b = held_to_scan(b["steps"], a["steps"], "pipe2 zero1 vs (a)")
+    bitwise_b = [h["loss"] for h in b["steps"]] == out["fsdp"]["losses"]
+    out["zero1"] = {"losses": [h["loss"] for h in b["steps"]],
+                    "vs_fsdp": held_b, "bitwise_vs_fsdp": bitwise_b,
+                    "ranks": ranks_b, "wall_s": b["wall_s"]}
+    # (c): sequence index r // 2 holds positions [512 i, 512 (i + 1));
+    # index 0 attends its own slice (one launch a layer-chunk), index 1
+    # its own and the earlier one (two); GPipe: no recompute
+    c = done["sequence"]
+    one = half * 4 * 2 * steps
+    want_c = [{"flash_forward": one * (1 + r // 2),
+               "flash_backward": one * (1 + r // 2),
+               "fused_adamw_ema": steps} for r in range(4)]
+    ranks_c = compose_ranks(c, "pipe2 sequence2 (contended)", want_c, 4)
+    check([x["pipe"]["schedule"] for x in ranks_c] == ["gpipe"] * 4
+          and all(x["lse_backward_launches"] == w["flash_backward"]
+                  for x, w in zip(ranks_c, want_c)),
+          f"pipe2 sequence2: schedules "
+          f"{[x['pipe']['schedule'] for x in ranks_c]}, g_lse arm "
+          f"{[x['lse_backward_launches'] for x in ranks_c]}")
+    held_c = ring_held(c["steps"], pipe["gpipe"], "pipe2 sequence2")
+    out["sequence"] = {"losses": [h["loss"] for h in c["steps"]],
+                       "vs_pipe_gpipe": held_c, "ranks": ranks_c,
+                       "wall_s": c["wall_s"]}
+    # (d): the stacked moe8 model against phase 13's named blocks, then
+    # at --pipe 2 (GPipe, 3 groups a stage) against the one process
+    d2 = done["moe8_pipe"]
+    moe_per = layers * 2 * MOE_STEPS
+    ranks_d1 = compose_ranks(d1, "moe8 scan_layers (beside phase 13's "
+                             "runs: contended)", [{
+                                 "flash_forward": moe_per,
+                                 "flash_backward": moe_per,
+                                 "fused_adamw_ema": MOE_STEPS}], 1)
+    held_d1 = held_to_scan(d1["steps"], [
+        {"loss": x, "grad_norm": g} for x, g in
+        zip(named["losses"], named["grad_norms"])], "moe8 scan_layers")
+    aux1 = [h["moe_aux"] for h in d1["steps"]]
+    check(max(abs(x - y) / y for x, y in zip(aux1, named["moe_aux"]))
+          <= 5e-3, f"moe8 scan_layers moe_aux {aux1} vs "
+                   f"{named['moe_aux']}")
+    pipe_per = half * 4 * 2 * MOE_STEPS
+    ranks_d2 = compose_ranks(d2, "moe8 pipe2 (contended)", [{
+        "flash_forward": pipe_per, "flash_backward": pipe_per,
+        "fused_adamw_ema": MOE_STEPS}] * 2, 2)
+    check([x["pipe"]["schedule"] for x in ranks_d2] == ["gpipe"] * 2
+          and [x["layout"]["owned"] for x in ranks_d2]
+          == [rows["moe8_pipe"]["elements"]] * 2,
+          f"moe8 pipe2: schedules {[x['pipe']['schedule'] for x in ranks_d2]}"
+          f", owned {[x['layout']['owned'] for x in ranks_d2]}")
+    held_d2 = held_to_scan(d2["steps"], d1["steps"], "moe8 pipe2")
+    # the aux at step 1 (the same weights: the stages' group sums over
+    # the chunks) within 1e-6; later steps follow weights a bf16-rounded
+    # chunk gradient apart, and the top-k routing turns that into larger
+    # aux moves than the loss's (printed, held finite; the losses hold
+    # the pipe bar)
+    aux2 = [h["moe_aux"] for h in d2["steps"]]
+    rel_aux = [abs(x - y) / y for x, y in zip(aux2, aux1)]
+    check(rel_aux[0] <= 1e-6 and all(math.isfinite(x) for x in aux2),
+          f"moe8 pipe2 moe_aux {aux2} vs one process {aux1}: {rel_aux}")
+    out["moe8"] = {
+        "scan": {"losses": [h["loss"] for h in d1["steps"]],
+                 "moe_aux": aux1, "vs_named": held_d1,
+                 "bitwise_vs_named": [h["loss"] for h in d1["steps"]]
+                 == named["losses"], "ranks": ranks_d1,
+                 "wall_s": d1["wall_s"]},
+        "pipe": {"losses": [h["loss"] for h in d2["steps"]],
+                 "moe_aux": aux2, "vs_scan": held_d2,
+                 "moe_aux_rel": rel_aux, "ranks": ranks_d2,
+                 "wall_s": d2["wall_s"]}}
+    print(f"# compositions ({CARD}): zero1 vs (a) {held_b} (bitwise "
+          f"{bitwise_b}); sequence vs phase 19's GPipe {held_c}; moe8 "
+          f"scan_layers vs phase 13's named blocks {held_d1} (bitwise "
+          f"{out['moe8']['scan']['bitwise_vs_named']}); moe8 pipe2 vs the "
+          f"one process {held_d2}, moe_aux relative {rel_aux}", flush=True)
+    for key, r in (("fsdp", ranks_a), ("zero1", ranks_b),
+                   ("moe8_pipe", ranks_d2)):
+        rows[key]["launches"] = [x["launches"]["fused_adamw_ema"] for x in r]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# compositions ({CARD}): walls {a['wall_s']:.1f} (pipe2 fsdp2 "
+          f"alone), then " + ", ".join(f"{k} {v['wall_s']:.1f}" for k, v in
+                                        done.items())
+          + f" side by side (contended); phase {out['phase_s']:.1f} s of "
+          f"its {COMPOSE_BUDGET_S:.0f} s budget", flush=True)
+    check(out["phase_s"] <= COMPOSE_BUDGET_S,
+          f"phase 21 took {out['phase_s']:.1f} s, over {COMPOSE_BUDGET_S} s")
+    return out
+
+
 READERS_BUDGET_S = 30.0
 
 
@@ -4998,6 +5417,22 @@ def main() -> int:
         "fused update gpt2 pipe2 stage", update_phase, torch, bw, f32_peak,
         GPT2_BASE, name="fused_adamw_ema_gpt2_pipe2_stage",
         elements=pipe_stage_elements(GPT2_BASE, 2))
+    # phase 21's update shapes: a --pipe 2 --fsdp 2 rank's local elements,
+    # a --pipe 2 ZeRO-1 rank's owned half of its stage buffer, a moe8
+    # --pipe 2 rank's stage buffer
+    update_compose = {
+        "fsdp": clocked(
+            "fused update gpt2 pipe2 fsdp2", update_phase, torch, bw,
+            f32_peak, GPT2_BASE, name="fused_adamw_ema_gpt2_pipe2_fsdp2",
+            elements=fsdp_pipe_elements(GPT2_BASE, 2, 2)),
+        "zero1": clocked(
+            "fused update gpt2 pipe2 zero1", update_phase, torch, bw,
+            f32_peak, GPT2_BASE, name="fused_adamw_ema_gpt2_pipe2_zero1",
+            elements=pipe_stage_elements(GPT2_BASE, 2) // 2),
+        "moe8_pipe": clocked(
+            "fused update gpt2 moe8 pipe2", update_phase, torch, bw,
+            f32_peak, GPT2_MOE8, name="fused_adamw_ema_gpt2_moe8_pipe2",
+            elements=pipe_stage_elements(GPT2_MOE8, 2))}
     small_model_phase(torch)
     t0 = time.perf_counter()
     serve, spec, options = serve_phase(torch, fd, bw, bf16_peak)
@@ -5098,6 +5533,22 @@ def main() -> int:
     for row in (*flash, update):
         row["launches_mpmd"] = [r["launches"][row["name"]]
                                 for r in mpmd["gpt2"]["stages"]]
+    # phase 21: the pipe's compositions, against phases 19 and 13
+    compose = clocked("the pipe's compositions", compose_phase, torch, pipe,
+                      moe["gpt2_moe8"], update_compose)
+    for row in flash:
+        for key, runs in (("fsdp2", compose["fsdp"]["ranks"]),
+                          ("zero1", compose["zero1"]["ranks"]),
+                          ("sequence2", compose["sequence"]["ranks"]),
+                          ("moe8_scan", compose["moe8"]["scan"]["ranks"]),
+                          ("moe8", compose["moe8"]["pipe"]["ranks"])):
+            row[f"launches_compose_{key}"] = [r["launches"][row["name"]]
+                                              for r in runs]
+    lse_row["launches_compose_sequence2"] = [
+        r["lse_backward_launches"] for r in compose["sequence"]["ranks"]]
+    update_moe["launches_compose_moe8_scan"] = [
+        r["launches"]["fused_adamw_ema"]
+        for r in compose["moe8"]["scan"]["ranks"]]
     # phase 15: the finished attempts' launches, read from their sidecars
     update_dq["launches_tooling"] = {
         key: tools[key]["launches"]["fused_adamw_ema"]
@@ -5127,11 +5578,12 @@ def main() -> int:
     print(json.dumps({"sharded_state": shard}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
     print(json.dumps({"mpmd": mpmd}), flush=True)
+    print(json.dumps({"compositions": compose}), flush=True)
     print(f"# chip_smoke: all phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [*decode, *span, *flash, lse_row, update,
                                   update_dq, update_moe, update_shard,
-                                  update_pipe]}),
+                                  update_pipe, *update_compose.values()]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,14 +13,18 @@ in through ``run/train.apply_tuned_layout``). Sharding with ``--sequence >
 1`` is refused (ROADMAP A.8g). ``--scan_layers`` stacks the layer weights
 and ``--pipe S`` makes each S consecutive ranks one pipeline
 (``--pp_schedule`` gpipe, 1f1b or interleaved over ``--pp_chunks`` chunks a
-microbatch, ``--pp_virtual`` slices a rank under interleaved); pipe with
-``--fsdp > 1``, ``--shard_optimizer``, ``--sequence > 1`` or MoE, and
-``--scan_layers`` with MoE, are refused (ROADMAP A.9c). ``--mpmd`` trains
-the stacked layers as ``--mpmd_stages`` processes, one supervised ring a
-stage, under a host driver (``run/train.py``, ``mpmd/``); it needs
-``--scan_layers true``, the 1f1b or gpipe schedule and ``--learning_steps
-> 0``, and refuses ``--pipe``, and a sub-mesh inside a stage (``--dp``,
-``--fsdp``, ``--sequence`` > 1, ``--shard_optimizer``: ROADMAP A.9c).
+microbatch, ``--pp_virtual`` slices a rank under interleaved). The pipe
+composes with ``--fsdp`` (ZeRO-3 inside a stage), ``--shard_optimizer``
+and ``--sequence`` (a ring inside a stage, on the GPipe stream), and an
+MoE model stacks into the JAX ``MoEScanBlocks``; MoE under a pipe
+composes with the data axis only (the JAX ``moe_stacked_specs``
+refusal). ``--mpmd`` trains the stacked layers as ``--mpmd_stages``
+processes, one supervised ring a stage, under a host driver
+(``run/train.py``, ``mpmd/``); it needs ``--scan_layers true``, the 1f1b
+or gpipe schedule and ``--learning_steps > 0``, and refuses ``--pipe``,
+an MoE model (the JAX stages are dense) and a sub-mesh inside a stage
+(``--dp``, ``--fsdp``, ``--sequence`` > 1, ``--shard_optimizer``: a JAX
+stage is one process on one device, ROADMAP C.19).
 
 Every field is a ``--flag`` with the JAX package's name, default and
 choices, so the port trains what the JAX package trains with no flags:
@@ -44,8 +48,8 @@ from ..parallel.mesh import resolve_axis_sizes
 from ..parallel.partition import load_partition_artifact
 from ..utils.perf import parse_profile_steps
 
-__all__ = ["TrainSettings", "DEFERRED", "PIPE_LATER", "PIPE_NEEDS_SCAN",
-           "MPMD_SUBMESH", "MPMD_DROPS", "NOISE_SCHEDULES", "pipe_refusal",
+__all__ = ["TrainSettings", "DEFERRED", "PIPE_NEEDS_SCAN", "MPMD_SUBMESH",
+           "MPMD_DENSE", "MPMD_DROPS", "NOISE_SCHEDULES", "pipe_refusal",
            "mpmd_refusal", "create_parser", "parse_settings"]
 
 # the schedules models/diffusion.named_beta_schedule builds (named here:
@@ -59,10 +63,6 @@ DEFERRED: Dict[str, Tuple[object, str]] = {
     "auto_tune": (False, "ROADMAP A.10 (auto-tuner)"),
     "auto_tune_budget_s": (60.0, "ROADMAP A.10 (auto-tuner)"),
 }
-# the compositions of the pipe axis and the stacked layers a later slice
-# brings
-PIPE_LATER = ("ROADMAP A.9c (pipe x fsdp, x ZeRO-1, x sequence, MoE scan "
-              "blocks)")
 # the JAX entry point's refusal of a pipe axis over named blocks
 PIPE_NEEDS_SCAN = ("--pipe > 1 requires --scan_layers true (stacked layer "
                    "weights are what shard into pipeline stages); without "
@@ -71,8 +71,13 @@ PIPE_NEEDS_SCAN = ("--pipe > 1 requires --scan_layers true (stacked layer "
 # compiles nothing across runs, so only the JAX default and "off" (both
 # meaning "nothing to cache" here) are accepted
 COMPILATION_CACHE_DIRS = ("auto", "off")
-# what an MPMD stage cannot hold yet: more than one process of its own
-MPMD_SUBMESH = "ROADMAP A.9c (a sub-mesh inside an MPMD stage)"
+# what an MPMD stage does not hold: more than one process of its own (a
+# JAX stage is one process on one device; ROADMAP C.19)
+MPMD_SUBMESH = ("ROADMAP C.19 (an MPMD stage is one process on one device, "
+                "as the JAX stages are)")
+# the JAX MPMD stages slice the dense stacked blocks only
+MPMD_DENSE = ("--mpmd with --moe_experts > 0: the JAX MPMD stages slice the "
+              "dense stacked blocks (mpmd/stage_math.py), not MoE groups")
 # what the MPMD stages leave out, as the JAX stages do (each runs
 # optax.adamw over its slice at a constant rate and snapshots into its
 # own dir): under --mpmd these options are refused unless at their
@@ -89,22 +94,18 @@ MPMD_DROPS = {
 
 
 def pipe_refusal(pipe: int, scan_layers: bool, fsdp: int = 1,
-                 shard_optimizer: bool = False, sequence: int = 1,
-                 moe_experts: int = 0) -> str:
+                 sequence: int = 1, moe_experts: int = 0) -> str:
     """Why this composition of the pipe axis and the stacked layers is
-    not trained, or "" when it is."""
+    not trained, or "" when it is: the JAX refusals (a pipe over named
+    blocks; MoE stages beside any axis but data, the JAX
+    ``moe_stacked_specs`` message)."""
     if pipe > 1 and not scan_layers:
         return PIPE_NEEDS_SCAN
-    if pipe > 1:
-        for bad, what in ((fsdp > 1, "--fsdp > 1"),
-                          (shard_optimizer, "--shard_optimizer"),
-                          (sequence > 1, "--sequence > 1"),
-                          (moe_experts > 0, "--moe_experts > 0")):
-            if bad:
-                return f"--pipe > 1 with {what} comes with {PIPE_LATER}"
-    if scan_layers and moe_experts > 0:
-        return (f"--scan_layers with --moe_experts > 0 (the JAX "
-                f"MoEScanBlocks) comes with {PIPE_LATER}")
+    if pipe > 1 and moe_experts > 0:
+        for ax, n in (("fsdp", fsdp), ("sequence", sequence)):
+            if n > 1:
+                return (f"MoE x pipe composes with the data axis only "
+                        f"(v1); mesh has {ax}={n}")
     return ""
 
 
@@ -130,11 +131,13 @@ def mpmd_refusal(s: "TrainSettings") -> str:
                 "stages are separate processes — set --mpmd_stages instead")
     if s.mpmd_stages < 2:
         return f"--mpmd_stages {s.mpmd_stages}: an MPMD pipeline needs >= 2"
+    if s.moe_experts > 0:
+        return MPMD_DENSE
     for bad, what in ((s.dp > 1, "--dp > 1"), (s.fsdp > 1, "--fsdp > 1"),
                       (s.sequence > 1, "--sequence > 1"),
                       (s.shard_optimizer, "--shard_optimizer")):
         if bad:
-            return f"--mpmd with {what} comes with {MPMD_SUBMESH}"
+            return f"--mpmd with {what} is refused: {MPMD_SUBMESH}"
     defaults = {f.name: f.default for f in dataclasses.fields(s)}
     for name, why in MPMD_DROPS.items():
         if getattr(s, name) != defaults[name]:
@@ -322,8 +325,9 @@ class TrainSettings:
                "StageLink transport instead of a collective; requires "
                "--scan_layers true; a stage runs AdamW over its slice at "
                "a constant --lr with no EMA, clipping or warmup; a "
-               "sub-mesh inside a stage (dp/fsdp/sequence > 1, "
-               "shard_optimizer) comes with ROADMAP A.9c")
+               "stage is one process (dp/fsdp/sequence > 1 and "
+               "shard_optimizer are refused, ROADMAP C.19) over dense "
+               "blocks (no MoE)")
     auto_tune_budget_s: float = _f(60.0, "inline auto-tuner budget")
     scan_unroll: int = _f(0, "the JAX layer scan's unroll factor (<= 0 = "
                              "auto, else the factor), read as the JAX flag; "
@@ -404,8 +408,7 @@ class TrainSettings:
             raise ValueError(f"--pp_chunks and --pp_virtual must be >= 1, "
                              f"got {self.pp_chunks} and {self.pp_virtual}")
         refused = pipe_refusal(self.pipe, self.scan_layers, self.fsdp,
-                               self.shard_optimizer, self.sequence,
-                               self.moe_experts)
+                               self.sequence, self.moe_experts)
         if refused:
             raise ValueError(refused)
         if self.seq_len % self.sequence:

@@ -15,8 +15,10 @@ module whose weights carry a leading ``[num_layers]`` dim, the JAX
 ``params/backbone/blocks/{qkv, ...}`` tree, so the flax bridge holds for
 it as it is. :func:`stack_blocks` and :func:`unstack_blocks` move a state
 dict between the named blocks (``backbone.block_i.attn.qkv``, ...) and the
-stacked ones (``backbone.blocks.qkv[i]``), and :func:`to_layout` gives a
-state dict the layout a model's parameter names ask for, so a stacked
+stacked ones (``backbone.blocks.qkv[i]``; an MoE model's groups
+``backbone.blocks.dense_qkv[g, j]`` and ``backbone.blocks.moe_qkv[g]``,
+the JAX ``MoEScanBlocks`` layout), and :func:`to_layout` gives a state
+dict the layout a model's parameter names ask for, so a stacked
 checkpoint loads into the named-block model and the reverse.
 """
 
@@ -31,7 +33,7 @@ from .models.diffuseq import DIFFUSEQ_EMB_DIM
 
 __all__ = ["params_from_flax", "params_to_flax", "init_params",
            "opt_state_from_optax", "stack_blocks", "unstack_blocks",
-           "to_layout", "STACKED_FROM_NAMED"]
+           "to_layout", "STACKED_FROM_NAMED", "MOE_FROM_NAMED"]
 
 # a named block's leaf -> its stacked weight (models/pipeline.py)
 STACKED_FROM_NAMED = {"ln1.scale": "ln1_scale", "ln1.bias": "ln1_bias",
@@ -47,21 +49,58 @@ def _num_named_layers(state: Mapping[str, Any]) -> int:
                 if k.startswith(_NAMED)})
 
 
+# an MoE block's router and experts -> the MoE groups' weights
+MOE_FROM_NAMED = {"moe.router": "router", "moe.wi": "wi", "moe.wo": "wo"}
+
+
+def _moe_every(state: Mapping[str, Any]) -> int:
+    """The MoE period of a named state (0 without MoE blocks): block i is
+    an MoE block when ``i % moe_every == moe_every - 1``, so the first
+    one sits at ``moe_every - 1``."""
+    moe = sorted(int(k[len(_NAMED):].split(".")[0]) for k in state
+                 if k.startswith(_NAMED) and k.endswith(".moe.router"))
+    return moe[0] + 1 if moe else 0
+
+
+def _rows(state: Mapping[str, Any], layers, leaf: str) -> torch.Tensor:
+    return torch.stack([torch.as_tensor(state[f"{_NAMED}{i}.{leaf}"])
+                        for i in layers])
+
+
 def stack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
     """Named blocks -> stacked: ``backbone.block_i.<leaf>`` of every i
-    stacked in layer order into ``backbone.blocks.<name>``; the other
-    keys as they are. Raises ``KeyError`` for a block the stacked layout
-    cannot hold (an MoE block)."""
+    stacked in layer order into ``backbone.blocks.<name>``; with MoE
+    blocks (every ``moe_every``-th) into the JAX ``MoEScanBlocks`` groups:
+    group g's dense layers ``g*me .. g*me + me-2`` into ``dense_<name>
+    [G, me-1, ...]`` and its MoE block ``g*me + me-1`` into ``moe_<name>
+    [G, ...]``. The other keys as they are. Raises ``KeyError`` for a
+    block the stacked layout cannot hold."""
     n = _num_named_layers(state)
     out = {k: v for k, v in state.items() if not k.startswith(_NAMED)}
     if not n:
         return out
-    for leaf, name in STACKED_FROM_NAMED.items():
-        out[_STACKED + name] = torch.stack(
-            [torch.as_tensor(state[f"{_NAMED}{i}.{leaf}"])
-             for i in range(n)])
-    extra = set(state) - set(out) - {f"{_NAMED}{i}.{leaf}" for i in range(n)
-                                     for leaf in STACKED_FROM_NAMED}
+    me = _moe_every(state)
+    if not me:
+        for leaf, name in STACKED_FROM_NAMED.items():
+            out[_STACKED + name] = _rows(state, range(n), leaf)
+    else:
+        if n % me:
+            raise KeyError(f"{n} named blocks do not group by moe_every "
+                           f"{me}")
+        G = n // me
+        moe = [g * me + me - 1 for g in range(G)]
+        for leaf, name in STACKED_FROM_NAMED.items():
+            if me > 1:
+                out[f"{_STACKED}dense_{name}"] = torch.stack(
+                    [_rows(state, range(g * me, g * me + me - 1), leaf)
+                     for g in range(G)])
+            if not leaf.startswith("mlp."):
+                out[f"{_STACKED}moe_{name}"] = _rows(state, moe, leaf)
+        for leaf, name in MOE_FROM_NAMED.items():
+            out[f"{_STACKED}moe_{name}"] = _rows(state, moe, leaf)
+    used = {f"{_NAMED}{i}.{leaf}" for i in range(n)
+            for leaf in list(STACKED_FROM_NAMED) + list(MOE_FROM_NAMED)}
+    extra = set(state) - set(out) - used
     if extra:
         raise KeyError(f"stacked blocks hold no {sorted(extra)[0]}")
     return out
@@ -69,8 +108,26 @@ def stack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 def unstack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
     """Stacked blocks -> named: row i of ``backbone.blocks.<name>`` to
-    ``backbone.block_i.<leaf>``; the other keys as they are."""
+    ``backbone.block_i.<leaf>`` (the MoE groups' rows back to their
+    layers); the other keys as they are."""
     out = {k: v for k, v in state.items() if not k.startswith(_STACKED)}
+    if _STACKED + "moe_qkv" in state:
+        G = state[_STACKED + "moe_qkv"].shape[0]
+        dense = state.get(_STACKED + "dense_qkv")
+        me = (dense.shape[1] if dense is not None else 0) + 1
+        for leaf, name in STACKED_FROM_NAMED.items():
+            for g in range(G):
+                for j in range(me - 1):
+                    out[f"{_NAMED}{g * me + j}.{leaf}"] = \
+                        state[f"{_STACKED}dense_{name}"][g][j]
+                if not leaf.startswith("mlp."):
+                    out[f"{_NAMED}{g * me + me - 1}.{leaf}"] = \
+                        state[f"{_STACKED}moe_{name}"][g]
+        for leaf, name in MOE_FROM_NAMED.items():
+            for g in range(G):
+                out[f"{_NAMED}{g * me + me - 1}.{leaf}"] = \
+                    state[f"{_STACKED}moe_{name}"][g]
+        return out
     if _STACKED + "qkv" not in state:
         return out
     n = state[_STACKED + "qkv"].shape[0]
@@ -81,13 +138,17 @@ def unstack_blocks(state: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _stacked(keys) -> bool:
+    return _STACKED + "qkv" in keys or _STACKED + "moe_qkv" in keys
+
+
 def to_layout(state: Mapping[str, Any], names) -> Mapping[str, Any]:
     """``state`` in the block layout that the parameter ``names`` use
-    (stacked when they hold ``backbone.blocks.qkv``, else named): as it
-    is when it already is, else stacked or unstacked."""
-    names = set(names)
-    stacked_model = _STACKED + "qkv" in names
-    if (_STACKED + "qkv" in state) == stacked_model:
+    (stacked when they hold ``backbone.blocks.qkv`` or, for MoE groups,
+    ``backbone.blocks.moe_qkv``; else named): as it is when it already
+    is, else stacked or unstacked."""
+    stacked_model = _stacked(set(names))
+    if _stacked(state) == stacked_model:
         return state
     return stack_blocks(state) if stacked_model else unstack_blocks(state)
 

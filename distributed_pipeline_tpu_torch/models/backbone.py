@@ -58,9 +58,12 @@ is kept, and the block runs again in the backward. Without gradients
 (``models/pipeline.py`` ``PipelinedBlocks``, submodule ``blocks``: each
 weight once with a leading ``[num_layers]`` dim, the JAX layout) and runs
 them in a loop over that dim, as the JAX backbone routes to
-``PipelinedBlocks``; a pipe group cuts the leading dim into stages
+``PipelinedBlocks``; with ``moe_experts`` > 0 the submodule is the JAX
+``MoEScanBlocks`` (groups of ``moe_every - 1`` dense layers and one MoE
+block). A pipe group cuts the leading dim into stages
 (``models/schedule_1f1b.py``). Stacked blocks decode through the dense
-cache only: a paged cache raises the JAX refusal.
+cache only, and stacked MoE blocks not at all (the samplers recompute):
+a paged cache raises the JAX refusal.
 """
 
 from __future__ import annotations
@@ -350,11 +353,15 @@ class TransformerBackbone(nn.Module):
         self.num_layers = num_layers
         self.remat = remat
         self.scan_layers = scan_layers
-        if scan_layers:
-            if moe_experts > 0:
-                raise ValueError(
-                    "scan_layers with moe_experts > 0 (the JAX "
-                    "MoEScanBlocks) comes with ROADMAP A.9c")
+        self.moe_experts = moe_experts
+        if scan_layers and moe_experts > 0:
+            from .pipeline import MoEScanBlocks
+            self.blocks = MoEScanBlocks(num_layers, hidden, num_heads,
+                                        dtype, device, attention_impl,
+                                        causal, remat, moe_experts,
+                                        moe_top_k, moe_every,
+                                        moe_capacity_factor)
+        elif scan_layers:
             from .pipeline import PipelinedBlocks
             self.blocks = PipelinedBlocks(num_layers, hidden, num_heads,
                                           dtype, device, attention_impl,
@@ -380,7 +387,11 @@ class TransformerBackbone(nn.Module):
         if self.scan_layers:
             if block_table is not None:
                 raise NotImplementedError(STACKED_PAGED_REFUSAL)
-            x = self.blocks(x, pad_mask, cache_index, kv_cache)
+            if self.moe_experts > 0:
+                x = self.blocks(x, pad_mask, cache_index, kv_cache,
+                                moe_no_drop, moe_stats)
+            else:
+                x = self.blocks(x, pad_mask, cache_index, kv_cache)
             return self.ln_f(x).to(self.dtype)
         remat = self.remat and torch.is_grad_enabled() and kv_cache is None
         for i in range(self.num_layers):

@@ -280,7 +280,8 @@ def diffuseq_losses(model: DiffuSeqModel, batch: Dict[str, torch.Tensor],
     ctx = current_pipe()
     if ctx is not None:
         from .schedule_1f1b import diffuseq_1f1b_losses
-        return diffuseq_1f1b_losses(model, batch, draws, denom, ctx)
+        return diffuseq_1f1b_losses(model, batch, draws, denom, ctx,
+                                    moe_global)
     ids = batch["input_ids"]
     tgt_mask = batch["input_mask"].float()
     pad_mask = batch["pad_mask"]

@@ -206,7 +206,7 @@ def gpt2_losses(model: GPT2Model, batch: Dict[str, torch.Tensor],
     ctx = current_pipe()
     if ctx is not None:
         from .schedule_1f1b import gpt2_1f1b_losses
-        return gpt2_1f1b_losses(model, batch, denom, ctx)
+        return gpt2_1f1b_losses(model, batch, denom, ctx, moe_global)
     ids = batch["input_ids"]
     pad_mask = batch["pad_mask"]
     targets, loss_mask = _targets(batch)

@@ -28,16 +28,34 @@
   memory grows with ``pp_chunks`` (the JAX GPipe contract); the 1F1B
   schedule is the one whose memory stays flat.
 
+* **MoE groups** (:class:`MoEScanBlocks`, ``scan_layers`` with
+  ``moe_experts`` > 0): the JAX layout of ``G = num_layers / moe_every``
+  groups, ``dense_*`` ``[G, moe_every - 1, ...]`` and ``moe_*``
+  ``[G, ...]`` (``moe_router [G, D, E]``, ``moe_wi [G, E, D, 4D]``,
+  ``moe_wo [G, E, 4D, D]``); :func:`moe_stage_apply` runs a group's dense
+  layers and its MoE block in order and returns each group's raw
+  load-balance sums. Under a pipe group a stage holds ``G/S`` groups and
+  runs the GPipe stream; its groups' sums accumulate over every chunk and
+  the aux is formed from them once a microbatch (the JAX
+  ``MoEScanBlocks._moe_schedule``). There is no KV-cache decode: the
+  samplers recompute the full forward.
+* **fsdp inside a stage**: the stage's cut weights are gathered once a
+  microbatch and held across its ticks (``parallel/fsdp.py``); with
+  ``remat`` each layer gathers its own weights inside its checkpointed
+  body (``PipelinedBlocks.gather``), the JAX ``stage_apply`` placement.
+
 Attention inside a stage keeps the model's ``attention_impl`` (``auto``:
-the flash kernels for CUDA tensors from L >= 1024), the arm the JAX pipe-1
-path takes; JAX clamps ``auto`` to dense attention inside its
-``shard_map`` stages (ROADMAP C.18a).
+the flash kernels for CUDA tensors from L >= 1024, the ring inside a
+sequence context), the arm the JAX pipe-1 path takes; JAX clamps
+``auto`` to dense attention inside its ``shard_map`` stages, and takes
+its in-shard ring under a sequence axis (ROADMAP C.18a).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
 
@@ -49,11 +67,13 @@ from torch import nn
 from ..ops.attention import dot_product_attention
 from ..parallel import dist
 from .backbone import STACKED_PAGED_REFUSAL, DenseKV, dense_cached_attention
+from .moe import MoEStats, moe_mlp_fwd
 
 __all__ = ["LAYERS", "STACKED_AXES", "PipelinedBlocks", "block_fwd",
            "block_attn", "stage_apply", "scan_unroll_for", "stage_layers",
            "PipeContext", "pipe_parallel", "current_pipe", "gpipe_stream",
-           "StageFns"]
+           "StageFns", "MoEScanBlocks", "moe_stage_apply", "moe_block_fwd",
+           "MOE_SCAN_NO_CACHE"]
 
 LAYERS = "layers"
 EMBED, HEADS, KV, MLP = "embed", "heads", "kv", "mlp"
@@ -118,6 +138,25 @@ def block_fwd(lp: Dict[str, torch.Tensor], x: torch.Tensor,
     return _block_mlp(lp, x, dtype)
 
 
+def moe_block_fwd(lp: Dict[str, torch.Tensor], x: torch.Tensor,
+                  pad_mask: Optional[torch.Tensor], *, dtype: torch.dtype,
+                  causal: bool, attention_impl: str, top_k: int,
+                  capacity_factor: float, no_drop: bool = False
+                  ) -> Tuple[torch.Tensor, MoEStats]:
+    """One MoE block as a function of one group's ``moe_*`` row (names
+    without the prefix): the attention half, then ln2 and the routed
+    experts (``models/moe.moe_mlp_fwd``); returns the block's output and
+    its raw load-balance sums. The named ``backbone.Block``'s math."""
+    x = block_attn(lp, x, pad_mask, dtype=dtype, causal=causal,
+                   attention_impl=attention_impl)
+    h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"]).to(dtype)
+    y, stats, _ = moe_mlp_fwd(
+        {"router": lp["router"], "wi": lp["wi"], "wo": lp["wo"]}, h,
+        pad_mask, top_k=top_k, capacity_factor=capacity_factor,
+        dtype=dtype, no_drop=no_drop, return_stats=True)
+    return x + y, stats
+
+
 def scan_unroll_for(n_steps: int, knob: int = 0,
                     total: Optional[int] = None) -> int:
     """The JAX unroll factor of a stacked-layer scan of ``n_steps`` (0 =
@@ -131,24 +170,44 @@ def scan_unroll_for(n_steps: int, knob: int = 0,
     return min(knob, n_steps)
 
 
+def _gathered_block(gather: Callable[[int], Dict[str, torch.Tensor]],
+                    row: int, one: Dict[str, torch.Tensor], h: torch.Tensor,
+                    mask: Optional[torch.Tensor], **kw) -> torch.Tensor:
+    return block_fwd({**one, **gather(row)}, h, mask, **kw)
+
+
 def stage_apply(lp: Dict[str, torch.Tensor], h: torch.Tensor,
                 mask: Optional[torch.Tensor], *, dtype: torch.dtype,
                 causal: bool, attention_impl: str = "auto",
                 remat: bool = False,
                 kv_cache: Optional[Sequence[DenseKV]] = None,
-                cache_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cache_index: Optional[torch.Tensor] = None,
+                gather: Optional[Callable[[int], Dict[str, torch.Tensor]]]
+                = None, row0: int = 0) -> torch.Tensor:
     """Apply the stacked layers ``lp`` (each ``[n, ...]``) to ``h`` in
     order: the JAX stage scan. Each weight is unbound once (one stacked
     gradient in the backward, not one full-size gradient a layer);
     ``remat`` checkpoints each layer when gradients are on; ``kv_cache``
-    (a ``DenseKV`` a row) decodes through the dense cache."""
+    (a ``DenseKV`` a row) decodes through the dense cache. ``gather(r)``
+    (fsdp under remat) gives the cut weights of the rank's row ``r``
+    whole, called inside each layer's body (so the checkpoint regathers
+    them in the backward); ``lp`` then holds the other weights, and its
+    row i is the rank's row ``row0 + i``."""
     rows = {k: torch.unbind(v, 0) for k, v in lp.items()}
     n = len(next(iter(rows.values())))
     remat = remat and torch.is_grad_enabled() and kv_cache is None
     for i in range(n):
         one = {k: r[i] for k, r in rows.items()}
         kv = None if kv_cache is None else kv_cache[i]
-        if remat:
+        if gather is not None:
+            fn = functools.partial(_gathered_block, gather, row0 + i)
+            kw = dict(dtype=dtype, causal=causal,
+                      attention_impl=attention_impl)
+            h = (torch.utils.checkpoint.checkpoint(
+                fn, one, h, mask, use_reentrant=False,
+                preserve_rng_state=False, **kw) if remat
+                else fn(one, h, mask, **kw))
+        elif remat:
             # the blocks draw no random numbers: no RNG state to keep
             h = torch.utils.checkpoint.checkpoint(
                 block_fwd, one, h, mask, use_reentrant=False,
@@ -213,6 +272,9 @@ class PipelinedBlocks(nn.Module):
         self.attention_impl = attention_impl
         self.causal = causal
         self.remat = remat
+        # fsdp inside a stage under remat: the rank's row -> its cut
+        # weights whole (``parallel/fsdp.FsdpUnits.layer``), or None
+        self.gather: Optional[Any] = None
         self.ln1_scale = _ones((L, D), device)
         self.ln1_bias = _zeros((L, D), device)
         self.qkv = _zeros((L, D, 3, H, dh), device)
@@ -230,18 +292,30 @@ class PipelinedBlocks(nn.Module):
         """Rows ``[j*n/V, (j+1)*n/V)`` of every weight: virtual slice j of
         a pipe rank's rows (all of them at V = 1)."""
         out = {}
+        gather = self.gather
+        skip = gather.names if gather is not None and gather.active else ()
         for name, w in self.stacked().items():
+            if name in skip:
+                continue    # gathered a layer at a time (apply_rows)
             per = w.shape[0] // virtual
             out[name] = w.narrow(0, j * per, per)
         return out
 
     def apply_rows(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
-                   pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """:func:`stage_apply` of ``lp`` with this module's fields."""
+                   pad_mask: Optional[torch.Tensor], row0: int = 0
+                   ) -> torch.Tensor:
+        """:func:`stage_apply` of ``lp`` (the rank's rows from ``row0``)
+        with this module's fields; under an active ``gather`` the cut
+        weights come from it, layer by layer."""
+        gather = self.gather
+        if gather is not None and gather.active:
+            lp = {k: v for k, v in lp.items() if k not in gather.names}
+        else:
+            gather = None
         return stage_apply(lp, x, pad_mask, dtype=self.dtype,
                            causal=self.causal,
                            attention_impl=self.attention_impl,
-                           remat=self.remat)
+                           remat=self.remat, gather=gather, row0=row0)
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
@@ -258,6 +332,137 @@ class PipelinedBlocks(nn.Module):
         return stage_apply(self.stacked(), x, pad_mask, dtype=self.dtype,
                            causal=True, attention_impl=self.attention_impl,
                            kv_cache=kv_cache, cache_index=cache_index)
+
+
+# the JAX MoEScanBlocks' refusal of a cache (the samplers recompute)
+MOE_SCAN_NO_CACHE = ("MoE scan blocks have no KV-cache decode path; sample "
+                     "with use_cache=False")
+# a stacked block's per-layer weights (the MoE groups' dense_* and moe_*
+# rows carry them beside the expert weights)
+_PER_LAYER = ("ln1_scale", "ln1_bias", "qkv", "out", "ln2_scale",
+              "ln2_bias")
+
+
+def moe_stage_apply(lp: Dict[str, torch.Tensor], h: torch.Tensor,
+                    mask: Optional[torch.Tensor], *, dtype: torch.dtype,
+                    causal: bool, attention_impl: str, remat: bool,
+                    top_k: int, capacity_factor: float,
+                    no_drop: bool = False
+                    ) -> Tuple[torch.Tensor, List[MoEStats]]:
+    """Apply MoE groups to ``h``: ``lp`` holds ``dense_*`` ``[Gl, nd, ...]``
+    and ``moe_*`` ``[Gl, ...]`` (the :class:`MoEScanBlocks` layout, or a
+    pipe stage's groups). Each group runs its ``nd`` dense layers, then its
+    MoE block; returns ``(h, stats)``, one group's raw load-balance sums
+    ``(F [E], P [E], n)`` a list entry (the JAX ``moe_stage_apply``).
+    ``remat`` checkpoints each dense layer and each MoE block when
+    gradients are on."""
+    dense = {k[len("dense_"):]: v for k, v in lp.items()
+             if k.startswith("dense_")}
+    moe = {k[len("moe_"):]: torch.unbind(v, 0) for k, v in lp.items()
+           if k.startswith("moe_")}
+    G = len(moe["qkv"])
+    nd = dense["qkv"].shape[1] if dense else 0
+    # one unbind a weight over the groups' layers (rows g*nd .. g*nd+nd-1)
+    drows = {k: torch.unbind(v.reshape((G * nd,) + v.shape[2:]), 0)
+             for k, v in dense.items()}
+    remat = remat and torch.is_grad_enabled()
+    kw = dict(dtype=dtype, causal=causal, attention_impl=attention_impl)
+    stats: List[MoEStats] = []
+    for g in range(G):
+        for j in range(nd):
+            one = {k: r[g * nd + j] for k, r in drows.items()}
+            h = (torch.utils.checkpoint.checkpoint(
+                block_fwd, one, h, mask, use_reentrant=False,
+                preserve_rng_state=False, **kw) if remat
+                else block_fwd(one, h, mask, **kw))
+        one = {k: r[g] for k, r in moe.items()}
+        fn = functools.partial(moe_block_fwd, top_k=top_k,
+                               capacity_factor=capacity_factor,
+                               no_drop=no_drop, **kw)
+        if remat:
+            h, st = torch.utils.checkpoint.checkpoint(
+                fn, one, h, mask, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            h, st = fn(one, h, mask)
+        stats.append(st)
+    return h, stats
+
+
+class MoEScanBlocks(nn.Module):
+    """Stacked blocks where every ``moe_every``-th block's MLP is a routed
+    mixture of experts (the JAX module of that name, ``params/backbone/
+    blocks``): ``G = num_layers / moe_every`` groups, each ``moe_every -
+    1`` dense layers (``dense_<name>`` ``[G, moe_every - 1, ...]``, absent
+    at ``moe_every`` 1) and one MoE block (``moe_<name>`` ``[G, ...]``
+    with ``moe_router``, ``moe_wi``, ``moe_wo``). ``forward`` appends each
+    group's raw load-balance sums to ``moe_stats``; it has no KV-cache
+    decode. A pipe rank's rows are its stage's groups."""
+
+    def __init__(self, num_layers: int, hidden: int, num_heads: int,
+                 dtype: torch.dtype, device=None,
+                 attention_impl: str = "auto", causal: bool = False,
+                 remat: bool = False, moe_experts: int = 4,
+                 moe_top_k: int = 2, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25) -> None:
+        super().__init__()
+        if hidden % num_heads:
+            raise ValueError(f"hidden {hidden} not divisible by heads "
+                             f"{num_heads}")
+        if num_layers % moe_every:
+            raise ValueError(f"num_layers {num_layers} not divisible by "
+                             f"moe_every {moe_every} (scan groups must be "
+                             f"uniform)")
+        D, H, E = hidden, num_heads, moe_experts
+        G, nd = num_layers // moe_every, moe_every - 1
+        self.num_layers = num_layers
+        self.dtype = dtype
+        self.attention_impl = attention_impl
+        self.causal = causal
+        self.remat = remat
+        self.top_k = moe_top_k
+        self.capacity_factor = moe_capacity_factor
+        shapes = {"ln1_scale": (D,), "ln1_bias": (D,),
+                  "qkv": (D, 3, H, D // H), "out": (H, D // H, D),
+                  "ln2_scale": (D,), "ln2_bias": (D,)}
+        for name, shape in ({**shapes, "wi": (D, 4 * D),
+                             "wo": (4 * D, D)}.items() if nd else ()):
+            init = _ones if name.endswith("_scale") else _zeros
+            setattr(self, f"dense_{name}", init((G, nd) + shape, device))
+        for name, shape in {**shapes, "router": (D, E),
+                            "wi": (E, D, 4 * D),
+                            "wo": (E, 4 * D, D)}.items():
+            init = _ones if name.endswith("_scale") else _zeros
+            setattr(self, f"moe_{name}", init((G,) + shape, device))
+
+    def stacked(self) -> Dict[str, torch.Tensor]:
+        """The weights this module holds, by their JAX names."""
+        return dict(self.named_parameters())
+
+    def apply_rows(self, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+                   pad_mask: Optional[torch.Tensor],
+                   no_drop: bool = False
+                   ) -> Tuple[torch.Tensor, List[MoEStats]]:
+        """:func:`moe_stage_apply` of ``lp`` with this module's fields."""
+        return moe_stage_apply(lp, x, pad_mask, dtype=self.dtype,
+                               causal=self.causal,
+                               attention_impl=self.attention_impl,
+                               remat=self.remat, top_k=self.top_k,
+                               capacity_factor=self.capacity_factor,
+                               no_drop=no_drop)
+
+    def forward(self, x: torch.Tensor,
+                pad_mask: Optional[torch.Tensor] = None,
+                cache_index: Optional[torch.Tensor] = None,
+                kv_cache: Optional[Sequence[Any]] = None,
+                moe_no_drop: bool = False,
+                moe_stats: Optional[List[MoEStats]] = None) -> torch.Tensor:
+        if cache_index is not None or kv_cache is not None:
+            raise ValueError(MOE_SCAN_NO_CACHE)
+        x, stats = self.apply_rows(self.stacked(), x, pad_mask, moe_no_drop)
+        if moe_stats is not None:
+            moe_stats.extend(stats)
+        return x
 
 
 # ------------------------------------------------------------- the stages
@@ -341,6 +546,10 @@ class StageFns:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     device: torch.device
+    # after the forward stream: this rank's extra loss term (joins the
+    # backward; an MoE stage's weighted aux share) and its metrics
+    aux: Optional[Callable[[], Tuple[Optional[torch.Tensor],
+                                     Dict[str, torch.Tensor]]]] = None
 
 
 def _add(acc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
@@ -383,13 +592,20 @@ def gpipe_stream(ctx: PipeContext, fns: StageFns
             ctx.exchange([(h_out, 1, c)], [], dev)
         ins.append(h_in)
         outs.append(h_out)
+    extra = None
+    if fns.aux is not None:
+        extra, mx = fns.aux()
+        _add(metrics, mx)
     # autograd back through the stream, the last stage first
     ctx.b_slots += M
     if last:
-        torch.autograd.backward(losses)
+        torch.autograd.backward(losses + ([extra] if extra is not None
+                                          else []))
     else:
         cots = ctx.exchange([], [(fns.shape, fns.dtype, 1, c)
                                  for c in range(M)], dev)
+        if extra is not None:
+            outs, cots = outs + [extra], cots + [None]
         torch.autograd.backward(outs, cots)
     if not first:
         ctx.exchange([(h.grad, -1, c) for c, h in enumerate(ins)], [], dev)

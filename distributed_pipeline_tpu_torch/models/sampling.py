@@ -26,7 +26,8 @@ uncached paths draw the same noise. The step loops run eagerly in Python.
 Every decoder routes an MoE model without drops (``moe_no_drop=True``, the
 JAX ``clone(moe_no_drop=True)``): each token takes its exact top-k
 experts, so cached and uncached decoding agree. Stacked (``scan_layers``)
-models are ROADMAP A.9.
+models decode through the dense cache; stacked MoE groups have none, and
+decode by the full recompute, as the JAX sampler falls back.
 """
 
 from __future__ import annotations
@@ -237,8 +238,9 @@ def gpt2_decode(model: GPT2Model, ids: torch.Tensor, prompt_len: int,
     fills every layer's K/V (stale tail rows are overwritten before any
     step reads them: causality guarantees it), then one single-position
     forward a new token. ``use_cache=False`` recomputes the full forward
-    a position: the reference the cache path is held to. The pick at
-    position p is keyed at p, the index being written, on both paths."""
+    a position: the reference the cache path is held to, and the path a
+    stacked MoE model always takes. The pick at position p is keyed at
+    p, the index being written, on both paths."""
     if model.family != "gpt2":
         raise ValueError(f"gpt2_decode decodes the gpt2 family, got "
                          f"{model.family!r}")
@@ -249,6 +251,10 @@ def gpt2_decode(model: GPT2Model, ids: torch.Tensor, prompt_len: int,
     rows = torch.arange(B, device=dev)
     ids = ids.clone()
     pad = torch.ones_like(ids)
+    if model.scan_layers and model.moe_experts > 0:
+        # MoE scan groups keep no cache: the recompute decodes the same
+        # tokens (the JAX sampler's fallback)
+        use_cache = False
     if not use_cache:
         for i in range(prompt_len, L):
             logits = model(ids, pad, moe_no_drop=True)      # [B, L, V]

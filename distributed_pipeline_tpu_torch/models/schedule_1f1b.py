@@ -48,11 +48,13 @@ elsewhere, so the shares summed over the ranks are the global values.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..ops.xent import token_cross_entropy
+from ..parallel.ring import current_sequence
+from .moe import MOE_AUX_WEIGHT, GlobalMoEStats, MoEStats, moe_aux
 from .pipeline import (PipeContext, StageFns, _add, current_pipe,
                        gpipe_stream)
 
@@ -149,6 +151,8 @@ def _forward_body(ctx: PipeContext, fns: StageFns
         got = ctx.exchange(send, [(fns.shape, fns.dtype, -1, _TAG_F)]
                            if nf else [], dev)
         recv_f = got[0] if nf else None
+    if fns.aux is not None:
+        _add(metrics, fns.aux()[1])
     return loss, metrics
 
 
@@ -232,32 +236,71 @@ def pipelined_loss(ctx: PipeContext, fns: StageFns
     zeros elsewhere)."""
     if not torch.is_grad_enabled():
         return _forward_body(ctx, fns)
-    if ctx.schedule == "gpipe":
+    if ctx.schedule == "gpipe" or gpipe_only(fns):
         return gpipe_stream(ctx, fns)
     return _schedule_body(ctx, fns)
 
 
+def gpipe_only(fns: StageFns) -> bool:
+    """Whether a training request of any schedule takes the GPipe stream:
+    an MoE stage (its aux needs the groups' sums over every chunk) or a
+    ring inside the stage, as the JAX family losses route them (its 1F1B
+    engine has no MoE or sequence stage path)."""
+    seq = current_sequence()
+    return fns.aux is not None or (seq is not None and seq.size > 1)
+
+
 def check_pipe_layout(model, ctx: PipeContext) -> None:
-    """The model can run ``ctx``'s schedule: stacked weights, no MoE, and
-    its rows a multiple of V (``models/pipeline.stage_layers`` checks the
-    layers against S x V)."""
+    """The model can run ``ctx``'s schedule: stacked weights, and its rows
+    a multiple of V (``models/pipeline.stage_layers`` checks the layers
+    against S x V); an MoE model or a sequence ring runs one slice a rank
+    (the GPipe stream)."""
     if not model.scan_layers:
         raise ValueError("--pipe > 1 requires --scan_layers true")
-    if model.moe_experts > 0:
-        raise ValueError("MoE x pipe comes with ROADMAP A.9c")
-    rows = model.backbone.blocks.qkv.shape[0]
+    blocks = model.backbone.blocks
+    seq = current_sequence()
+    if ctx.virtual > 1 and (model.moe_experts > 0
+                            or (seq is not None and seq.size > 1)):
+        raise ValueError("MoE and ring-in-stage pipes take the GPipe "
+                         "stream: pp_virtual must be 1")
+    rows = next(iter(blocks.stacked().values())).shape[0]
     if rows % ctx.virtual:
         raise ValueError(f"a stage's {rows} layers do not split into "
                          f"pp_virtual {ctx.virtual} slices")
 
 
-def _stage_fn(model, ctx: PipeContext):
+def _stage_fn(model, ctx: PipeContext,
+              stats: Optional[List[List[MoEStats]]] = None):
+    """The stage function of ``StageFns``: virtual slice j of the rank's
+    rows; an MoE stage appends each chunk's group sums to ``stats``."""
     blocks = model.backbone.blocks
+    if model.moe_experts > 0:
+        def moe_stage(j: int, h: torch.Tensor, mask: torch.Tensor
+                      ) -> torch.Tensor:
+            h, st = blocks.apply_rows(blocks.stacked(), h, mask)
+            stats.append(st)
+            return h
+        return moe_stage
+    per = blocks.qkv.shape[0] // ctx.virtual
 
     def stage(j: int, h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return blocks.apply_rows(blocks.virtual_slice(ctx.virtual, j), h,
-                                 mask)
+                                 mask, row0=j * per)
     return stage
+
+
+def _moe_aux_fn(model, stats: List[List[MoEStats]],
+                moe_global: Optional[GlobalMoEStats]):
+    """``StageFns.aux`` of an MoE stage: its groups' raw sums over every
+    chunk of the microbatch, the counts made global (``moe_global``: the
+    ranks of this stage), formed into this rank's aux share (the JAX
+    ``_moe_schedule``: the pipe ranks' shares sum to the aux)."""
+    def aux():
+        groups = [tuple(sum(c[g][i] for c in stats) for i in range(3))
+                  for g in range(len(stats[0]))]
+        share = moe_aux(groups, model.moe_experts, moe_global)
+        return MOE_AUX_WEIGHT * share, {"moe_aux": share}
+    return aux if model.moe_experts > 0 else None
 
 
 def gpt2_head(model, h: torch.Tensor, targets: torch.Tensor,
@@ -288,12 +331,15 @@ def diffuseq_head(model, h: torch.Tensor, x_start: torch.Tensor,
 
 def gpt2_1f1b_losses(model, batch: Dict[str, torch.Tensor],
                      denom: Optional[torch.Tensor] = None,
-                     ctx: Optional[PipeContext] = None
+                     ctx: Optional[PipeContext] = None,
+                     moe_global: Optional[GlobalMoEStats] = None
                      ) -> Dict[str, torch.Tensor]:
     """GPT-2 next-token CE through the pipe schedule, per chunk at the last
     stage: this rank's shares of ``loss`` (= ``nll``) and ``acc`` (module
     doc), each ``(sum over the chunk) * 1/denom`` as the JAX head;
-    ``denom`` defaults to the microbatch's own loss count."""
+    ``denom`` defaults to the microbatch's own loss count. An MoE model
+    adds this stage's ``moe_aux`` share (``moe_global``: the counts over
+    the stage's ranks) and its weighted term to ``loss``."""
     from .gpt2 import _targets
     ctx = ctx if ctx is not None else current_pipe()
     check_pipe_layout(model, ctx)
@@ -310,24 +356,33 @@ def gpt2_1f1b_losses(model, batch: Dict[str, torch.Tensor],
         loss, acc = gpt2_head(model, h, rows(targets, c), rows(lm, c), inv)
         return loss, {"acc": acc}
 
+    stats: List[List[MoEStats]] = []
     fns = StageFns(pre=lambda c: model.embed_tokens(rows(ids, c)),
-                   stage=_stage_fn(model, ctx), mask=lambda c: rows(pad, c),
-                   head=head, shape=(cb, L, model.hidden_size),
-                   dtype=model.dtype, device=ids.device)
+                   stage=_stage_fn(model, ctx, stats),
+                   mask=lambda c: rows(pad, c), head=head,
+                   shape=(cb, L, model.hidden_size), dtype=model.dtype,
+                   device=ids.device,
+                   aux=_moe_aux_fn(model, stats, moe_global))
     loss, metrics = pipelined_loss(ctx, fns)
-    acc = metrics.get("acc", torch.zeros((), device=ids.device))
-    return {"loss": loss, "nll": loss, "acc": acc}
+    zero = torch.zeros((), device=ids.device)
+    out = {"loss": loss, "nll": loss, "acc": metrics.get("acc", zero)}
+    if "moe_aux" in metrics:
+        out["moe_aux"] = metrics["moe_aux"]
+        out["loss"] = loss + MOE_AUX_WEIGHT * metrics["moe_aux"]
+    return out
 
 
 def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
                          denom: Optional[torch.Tensor] = None,
-                         ctx: Optional[PipeContext] = None
+                         ctx: Optional[PipeContext] = None,
+                         moe_global: Optional[GlobalMoEStats] = None
                          ) -> Dict[str, torch.Tensor]:
     """The DiffuSeq objective with the denoiser trunk on the pipe
     schedule: this rank's shares of ``loss``, ``mse``, ``tT`` and
     ``decoder_nll`` (module doc). Every pipe rank draws the same ``t`` and
     noise (the caller passes the row group's draws); ``denom`` defaults to
-    the microbatch's target count."""
+    the microbatch's target count. An MoE model adds this stage's
+    ``moe_aux`` share and its weighted term, as :func:`gpt2_1f1b_losses`."""
     from .diffuseq import draw, embedding_terms
     ctx = ctx if ctx is not None else current_pipe()
     check_pipe_layout(model, ctx)
@@ -355,17 +410,20 @@ def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
         return diffuseq_head(model, h, rows(xs_leaf, c), rows(tgt_mask, c),
                              inv), {}
 
+    stats: List[List[MoEStats]] = []
     fns = StageFns(pre=lambda c: model.denoise_in(rows(xt_leaf, c),
                                                   rows(t, c)),
-                   stage=_stage_fn(model, ctx), mask=lambda c: rows(pad, c),
-                   head=head, shape=(cb, L, model.hidden_size),
-                   dtype=model.dtype, device=ids.device)
+                   stage=_stage_fn(model, ctx, stats),
+                   mask=lambda c: rows(pad, c), head=head,
+                   shape=(cb, L, model.hidden_size), dtype=model.dtype,
+                   device=ids.device,
+                   aux=_moe_aux_fn(model, stats, moe_global))
     first = ctx.index == 0
     if first:
         # the terms that need only the embedding, once over the pipe
         tT, decoder_nll = embedding_terms(model, x_start, ids, tgt_mask,
                                           denom)
-    mse, _ = pipelined_loss(ctx, fns)
+    mse, metrics = pipelined_loss(ctx, fns)
     if grad:
         roots, cots = [], []
         for root, leaf in ((x_t, xt_leaf), (x_start, xs_leaf)):
@@ -380,5 +438,9 @@ def diffuseq_1f1b_losses(model, batch: Dict[str, torch.Tensor], draws,
     if not first:
         tT = decoder_nll = torch.zeros((), device=ids.device)
     tT, decoder_nll = tT.detach(), decoder_nll.detach()
-    return {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
-            "decoder_nll": decoder_nll}
+    out = {"loss": mse + tT + decoder_nll, "mse": mse, "tT": tT,
+           "decoder_nll": decoder_nll}
+    if "moe_aux" in metrics:
+        out["moe_aux"] = metrics["moe_aux"]
+        out["loss"] = out["loss"] + MOE_AUX_WEIGHT * metrics["moe_aux"]
+    return out

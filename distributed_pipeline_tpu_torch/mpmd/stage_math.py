@@ -172,7 +172,8 @@ class StageMath:
         # but this stage's slice, registered into it below
         model = create_model_from_config(**model_kwargs, device="meta")
         if model.moe_experts > 0:
-            raise ValueError("MoE blocks under --mpmd come with ROADMAP A.9c")
+            from ..config.train import MPMD_DENSE
+            raise ValueError(MPMD_DENSE)
         self.model = model
         self.family = model.family
         self.dtype = model.dtype

@@ -21,8 +21,9 @@ logged once at start:
 Sequence parallelism (``--sequence N``) splits the ranks as the JAX mesh
 orders its devices, data before sequence: rank r is data index ``r // N``
 and sequence index ``r % N`` of ``world // N`` data groups.
-``sequence_groups`` forms one process group per data index (every rank
-forms every group, in the same order, as ``new_group`` requires), and
+``sequence_groups`` forms one process group per data index (the mesh's
+sequence groups, ``parallel/mesh.py``; every rank forms every group, in
+the same order, as ``new_group`` requires), and
 ``ring_shift`` hands tensors one step round a group's ring with paired
 point-to-point sends (``ppermute`` of the JAX ring). Gloo has no
 point-to-point operations for CUDA tensors, so ranks that share a card
@@ -60,6 +61,7 @@ would log a wrong loss and nobody would see it (ROADMAP C.11).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import datetime
@@ -141,11 +143,20 @@ def setup_dist(device: Optional[torch.device] = None,
             f"rank {rank} of {world}: the {backend_name} process group did "
             f"not form ({type(e).__name__}: {e}); a rank does not train "
             f"alone on its shard") from e
+    # tear the group (and every subgroup's gloo threads) down before the
+    # interpreter's own teardown, which can otherwise destroy a joinable
+    # worker thread and abort the process as it exits
+    atexit.register(_destroy)
     devices = all_gather_object(str(device))
     _state["device_count"] = len(set(devices))
     print(f"[dist] rank {rank}/{world} backend {backend_name} device "
           f"{device} ({_state['device_count']} distinct device(s) in the "
           f"ring)", file=sys.stderr, flush=True)
+
+
+def _destroy() -> None:
+    if tdist.is_available() and tdist.is_initialized():
+        tdist.destroy_process_group()
 
 
 def get_rank() -> int:
@@ -329,8 +340,8 @@ def all_gather_object(obj: Any) -> List[Any]:
 @dataclasses.dataclass(frozen=True)
 class SequenceGroups:
     """This rank's place in a data x sequence split of the ranks: its
-    sequence group (None for a ring of one) and that group's global ranks
-    by sequence index."""
+    sequence group (None for a ring of one, or one of every rank: the
+    default group) and that group's global ranks by sequence index."""
 
     group: Any
     ranks: Tuple[int, ...]
@@ -342,23 +353,16 @@ class SequenceGroups:
 
 def sequence_groups(sp: int) -> SequenceGroups:
     """Split the ranks into ``world // sp`` data groups of ``sp`` sequence
-    ranks each (rank ``d * sp + i`` is sequence index i of data group d)
-    and form one process group a data group, every rank forming all of
-    them in order. ``sp`` = 1 forms none."""
-    world, rank = get_world_size(), get_rank()
+    ranks each (rank ``d * sp + i`` is sequence index i of data group d):
+    the sequence groups of the mesh ``{data, sequence sp}``
+    (``parallel/mesh.RankMesh.sequence_groups``, which every rank forms
+    in the same order). ``sp`` = 1 forms none."""
+    world = get_world_size()
     if sp < 1 or world % sp:
         raise ValueError(f"the sequence axis ({sp}) must divide the world "
                          f"size ({world})")
-    dp = world // sp
-    data_index = rank // sp
-    ranks = tuple(range(data_index * sp, (data_index + 1) * sp))
-    group = None
-    if sp > 1:
-        for d in range(dp):
-            g = tdist.new_group(list(range(d * sp, (d + 1) * sp)))
-            if d == data_index:
-                group = g
-    return SequenceGroups(group, ranks, rank % sp, sp, data_index, dp)
+    from .mesh import make_mesh
+    return make_mesh(sequence=sp).sequence_groups()
 
 
 def ring_shift(tensors: Sequence[torch.Tensor], seq: SequenceGroups,

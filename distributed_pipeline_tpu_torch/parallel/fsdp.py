@@ -36,15 +36,34 @@ of, and whose storage is resized to 0 whenever the unit is not in use:
   each microbatch sums in another f32 order than the data-parallel run,
   which sums the microbatches on each rank first.
 
+Under a pipe axis the stage's cut leaves are one more unit, the
+**stage unit** (``ShardLayout.stage_unit``: a row of cut weights a stage
+layer), placed as the JAX ``stage_apply`` places its gathers:
+
+* without ``remat`` :meth:`FsdpUnits.stage` gathers the whole stage slice
+  (one all-gather of the rank's row pieces) around a microbatch's
+  schedule and holds it across its ticks, so the 1F1B B slot's recompute
+  gathers nothing again; the stacked parameters are views of its columns
+  and their gradients of a gradient buffer of the same layout, which
+  ``after_backward`` reduce-scatters with the other units;
+* with ``remat`` nothing is held: :meth:`FsdpUnits.gather_row` (the
+  stacked blocks' ``gather``) gathers one row inside its layer's
+  checkpointed body (so the backward gathers it
+  again), and that gather's backward reduce-scatters the row's gradient
+  straight into the rank's piece (the all-gather's transpose), so at most
+  a layer's weights and their gradient are whole at once.
+
 :meth:`FsdpUnits.pinned` points every parameter into one full flat buffer
 (the gathered weights, or an EMA copy) and turns the hooks off, for the
-eval callbacks and ``TrainLoop.ema_weights``.
+eval callbacks and ``TrainLoop.ema_weights``. ``gathered_bytes`` counts
+every byte the all-gathers have put together.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import warnings
 from typing import Any, Dict, Iterator, Optional
 
 import torch
@@ -67,6 +86,48 @@ def _alloc(buf: torch.Tensor) -> bool:
         return False
     storage.resize_(nbytes)
     return True
+
+
+class _LayerGather(torch.autograd.Function):
+    """One stage row's cut weights whole: the forward all-gathers the fsdp
+    ranks' pieces of the row; the backward reduce-scatters the row's
+    gradient (times ``scale``) into this rank's piece of the flat
+    gradient. ``anchor`` (a 0-d leaf) ties the op into the graph."""
+
+    @staticmethod
+    def forward(ctx, anchor, units, row):
+        ctx.units, ctx.row = units, row
+        return units.gather_row(row)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.units.scatter_row(ctx.row, grad)
+        return None, None, None
+
+
+class _StageGather:
+    """``PipelinedBlocks.gather`` under fsdp with remat: a stage row's cut
+    weights by name, through :class:`_LayerGather`; ``active`` is false
+    while the parameters are pinned whole."""
+
+    def __init__(self, units: "FsdpUnits") -> None:
+        self.units = units
+        self.names = {n.rsplit(".", 1)[1]: n
+                      for n in units.layout.stage_unit.leaves}
+
+    @property
+    def active(self) -> bool:
+        return not self.units.pinned
+
+    def __call__(self, row: int) -> Dict[str, torch.Tensor]:
+        units = self.units
+        su = units.layout.stage_unit
+        whole = (_LayerGather.apply(units.anchor, units, row)
+                 if torch.is_grad_enabled() else units.gather_row(row))
+        return {short: whole[su.offsets[name]:su.offsets[name]
+                             + su.row[name]].view(
+                                 units.layout.full[name][2][1:])
+                for short, name in self.names.items()}
 
 
 class FsdpUnits:
@@ -92,8 +153,38 @@ class FsdpUnits:
         self.pending: Dict[str, int] = {}
         self.pinned = False
         self.gathers = 0
+        self.gathered_bytes = 0
+        self.scale = 1.0
         named = dict(model.named_parameters())
         self._named = named
+        self.remat_stage = False
+        su = layout.stage_unit
+        if su is not None:
+            blocks = model.get_submodule("backbone.blocks")
+            self.remat_stage = bool(blocks.remat)
+            # the gathered stage [rows, size] and its gradient; each cut
+            # stacked leaf a view of its columns
+            self.sbuf = torch.empty((su.rows, su.size), dtype=params.dtype,
+                                    device=self.device)
+            self.sgbuf = torch.zeros((su.rows, su.size),
+                                     dtype=params.dtype, device=self.device)
+            for name in su.leaves:
+                p, a = named[name], su.offsets[name]
+                shape = (su.rows,) + tuple(p.shape[1:])
+                p.data = self.sbuf[:, a:a + su.row[name]].view(shape)
+                p.grad = self.sgbuf[:, a:a + su.row[name]].view(shape)
+            _free(self.sbuf)
+            _free(self.sgbuf)
+            # a stacked leaf and its gradient are column views of the
+            # [rows, size] buffers (not dense): autograd still accumulates
+            # in place, and says so once a process
+            warnings.filterwarnings(
+                "ignore", message="grad and param do not obey the gradient "
+                                  "layout contract")
+            if self.remat_stage:
+                self.anchor = torch.zeros((), device=self.device,
+                                          requires_grad=True)
+                blocks.gather = _StageGather(self)
         for u in layout.units:
             buf = torch.empty(u.size, dtype=params.dtype, device=self.device)
             gbuf = torch.zeros(u.size, dtype=params.dtype,
@@ -119,8 +210,12 @@ class FsdpUnits:
 
     @property
     def largest_unit_bytes(self) -> int:
-        """Bytes of the largest gathered unit."""
-        return max((u.size for u in self.units.values()), default=0) * 4
+        """Bytes of the largest gathered unit (the stage unit whole, or one
+        row of it under remat)."""
+        su = self.layout.stage_unit
+        stage = 0 if su is None else su.size * (1 if self.remat_stage
+                                                 else su.rows)
+        return max([u.size for u in self.units.values()] + [stage]) * 4
 
     # ------------------------------------------------------- the buffers
 
@@ -133,6 +228,74 @@ class FsdpUnits:
             dist.all_gather(buf.data, self.params[
                 u.local_off:u.local_off + u.piece], self.group)
         self.gathers += 1
+        self.gathered_bytes += buf.numel() * buf.element_size()
+
+    # ------------------------------------------------------ the stage unit
+
+    def _all_gather(self, out, inp, group):
+        with self.gather_time.measure(self.device):
+            dist.all_gather(out, inp, group)
+        self.gathers += 1
+        self.gathered_bytes += out.numel() * out.element_size()
+
+    def gather_row(self, row: int) -> torch.Tensor:
+        """Stage row ``row``'s cut weights whole (``size`` elements): one
+        all-gather of its pieces."""
+        su = self.layout.stage_unit
+        out = torch.empty(su.size, dtype=self.params.dtype,
+                          device=self.device)
+        off = su.local_off + row * su.piece
+        self._all_gather(out, self.params[off:off + su.piece], self.group)
+        return out
+
+    def scatter_row(self, row: int, grad: torch.Tensor) -> None:
+        """Row ``row``'s gradient times ``scale`` (the trainer's
+        1/microbatches, set before the backward that calls this),
+        reduce-scattered into this rank's piece of the flat gradient
+        (added to it)."""
+        su = self.layout.stage_unit
+        piece = torch.empty(su.piece, dtype=grad.dtype, device=self.device)
+        with self.scatter_time.measure(self.device):
+            dist.reduce_scatter(piece, (grad * self.scale).contiguous(),
+                                self.group)
+        off = su.local_off + row * su.piece
+        self.grads[off:off + su.piece].add_(piece)
+
+    @contextlib.contextmanager
+    def stage(self, grads: bool = True) -> Iterator[None]:
+        """The stage unit gathered (with a zeroed gradient buffer when
+        ``grads``) for one microbatch's schedule, without remat; with it
+        the rows gather inside their layers and this does nothing."""
+        if (self.layout.stage_unit is None or self.remat_stage
+                or self.pinned):
+            yield
+            return
+        _alloc(self.sbuf)
+        self.sbuf.data.copy_(self.layout.stage_unit_rows(
+            self.params, self._all_gather, self.group))
+        if grads and _alloc(self.sgbuf):
+            self.sgbuf.data.zero_()
+        try:
+            yield
+        finally:
+            _free(self.sbuf)
+
+    def _scatter_stage(self, scale: float) -> None:
+        """The stage unit's gradient times ``scale``, reduce-scattered into
+        the rank's row pieces, and its buffer freed."""
+        su = self.layout.stage_unit
+        if su is None or self.sgbuf.untyped_storage().nbytes() == 0:
+            return
+        F = self.layout.sizes["fsdp"]
+        # rank-major [F, rows, piece]: fsdp rank f's pieces of every row
+        send = (self.sgbuf.data * scale).view(
+            su.rows, F, su.piece).transpose(0, 1).contiguous()
+        out = torch.empty(su.rows * su.piece, dtype=send.dtype,
+                          device=self.device)
+        with self.scatter_time.measure(self.device):
+            dist.reduce_scatter(out, send.view(-1), self.group)
+        self.grads[su.local_off:su.local_end].add_(out)
+        _free(self.sgbuf)
 
     def free(self, key: str) -> None:
         _free(self.bufs[key])
@@ -201,6 +364,7 @@ class FsdpUnits:
         for key in self.units:
             if self.state[key] != "free":
                 self.free(key)
+        self._scatter_stage(scale)
         piece: Optional[torch.Tensor] = None
         for key, u in self.units.items():
             gbuf = self.gbufs[key]

@@ -16,12 +16,18 @@ functions of the sizes.
   reduce-scatter and all-gather under ``--shard_optimizer``);
 * ``fsdp``: the parameter units' all-gathers and their gradients'
   reduce-scatters (``--fsdp``);
-* ``sequence``: the ring (``--sequence``), formed by
-  ``dist.sequence_groups``: rank ``(d * fsdp + f) * sp + i`` is sequence
-  index i of the row group ``rank // sp``, its old split;
+* ``sequence``: the ring (``--sequence``,
+  :meth:`RankMesh.sequence_groups`): the ranks that differ only in their
+  sequence coordinate. Without a pipe axis rank ``(d * fsdp + f) * sp +
+  i`` is sequence index i of the row group ``rank // sp``; under
+  ``{sequence 2, pipe 2}`` the pipe axis is the faster one, so ranks 0
+  and 2 ring together and 0 and 1 are pipe partners;
 * ``pipe``: the pipeline stages (``--pipe``), the innermost axis, so a
   pipe group is S consecutive ranks and a rank's stage index is its pipe
-  coordinate (:meth:`RankMesh.pipe_group`).
+  coordinate (:meth:`RankMesh.pipe_group`);
+* under a pipe axis, the groups that span every axis but some
+  (``~pipe``: a stage's ranks; ``~fsdp``, ``~data``, ``~pipe~data``,
+  ``~fsdp~data``), over which the trainer sums the gradient's ranges.
 
 ``tensor`` and ``expert`` stay 1 (ROADMAP A.8g). An axis of size 1 has no
 group; an axis that spans every rank uses the default group.
@@ -42,7 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 __all__ = ["AXES", "RankMesh", "resolve_axis_sizes", "rank_coords",
-           "axis_ranks", "make_mesh", "batch_spec", "local_mesh_info"]
+           "axis_ranks", "key_axes", "make_mesh", "batch_spec", "local_mesh_info"]
 
 AXES: Tuple[str, ...] = ("data", "fsdp", "sequence", "tensor", "expert",
                          "pipe")
@@ -84,14 +90,28 @@ def rank_coords(rank: int, sizes: Tuple[int, ...]) -> Dict[str, int]:
     return dict(zip(AXES, (int(c) for c in np.unravel_index(rank, sizes))))
 
 
+def key_axes(key: str) -> Tuple[str, ...]:
+    """The axes a group key spans: an axis name, ``""`` for every axis, or
+    ``~a~b`` for every axis but ``a`` and ``b``."""
+    if not key:
+        return AXES
+    if key.startswith("~"):
+        out = set(key.split("~")[1:])
+        return tuple(a for a in AXES if a not in out)
+    return (key,)
+
+
 def axis_ranks(rank: int, sizes: Tuple[int, ...], axis: str
                ) -> Tuple[int, ...]:
-    """The ranks that share every coordinate of ``rank`` but ``axis``'s,
-    by their index on ``axis``: ``rank``'s group along the axis."""
+    """The ranks that share every coordinate of ``rank`` but those of the
+    axes ``axis`` spans (an axis name, or a ``~`` key of
+    :func:`key_axes`), in row-major order over those axes:
+    ``rank``'s group along them."""
     grid = np.arange(int(np.prod(sizes))).reshape(sizes)
     index = list(np.unravel_index(rank, sizes))
-    index[AXES.index(axis)] = slice(None)
-    return tuple(int(r) for r in grid[tuple(index)])
+    for a in key_axes(axis):
+        index[AXES.index(a)] = slice(None)
+    return tuple(int(r) for r in grid[tuple(index)].reshape(-1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +132,21 @@ class RankMesh:
 
     def size(self, axis: str) -> int:
         return self.sizes[AXES.index(axis)]
+
+    def span(self, key: str) -> int:
+        """The ranks in this rank's group ``key`` (:func:`key_axes`)."""
+        return math.prod(self.size(a) for a in key_axes(key))
+
+    def sequence_groups(self) -> Any:
+        """This rank's ``dist.SequenceGroups`` from the mesh: its sequence
+        group's process group and global ranks by sequence index, its
+        sequence index, and its row group (``rows``)."""
+        from . import dist
+        row, rows = self.rows()
+        return dist.SequenceGroups(
+            self.group("sequence"),
+            axis_ranks(self.rank, self.sizes, "sequence"),
+            self.index("sequence"), self.size("sequence"), row, rows)
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
@@ -143,17 +178,20 @@ def make_mesh(dp: int = -1, fsdp: int = 1, sequence: int = 1,
               tensor: int = 1, expert: int = 1, pipe: int = 1) -> RankMesh:
     """This rank's mesh over the process group (one rank when there is
     none): the sizes resolved against the world size, its coordinates,
-    and one process group per data, fsdp and pipe group of more than one
-    rank (every rank forms every group, in the same order, as
-    ``new_group`` requires; the sequence groups are
-    ``dist.sequence_groups``')."""
+    and one process group per data, fsdp, sequence and pipe group of more
+    than one rank, and under a pipe axis per ``~`` group of the module doc
+    (every rank forms every group, in the same order, as ``new_group``
+    requires)."""
     from . import dist
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = resolve_axis_sizes(dp, fsdp, sequence, tensor, expert, pipe,
                                n_devices=world)
     groups: Dict[str, Any] = {}
-    for axis in ("data", "fsdp", "pipe"):
-        n = sizes[AXES.index(axis)]
+    keys = ["data", "fsdp", "sequence", "pipe"]
+    if pipe > 1:
+        keys += ["~pipe", "~fsdp", "~data", "~pipe~data", "~fsdp~data"]
+    for axis in keys:
+        n = math.prod(sizes[AXES.index(a)] for a in key_axes(axis))
         if n == 1 or n == world:
             continue
         seen = set()

@@ -41,9 +41,16 @@ Under a pipe axis S > 1 the stacked rules (``pipe`` on dim 0 of every
 rows of the layers the rank owns (``models/pipeline.stage_layers``: a
 contiguous L/S, or under the interleaved schedule the V slices of
 virtual stages ``j*S + s``), first in its flat buffer, so the stage slice
-is one contiguous range; the rest stays whole. ``gather_full`` all-gathers
-the stage slices over the pipe group and puts each rank's rows back at
-their layers (the interleaved order undone).
+is one contiguous range; the rest stays whole. With ``fsdp`` F > 1 too,
+the stage's leaves the rules cut over fsdp (the embed dims: ``qkv``,
+``out``, ``wi``, ``wo``) form the **stage unit** (:class:`StageUnit`):
+each stage row's cut weights, concatenated, padded to a multiple of F and
+cut into F contiguous pieces, so a row gathered is one all-gather (the
+JAX per-layer gather under remat) and the whole stage is one all-gather
+of the rank's row pieces; the stage's other leaves (the LayerNorms) stay
+whole rows. ``gather_full`` gathers the stage unit over the fsdp group,
+all-gathers the stage slices over the pipe group and puts each rank's
+rows back at their layers (the interleaved order undone).
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ __all__ = [
     "match_partition_rules", "fix_spec", "zero1_spec", "spec_axes",
     "parse_partition_rules", "rules_from_json", "rules_to_json",
     "load_partition_artifact", "rules_for_workload", "MOE_RULES",
-    "DIFFUSEQ_RULES", "GPT2_RULES", "Unit", "ShardLayout", "unit_of",
+    "DIFFUSEQ_RULES", "GPT2_RULES", "Unit", "StageUnit", "ShardLayout",
+    "unit_of",
 ]
 
 # a spec: one entry a dimension (None, an axis name, or a tuple of names)
@@ -362,6 +370,27 @@ class Unit:
     local_off: int
 
 
+@dataclasses.dataclass
+class StageUnit:
+    """A pipe stage's fsdp-cut leaves: ``rows`` stage rows, each row's cut
+    weights at ``offsets`` in a row of ``size`` elements (padded to a
+    multiple of fsdp), the ``piece`` of each row an fsdp rank holds, the
+    rank's row pieces one after another from ``local_off``. Gathered, the
+    stage is ``[rows, size]`` and each cut leaf a view of its columns."""
+
+    leaves: List[str]
+    offsets: Dict[str, int]
+    row: Dict[str, int]
+    size: int
+    piece: int
+    rows: int
+    local_off: int
+
+    @property
+    def local_end(self) -> int:
+        return self.local_off + self.rows * self.piece
+
+
 class ShardLayout:
     """Which leaf is cut, over which group, and where each lives.
 
@@ -381,7 +410,10 @@ class ShardLayout:
     With a pipe axis S > 1 the leaves whose fixed spec puts ``pipe`` on
     dim 0 (``staged``) hold this rank's rows, the layers ``stage_layers``
     (``pipe_index`` s, ``pipe_virtual`` V), in ``[0, staged_end)`` of its
-    buffer."""
+    buffer: the uncut ones whole in ``[0, stage_uncut_end)``, then the
+    stage unit's row pieces (``stage_unit``, with fsdp). ``stage_whole``
+    maps each staged leaf to ``(offset, numel, shape)`` in a stage slice
+    with every leaf's rows whole, ``stage_n`` elements."""
 
     def __init__(self, leaves: Sequence[Tuple[str, Sequence[int]]], *,
                  sizes: Mapping[str, int], rules: Optional[Rules] = None,
@@ -415,12 +447,12 @@ class ShardLayout:
                        and self.specs.get(k, (None,))[:1] == ("pipe",)]
         self.pipe_index, self.pipe_virtual = pipe_index, pipe_virtual
         self.stage_layers: Tuple[int, ...] = ()
+        self.stage_unit: Optional[StageUnit] = None
+        self.stage_whole: Dict[str, Tuple[int, int, Tuple[int, ...]]] = {}
+        self.stage_n = 0
         local_off = 0
         self.local: Dict[str, Tuple[int, int, Tuple[int, ...]]] = {}
         if self.staged:
-            if cut:
-                raise ValueError("a pipe axis with fsdp-cut leaves comes "
-                                 "with ROADMAP A.9c")
             from ..models.pipeline import stage_layers
             depth = {self.full[k][2][0] for k in self.staged}
             if len(depth) != 1:
@@ -428,11 +460,27 @@ class ShardLayout:
                                  f"{sorted(depth)}")
             self.stage_layers = stage_layers(depth.pop(), S, pipe_index,
                                              pipe_virtual)
+            rows = len(self.stage_layers)
             for name in self.staged:
-                shape = (len(self.stage_layers),) + self.full[name][2][1:]
+                shape = (rows,) + self.full[name][2][1:]
                 n = math.prod(shape)
-                self.local[name] = (local_off, n, shape)
-                local_off += n
+                self.stage_whole[name] = (self.stage_n, n, shape)
+                self.stage_n += n
+                if name not in cut:
+                    self.local[name] = (local_off, n, shape)
+                    local_off += n
+            stage_cut = [k for k in self.staged if k in cut]
+            if stage_cut:
+                offsets, row, size = {}, {}, 0
+                for k in stage_cut:
+                    offsets[k], row[k] = size, self.stage_whole[k][1] // rows
+                    size += row[k]
+                size = -(-size // F) * F
+                self.stage_unit = StageUnit(stage_cut, offsets, row, size,
+                                            size // F, rows, local_off)
+                local_off = self.stage_unit.local_end
+        self.stage_uncut_end = (self.stage_unit.local_off if self.stage_unit
+                                else local_off)
         self.staged_end = local_off
         staged = set(self.staged)
         keys: List[str] = [""]
@@ -441,7 +489,8 @@ class ShardLayout:
                 keys.append(unit_key(name))
         self.units: List[Unit] = []
         for key in keys:
-            names = [k for k in self.full if k in cut and unit_key(k) == key]
+            names = [k for k in self.full if k in cut and k not in staged
+                     and unit_key(k) == key]
             if not names:
                 continue
             offsets, size = {}, 0
@@ -471,6 +520,18 @@ class ShardLayout:
         """True when this rank holds less than the whole state."""
         return bool(self.units) or self.zero1 or bool(self.staged)
 
+    def stage_unit_rows(self, local: Any, all_gather: Callable,
+                        group: Any = None) -> Any:
+        """The stage unit gathered, ``[rows, size]``: one all-gather of
+        every fsdp rank's row pieces (in ``local``, this rank's flat
+        buffer) over ``group``, rank-major, turned row-major."""
+        u = self.stage_unit
+        F = self.sizes["fsdp"]
+        pieces = local.new_empty(F * u.rows * u.piece)
+        all_gather(pieces, local[u.local_off:u.local_end], group)
+        return pieces.view(F, u.rows, u.piece).transpose(0, 1).reshape(
+            u.rows, u.size)
+
     def layers_of(self, pipe_index: int) -> Tuple[int, ...]:
         """The layers pipe rank ``pipe_index`` holds, in its rows' order."""
         from ..models.pipeline import stage_layers
@@ -494,6 +555,18 @@ class ShardLayout:
             if name in staged:
                 leaf = leaf[list(self.stage_layers)]
             out[off:off + n].copy_(leaf.reshape(-1))
+        su = self.stage_unit
+        if su is not None:
+            lo, hi = f * su.piece, (f + 1) * su.piece
+            for i, layer in enumerate(self.stage_layers):
+                base = su.local_off + i * su.piece - lo
+                for name in su.leaves:
+                    a = su.offsets[name]
+                    b = a + su.row[name]
+                    s, e = max(a, lo), min(b, hi)
+                    if s < e:
+                        out[base + s:base + e].copy_(
+                            state[name][layer].reshape(-1)[s - a:e - a])
         for u in self.units:
             lo, hi = f * u.piece, (f + 1) * u.piece
             for name in u.leaves:
@@ -523,17 +596,35 @@ class ShardLayout:
             out[self.full[name][0]:self.full[name][0] + n].copy_(
                 local[off:off + n])
         if self.staged:
-            S, end = self.sizes["pipe"], self.staged_end
-            slices = local.new_empty(S * end)
-            all_gather(slices, local[:end], pipe_group)
+            S, W = self.sizes["pipe"], self.stage_n
+            su = self.stage_unit
+            if su is None:
+                whole = local[:self.staged_end]
+            else:
+                whole = local.new_empty(W)
+                for name in self.staged:
+                    wo, n, shape = self.stage_whole[name]
+                    if name in self.local:
+                        off = self.local[name][0]
+                        whole[wo:wo + n].copy_(local[off:off + n])
+                gathered = self.stage_unit_rows(local, all_gather,
+                                                fsdp_group)
+                for name in su.leaves:
+                    wo, n, _shape = self.stage_whole[name]
+                    a = su.offsets[name]
+                    whole[wo:wo + n].view(su.rows, -1).copy_(
+                        gathered[:, a:a + su.row[name]])
+                del gathered
+            slices = local.new_empty(S * W)
+            all_gather(slices, whole, pipe_group)
             for p in range(S):
                 rows = list(self.layers_of(p))
                 for name in self.staged:
-                    off, n, shape = self.local[name]
+                    wo, n, shape = self.stage_whole[name]
                     o, N, full_shape = self.full[name]
                     out[o:o + N].view(full_shape)[rows] = \
-                        slices[p * end + off:p * end + off + n].view(shape)
-            del slices
+                        slices[p * W + wo:p * W + wo + n].view(shape)
+            del slices, whole
         for u in self.units:
             unit = local.new_empty(u.size)
             all_gather(unit, local[u.local_off:u.local_off + u.piece],
@@ -545,9 +636,37 @@ class ShardLayout:
             del unit
         return out
 
+    def real_elements(self, lo: int, hi: int) -> int:
+        """The elements of ``[lo, hi)`` of this rank's flat buffer that
+        hold a parameter's value (the units' and the stage unit's padding,
+        and the ZeRO-1 padding past ``m``, excluded)."""
+        pads = []   # (start, end) of each padded stretch in the buffer
+        f = self.fsdp_index
+        su = self.stage_unit
+        if su is not None:
+            real = sum(su.row.values())
+            for i in range(su.rows):
+                start = su.local_off + i * su.piece
+                keep = min(max(real - f * su.piece, 0), su.piece)
+                pads.append((start + keep, start + su.piece))
+        for u in self.units:
+            real = sum(self.full[k][1] for k in u.leaves)
+            keep = min(max(real - f * u.piece, 0), u.piece)
+            pads.append((u.local_off + keep, u.local_off + u.piece))
+        pads.append((self.m, self.m_pad))
+        return max(hi - lo, 0) - sum(max(min(b, hi) - max(a, lo), 0)
+                                     for a, b in pads)
+
     def name_at_local(self, i: int) -> str:
         """The leaf that element ``i`` of this rank's flat buffer belongs
         to (``"<padding>"`` past the leaves)."""
+        su = self.stage_unit
+        if su is not None and su.local_off <= i < su.local_end:
+            pos = self.fsdp_index * su.piece + (i - su.local_off) % su.piece
+            for name in su.leaves:
+                if su.offsets[name] <= pos < su.offsets[name] + su.row[name]:
+                    return name
+            return "<padding>"
         for u in self.units:
             if u.local_off <= i < u.local_off + u.piece:
                 pos = self.fsdp_index * u.piece + i - u.local_off
@@ -569,4 +688,6 @@ class ShardLayout:
                 "largest_unit": max((u.size for u in self.units), default=0),
                 "staged_leaves": len(self.staged),
                 "stage_elements": self.staged_end,
+                "stage_unit_elements": (self.stage_unit.size * self.stage_unit.rows
+                                    if self.stage_unit else 0),
                 "pipe_layers": list(self.stage_layers)}

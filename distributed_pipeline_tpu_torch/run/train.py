@@ -238,6 +238,12 @@ def _write_summary(loop: TrainLoop, run_dir: str, device: torch.device
            "layout": loop.shard.describe(),
            "fsdp_largest_unit_bytes": (loop.fsdp.largest_unit_bytes
                                        if loop.fsdp is not None else 0),
+           "n_params": loop.n_params,
+           "n_active_params": loop.n_active_params,
+           "update_share": str(loop.update_share()),
+           "fsdp_gathers": loop.fsdp.gathers if loop.fsdp else 0,
+           "fsdp_gathered_bytes": (loop.fsdp.gathered_bytes
+                                   if loop.fsdp else 0),
            "footprint": loop.footprint(),
            "ring_shift_calls": loop.shift_time.calls,
            "ring_shift_s_per_step": loop.ring_shift_s_per_step,
@@ -488,7 +494,7 @@ def main(argv: Optional[Sequence[str]] = None):
     dist_ns, script_argv = parse_distributed_args(argv)
     if dist_ns.distributed and _asks_mpmd(script_argv):
         from ..config.train import MPMD_SUBMESH
-        raise SystemExit(f"--mpmd with --distributed comes with "
+        raise SystemExit(f"--mpmd with --distributed is refused: "
                          f"{MPMD_SUBMESH}: each stage is a ring of one "
                          f"process of its own; drop --distributed")
     args = parse_and_autorun(_parse_settings, argv,

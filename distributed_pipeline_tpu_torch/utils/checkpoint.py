@@ -15,10 +15,12 @@ package writes them) and, per saved step, the JAX package's file names:
 Under several processes rank 0 alone writes and prunes, and every rank
 passes a barrier after it (``TrainLoop.save``). The files hold the full
 tensors whatever the layout the run trained under: a sharded trainer
-(``--shard_optimizer``, ``--fsdp``) gathers each state to rank 0 before
-the save, and a resume under any layout cuts its shard from them
+(``--shard_optimizer``, ``--fsdp``, ``--pipe`` and their compositions:
+a stage's slice, cut over fsdp or not) gathers each state to rank 0
+before the save, and a resume under any layout cuts its shard from them
 (``TrainLoop.load_state``), so a run saved under one layout resumes
-under another.
+under another; the block layouts (named, stacked, stacked MoE groups)
+convert on load (``convert.to_layout``).
 
 :class:`AsyncSaver` is the JAX package's saver on this format: the
 device-to-host copy runs in the caller (the next step may overwrite the
@@ -36,7 +38,8 @@ walks back past any whose model file fails to load; a missing or corrupt
 EMA companion degrades to a copy of the parameters, a missing or corrupt
 optimizer companion to fresh moments. Run directories the JAX package
 wrote hold orbax checkpoints instead; importing them needs orbax, which
-the GPU machines lack, and waits for ROADMAP A.5.
+the GPU machines lack, so the port reads none (weights cross over through
+``convert.py``).
 """
 
 from __future__ import annotations

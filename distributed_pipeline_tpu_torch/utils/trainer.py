@@ -217,8 +217,25 @@ model's schedule (``pp_schedule``: gpipe, 1f1b or interleaved over
   stacked weights onto every rank (``models/sampling.py``'s decode
   callback decodes on each pipe group's stage 0 while the others wait).
 
-Pipe with ``fsdp`` > 1, ``shard_optimizer``, ``sequence`` > 1 or an MoE
-model is refused (ROADMAP A.9c).
+The pipe composes with the rest of the mesh (the JAX ``stacked_specs``
+and ``MoEScanBlocks._gpipe``):
+
+* ``--fsdp F``: a stage's cut rows are the stage unit
+  (``parallel/fsdp.py``: gathered once a microbatch and held across its
+  ticks, or a layer at a time inside the checkpointed body under
+  ``remat``; the gradient reduce-scattered back), and the fsdp ranks read
+  distinct rows;
+* ``--shard_optimizer``: the rank's flat buffer (its stage slice and the
+  rest) is owned a data-th at a time, as without a pipe;
+* ``--sequence sp``: the ranks a ring spans come from the mesh
+  (``RankMesh.sequence_groups``: under a pipe they are not consecutive),
+  and a stage's attention rings over them on the GPipe stream;
+* an MoE model (``MoEScanBlocks``, {data, pipe} only) trains on the GPipe
+  stream, each stage's aux from its groups' sums over every chunk with
+  the counts summed over the stage's ranks;
+* each range of the gradient sums over the ranks that hold it
+  (``_reduce_staged_grads``), and ``grad_norm`` divides each range's
+  squares by its copies.
 """
 
 from __future__ import annotations
@@ -228,6 +245,7 @@ import contextlib
 import json
 import os
 import time
+from fractions import Fraction
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
 
@@ -332,20 +350,24 @@ class TrainLoop:
                 "ROADMAP A.8g (the gradient's sums over the sequence ranks "
                 "and the data shards together)")
         refused = pipe_refusal(pipe, model.scan_layers, fsdp,
-                               shard_optimizer, sequence, model.moe_experts)
+                               sequence, model.moe_experts)
         if refused:
             raise ValueError(refused)
-        self.seq = dist.sequence_groups(sequence)
         self.mesh = make_mesh(dp=dp, fsdp=fsdp, sequence=sequence,
                               pipe=pipe)
+        self.seq = self.mesh.sequence_groups()
         self.pipe = self.mesh.pipe_group()
         # the exchange's seconds (pipeline parallelism), read at each flush
         self.pipe_time = EventTimer()
         self.pipe_ctx: Optional[PipeContext] = None
         if pipe > 1:
-            virtual = (model.pp_virtual if model.pp_schedule == "interleaved"
-                       else 1)
-            self.pipe_ctx = PipeContext(self.pipe, model.pp_schedule,
+            schedule = model.pp_schedule
+            if model.moe_experts > 0 or sequence > 1:
+                # the JAX routing: MoE stages and rings inside a stage
+                # train on the GPipe stream whatever the request
+                schedule = "gpipe"
+            virtual = model.pp_virtual if schedule == "interleaved" else 1
+            self.pipe_ctx = PipeContext(self.pipe, schedule,
                                         model.pp_chunks, max(virtual, 1),
                                         self.pipe_time)
         self.shard_optimizer = shard_optimizer
@@ -491,6 +513,14 @@ class TrainLoop:
             shard_optimizer=self.shard_optimizer,
             pipe_index=self.pipe.index,
             pipe_virtual=(self.pipe_ctx.virtual if self.pipe_ctx else 1))
+        if self.pipe_ctx is not None and self.model.moe_experts > 0:
+            m = self.model
+            G, S = m.num_layers // m.moe_every, self.pipe.size
+            if G % S:
+                raise ValueError(f"MoE group count {G} (num_layers "
+                                 f"{m.num_layers} / moe_every "
+                                 f"{m.moe_every}) not divisible by pipe "
+                                 f"axis {S}")
         if self.pipe_ctx is not None:
             loose = [name for name, _p in named
                      if ".blocks." in name and name not in shard.staged]
@@ -505,7 +535,12 @@ class TrainLoop:
         self.mu = torch.zeros(shard.own, dtype=f32, device=dev)
         self.nu = torch.zeros(shard.own, dtype=f32, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
-        if init_params is None:
+        if init_params is None and self.world > 1 and self.rank > 0:
+            # every rank takes rank 0's draw (broadcast below, or by
+            # sync_params): the others' would be thrown away
+            init_params = {name: torch.zeros(shape) for name, (_o, _n, shape)
+                           in self._layout.items()}
+        elif init_params is None:
             m = self.model
             init_params = random_params(dict(
                 model_family=m.family, vocab_size=m.vocab_size,
@@ -531,7 +566,7 @@ class TrainLoop:
         self.fsdp = (FsdpUnits(self.model, shard, self.params, self.grads,
                                self.mesh.group("fsdp"), self.all_gather_time,
                                self.reduce_scatter_time)
-                     if shard.units else None)
+                     if shard.units or shard.stage_unit else None)
         # fresh EMA = a copy of the (owned) params, per rate
         self.ema = self._owned(self.params)[None].repeat(
             len(self.ema_rates), 1)
@@ -644,15 +679,15 @@ class TrainLoop:
         view into one gathered copy (every rank gathers), with the units'
         hooks off; under ``--pipe`` likewise, every layer of the stacked
         weights; otherwise as it is."""
+        if self.fsdp is not None:
+            with self.fsdp.pinned_to(self.full_flat("params")):
+                yield
+            return
         if self.pipe_ctx is not None:
             with self._pinned(self.full_flat("params")):
                 yield
             return
-        if self.fsdp is None:
-            yield
-            return
-        with self.fsdp.pinned_to(self.full_flat("params")):
-            yield
+        yield
 
     @contextlib.contextmanager
     def ema_weights(self, rate: str) -> Iterator[None]:
@@ -847,8 +882,19 @@ class TrainLoop:
         denoms = torch.clamp(counts[:, 0], min=1.0).unbind(0)
         if not moe:
             return [(d, None) for d in denoms]
-        return [(d, GlobalMoEStats(n, dist.all_reduce))
+        # the expert counts sum over the ranks that route through the same
+        # blocks: every rank, or a stage's ranks under a pipe
+        reduce = (dist.all_reduce if self.pipe_ctx is None
+                  else lambda t: self._sum(t, "~pipe"))
+        return [(d, GlobalMoEStats(n, reduce))
                 for d, n in zip(denoms, counts[:, 1].unbind(0))]
+
+    def _sum(self, t: torch.Tensor, key: str) -> torch.Tensor:
+        """``t`` summed in place over the mesh group ``key`` (an axis, or
+        ``~axis`` for every axis but it); nothing over a group of one."""
+        if self.mesh.span(key) > 1:
+            dist.all_reduce(t, self.mesh.group(key))
+        return t
 
     def _summed_metrics(self, per_micro: List[Dict[str, torch.Tensor]]
                         ) -> Dict[str, torch.Tensor]:
@@ -879,11 +925,7 @@ class TrainLoop:
         Each collective is timed into its ``EventTimer``."""
         shard = self.shard
         if shard.staged:
-            with self.allreduce_time.measure(self.device):
-                if self.mesh.size("data") > 1:
-                    dist.all_reduce(self.grads[:shard.staged_end],
-                                    self.mesh.group("data"))
-                dist.all_reduce(self.grads[shard.staged_end:shard.m])
+            self._reduce_staged_grads()
             return
         if self.fsdp is not None:
             with self.allreduce_time.measure(self.device):
@@ -900,6 +942,38 @@ class TrainLoop:
             with self.allreduce_time.measure(self.device):
                 dist.all_reduce(self.grads, self.mesh.group("data"))
 
+    def _reduce_staged_grads(self) -> None:
+        """``_reduce_grads`` under a pipe. Each range of the flat gradient
+        sums over the ranks that hold it and saw other rows or another
+        slice: the stage's uncut rows over the stage's ranks (``~pipe``),
+        the stage unit's pieces (reduce-scattered over fsdp already) over
+        the data group, the rest's pieces over ``~fsdp``, the replicated
+        rest over every rank. Under ZeRO-1 the data axis's sum is the one
+        reduce-scatter into the owned range instead, after the others'."""
+        shard, g = self.shard, self.grads
+        ranges = ((0, shard.stage_uncut_end, "~pipe"),
+                  (shard.stage_uncut_end, shard.staged_end, "data"),
+                  (shard.staged_end, shard.pieces, "~fsdp"),
+                  (shard.pieces, shard.m, ""))
+        with self.allreduce_time.measure(self.device):
+            for lo, hi, key in ranges:
+                if lo == hi:
+                    continue
+                if shard.zero1:
+                    # the data axis is the reduce-scatter's
+                    key = {"~pipe": "~pipe~data", "data": "",
+                           "~fsdp": "~fsdp~data", "": "~data"}[key]
+                    if key == "":
+                        continue
+                if key == "":
+                    dist.all_reduce(g[lo:hi])
+                else:
+                    self._sum(g[lo:hi], key)
+        if shard.zero1:
+            with self.reduce_scatter_time.measure(self.device):
+                dist.reduce_scatter(self._owned(g), g,
+                                    self.mesh.group("data"))
+
     def forward_backward(self, batch: Dict[str, np.ndarray]
                          ) -> Dict[str, torch.Tensor]:
         """Gradients of the batch's loss into ``self.grads``, summed over the
@@ -913,11 +987,15 @@ class TrainLoop:
         per_micro = []
         scale = 1.0 / self.n_micro
         fsdp = self.fsdp
+        if fsdp is not None:
+            fsdp.scale = scale
         with sequence_parallel(self.seq, self.shift_time), \
                 pipe_parallel(self.pipe_ctx):
             for i, mb in enumerate(mbs):
                 with (fsdp.rest() if fsdp is not None
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), \
+                        (fsdp.stage() if fsdp is not None
+                         else contextlib.nullcontext()):
                     d = compute_losses(self.model, mb,
                                        self._rank_draws(self.step, i, mb),
                                        *denoms[i])
@@ -930,7 +1008,9 @@ class TrainLoop:
         if fsdp is None:
             self.grads.mul_(scale)
         else:
-            # the units' pieces were scaled before their reduce-scatters
+            # the units' (and the stage unit's) pieces were scaled before
+            # their reduce-scatters
+            self.grads[:self.shard.stage_uncut_end].mul_(scale)
             self.grads[self.shard.pieces:].mul_(scale)
         if self.distributed:
             self._reduce_grads()
@@ -943,16 +1023,20 @@ class TrainLoop:
         buffer; sharded, the owned range's squares over the units' pieces
         and over the replicated leaves, summed over the ranks (one
         all-reduce) and each divided by its copies across the ranks: the
-        same value up to the f32 sum order. Under ``--pipe`` the stage
-        slices' squares are summed over the pipe group and the rest's
-        counted once."""
+        same value up to the f32 sum order. Under ``--pipe`` the squares
+        of each of ``_kinds``' ranges likewise."""
         shard = self.shard
         if shard.staged:
-            end = shard.staged_end
-            stage = torch.linalg.vector_norm(grads[:end]) ** 2
-            dist.all_reduce(stage, self.pipe.group)
-            return torch.sqrt(stage
-                              + torch.linalg.vector_norm(grads[end:]) ** 2)
+            # the owned range's squares by kind, summed over every rank,
+            # each divided by the ranks that hold the same reduced values
+            lo, kinds = shard.lo, self._kinds()
+            sums = torch.stack([
+                torch.linalg.vector_norm(grads[max(a - lo, 0):
+                                               max(min(b, shard.hi) - lo,
+                                                   0)]) ** 2
+                for a, b, _c in kinds])
+            dist.all_reduce(sums)
+            return torch.sqrt(sum(sums[k] / kinds[k][2] for k in range(4)))
         if not shard.sharded:
             return torch.linalg.vector_norm(grads)
         lo, hi = shard.lo, shard.hi
@@ -963,6 +1047,29 @@ class TrainLoop:
         copies = 1 if shard.zero1 else self.mesh.size("data")
         return torch.sqrt(sums[0] / copies
                           + sums[1] / (copies * self.mesh.size("fsdp")))
+
+    def _kinds(self) -> Tuple[Tuple[int, int, int], ...]:
+        """The flat buffer's ranges by the ranks that hold the same
+        reduced values, as ``(start, end, copies)``: the stage's uncut rows,
+        the stage unit's pieces, the rest's pieces, the replicated rest
+        (empty ranges where the layout has none); the data axis counts
+        unless ZeRO-1 owns a data-th."""
+        shard, mesh = self.shard, self.mesh
+        d = 1 if shard.zero1 else mesh.size("data")
+        return ((0, shard.stage_uncut_end, d * mesh.span("~pipe~data")),
+                (shard.stage_uncut_end, shard.staged_end, d),
+                (shard.staged_end, shard.pieces,
+                 d * mesh.span("~fsdp~data")),
+                (shard.pieces, shard.m, d * mesh.span("~data")))
+
+    def update_share(self) -> Fraction:
+        """The parameters the fused update covers on this rank, each kind
+        divided by its copies over the ranks: summed over every rank, the
+        model's parameter count."""
+        shard = self.shard
+        return sum((Fraction(shard.real_elements(max(a, shard.lo),
+                                                 min(b, shard.hi)), c)
+                    for a, b, c in self._kinds()), Fraction(0))
 
     @contextlib.contextmanager
     def _guard(self) -> Iterator[None]:
@@ -1122,7 +1229,10 @@ class TrainLoop:
                 pipe_parallel(self.pipe_ctx):
             for i, mb in enumerate(mbs):
                 with (self.fsdp.rest(grads=False) if self.fsdp is not None
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), \
+                        (self.fsdp.stage(grads=False)
+                         if self.fsdp is not None
+                         else contextlib.nullcontext()):
                     per_micro.append(compute_losses(
                         self.model, mb, self._rank_draws(step, i, mb),
                         *denoms[i]))

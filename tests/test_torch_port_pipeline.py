@@ -21,7 +21,9 @@ layers, 2 heads, f32):
   injected): losses rtol 2e-5, parameters after 3 steps within
   ``PARAM_RTOL`` / ``PARAM_ATOL`` (the trainer parity tests' bar);
 * a stacked checkpoint resumed by a named-block loop and the reverse;
-* the parse-time refusals (A.9c, the JAX ``--pipe`` message) and the
+* the parse-time refusals (the JAX ``--pipe`` and ``moe_stacked_specs``
+  messages, A.8g, the MPMD stages' dense slice), the compositions that
+  parse (pipe x fsdp, x ZeRO-1, x sequence, MoE scan blocks) and the
   ``DEFERRED`` table; ``RankMesh.rows`` and the pipe groups under a pipe
   axis; ``run.serve`` refusing a stacked run dir with the JAX message,
   ``run.sample`` decoding one through ``gpt2_decode``.
@@ -48,7 +50,7 @@ from distributed_pipeline_tpu.parallel import make_mesh  # noqa: E402
 from distributed_pipeline_tpu.utils.trainer import \
     TrainLoop as JaxTrainLoop  # noqa: E402
 from distributed_pipeline_tpu_torch.config.train import (  # noqa: E402
-    DEFERRED, PIPE_LATER, PIPE_NEEDS_SCAN, parse_settings)
+    DEFERRED, MPMD_DENSE, PIPE_NEEDS_SCAN, parse_settings)
 from distributed_pipeline_tpu_torch.convert import (  # noqa: E402
     init_params, params_from_flax, params_to_flax, stack_blocks,
     unstack_blocks)
@@ -431,26 +433,51 @@ def test_deferred_holds_no_pipeline_option():
 
 @pytest.mark.parametrize("argv,expect", [
     (["--pipe", "2"], PIPE_NEEDS_SCAN),
-    (["--pipe", "2", "--scan_layers", "true", "--fsdp", "2"], PIPE_LATER),
-    (["--pipe", "2", "--scan_layers", "true", "--shard_optimizer", "true"],
-     PIPE_LATER),
-    (["--pipe", "2", "--scan_layers", "true", "--sequence", "2"],
-     PIPE_LATER),
-    (["--pipe", "2", "--scan_layers", "true", "--moe_experts", "4"],
-     PIPE_LATER),
-    (["--scan_layers", "true", "--moe_experts", "4"], PIPE_LATER),
+    (["--pipe", "2", "--scan_layers", "true", "--moe_experts", "4",
+      "--fsdp", "2"], "MoE x pipe composes with the data axis only (v1); "
+                      "mesh has fsdp=2"),
+    (["--pipe", "2", "--scan_layers", "true", "--moe_experts", "4",
+      "--sequence", "2"], "MoE x pipe composes with the data axis only "
+                          "(v1); mesh has sequence=2"),
+    (["--pipe", "2", "--scan_layers", "true", "--sequence", "2",
+      "--shard_optimizer", "true"], "ROADMAP A.8g"),
+    (["--mpmd", "true", "--scan_layers", "true", "--moe_experts", "4"],
+     MPMD_DENSE),
     (["--pp_chunks", "0"], "--pp_chunks and --pp_virtual must be >= 1"),
     (["--pp_schedule", "zigzag"], "invalid choice"),
     (["--mpmd", "true"], "--mpmd requires --scan_layers true")])
 def test_pipeline_refusals_at_parse_time(argv, expect, monkeypatch, capsys):
-    """The A.9c compositions refused naming their item, ``--pipe`` over
-    named blocks with the JAX message (the A.9c checks run on a world the
-    mesh fits)."""
+    """What stays refused: ``--pipe`` over named blocks and MoE stages
+    beside fsdp or sequence with the JAX messages, sharding with a ring
+    (A.8g), ``--mpmd`` over MoE groups (the JAX stages are dense); none
+    names A.9c (the checks run on a world the mesh fits)."""
     monkeypatch.setenv("WORLD_SIZE", "4")
     with pytest.raises(SystemExit) as e:
         parse_settings(argv)
     assert e.value.code == 2
-    assert expect in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert expect in err and "A.9c" not in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pipe", "2", "--scan_layers", "true", "--fsdp", "2"],
+    ["--pipe", "2", "--scan_layers", "true", "--shard_optimizer", "true"],
+    ["--pipe", "2", "--scan_layers", "true", "--sequence", "2"],
+    ["--pipe", "2", "--scan_layers", "true", "--moe_experts", "4"],
+    ["--scan_layers", "true", "--moe_experts", "4"]])
+def test_pipeline_compositions_parse(argv, monkeypatch):
+    """The compositions the JAX package trains parse: pipe x fsdp, x
+    ZeRO-1, x sequence, MoE under a pipe ({data, pipe}) and the stacked
+    MoE groups."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    s = parse_settings(argv)
+    assert s.scan_layers
+    assert (s.pipe, s.fsdp, s.shard_optimizer, s.sequence, s.moe_experts) \
+        == (int(dict(zip(argv, argv[1:])).get("--pipe", 1)),
+            int(dict(zip(argv, argv[1:])).get("--fsdp", 1)),
+            "--shard_optimizer" in argv,
+            int(dict(zip(argv, argv[1:])).get("--sequence", 1)),
+            int(dict(zip(argv, argv[1:])).get("--moe_experts", 0)))
 
 
 @pytest.mark.parametrize("dp,pipe", [(1, 2), (2, 2), (2, 4), (3, 2)])
@@ -534,6 +561,10 @@ def test_stacked_model_refuses_a_paged_cache():
     with pytest.raises(NotImplementedError, match="named blocks"):
         m(ids, block_table=torch.zeros(1, 2, dtype=torch.int32),
           kv_cache=[(torch.zeros(1), torch.zeros(1))] * LAYERS)
-    with pytest.raises(ValueError, match="A.9c"):
-        create_model_from_config(**CFGS["gpt2"], scan_layers=True,
-                                 moe_experts=4, device="cpu")
+    moe = create_model_from_config(**CFGS["gpt2"], scan_layers=True,
+                                   moe_experts=4, device="cpu")
+    assert type(moe.backbone.blocks).__name__ == "MoEScanBlocks"
+    assert moe.backbone.blocks.moe_wi.shape[:2] == (LAYERS // 2, 4)
+    with pytest.raises(ValueError, match="no KV-cache decode path"):
+        moe(ids, cache_index=torch.zeros((), dtype=torch.int64),
+            kv_cache=[pl.DenseKV() for _ in range(LAYERS)])
